@@ -1,0 +1,26 @@
+"""Exception types the port raises (copied from ant_ray_tpu.exceptions,
+which the port does not import)."""
+
+from __future__ import annotations
+
+
+class ArtError(Exception):
+    """Base class for all framework errors."""
+
+
+class BackPressureError(ArtError):
+    """A bounded queue refused new work (admission control).
+
+    Raised by the LLM engine when its KV slots and waiting queue are
+    full.  ``retry_after_s`` is the server's hint for when capacity is
+    likely to free up."""
+
+    def __init__(self, message: str = "queue at capacity",
+                 retry_after_s: float = 1.0):
+        self.retry_after_s = float(retry_after_s)
+        super().__init__(message)
+
+    def __reduce__(self):
+        return (BackPressureError, (str(self.args[0]) if self.args
+                                    else "queue at capacity",
+                                    self.retry_after_s))

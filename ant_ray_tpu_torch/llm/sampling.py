@@ -1,0 +1,26 @@
+"""Sampling parameters (capability mirror of vLLM's SamplingParams as
+used through ref: llm/_internal/serve/configs/).
+
+A copy of ant_ray_tpu/llm/sampling.py, which the port does not import."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+
+@dataclass(frozen=True)
+class SamplingParams:
+    max_tokens: int = 64
+    temperature: float = 0.0        # 0 → greedy
+    top_k: int = 0                  # 0 → disabled
+    top_p: float = 1.0              # 1 → disabled
+    stop_token_ids: tuple = field(default_factory=tuple)
+    seed: int | None = None
+
+    def __post_init__(self):
+        if self.max_tokens < 1:
+            raise ValueError("max_tokens must be >= 1")
+        if not 0.0 <= self.top_p <= 1.0:
+            raise ValueError("top_p must be in [0, 1]")
+        if self.temperature < 0.0:
+            raise ValueError("temperature must be >= 0")

@@ -1,0 +1,438 @@
+"""Llama model family — the inference half of ant_ray_tpu/models/llama.py
+in PyTorch.
+
+Parameters are a plain dict of tensors with the reference's leaf names
+(``embed``, ``layers.wq``, …, ``norm_f``, ``lm_head``) and its stacked
+``(n_layers, in, out)`` layout, so ``h @ W`` reads as it does there and
+models/convert.py carries weights across leaf by leaf.  Layers run as a
+Python loop over the stacked leading axis.  No mesh, no remat: the
+training half is a later slice.
+
+Serving primitives (dense per-slot KV slabs) update the slab IN PLACE
+where the reference returns a new one — the slab is the largest tensor
+of a serving process and a copy per step would double it.  The
+functions still return the cache dict, so callers read like the
+reference's.
+
+JAX silently drops out-of-bounds scatter writes and clamps out-of-range
+gathers, and the reference's serving code relies on both; torch raises
+(or trips a device-side assert) instead.  Each such place is handled
+explicitly below and says so.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ant_ray_tpu_torch._device import resolve_device
+from ant_ray_tpu_torch.ops.attention import attention
+from ant_ray_tpu_torch.ops.rmsnorm import rmsnorm
+from ant_ray_tpu_torch.ops.rope import apply_rope, rope_frequencies, rope_one
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 128256
+    dim: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    mlp_dim: int = 14336
+    max_seq: int = 8192
+    rope_theta: float = 500000.0
+    norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16
+    tie_embeddings: bool = False
+    # Mixture-of-experts MLP (0 = dense), dense top-k dispatch.
+    num_experts: int = 0
+    experts_per_token: int = 2
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+    def num_params(self) -> int:
+        p = self.vocab_size * self.dim                       # embed
+        if self.num_experts:
+            mlp = (self.dim * self.num_experts               # router
+                   + 3 * self.num_experts * self.dim * self.mlp_dim)
+        else:
+            mlp = 3 * self.dim * self.mlp_dim                # gate, up, down
+        per_layer = (
+            self.dim * self.n_heads * self.head_dim          # wq
+            + 2 * self.dim * self.n_kv_heads * self.head_dim  # wk, wv
+            + self.n_heads * self.head_dim * self.dim        # wo
+            + mlp
+            + 2 * self.dim                                   # norms
+        )
+        p += self.n_layers * per_layer + self.dim            # final norm
+        if not self.tie_embeddings:
+            p += self.dim * self.vocab_size                  # lm head
+        return p
+
+
+CONFIGS: dict[str, LlamaConfig] = {
+    # the Llama-3-8B model at its published widths
+    "llama3-8b": LlamaConfig(),
+    "llama3-1b": LlamaConfig(
+        vocab_size=128256, dim=2048, n_layers=16, n_heads=32, n_kv_heads=8,
+        mlp_dim=8192, max_seq=8192),
+    "llama-400m": LlamaConfig(
+        vocab_size=32768, dim=1024, n_layers=24, n_heads=8, n_kv_heads=4,
+        mlp_dim=4096, max_seq=4096),
+    "tiny": LlamaConfig(
+        vocab_size=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
+        mlp_dim=128, max_seq=512, dtype=torch.float32),
+    # MoE variant: 4 experts, top-2 routing
+    "moe-tiny": LlamaConfig(
+        vocab_size=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
+        mlp_dim=128, max_seq=512, dtype=torch.float32,
+        num_experts=4, experts_per_token=2),
+}
+
+_NORMS = ("ln_attn", "ln_mlp", "norm_f")
+
+
+# ---------------------------------------------------------------- params
+
+def param_shapes(config: LlamaConfig) -> dict:
+    c = config
+    hd = c.head_dim
+    if c.num_experts:
+        mlp_shapes = {
+            "router": (c.n_layers, c.dim, c.num_experts),
+            "w_gate": (c.n_layers, c.num_experts, c.dim, c.mlp_dim),
+            "w_up": (c.n_layers, c.num_experts, c.dim, c.mlp_dim),
+            "w_down": (c.n_layers, c.num_experts, c.mlp_dim, c.dim),
+        }
+    else:
+        mlp_shapes = {
+            "w_gate": (c.n_layers, c.dim, c.mlp_dim),
+            "w_up": (c.n_layers, c.dim, c.mlp_dim),
+            "w_down": (c.n_layers, c.mlp_dim, c.dim),
+        }
+    return {
+        "embed": (c.vocab_size, c.dim),
+        "layers": {
+            "ln_attn": (c.n_layers, c.dim),
+            "wq": (c.n_layers, c.dim, c.n_heads * hd),
+            "wk": (c.n_layers, c.dim, c.n_kv_heads * hd),
+            "wv": (c.n_layers, c.dim, c.n_kv_heads * hd),
+            "wo": (c.n_layers, c.n_heads * hd, c.dim),
+            "ln_mlp": (c.n_layers, c.dim),
+            **mlp_shapes,
+        },
+        "norm_f": (c.dim,),
+        **({} if config.tie_embeddings else
+           {"lm_head": (c.dim, c.vocab_size)}),
+    }
+
+
+def init_params(config: LlamaConfig, *,
+                generator: torch.Generator | None = None,
+                device=None) -> dict:
+    """Random weights made directly on ``device`` in the config dtype:
+    norms are ones, everything else N(0, 0.02).  Drawn one leading-axis
+    slice at a time in fp32, so no full-size fp32 copy of a leaf ever
+    exists (for Llama-3-8B that would be 32 GB).  ``generator`` must
+    live on ``device``; None means one seeded with 0."""
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+
+    def _init(name, shape):
+        if name in _NORMS:
+            return torch.ones(shape, dtype=config.dtype, device=device)
+        out = torch.empty(shape, dtype=config.dtype, device=device)
+        for row in out:
+            row.copy_(torch.randn(row.shape, generator=generator,
+                                  device=device).mul_(0.02))
+        return out
+
+    shapes = param_shapes(config)
+    params = {name: _init(name, shape) for name, shape in shapes.items()
+              if name != "layers"}
+    params["layers"] = {name: _init(name, shape)
+                        for name, shape in shapes["layers"].items()}
+    return params
+
+
+def _layer(params: dict, i: int) -> dict:
+    return {name: w[i] for name, w in params["layers"].items()}
+
+
+def _head(params: dict, c: LlamaConfig):
+    return params["embed"].T if c.tie_embeddings else params["lm_head"]
+
+
+def _mlp(layer: dict, h, c: LlamaConfig):
+    if c.num_experts:
+        return _moe_mlp(layer, h, c)
+    gated = F.silu(h @ layer["w_gate"]) * (h @ layer["w_up"])
+    return gated @ layer["w_down"]
+
+
+# ---------------------------------------------------------------- forward
+
+def apply_block(layer: dict, x, c: LlamaConfig, cos, sin, positions,
+                attend, *, return_kv: bool = False):
+    """One transformer block over one layer's weights."""
+    batch, seq, _ = x.shape
+    h = rmsnorm(x, layer["ln_attn"], c.norm_eps)
+    xq = (h @ layer["wq"]).reshape(batch, seq, c.n_heads, c.head_dim)
+    xk = (h @ layer["wk"]).reshape(batch, seq, c.n_kv_heads, c.head_dim)
+    xv = (h @ layer["wv"]).reshape(batch, seq, c.n_kv_heads, c.head_dim)
+    xq = apply_rope(xq, cos, sin, positions)
+    xk = apply_rope(xk, cos, sin, positions)
+    attn = attend(xq, xk, xv)
+    attn = attn.reshape(batch, seq, c.n_heads * c.head_dim)
+    x = x + (attn @ layer["wo"]).to(x.dtype)
+
+    h = rmsnorm(x, layer["ln_mlp"], c.norm_eps)
+    x = x + _mlp(layer, h, c).to(x.dtype)
+    kv = (xk.to(c.dtype), xv.to(c.dtype)) if return_kv else None
+    return x, kv
+
+
+def _moe_mlp(layer: dict, h, c: LlamaConfig):
+    """Top-k mixture-of-experts MLP with dense dispatch: every expert
+    runs on every token, weighted by the router's top-k gates."""
+    router_logits = h @ layer["router"]                    # (b, s, E)
+    top_vals, top_idx = torch.topk(router_logits, c.experts_per_token,
+                                   dim=-1)
+    gates = torch.softmax(top_vals, dim=-1)                # (b, s, k)
+    # Scatter the top-k gates back to a dense (b, s, E) weight map.
+    weights = torch.sum(
+        F.one_hot(top_idx, c.num_experts).to(h.dtype)
+        * gates[..., None].to(h.dtype), dim=-2)
+    ge = torch.einsum("bsd,edm->ebsm", h, layer["w_gate"])  # (E, b, s, m)
+    ue = torch.einsum("bsd,edm->ebsm", h, layer["w_up"])
+    oe = torch.einsum("ebsm,emd->ebsd", F.silu(ge) * ue, layer["w_down"])
+    return torch.einsum("ebsd,bse->bsd", oe, weights)
+
+
+def forward(params: dict, tokens, config: LlamaConfig, *,
+            attn_impl: str = "auto", positions=None,
+            return_kv: bool = False, logits_at: int | None = None):
+    """tokens: (batch, seq) integer → logits (batch, seq, vocab) fp32.
+
+    ``return_kv=True`` additionally returns the per-layer K/V
+    (layers, b, s, kv_heads, hd) for cache insertion (serving prefill);
+    ``logits_at`` (a position) computes logits for that one position
+    only — (b, vocab) — skipping the full-sequence lm-head matmul."""
+    c = config
+    cos, sin = rope_frequencies(c.head_dim, c.max_seq, c.rope_theta,
+                                torch.float32, device=tokens.device)
+
+    def attend(xq, xk, xv):
+        return attention(xq, xk, xv, causal=True, impl=attn_impl)
+
+    x = params["embed"][tokens].to(c.dtype)
+    ks, vs = [], []
+    for i in range(c.n_layers):
+        x, kv = apply_block(_layer(params, i), x, c, cos, sin, positions,
+                            attend, return_kv=return_kv)
+        if return_kv:
+            ks.append(kv[0])
+            vs.append(kv[1])
+    x = rmsnorm(x, params["norm_f"], c.norm_eps)
+    if logits_at is not None:
+        x = x[:, logits_at]                                 # (b, dim)
+    logits = (x @ _head(params, c).to(c.dtype)).float()
+    if return_kv:
+        return logits, torch.stack(ks), torch.stack(vs)
+    return logits
+
+
+# ------------------------------------------------------------- kv cache
+# Dense per-slot KV slabs, as in the reference.
+
+def init_kv_cache(config: LlamaConfig, slots: int,
+                  max_seq: int | None = None, *, device=None) -> dict:
+    """Per-slot dense KV slabs: (layers, slots, max_seq, kv_heads, hd)."""
+    c = config
+    device = resolve_device(device)
+    ms = max_seq or c.max_seq
+    shape = (c.n_layers, slots, ms, c.n_kv_heads, c.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=c.dtype, device=device),
+        "v": torch.zeros(shape, dtype=c.dtype, device=device),
+        # tokens already written per slot (== next write position)
+        "length": torch.zeros((slots,), dtype=torch.int64, device=device),
+    }
+
+
+def prefill_into_cache(params: dict, tokens, cache: dict, slot: int,
+                       length: int, config: LlamaConfig, *,
+                       attn_impl: str = "auto"):
+    """Run prefill on one padded prompt (1, s) and write its K/V into
+    ``slot``; returns (last-token logits (vocab,), cache).
+
+    As in the reference, the whole padded bucket's K/V goes into the
+    slab, pad positions included: decode masks them by length and later
+    overwrites them."""
+    seq = tokens.shape[1]
+    if seq > cache["k"].shape[2]:
+        raise ValueError(f"prompt bucket {seq} exceeds the slab's "
+                         f"{cache['k'].shape[2]} positions")
+    last_pos = max(int(length) - 1, 0)
+    logits, ks, vs = forward(params, tokens, config, attn_impl=attn_impl,
+                             return_kv=True, logits_at=last_pos)
+    cache["k"][:, slot, :seq] = ks[:, 0]
+    cache["v"][:, slot, :seq] = vs[:, 0]
+    cache["length"][slot] = int(length)
+    return logits[0], cache
+
+
+def prefill_chunk_into_cache(params: dict, tokens, cache: dict, slot: int,
+                             start: int, chunk_len: int,
+                             config: LlamaConfig):
+    """Ingest ONE fixed-size chunk of a prompt into ``slot``.
+
+    tokens: (chunk,) integer — ``chunk_len`` real tokens, zero-padded to
+    the engine's fixed chunk width; ``slot``, ``start`` (the chunk's
+    offset in the slab) and ``chunk_len`` are host integers.  Chunk
+    queries attend against the slot's slab (earlier chunks' K/V plus
+    this chunk's own, causally masked).  Pad positions write nothing:
+    the reference pushes their scatter out of bounds for JAX to drop;
+    here only the real rows are written, and never past the slab's end.
+
+    Returns (logits (vocab,) fp32 at the chunk's last real token, cache
+    with slot length set to ``start + chunk_len``)."""
+    c = config
+    slot, start, chunk_len = int(slot), int(start), int(chunk_len)
+    chunk = tokens.shape[0]
+    max_seq = cache["k"].shape[2]
+    device = tokens.device
+    cos, sin = rope_frequencies(c.head_dim, c.max_seq, c.rope_theta,
+                                torch.float32, device=device)
+    group = c.n_heads // c.n_kv_heads
+    pos = start + torch.arange(chunk, device=device)         # absolute
+    # JAX clamps the gather; torch would raise: clamp the rope positions
+    # (pad rows only — their values never reach the slab or the logits).
+    rope_pos = pos.clamp(max=c.max_seq - 1)
+    pc = cos[rope_pos][:, None, :]                           # (chunk, 1, hd/2)
+    ps = sin[rope_pos][:, None, :]
+    n_write = max(0, min(chunk_len, max_seq - start))
+    t_max = min(start + chunk, max_seq)
+    valid = torch.arange(t_max, device=device)[None, :] <= pos[:, None]
+
+    x = params["embed"][tokens].to(c.dtype)                  # (chunk, dim)
+    for i in range(c.n_layers):
+        layer = _layer(params, i)
+        ck, cv = cache["k"][i, slot], cache["v"][i, slot]    # (ms, kvh, hd)
+        h = rmsnorm(x, layer["ln_attn"], c.norm_eps)
+        xq = (h @ layer["wq"]).reshape(chunk, c.n_heads, c.head_dim)
+        xk = (h @ layer["wk"]).reshape(chunk, c.n_kv_heads, c.head_dim)
+        xv = (h @ layer["wv"]).reshape(chunk, c.n_kv_heads, c.head_dim)
+        xq = rope_one(xq, pc, ps)
+        xk = rope_one(xk, pc, ps)
+        ck[start:start + n_write] = xk[:n_write].to(ck.dtype)
+        cv[start:start + n_write] = xv[:n_write].to(cv.dtype)
+        q = xq.reshape(chunk, c.n_kv_heads, group, c.head_dim).float()
+        scores = torch.einsum("ckgd,tkd->ckgt", q, ck[:t_max].float())
+        scores = scores / math.sqrt(c.head_dim)
+        scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("ckgt,tkd->ckgd", probs.to(ck.dtype).float(),
+                           cv[:t_max].float())
+        out = out.reshape(chunk, c.n_heads * c.head_dim).to(x.dtype)
+        x = x + (out @ layer["wo"]).to(x.dtype)
+        h = rmsnorm(x, layer["ln_mlp"], c.norm_eps)
+        x = x + _mlp(layer, h[None], c)[0].to(x.dtype)
+    x = rmsnorm(x, params["norm_f"], c.norm_eps)
+    x_last = x[max(chunk_len - 1, 0)]
+    logits = (x_last @ _head(params, c).to(c.dtype)).float()
+    cache["length"][slot] = start + chunk_len
+    return logits, cache
+
+
+def decode_step(params: dict, last_tokens, cache: dict,
+                config: LlamaConfig, active=None):
+    """One token for every slot, attending against the KV cache.
+
+    last_tokens: (slots,) integer — the most recent token per slot.
+    ``active`` ((slots,) bool, optional): slots marked False neither
+    write K/V nor advance their length, so their slab bytes stay
+    unchanged.  ``active=None`` steps every slot.
+    Returns (logits (slots, vocab) fp32, cache with +1 lengths)."""
+    c = config
+    slots = last_tokens.shape[0]
+    max_seq = cache["k"].shape[2]
+    device = last_tokens.device
+    pos = cache["length"]                       # (slots,) write position
+    # The reference writes inactive slots (and slots already at max_seq)
+    # at position max_seq, a scatter JAX drops.  Here every slot writes
+    # at a clamped position, and a slot that must not write writes back
+    # the value already there: no out-of-bounds index, no duplicate.
+    write = pos < max_seq
+    if active is not None:
+        write = write & active
+    write_pos = pos.clamp(max=max_seq - 1)
+    rows = torch.arange(slots, device=device)
+    cos, sin = rope_frequencies(c.head_dim, c.max_seq, c.rope_theta,
+                                torch.float32, device=device)
+    # JAX clamps cos[pos] for a slot at the end of the table; clamp here.
+    rope_pos = pos.clamp(max=c.max_seq - 1)
+    pc = cos[rope_pos][:, None, :]              # (slots, 1, hd/2)
+    ps = sin[rope_pos][:, None, :]
+    group = c.n_heads // c.n_kv_heads
+    # Columns past every slot's position are masked to -inf (weight
+    # exactly 0), so the slab is cut there: same result, less traffic.
+    t_max = min(int(pos.max()) + 1, max_seq)
+    valid = torch.arange(t_max, device=device)[None, :] <= pos[:, None]
+    keep = write[:, None, None]
+
+    x = params["embed"][last_tokens].to(c.dtype)   # (slots, dim)
+    for i in range(c.n_layers):
+        layer = _layer(params, i)
+        ck, cv = cache["k"][i], cache["v"][i]   # (slots, ms, kvh, hd)
+        h = rmsnorm(x, layer["ln_attn"], c.norm_eps)
+        xq = (h @ layer["wq"]).reshape(slots, c.n_heads, c.head_dim)
+        xk = (h @ layer["wk"]).reshape(slots, c.n_kv_heads, c.head_dim)
+        xv = (h @ layer["wv"]).reshape(slots, c.n_kv_heads, c.head_dim)
+        xq = rope_one(xq, pc, ps)
+        xk = rope_one(xk, pc, ps)
+        ck[rows, write_pos] = torch.where(keep, xk.to(ck.dtype),
+                                          ck[rows, write_pos])
+        cv[rows, write_pos] = torch.where(keep, xv.to(cv.dtype),
+                                          cv[rows, write_pos])
+        q = xq.reshape(slots, c.n_kv_heads, group, c.head_dim).float()
+        scores = torch.einsum("skgd,stkd->skgt", q, ck[:, :t_max].float())
+        scores = scores / math.sqrt(c.head_dim)
+        scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("skgt,stkd->skgd", probs.to(ck.dtype).float(),
+                           cv[:, :t_max].float())
+        out = out.reshape(slots, c.n_heads * c.head_dim).to(x.dtype)
+        x = x + (out @ layer["wo"]).to(x.dtype)
+        h = rmsnorm(x, layer["ln_mlp"], c.norm_eps)
+        x = x + _mlp(layer, h[None], c)[0].to(x.dtype)
+    x = rmsnorm(x, params["norm_f"], c.norm_eps)
+    logits = (x @ _head(params, c).to(c.dtype)).float()
+    # Idle slots keep stepping and are clamped at the slab's end; with an
+    # ``active`` mask, inactive slots' lengths hold still.
+    new_len = torch.clamp(pos + 1, max=max_seq)
+    if active is not None:
+        new_len = torch.where(active, new_len, pos)
+    cache["length"] = new_len
+    return logits, cache
+
+
+# ---------------------------------------------------------------- generate
+
+@torch.inference_mode()
+def greedy_generate(params: dict, config: LlamaConfig, prompt,
+                    max_new_tokens: int = 32):
+    """Minimal greedy decoding (no KV cache — a correctness utility; the
+    serving engine owns the fast path)."""
+    tokens = prompt[None] if prompt.ndim == 1 else prompt
+    for _ in range(max_new_tokens):
+        logits = forward(params, tokens, config)
+        nxt = torch.argmax(logits[:, -1], dim=-1)
+        tokens = torch.cat([tokens, nxt[:, None]], dim=1)
+    return tokens
