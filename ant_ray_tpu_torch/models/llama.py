@@ -1,12 +1,13 @@
-"""Llama model family — the inference half of ant_ray_tpu/models/llama.py
-in PyTorch.
+"""Llama model family — ant_ray_tpu/models/llama.py in PyTorch: the
+forward with its remat modes, the training loss, and the serving
+primitives.
 
 Parameters are a plain dict of tensors with the reference's leaf names
 (``embed``, ``layers.wq``, …, ``norm_f``, ``lm_head``) and its stacked
 ``(n_layers, in, out)`` layout, so ``h @ W`` reads as it does there and
 models/convert.py carries weights across leaf by leaf.  Layers run as a
-Python loop over the stacked leading axis.  No mesh, no remat: the
-training half is a later slice.
+Python loop over the stacked leading axis, each layer's weights a view
+from ``unbind(0)``.  No mesh: one device.
 
 Serving primitives (dense per-slot KV slabs) update the slab IN PLACE
 where the reference returns a new one — the slab is the largest tensor
@@ -23,10 +24,12 @@ explicitly below and says so.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ant_ray_tpu_torch._device import resolve_device
 from ant_ray_tpu_torch.ops.attention import attention
@@ -161,8 +164,15 @@ def init_params(config: LlamaConfig, *,
     return params
 
 
-def _layer(params: dict, i: int) -> dict:
-    return {name: w[i] for name, w in params["layers"].items()}
+def _layers(params: dict) -> list[dict]:
+    """Each layer's weights as views of the stacked leaves.  ``unbind``
+    and not ``w[i]``: under autograd every ``w[i]`` would give back a
+    zero-filled gradient the size of the whole stacked leaf, n_layers
+    of them per leaf per step; the backward of ``unbind`` is one stack."""
+    unbound = {name: w.unbind(0) for name, w in params["layers"].items()}
+    n_layers = len(next(iter(unbound.values())))
+    return [{name: ws[i] for name, ws in unbound.items()}
+            for i in range(n_layers)]
 
 
 def _head(params: dict, c: LlamaConfig):
@@ -217,25 +227,46 @@ def _moe_mlp(layer: dict, h, c: LlamaConfig):
 
 def forward(params: dict, tokens, config: LlamaConfig, *,
             attn_impl: str = "auto", positions=None,
-            return_kv: bool = False, logits_at: int | None = None):
+            return_kv: bool = False, logits_at: int | None = None,
+            remat: str = "full"):
     """tokens: (batch, seq) integer → logits (batch, seq, vocab) fp32.
 
     ``return_kv=True`` additionally returns the per-layer K/V
     (layers, b, s, kv_heads, hd) for cache insertion (serving prefill);
     ``logits_at`` (a position) computes logits for that one position
-    only — (b, vocab) — skipping the full-sequence lm-head matmul."""
+    only — (b, vocab) — skipping the full-sequence lm-head matmul.
+
+    ``remat`` trades memory for recompute in the backward pass when
+    autograd records the forward: "none" saves everything; "full"
+    checkpoints every block (non-reentrant ``torch.utils.checkpoint``),
+    so the backward re-runs each block's forward, the flash kernel
+    included, as ``jax.checkpoint`` does.  The reference's "dots" and
+    "matmuls" raise ``NotImplementedError``."""
     c = config
+    if remat in ("dots", "matmuls"):
+        raise NotImplementedError(
+            f"remat={remat!r}: selective checkpointing that keeps the "
+            "flash kernel's out and lse needs the kernel registered as a "
+            "torch.library custom op (ROADMAP.md, queue A, item 2); use "
+            "'none' or 'full'")
+    if remat not in ("none", "full"):
+        raise ValueError(f"unknown remat policy {remat!r}")
     cos, sin = rope_frequencies(c.head_dim, c.max_seq, c.rope_theta,
                                 torch.float32, device=tokens.device)
 
     def attend(xq, xk, xv):
         return attention(xq, xk, xv, causal=True, impl=attn_impl)
 
+    run_block = apply_block
+    if remat == "full" and torch.is_grad_enabled():
+        run_block = functools.partial(checkpoint, apply_block,
+                                      use_reentrant=False)
+
     x = params["embed"][tokens].to(c.dtype)
     ks, vs = [], []
-    for i in range(c.n_layers):
-        x, kv = apply_block(_layer(params, i), x, c, cos, sin, positions,
-                            attend, return_kv=return_kv)
+    for layer in _layers(params):
+        x, kv = run_block(layer, x, c, cos, sin, positions, attend,
+                          return_kv=return_kv)
         if return_kv:
             ks.append(kv[0])
             vs.append(kv[1])
@@ -246,6 +277,32 @@ def forward(params: dict, tokens, config: LlamaConfig, *,
     if return_kv:
         return logits, torch.stack(ks), torch.stack(vs)
     return logits
+
+
+def loss_fn(params: dict, batch: dict, config: LlamaConfig, *,
+            attn_impl: str = "auto", remat: str = "full"):
+    """batch: {"tokens": (b, s+1) integer, optional "mask": (b, s+1)} —
+    next-token cross entropy on the fp32 logits, averaged over the
+    positions the mask keeps (all of them without one)."""
+    tokens = batch["tokens"]
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    logits = forward(params, inputs, config, attn_impl=attn_impl,
+                     remat=remat)
+    losses = F.cross_entropy(logits.flatten(0, 1), targets.flatten(),
+                             reduction="none").view(targets.shape)
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = mask[:, 1:].to(losses.dtype)
+        return (losses * mask).sum() / mask.sum().clamp(min=1)
+    return losses.mean()
+
+
+def flops_per_token(config: LlamaConfig, seq_len: int) -> float:
+    """Training FLOPs/token (6·N matmul + attention quadratic term)."""
+    c = config
+    matmul = 6 * c.num_params()
+    attn = 12 * c.n_layers * c.head_dim * c.n_heads * seq_len
+    return matmul + attn
 
 
 # ------------------------------------------------------------- kv cache
@@ -322,8 +379,7 @@ def prefill_chunk_into_cache(params: dict, tokens, cache: dict, slot: int,
     valid = torch.arange(t_max, device=device)[None, :] <= pos[:, None]
 
     x = params["embed"][tokens].to(c.dtype)                  # (chunk, dim)
-    for i in range(c.n_layers):
-        layer = _layer(params, i)
+    for i, layer in enumerate(_layers(params)):
         ck, cv = cache["k"][i, slot], cache["v"][i, slot]    # (ms, kvh, hd)
         h = rmsnorm(x, layer["ln_attn"], c.norm_eps)
         xq = (h @ layer["wq"]).reshape(chunk, c.n_heads, c.head_dim)
@@ -388,8 +444,7 @@ def decode_step(params: dict, last_tokens, cache: dict,
     keep = write[:, None, None]
 
     x = params["embed"][last_tokens].to(c.dtype)   # (slots, dim)
-    for i in range(c.n_layers):
-        layer = _layer(params, i)
+    for i, layer in enumerate(_layers(params)):
         ck, cv = cache["k"][i], cache["v"][i]   # (slots, ms, kvh, hd)
         h = rmsnorm(x, layer["ln_attn"], c.norm_eps)
         xq = (h @ layer["wq"]).reshape(slots, c.n_heads, c.head_dim)

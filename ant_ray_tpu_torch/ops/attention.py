@@ -3,15 +3,14 @@ ant_ray_tpu/ops/attention.py).
 
 * :func:`blockwise_attention` — flash-style attention in plain PyTorch:
   a loop over KV blocks with online softmax, O(seq · block) memory.
-* :func:`flash_attention_fwd_lse` (ops/flash_attention.py) — the
-  hand-written CUDA forward kernel.
+* :class:`_FlashFunction` — the hand-written CUDA flash kernels
+  (ops/flash_attention.py) under autograd, in the role of the JAX
+  package's ``_flash`` custom VJP: the forward kernel saves (q, k, v,
+  out, lse), the backward runs the dQ and dK/dV kernels.
 * :func:`reference_attention` — plain full attention (the testing
   oracle, from ant_ray_tpu/parallel/ring.py).
-* :func:`attention` — dispatcher: the flash kernel on CUDA when shapes
-  tile cleanly, blockwise otherwise.
-
-Inference only: the training slice (a backward, ``torch.autograd``)
-is not ported yet.
+* :func:`attention` — dispatcher: the flash kernels on CUDA when shapes
+  tile cleanly, blockwise otherwise.  Every variant is differentiable.
 """
 
 from __future__ import annotations
@@ -21,6 +20,7 @@ import torch
 from ant_ray_tpu_torch.ops.flash_attention import (
     HEAD_DIMS,
     NEG_INF,
+    flash_attention_backward,
     flash_attention_fwd_lse,
 )
 
@@ -94,6 +94,32 @@ def reference_attention(q, k, v, causal: bool = True,
     return out.to(q.dtype)
 
 
+class _FlashFunction(torch.autograd.Function):
+    """Flash attention with its own backward kernels: the counterpart of
+    ``_flash`` (ant_ray_tpu/ops/attention.py), whose custom VJP saves the
+    forward kernel's (q, k, v, out, lse) and runs the two backward
+    kernels.  Under ``torch.inference_mode()`` or ``no_grad`` no graph is
+    built and only the forward kernel runs.  Non-reentrant activation
+    checkpointing re-runs :meth:`forward` in the backward pass."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = flash_attention_fwd_lse(q, k, v, causal=causal,
+                                           scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, lse, dout.contiguous(), causal=ctx.causal,
+            scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def attention(q, k, v, *, causal: bool = True, scale: float | None = None,
               impl: str = "auto"):
     """Dispatch: 'flash' | 'blockwise' | 'reference' | 'auto'.
@@ -101,16 +127,15 @@ def attention(q, k, v, *, causal: bool = True, scale: float | None = None,
     'auto' takes the flash kernel for CUDA tensors whose lengths are
     multiples of 128 and whose head_dim is 64, 128 or 256 (the
     reference's rule, with "on TPU" read as "on CUDA"), blockwise
-    otherwise.  'flash' on CPU tensors runs the kernel's plain version."""
+    otherwise.  'flash' runs the kernels through :class:`_FlashFunction`
+    (on CPU tensors, their plain versions)."""
     if impl == "auto":
         seq_ok = q.shape[1] % 128 == 0 and k.shape[1] % 128 == 0
         dim_ok = q.shape[-1] in HEAD_DIMS
         impl = ("flash" if q.device.type == "cuda" and seq_ok and dim_ok
                 else "blockwise")
     if impl == "flash":
-        out, _lse = flash_attention_fwd_lse(q, k, v, causal=causal,
-                                            scale=scale)
-        return out
+        return _FlashFunction.apply(q, k, v, causal, scale)
     if impl == "blockwise":
         return blockwise_attention(q, k, v, causal=causal, scale=scale)
     if impl == "reference":

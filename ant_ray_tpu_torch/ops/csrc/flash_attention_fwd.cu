@@ -35,33 +35,19 @@
 // Takes fp32 and bf16, D in {64, 128, 256}, Sq and Skv multiples of 64;
 // the Python wrapper rejects anything else before launching.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
 #include <cstddef>
+
+#include "flash_attention_common.cuh"
 
 namespace {
 
+using flash::from_float;
+using flash::kNegInf;
+using flash::kThreads;
+using flash::to_float;
+
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
-constexpr int kThreads = 256;       // 16 x 16: tx picks columns, ty rows
-constexpr float kNegInf = -1e30f;   // the reference's NEG_INF, not -inf
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 template <int D>
 constexpr size_t smem_bytes() {

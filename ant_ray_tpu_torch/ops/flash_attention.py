@@ -1,12 +1,15 @@
-"""Flash-attention forward with logsumexp: the hand-written CUDA kernel
-(``csrc/flash_attention_fwd.cu``), its ctypes binding, and its plain
-PyTorch version.
+"""Flash attention: the hand-written CUDA kernels (forward with
+logsumexp, ``csrc/flash_attention_fwd.cu``; backward as a dQ sweep and a
+dK/dV sweep, ``csrc/flash_attention_bwd.cu``), their ctypes bindings,
+and their plain PyTorch versions.
 
-Counterpart of ``flash_attention_fwd_lse`` in
-ant_ray_tpu/ops/pallas/flash_attention.py, with the same signature and
-layouts.  For a CUDA tensor the wrapper launches the kernel or raises;
-the plain version runs only for tensors that lie on the CPU (and as the
-comparison in the tests and chip_smoke.py).
+Counterparts of ``flash_attention_fwd_lse`` and
+``flash_attention_backward`` in ant_ray_tpu/ops/pallas/flash_attention.py,
+with the same signatures and layouts.  For CUDA tensors a wrapper
+launches its kernels or raises; the plain versions run only for tensors
+that lie on the CPU (and as the comparison in the tests and
+chip_smoke.py).  Autograd reaches these kernels through
+``attention()`` (ops/attention.py), never through the raw forward.
 """
 
 from __future__ import annotations
@@ -17,32 +20,60 @@ import torch
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
-BLOCK = 64   # the kernel's q and kv tile: lengths must be multiples of it
+BLOCK = 64   # the kernels' lengths must be multiples of it
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Launches of the CUDA kernel; chip_smoke.py resets and reads it to show
-# that the serving path went through the kernel.
-launch_count = 0
+# Launches of each CUDA kernel; chip_smoke.py resets and reads them to
+# show that a main path went through the kernels.
+launch_count = 0          # flash_attention_fwd
+bwd_dq_launch_count = 0   # flash_attention_bwd_dq
+bwd_dkv_launch_count = 0  # flash_attention_bwd_dkv
 
-_fn = None
+# C entry point -> (library, number of pointer arguments).  Every entry
+# point then takes batch, q_len, kv_len, heads, kv_heads, head_dim and
+# dtype (int), scale (float), causal (int) and the stream.
+_ENTRY_POINTS = {
+    "flash_attention_fwd": ("flash_attention_fwd", 5),
+    "flash_attention_bwd_dq": ("flash_attention_bwd", 7),
+    "flash_attention_bwd_dkv": ("flash_attention_bwd", 8),
+}
+_fns: dict = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _entry(name: str):
+    """(C function, error-string function) of one entry point, building
+    and loading its library on first use."""
+    if name not in _fns:
         from ant_ray_tpu_torch.ops import _build  # noqa: PLC0415
 
-        lib = _build.load("flash_attention_fwd")
-        fn = lib.flash_attention_fwd
+        lib_name, n_ptr = _ENTRY_POINTS[name]
+        lib = _build.load(lib_name)
+        fn = getattr(lib, name)
         # Every pointer and the stream as c_void_p: ctypes would pass a
         # bare int as 32 bits and cut the pointer.
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
-        _fn = (fn, lib.flash_attention_error_string)
-    return _fn
+        err_str = lib.flash_attention_error_string
+        err_str.argtypes = [ctypes.c_int]
+        err_str.restype = ctypes.c_char_p
+        _fns[name] = (fn, err_str)
+    return _fns[name]
+
+
+def _launch(name: str, tensors, q, k, scale: float, causal: bool) -> None:
+    """Launch ``name`` on q's device and current stream with the data
+    pointers of ``tensors``; raise if the launch is refused."""
+    fn, err_str = _entry(name)
+    batch, q_len, heads, head_dim = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*(t.data_ptr() for t in tensors), batch, q_len, k.shape[1],
+                 heads, k.shape[2], head_dim, _DTYPE_CODES[q.dtype],
+                 float(scale), int(causal), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: {err_str(err).decode()} "
+                           f"(cudaError {err})")
 
 
 def _check(q, k, v):
@@ -64,24 +95,50 @@ def _check(q, k, v):
                          f"{v.dtype}")
 
 
+def _check_kernel_inputs(q, k):
+    """What the CUDA kernels take; anything else raises."""
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention kernel for device {q.device}")
+    batch, q_len, _, head_dim = q.shape
+    kv_len = k.shape[1]
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"flash kernel takes float32 or bfloat16, not "
+                         f"{q.dtype}")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"flash kernel takes head_dim in {HEAD_DIMS}, "
+                         f"not {head_dim}")
+    if q_len % BLOCK or kv_len % BLOCK or not (q_len and kv_len and batch):
+        raise ValueError(f"flash kernel wants lengths that are positive "
+                         f"multiples of {BLOCK}; got ({q_len}, {kv_len})")
+
+
+def _scores(q, k, causal, scale):
+    """fp32 scores (B,H,Sq,Skv) with GQA heads repeated, and the causal
+    mask (True where k_pos > q_pos, top-left alignment) or None."""
+    groups = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).float()                                # b h q d
+    kt = k.repeat_interleave(groups, dim=2).transpose(1, 2).float()
+    s = torch.matmul(qt, kt.transpose(-1, -2)) * scale            # b h q k
+    mask = None
+    if causal:
+        q_pos = torch.arange(q.shape[1], device=q.device)[:, None]
+        k_pos = torch.arange(k.shape[1], device=q.device)[None, :]
+        mask = k_pos > q_pos
+    return s, mask
+
+
 def flash_attention_fwd_lse_ref(q, k, v, *, causal: bool = True,
                                 scale: float | None = None):
     """Plain PyTorch version of the kernel's function (full softmax, no
     tiling): fp32 scores, top-left causal mask with NEG_INF, p rounded to
     the input dtype before P.V, l == 0 -> 1, lse = m + log(l)."""
     _check(q, k, v)
-    batch, q_len, heads, head_dim = q.shape
-    kv_len = k.shape[1]
-    groups = heads // k.shape[2]
-    scale = scale if scale is not None else head_dim ** -0.5
-    qt = q.transpose(1, 2).float()                                # b h q d
-    kt = k.repeat_interleave(groups, dim=2).transpose(1, 2).float()
+    groups = q.shape[2] // k.shape[2]
+    scale = scale if scale is not None else q.shape[3] ** -0.5
+    s, mask = _scores(q, k, causal, scale)
+    if mask is not None:
+        s = s.masked_fill(mask, NEG_INF)
     vt = v.repeat_interleave(groups, dim=2).transpose(1, 2)
-    s = torch.matmul(qt, kt.transpose(-1, -2)) * scale            # b h q k
-    if causal:
-        q_pos = torch.arange(q_len, device=q.device)[:, None]
-        k_pos = torch.arange(kv_len, device=q.device)[None, :]
-        s = s.masked_fill(k_pos > q_pos, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -99,39 +156,120 @@ def flash_attention_fwd_lse(q, k, v, *, causal: bool = True,
 
     CUDA tensors go to the hand-written kernel (fp32 or bf16, head_dim
     64/128/256, lengths multiples of 64; anything else raises).  CPU
-    tensors go to :func:`flash_attention_fwd_lse_ref`."""
+    tensors go to :func:`flash_attention_fwd_lse_ref`.
+
+    The kernel's output is invisible to autograd, so on CUDA this raises
+    when grad mode is on and an input requires grad: differentiate
+    through ``attention(..., impl="flash")`` instead."""
     global launch_count
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_fwd_lse_ref(q, k, v, causal=causal,
                                            scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash-attention kernel for device {q.device}")
-    batch, q_len, heads, head_dim = q.shape
-    kv_len, kv_heads = k.shape[1], k.shape[2]
-    if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"flash kernel takes float32 or bfloat16, not "
-                         f"{q.dtype}")
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head_dim in {HEAD_DIMS}, "
-                         f"not {head_dim}")
-    if q_len % BLOCK or kv_len % BLOCK or not (q_len and kv_len and batch):
-        raise ValueError(f"flash kernel wants lengths that are positive "
-                         f"multiples of {BLOCK}; got ({q_len}, {kv_len})")
-    scale = scale if scale is not None else head_dim ** -0.5
+    _check_kernel_inputs(q, k)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention_fwd_lse writes its output through a CUDA "
+            "kernel that autograd cannot see, so every gradient through it "
+            "would be lost; call ant_ray_tpu_torch.ops.attention(q, k, v, "
+            "impl='flash'), which runs the backward kernels, or run under "
+            "torch.no_grad()")
+    scale = scale if scale is not None else q.shape[3] ** -0.5
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
-    lse = torch.empty((batch, heads, q_len), dtype=torch.float32,
-                      device=q.device)
-    fn, err_str = _kernel()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), batch, q_len, kv_len, heads, kv_heads,
-                 head_dim, _DTYPE_CODES[q.dtype], float(scale), int(causal),
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: "
-                           f"{err_str(err).decode()} (cudaError {err})")
+    lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]),
+                      dtype=torch.float32, device=q.device)
+    _launch("flash_attention_fwd", (q, k, v, out, lse), q, k, scale, causal)
     launch_count += 1
     return out, lse
+
+
+# ------------------------------------------------------------- backward
+
+
+def _check_residuals(q, out, lse, do):
+    batch, q_len, heads, _ = q.shape
+    if out.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and do {tuple(do.shape)} "
+                         f"must have q's shape {tuple(q.shape)}")
+    if tuple(lse.shape) != (batch, heads, q_len) or \
+            lse.dtype != torch.float32:
+        raise ValueError(f"lse must be fp32 (B,H,Sq) = {(batch, heads, q_len)}"
+                         f"; got {lse.dtype} {tuple(lse.shape)}")
+    if not (out.dtype == do.dtype == q.dtype):
+        raise ValueError(f"out and do must be in q's dtype {q.dtype}; got "
+                         f"{out.dtype}, {do.dtype}")
+    if not (out.device == lse.device == do.device == q.device):
+        raise ValueError("q, out, lse and do must be on one device")
+
+
+def _delta(out, do):
+    """rowsum(dO * O) in fp32, (B,H,Sq): computed outside the kernels, as
+    the JAX package does."""
+    return (do.float() * out.float()).sum(dim=-1).transpose(1, 2)
+
+
+def flash_attention_backward_ref(q, k, v, out, lse, do, *, causal: bool,
+                                 scale: float | None = None):
+    """Plain PyTorch version of the two backward kernels (full matrices,
+    fp32), with the TPU kernels' rounding points: p = exp(s - lse) (0
+    where k_pos > q_pos), ds = p * (dO.V^T - delta) * scale, ds rounded
+    to q's dtype before ds.K and ds^T.Q, p rounded before p^T.dO; dq in
+    q's dtype, dk and dv in k's and v's."""
+    _check(q, k, v)
+    _check_residuals(q, out, lse, do)
+    batch, _, heads, head_dim = q.shape
+    kv_len, kv_heads = k.shape[1], k.shape[2]
+    groups = heads // kv_heads
+    scale = scale if scale is not None else head_dim ** -0.5
+    s, mask = _scores(q, k, causal, scale)
+    p = torch.exp(s - lse[..., None])
+    if mask is not None:
+        p = p.masked_fill(mask, 0.0)
+    qt = q.transpose(1, 2).float()
+    vt = v.repeat_interleave(groups, dim=2).transpose(1, 2).float()
+    kt = k.repeat_interleave(groups, dim=2).transpose(1, 2).float()
+    dot = do.transpose(1, 2).float()
+    dp = torch.matmul(dot, vt.transpose(-1, -2))
+    ds = p * (dp - _delta(out, do)[..., None]) * scale
+    ds = ds.to(q.dtype).float()
+    p = p.to(q.dtype).float()
+    dq = torch.matmul(ds, kt)                                     # b h q d
+
+    def per_kv_head(x):   # (b, h, kv, d) summed over each group of heads
+        return x.reshape(batch, kv_heads, groups, kv_len, head_dim).sum(2)
+
+    dk = per_kv_head(torch.matmul(ds.transpose(-1, -2), qt))
+    dv = per_kv_head(torch.matmul(p.transpose(-1, -2), dot))
+    return (dq.to(q.dtype).transpose(1, 2), dk.to(k.dtype).transpose(1, 2),
+            dv.to(v.dtype).transpose(1, 2))
+
+
+def flash_attention_backward(q, k, v, out, lse, do, *, causal: bool,
+                             scale: float | None = None):
+    """Returns (dq, dk, dv) in the input layouts (q: (B,S,H,D); k/v:
+    (B,S,KVH,D)), given the forward's ``out`` and ``lse`` (B,H,Sq) and
+    the output gradient ``do``.
+
+    CUDA tensors go to the dQ kernel and then the dK/dV kernel (same
+    dtypes, head dims and lengths as the forward; anything else raises),
+    with delta = rowsum(dO * O) computed here in fp32.  CPU tensors go to
+    :func:`flash_attention_backward_ref`."""
+    global bwd_dq_launch_count, bwd_dkv_launch_count
+    _check(q, k, v)
+    _check_residuals(q, out, lse, do)
+    if q.device.type == "cpu":
+        return flash_attention_backward_ref(q, k, v, out, lse, do,
+                                            causal=causal, scale=scale)
+    _check_kernel_inputs(q, k)
+    scale = scale if scale is not None else q.shape[3] ** -0.5
+    q, k, v, do, lse = (t.contiguous() for t in (q, k, v, do, lse))
+    delta = _delta(out, do).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_attention_bwd_dq", (q, k, v, do, lse, delta, dq), q, k,
+            scale, causal)
+    bwd_dq_launch_count += 1
+    _launch("flash_attention_bwd_dkv", (q, k, v, do, lse, delta, dk, dv), q,
+            k, scale, causal)
+    bwd_dkv_launch_count += 1
+    return dq, dk, dv

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (ant_ray_tpu_torch) on one NVIDIA
-GPU: the quickest proof that the port still builds and serves there.
+GPU: the quickest proof that the port still builds, serves and trains
+there.
 
     python3 chip_smoke.py
 
@@ -12,18 +13,29 @@ final line is printed:
    in this checkout, timed.
 2. Kernels: the flash-attention forward kernel against its plain
    PyTorch version at the serving path's shapes (Llama-3-8B prefill:
-   B=1, H=32, KVH=8, D=128, bf16, causal) and at a few others (fp32
-   with D=64, non-causal without GQA, Sq != Skv).  Tolerances: bf16 out
+   B=1, H=32, KVH=8, D=128, bf16, causal), at the training slice's
+   (B=8, S=2048, H=8, KVH=4) and at a few others (fp32 with D=64,
+   non-causal without GQA, Sq != Skv).  Tolerances: bf16 out
    max abs error <= 2e-2 (bf16 rounds p and out at other points in the
    tiled loop), lse <= 1e-3; fp32 both <= 1e-4.  Times by CUDA events,
    median of 10 runs: the kernel, its plain version, and
    torch's scaled_dot_product_attention as a yardstick the port never
    calls; the bound is the larger of FLOPs over the card's peak for the
    input type and bytes over 3.35 TB/s.
-3. Correctness of the model path on a small fp32 model with head_dim
+3. Backward kernels: dQ and dK/dV through flash_attention_backward
+   against flash_attention_backward_ref at the training slice's shape
+   and five others (BWD_TOL: max abs error over max |ref| per tensor).
+   Times: each kernel, the whole backward, its plain version, and as a
+   yardstick SDPA's backward (fwd+bwd through autograd minus fwd); the
+   bound counts 6*D (dQ), 8*D (dK/dV) and 10*D (the whole backward)
+   FLOPs per (q, k) pair against the bytes each must move.
+4. Correctness of the model path on a small fp32 model with head_dim
    128: logits through the flash kernel against the plain reference
-   attention on the card, and against the same model on the CPU.
-4. The serving slice: LLMEngine("llama3-8b", slots=8, max_seq=4096) with
+   attention on the card, and against the same model on the CPU; then
+   the loss and every gradient leaf through the kernels against
+   reference attention on the card and against the CPU, under remat
+   "none" and "full" (the forward kernel runs twice per layer there).
+5. The serving slice: LLMEngine("llama3-8b", slots=8, max_seq=4096) with
    random weights from a fixed seed, five greedy prompts of 20, 100,
    700, 1500 and 3000 random token ids (buckets 32 to 4096) and one
    seeded sampled prompt of 300, 32 new tokens each.  The flash
@@ -33,7 +45,14 @@ final line is printed:
    attention, then prefill time per bucket, decode tokens/s and peak
    memory are printed, and a torch.profiler trace of a short and a long
    prefill and of one decode step gives the device's busy share.
-5. One line {"kernels": [...]}, then the last line
+6. The training slice: llama-400m at its published widths and all 24
+   layers, bf16, random weights from seed 0, one fixed batch of 8 x 2049
+   token ids, AdamW (make_optimizer), remat "none": 3 warm-up and 10
+   timed train_step calls.  The launch counts are reset just before and
+   read just after: every step must launch each kernel once per layer.
+   Prints the step time, tokens/s, MFU against the bf16 peak, peak
+   memory and a torch.profiler line of one step.
+7. One line {"kernels": [...]}, then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 comparisons are
@@ -54,6 +73,13 @@ import numpy as np
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
 PEAK_BYTES = 3.35e12
 TOL = {"bfloat16": (2e-2, 1e-3), "float32": (1e-4, 1e-4)}
+# Backward: max abs error over max |ref|, per tensor (dq, dk, dv).  bf16:
+# both sides round p and ds to bf16 at the same points but sum in another
+# order, so a value near a rounding boundary may land one bf16 ulp
+# (2^-8 relative) away; fp32: summation order only.
+BWD_TOL = {"bfloat16": {"dq": 1e-2, "dk": 1e-2, "dv": 1e-2},
+           "float32": {"dq": 1e-4, "dk": 1e-4, "dv": 1e-4}}
+GRAD_TOL = 1e-4   # fp32 model gradients, per leaf, over max |ref|
 REPS = 10
 
 
@@ -72,45 +98,81 @@ def _median_ms(torch, fn, reps=REPS):
     return statistics.median(times)
 
 
-def _bound(batch, q_len, kv_len, heads, kv_heads, dim, dtype_name, causal):
-    """Least time (ms) for the work these inputs need, and what sets it."""
-    if causal:   # top-left: query i sees min(i + 1, kv_len) keys
-        pairs = sum(min(i + 1, kv_len) for i in range(q_len))
-    else:
-        pairs = q_len * kv_len
-    flops = 4.0 * batch * heads * dim * pairs
-    elt = 2 if dtype_name == "bfloat16" else 4
-    nbytes = (elt * batch * dim * (2 * q_len * heads + 2 * kv_len * kv_heads)
-              + 4 * batch * heads * q_len)
+def _pairs(q_len, kv_len, causal):
+    """(q, k) pairs the inputs need: top-left causal, query i sees
+    min(i + 1, kv_len) keys."""
+    if causal:
+        return sum(min(i + 1, kv_len) for i in range(q_len))
+    return q_len * kv_len
+
+
+def _roofline(flops, nbytes, dtype_name):
     t_ops = flops / PEAK_FLOPS[dtype_name]
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
 
+def _bound(batch, q_len, kv_len, heads, kv_heads, dim, dtype_name, causal):
+    """Least time (ms) for the work these inputs need, and what sets it."""
+    flops = 4.0 * batch * heads * dim * _pairs(q_len, kv_len, causal)
+    elt = 2 if dtype_name == "bfloat16" else 4
+    nbytes = (elt * batch * dim * (2 * q_len * heads + 2 * kv_len * kv_heads)
+              + 4 * batch * heads * q_len)
+    return _roofline(flops, nbytes, dtype_name)
+
+
+def _bwd_bounds(batch, q_len, kv_len, heads, kv_heads, dim, dtype_name,
+                causal):
+    """Least time (ms) and what sets it for the dQ kernel (S, dP, dS.K:
+    6*D FLOPs per pair; reads q, k, v, dO, lse, delta, writes dq), the
+    dK/dV kernel (S, dP, P^T.dO, dS^T.Q: 8*D; reads the same, writes dk,
+    dv) and the whole backward (five matmuls, 10*D; reads q, k, v, out,
+    dO, lse, writes dq, dk, dv)."""
+    per_dim = batch * heads * dim * _pairs(q_len, kv_len, causal)
+    elt = 2 if dtype_name == "bfloat16" else 4
+    q_bytes = elt * batch * q_len * heads * dim
+    kv_bytes = elt * batch * kv_len * kv_heads * dim
+    row_bytes = 4 * batch * heads * q_len
+    return {
+        "dq": _roofline(6.0 * per_dim, 3 * q_bytes + 2 * kv_bytes
+                        + 2 * row_bytes, dtype_name),
+        "dkv": _roofline(8.0 * per_dim, 2 * q_bytes + 4 * kv_bytes
+                         + 2 * row_bytes, dtype_name),
+        "backward": _roofline(10.0 * per_dim, 4 * q_bytes + 4 * kv_bytes
+                              + row_bytes, dtype_name),
+    }
+
+
+def _shape(batch, q_len, kv_len, heads, kv_heads, dim, dtype_name, causal):
+    return (f"B={batch} Sq={q_len} Skv={kv_len} H={heads} KVH={kv_heads} "
+            f"D={dim} {dtype_name} {'causal' if causal else 'full'}")
+
+
 def kernel_phase(torch, fa):
     import torch.nn.functional as F  # noqa: PLC0415
 
     bf16, fp32 = torch.bfloat16, torch.float32
-    cases = [  # (q_len, kv_len, heads, kv_heads, dim, dtype, causal)
-        (128, 128, 32, 8, 128, bf16, True),
-        (512, 512, 32, 8, 128, bf16, True),
-        (1024, 1024, 32, 8, 128, bf16, True),
-        (2048, 2048, 32, 8, 128, bf16, True),
-        (4096, 4096, 32, 8, 128, bf16, True),
-        (1024, 1024, 32, 8, 64, fp32, True),
-        (1024, 1024, 32, 32, 128, bf16, False),
-        (128, 256, 32, 8, 128, bf16, True),
+    cases = [  # (batch, q_len, kv_len, heads, kv_heads, dim, dtype, causal)
+        (1, 128, 128, 32, 8, 128, bf16, True),
+        (1, 512, 512, 32, 8, 128, bf16, True),
+        (1, 1024, 1024, 32, 8, 128, bf16, True),
+        (1, 2048, 2048, 32, 8, 128, bf16, True),
+        (1, 4096, 4096, 32, 8, 128, bf16, True),
+        (8, 2048, 2048, 8, 4, 128, bf16, True),    # the training slice
+        (1, 1024, 1024, 32, 8, 64, fp32, True),
+        (1, 1024, 1024, 32, 32, 128, bf16, False),
+        (1, 128, 256, 32, 8, 128, bf16, True),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = []
-    for q_len, kv_len, heads, kv_heads, dim, dtype, causal in cases:
+    for batch, q_len, kv_len, heads, kv_heads, dim, dtype, causal in cases:
         def rand(*shape):
             return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-        q = rand(1, q_len, heads, dim)
-        k = rand(1, kv_len, kv_heads, dim)
-        v = rand(1, kv_len, kv_heads, dim)
+        q = rand(batch, q_len, heads, dim)
+        k = rand(batch, kv_len, kv_heads, dim)
+        v = rand(batch, kv_len, kv_heads, dim)
         out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal)
         torch.cuda.synchronize()
         ref_out, ref_lse = fa.flash_attention_fwd_lse_ref(q, k, v,
@@ -119,8 +181,8 @@ def kernel_phase(torch, fa):
         err_lse = (lse - ref_lse).abs().max().item()
         name = str(dtype).removeprefix("torch.")
         tol_out, tol_lse = TOL[name]
-        shape = (f"B=1 Sq={q_len} Skv={kv_len} H={heads} KVH={kv_heads} "
-                 f"D={dim} {name} {'causal' if causal else 'full'}")
+        shape = _shape(batch, q_len, kv_len, heads, kv_heads, dim, name,
+                       causal)
         if not (err_out <= tol_out and err_lse <= tol_lse):
             raise AssertionError(
                 f"flash kernel disagrees with its plain version at {shape}: "
@@ -137,8 +199,8 @@ def kernel_phase(torch, fa):
         vt = v.repeat_interleave(groups, dim=2).transpose(1, 2).contiguous()
         library_ms = _median_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal))
-        bound_ms, bound_by = _bound(1, q_len, kv_len, heads, kv_heads, dim,
-                                    name, causal)
+        bound_ms, bound_by = _bound(batch, q_len, kv_len, heads, kv_heads,
+                                    dim, name, causal)
         row = {"shape": shape, "max_abs_err": err_out, "lse_err": err_lse,
                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                "bound_ms": bound_ms, "bound_by": bound_by}
@@ -147,24 +209,106 @@ def kernel_phase(torch, fa):
     return results
 
 
+def bwd_kernel_phase(torch, fa):
+    """The dQ and dK/dV kernels against flash_attention_backward_ref."""
+    import torch.nn.functional as F  # noqa: PLC0415
+
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cases = [  # (batch, q_len, kv_len, heads, kv_heads, dim, dtype, causal)
+        (8, 2048, 2048, 8, 4, 128, bf16, True),    # the training slice
+        (1, 4096, 4096, 32, 8, 128, bf16, True),
+        (1, 1024, 1024, 32, 8, 64, fp32, True),
+        (1, 1024, 1024, 32, 32, 128, bf16, False),
+        (1, 128, 256, 32, 8, 128, bf16, True),
+        (1, 512, 512, 8, 2, 256, fp32, True),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    results = []
+    for batch, q_len, kv_len, heads, kv_heads, dim, dtype, causal in cases:
+        def rand(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+        q = rand(batch, q_len, heads, dim)
+        k = rand(batch, kv_len, kv_heads, dim)
+        v = rand(batch, kv_len, kv_heads, dim)
+        do = rand(batch, q_len, heads, dim)
+        name = str(dtype).removeprefix("torch.")
+        shape = _shape(batch, q_len, kv_len, heads, kv_heads, dim, name,
+                       causal)
+        with torch.no_grad():
+            out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal)
+        got = fa.flash_attention_backward(q, k, v, out, lse, do,
+                                          causal=causal)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_backward_ref(q, k, v, out, lse, do,
+                                               causal=causal)
+        abs_err, rel_err = {}, {}
+        for key, g, w in zip(("dq", "dk", "dv"), got, want):
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise AssertionError(f"{key} is {g.dtype} {tuple(g.shape)}, "
+                                     f"want {w.dtype} {tuple(w.shape)}")
+            abs_err[key] = (g.float() - w.float()).abs().max().item()
+            rel_err[key] = abs_err[key] / w.float().abs().max().item()
+        if any(rel_err[key] > BWD_TOL[name][key] for key in rel_err):
+            raise AssertionError(
+                f"backward kernels disagree with their plain version at "
+                f"{shape}: max abs error over max |ref| {rel_err} (tol "
+                f"{BWD_TOL[name]})")
+        del got, want
+
+        # Each kernel alone, on the wrapper's own inputs and outputs.
+        scale = dim ** -0.5
+        delta = fa._delta(out, do).contiguous()
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        dq_ms = _median_ms(torch, lambda: fa._launch(
+            "flash_attention_bwd_dq", (q, k, v, do, lse, delta, dq), q, k,
+            scale, causal))
+        dkv_ms = _median_ms(torch, lambda: fa._launch(
+            "flash_attention_bwd_dkv", (q, k, v, do, lse, delta, dk, dv), q,
+            k, scale, causal))
+        bwd_ms = _median_ms(torch, lambda: fa.flash_attention_backward(
+            q, k, v, out, lse, do, causal=causal))
+        plain_ms = _median_ms(torch, lambda: fa.flash_attention_backward_ref(
+            q, k, v, out, lse, do, causal=causal))
+        del dq, dk, dv, delta
+
+        # SDPA's backward as a yardstick: fwd+bwd through autograd minus
+        # fwd, GQA without a head repeat, top-left causal as here.
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+        sdpa_fwd_ms = _median_ms(torch, sdpa)
+        sdpa_both_ms = _median_ms(torch, lambda: torch.autograd.grad(
+            sdpa(), (qt, kt, vt), dot))
+        bounds = _bwd_bounds(batch, q_len, kv_len, heads, kv_heads, dim,
+                             name, causal)
+        row = {"shape": shape, "abs_err": abs_err, "rel_err": rel_err,
+               "tol": BWD_TOL[name], "dq_ms": dq_ms, "dkv_ms": dkv_ms,
+               "bwd_ms": bwd_ms, "plain_ms": plain_ms,
+               "library_ms": sdpa_both_ms - sdpa_fwd_ms,
+               "sdpa_fwd_ms": sdpa_fwd_ms, "sdpa_fwd_bwd_ms": sdpa_both_ms,
+               "bounds": bounds}
+        print("kernel flash_attention_bwd " + json.dumps(row), flush=True)
+        results.append(row)
+        del q, k, v, do, out, lse, qt, kt, vt, dot
+    return results
+
+
 def model_check_phase(torch, llama):
     """Small fp32 model, head_dim 128: flash path against the plain
     reference attention on the card, and against the CPU."""
-    cfg = dataclasses.replace(
-        llama.CONFIGS["tiny"], dim=512, n_heads=4, n_kv_heads=2,
-        mlp_dim=512, n_layers=2, max_seq=512, dtype=torch.float32)
-    params = llama.init_params(
-        cfg, generator=torch.Generator(device="cuda").manual_seed(1),
-        device="cuda")
+    cfg, params = _small_model(torch, llama)
     toks = torch.from_numpy(
         np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 256)))
     with torch.inference_mode():
         flash = llama.forward(params, toks.cuda(), cfg, attn_impl="flash")
         ref = llama.forward(params, toks.cuda(), cfg, attn_impl="reference")
-        cpu_params = {k: (v.cpu() if k != "layers" else
-                          {n: w.cpu() for n, w in v.items()})
-                      for k, v in params.items()}
-        cpu = llama.forward(cpu_params, toks, cfg, attn_impl="flash")
+        cpu = llama.forward(_to_cpu(params), toks, cfg, attn_impl="flash")
     err_ref = (flash - ref).abs().max().item()
     err_cpu = (flash.cpu() - cpu).abs().max().item()
     print(f"model check (fp32, head_dim 128, S=256): flash vs reference "
@@ -172,6 +316,139 @@ def model_check_phase(torch, llama):
     if not (torch.isfinite(flash).all() and err_ref <= 1e-3
             and err_cpu <= 1e-3):
         raise AssertionError("model check failed")
+
+
+def _small_model(torch, llama):
+    """The small fp32 model of the correctness checks (head_dim 128)."""
+    cfg = dataclasses.replace(
+        llama.CONFIGS["tiny"], dim=512, n_heads=4, n_kv_heads=2,
+        mlp_dim=512, n_layers=2, max_seq=512, dtype=torch.float32)
+    params = llama.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(1),
+        device="cuda")
+    return cfg, params
+
+
+def _to_cpu(params):
+    return {k: (v.cpu() if k != "layers" else
+                {n: w.cpu() for n, w in v.items()})
+            for k, v in params.items()}
+
+
+def _reset_counts(fa):
+    fa.launch_count = fa.bwd_dq_launch_count = fa.bwd_dkv_launch_count = 0
+
+
+def _counts(fa):
+    return {"fwd": fa.launch_count, "dq": fa.bwd_dq_launch_count,
+            "dkv": fa.bwd_dkv_launch_count}
+
+
+def grad_check_phase(torch, fa, llama):
+    """Loss and every gradient leaf of the small fp32 model through the
+    kernels, against reference attention on the card and against the
+    CPU, under remat "none" and "full"."""
+    cfg, params = _small_model(torch, llama)
+    toks = torch.from_numpy(
+        np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 257)))
+
+    def loss_and_grads(params, toks, impl, remat):
+        leaves = {k: (v.detach().clone().requires_grad_() if k != "layers"
+                      else {n: w.detach().clone().requires_grad_()
+                            for n, w in v.items()})
+                  for k, v in params.items()}
+        flat = {**{k: v for k, v in leaves.items() if k != "layers"},
+                **{f"layers.{n}": w for n, w in leaves["layers"].items()}}
+        loss = llama.loss_fn(leaves, {"tokens": toks}, cfg, attn_impl=impl,
+                             remat=remat)
+        grads = torch.autograd.grad(loss, list(flat.values()))
+        return loss.item(), dict(zip(flat, grads))
+
+    cpu_params = _to_cpu(params)
+    for remat in ("none", "full"):
+        _reset_counts(fa)
+        loss, grads = loss_and_grads(params, toks.cuda(), "flash", remat)
+        torch.cuda.synchronize()
+        launches = _counts(fa)
+        ref_loss, ref_grads = loss_and_grads(params, toks.cuda(),
+                                             "reference", remat)
+        cpu_loss, cpu_grads = loss_and_grads(cpu_params, toks, "flash",
+                                             remat)
+        err_ref = max((g - ref_grads[k]).abs().max().item()
+                      / ref_grads[k].abs().max().item()
+                      for k, g in grads.items())
+        err_cpu = max((g.cpu() - cpu_grads[k]).abs().max().item()
+                      / cpu_grads[k].abs().max().item()
+                      for k, g in grads.items())
+        want = {"fwd": cfg.n_layers * (2 if remat == "full" else 1),
+                "dq": cfg.n_layers, "dkv": cfg.n_layers}
+        print(f"gradient check (fp32, head_dim 128, S=256, remat {remat}): "
+              f"loss {loss:.6f}, reference {ref_loss:.6f}, CPU "
+              f"{cpu_loss:.6f}; max grad error over max |ref| per leaf: vs "
+              f"reference {err_ref:.3e}, vs CPU {err_cpu:.3e} (tol "
+              f"{GRAD_TOL}); launches {launches} (expected {want})",
+              flush=True)
+        if not (abs(loss - ref_loss) <= 1e-5 and abs(loss - cpu_loss) <= 1e-5
+                and err_ref <= GRAD_TOL and err_cpu <= GRAD_TOL
+                and launches == want):
+            raise AssertionError(f"gradient check failed under remat {remat}")
+
+
+def train_phase(torch, fa, llama):
+    """The training slice: llama-400m, batch 8 x 2048, AdamW, remat
+    "none"; returns the kernels' launches over its 13 steps."""
+    from ant_ray_tpu_torch.train import make_optimizer, train_step  # noqa: PLC0415
+
+    torch.cuda.empty_cache()
+    cfg = llama.CONFIGS["llama-400m"]
+    batch, seq, remat = 8, 2048, "none"
+    t0 = time.perf_counter()
+    params = llama.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+        device="cuda")
+    optimizer = make_optimizer(params)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, seq + 1))).cuda()
+    torch.cuda.synchronize()
+    print(f"llama-400m up in {time.perf_counter() - t0:.1f} s "
+          f"({cfg.num_params() / 1e6:.1f} M params, {cfg.dtype}, "
+          f"{cfg.n_layers} layers)", flush=True)
+
+    def step():
+        return train_step(params, optimizer, tokens, cfg, remat=remat)
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(fa)
+    losses, step_ms = [], []
+    per_step = {"fwd": cfg.n_layers, "dq": cfg.n_layers, "dkv": cfg.n_layers}
+    for i in range(13):
+        before = _counts(fa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step().item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        after = _counts(fa)
+        delta = {key: after[key] - before[key] for key in after}
+        if delta != per_step:
+            raise AssertionError(f"step {i} launched {delta}, expected "
+                                 f"{per_step}")
+    launches = _counts(fa)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms = statistics.median(step_ms[3:])
+    tokens_per_s = batch * seq / (ms / 1e3)
+    mfu = tokens_per_s * llama.flops_per_token(cfg, seq) / PEAK_FLOPS[
+        "bfloat16"]
+    print(f"train llama-400m batch {batch} x seq {seq} remat {remat}: "
+          f"losses {[round(x, 4) for x in losses]}; step "
+          f"{ms:.2f} ms (median of 10 after 3 warm-up; all "
+          f"{[round(x, 1) for x in step_ms]}), {tokens_per_s:.0f} tokens/s, "
+          f"MFU {mfu:.4f}, peak memory {peak_gb:.2f} GB; launches over 13 "
+          f"steps {launches}", flush=True)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"training losses {losses}: not finite or not "
+                             "falling")
+    _profile(torch, f"train step llama-400m {batch} x {seq}", step, top=16)
+    return launches
 
 
 def slice_phase(torch, fa, llama):
@@ -194,13 +471,13 @@ def slice_phase(torch, fa, llama):
                              top_p=0.95, seed=1234)
 
     torch.cuda.reset_peak_memory_stats()
-    fa.launch_count = 0
+    _reset_counts(fa)
     t0 = time.perf_counter()
     outs = engine.generate(prompts, greedy)
     outs += engine.generate([sampled_prompt], sampled)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = fa.launch_count
+    launches = _counts(fa)
 
     all_lengths = (*lengths, len(sampled_prompt))
     kernel_prefills = sum(1 for n in all_lengths
@@ -213,10 +490,12 @@ def slice_phase(torch, fa, llama):
             raise AssertionError(f"request finished with {out.finish_reason}")
     expected = cfg.n_layers * kernel_prefills
     print(f"main path: {len(outs)} requests in {main_s:.2f} s, flash kernel "
-          f"launches {launches} (expected {expected})", flush=True)
-    if launches != expected:
-        raise AssertionError(f"flash kernel launched {launches} times, "
-                             f"expected {expected}")
+          f"launches {launches['fwd']} (expected {expected}), backward "
+          f"kernel launches {launches['dq']} and {launches['dkv']} "
+          f"(expected 0)", flush=True)
+    if launches != {"fwd": expected, "dq": 0, "dkv": 0}:
+        raise AssertionError(f"serving launched {launches}, expected "
+                             f"{expected} forward and no backward launches")
 
     # Is the 8B path right?  Last-token logits of the 1500-token prompt
     # through the flash kernel against the same model with blockwise
@@ -293,10 +572,11 @@ def slice_phase(torch, fa, llama):
     return launches
 
 
-def _profile(torch, label, fn):
+def _profile(torch, label, fn, top=6):
     """Where one call's time goes, from a torch.profiler trace: the
-    device's busy share of the host wall time, and the kernels that take
-    most of it.  A trace without device events reports 'not measured'."""
+    device's busy share of the host wall time, and the ``top`` kernels
+    that take most of it.  A trace without device events reports 'not
+    measured'."""
     from torch.autograd import DeviceType  # noqa: PLC0415
     from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
 
@@ -308,20 +588,24 @@ def _profile(torch, label, fn):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # Kernel time summed by the first 60 characters of the name (one
+    # family of templated kernels).  User annotations that the trace
+    # draws on the device timeline (the optimizer step's range) are not
+    # kernels and would count their time twice.
     by_name: dict[str, float] = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.elapsed_us()
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            key = e.name[:60]
+            by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
     busy_us = sum(by_name.values())
     if not busy_us:
         print(f"profile {label}: wall {wall_us / 1e3:.2f} ms, device time "
               "not measured (no device events in the trace)", flush=True)
         return
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    heaviest = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     print(f"profile {label}: wall {wall_us / 1e3:.2f} ms, device busy "
           f"{busy_us / 1e3:.2f} ms ({busy_us / wall_us:.1%}); top kernels "
-          + json.dumps({name[:60]: round(us / 1e3, 3) for name, us in top}),
+          + json.dumps({name: round(us / 1e3, 3) for name, us in heaviest}),
           flush=True)
 
 
@@ -350,17 +634,51 @@ def main() -> int:
     print(f"built {names} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     rows = kernel_phase(torch, fa)
+    bwd_rows = bwd_kernel_phase(torch, fa)
     model_check_phase(torch, llama)
-    launches = slice_phase(torch, fa, llama)
+    grad_check_phase(torch, fa, llama)
+    serve = slice_phase(torch, fa, llama)
+    train = train_phase(torch, fa, llama)
 
-    # S=4096, the largest prefill of the slice.
+    # Forward: S=4096, the largest prefill of the serving slice.  Backward:
+    # the training slice's shape (the first backward case).
     main_row = next(r for r in rows if r["shape"].startswith("B=1 Sq=4096 "))
+    bwd_row = bwd_rows[0]
+
+    def launches(key):
+        return {"launches": serve[key] + train[key],
+                "launches_by_path": {"serve": serve[key],
+                                     "train": train[key]}}
+
+    def bwd_entry(name, key, grads, line):
+        bound_ms, bound_by = bwd_row["bounds"][key]
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "ant_ray_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+            "replaces": f"ant_ray_tpu/ops/pallas/flash_attention.py:{line}",
+            **launches(key),
+            "max_abs_err": max(r["abs_err"][g] for r in bwd_rows
+                               for g in grads),
+            "max_rel_err": max(r["rel_err"][g] for r in bwd_rows
+                               for g in grads),
+            "ms": bwd_row[f"{key}_ms"],
+            "plain_ms": bwd_row["plain_ms"],
+            "plain": "flash_attention_backward_ref: dq, dk and dv in one call",
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": bwd_row["library_ms"],
+            "library": "scaled_dot_product_attention backward (fwd+bwd "
+                       "minus fwd): dq, dk and dv",
+            "shape": bwd_row["shape"],
+        }
+
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "ant_ray_tpu_torch/ops/csrc/flash_attention_fwd.cu",
         "replaces": "ant_ray_tpu/ops/pallas/flash_attention.py:56",
-        "launches": launches,
+        **launches("fwd"),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -368,7 +686,9 @@ def main() -> int:
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "shape": main_row["shape"],
-    }]}), flush=True)
+    }, bwd_entry("flash_attention_bwd_dq", "dq", ("dq",), 196),
+        bwd_entry("flash_attention_bwd_dkv", "dkv", ("dk", "dv"), 301)]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,24 +1,30 @@
-"""The hand-written CUDA flash-attention kernel against its plain PyTorch
-version, on the card.  These tests need a CUDA device and ``nvcc``: they
-skip on a machine without a card.  This file imports neither JAX nor the
+"""The hand-written CUDA flash-attention kernels (forward, and the dQ and
+dK/dV backward) against their plain PyTorch versions, on the card.
+These tests need a CUDA device and ``nvcc``: they skip on a machine
+without a card.  This file imports neither JAX nor the
 JAX package, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 
-Tolerances as in chip_smoke.py: bf16 out max abs error <= 2e-2 (p and
-out round to bf16 at other points of the tiled loop), lse <= 1e-3; fp32
-both <= 1e-4.  TF32 is switched off, so fp32 matmuls of the plain
-version run in full fp32.
+Tolerances as in chip_smoke.py: forward bf16 out max abs error <= 2e-2
+(p and out round to bf16 at other points of the tiled loop), lse <=
+1e-3; fp32 both <= 1e-4.  Backward: max abs error over max |ref| per
+tensor, bf16 <= 1e-2 (p and ds round to bf16 at the same points on both
+sides, but sums run in another order, so a value near a rounding
+boundary may land one bf16 ulp away), fp32 <= 1e-4.  TF32 is switched
+off, so fp32 matmuls of the plain versions run in full fp32.
 """
 
 import pytest
 import torch
 
 from ant_ray_tpu_torch.ops import flash_attention as fa
+from ant_ray_tpu_torch.ops.attention import attention
 
 pytestmark = pytest.mark.gpu
 
 TOL = {torch.bfloat16: (2e-2, 1e-3), torch.float32: (1e-4, 1e-4)}
+BWD_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 
 
 @pytest.fixture
@@ -70,3 +76,61 @@ def test_kernel_raises_on_what_it_does_not_take(cuda):
     q, k, v = _qkv(cuda, 128, 128, 4, 2, 64, torch.float16)
     with pytest.raises(ValueError, match="bfloat16"):
         fa.flash_attention_fwd_lse(q, k, v)
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("q_len,kv_len,heads,kv_heads,dim,dtype,causal", [
+    (256, 256, 8, 2, 128, torch.bfloat16, True),
+    (256, 256, 8, 8, 128, torch.bfloat16, False),
+    (128, 256, 4, 1, 64, torch.float32, True),
+    (192, 192, 4, 2, 256, torch.float32, False),
+    (128, 128, 4, 4, 256, torch.bfloat16, True),
+])
+def test_backward_kernels_match_plain_version(cuda, q_len, kv_len, heads,
+                                              kv_heads, dim, dtype, causal):
+    q, k, v = _qkv(cuda, q_len, kv_len, heads, kv_heads, dim, dtype)
+    do = torch.randn(q.shape, generator=cuda, device="cuda").to(dtype)
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal)
+    before = (fa.bwd_dq_launch_count, fa.bwd_dkv_launch_count)
+    got = fa.flash_attention_backward(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.bwd_dq_launch_count, fa.bwd_dkv_launch_count) == \
+        (before[0] + 1, before[1] + 1)
+    want = fa.flash_attention_backward_ref(q, k, v, out, lse, do,
+                                           causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert _rel_err(g, w) <= BWD_REL_TOL[dtype]
+
+
+def test_gradients_through_flash_function_match_reference(cuda):
+    q, k, v = _qkv(cuda, 256, 256, 8, 2, 128, torch.float32)
+    w = torch.randn(q.shape, generator=cuda, device="cuda")
+    grads = []
+    for impl in ("flash", "reference"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = attention(*leaves, causal=True, impl=impl)
+        grads.append(torch.autograd.grad((out * w).sum(), leaves))
+    for g, r in zip(*grads):
+        assert _rel_err(g, r) <= BWD_REL_TOL[torch.float32]
+
+
+def test_raw_forward_raises_under_grad_mode(cuda):
+    q, k, v = _qkv(cuda, 128, 128, 4, 2, 64, torch.bfloat16)
+    q.requires_grad_()
+    with pytest.raises(RuntimeError, match="attention"):
+        fa.flash_attention_fwd_lse(q, k, v)
+    with torch.no_grad():
+        fa.flash_attention_fwd_lse(q, k, v)
+
+
+def test_backward_wrapper_raises_on_what_it_does_not_take(cuda):
+    q, k, v = _qkv(cuda, 128, 128, 4, 2, 96, torch.bfloat16)
+    lse = torch.zeros((2, 4, 128), device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_backward(q, k, v, q, lse, q, causal=True)
