@@ -1,7 +1,9 @@
 """Flash attention: the hand-written CUDA kernels (forward with
 logsumexp, ``csrc/flash_attention_fwd.cu``; backward as a dQ sweep and a
-dK/dV sweep, ``csrc/flash_attention_bwd.cu``), their ctypes bindings,
-and their plain PyTorch versions.
+dK/dV sweep, on the tensor cores for bf16 at head_dim 64 and 128,
+``csrc/flash_attention_bwd_sm90.cu``, and on the CUDA cores for the rest,
+``csrc/flash_attention_bwd.cu``), their ctypes bindings, and their plain
+PyTorch versions.
 
 Counterparts of ``flash_attention_fwd_lse`` and
 ``flash_attention_backward`` in ant_ray_tpu/ops/pallas/flash_attention.py,
@@ -20,14 +22,16 @@ import torch
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
+SM90_BWD_HEAD_DIMS = (64, 128)
 BLOCK = 64   # the kernels' lengths must be multiples of it
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches of each CUDA kernel; chip_smoke.py resets and reads them to
 # show that a main path went through the kernels.
-launch_count = 0          # flash_attention_fwd
-bwd_dq_launch_count = 0   # flash_attention_bwd_dq
-bwd_dkv_launch_count = 0  # flash_attention_bwd_dkv
+launch_count = 0           # flash_attention_fwd
+bwd_dq_launch_count = 0    # dQ, either route
+bwd_dkv_launch_count = 0   # dK/dV, either route
+bwd_sm90_launch_count = 0  # backward calls that ran the sm90 pair
 
 # C entry point -> (library, number of pointer arguments).  Every entry
 # point then takes batch, q_len, kv_len, heads, kv_heads, head_dim and
@@ -36,6 +40,8 @@ _ENTRY_POINTS = {
     "flash_attention_fwd": ("flash_attention_fwd", 5),
     "flash_attention_bwd_dq": ("flash_attention_bwd", 7),
     "flash_attention_bwd_dkv": ("flash_attention_bwd", 8),
+    "flash_attention_bwd_dq_sm90": ("flash_attention_bwd_sm90", 7),
+    "flash_attention_bwd_dkv_sm90": ("flash_attention_bwd_sm90", 8),
 }
 _fns: dict = {}
 
@@ -96,9 +102,9 @@ def _check(q, k, v):
 
 
 def _check_kernel_inputs(q, k):
-    """What the CUDA kernels take; anything else raises."""
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash-attention kernel for device {q.device}")
+    """What the CUDA kernels take; anything else raises.  The device is
+    checked last, so that the shape rules can be tested on the meta
+    device."""
     batch, q_len, _, head_dim = q.shape
     kv_len = k.shape[1]
     if q.dtype not in _DTYPE_CODES:
@@ -110,6 +116,18 @@ def _check_kernel_inputs(q, k):
     if q_len % BLOCK or kv_len % BLOCK or not (q_len and kv_len and batch):
         raise ValueError(f"flash kernel wants lengths that are positive "
                          f"multiples of {BLOCK}; got ({q_len}, {kv_len})")
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention kernel for device {q.device}")
+
+
+def _check_aligned(*tensors):
+    """The sm90 kernels copy 16 bytes at a time: every base address must
+    lie on a 16-byte boundary."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"sm90 backward kernels want 16-byte aligned "
+                             f"tensors; a {t.dtype} {tuple(t.shape)} tensor "
+                             f"starts at {t.data_ptr():#x}")
 
 
 def _scores(q, k, causal, scale):
@@ -245,17 +263,33 @@ def flash_attention_backward_ref(q, k, v, out, lse, do, *, causal: bool,
             dv.to(v.dtype).transpose(1, 2))
 
 
+def _bwd_route(dtype, head_dim) -> str:
+    """Which pair of backward kernels takes inputs of this dtype and
+    head_dim: "sm90", the tensor-core kernels of
+    csrc/flash_attention_bwd_sm90.cu, for bf16 at head_dim 64 or 128;
+    "simt", the CUDA-core kernels of csrc/flash_attention_bwd.cu, for the
+    rest.  fp32 stays on the CUDA cores because no tensor-core path keeps
+    fp32 results (TF32 would break the fp32 gradient check's 1e-4); bf16
+    at head_dim 256 because its dK and dV accumulators (2 x 64x256 fp32
+    per warpgroup) do not fit in registers in the sm90 design.  This is
+    routing, not a fallback: each route launches its kernels or raises."""
+    if dtype == torch.bfloat16 and head_dim in SM90_BWD_HEAD_DIMS:
+        return "sm90"
+    return "simt"
+
+
 def flash_attention_backward(q, k, v, out, lse, do, *, causal: bool,
                              scale: float | None = None):
     """Returns (dq, dk, dv) in the input layouts (q: (B,S,H,D); k/v:
     (B,S,KVH,D)), given the forward's ``out`` and ``lse`` (B,H,Sq) and
     the output gradient ``do``.
 
-    CUDA tensors go to the dQ kernel and then the dK/dV kernel (same
-    dtypes, head dims and lengths as the forward; anything else raises),
-    with delta = rowsum(dO * O) computed here in fp32.  CPU tensors go to
+    CUDA tensors go to the dQ kernel and then the dK/dV kernel of the
+    route :func:`_bwd_route` picks (same dtypes, head dims and lengths as
+    the forward; anything else raises), with delta = rowsum(dO * O)
+    computed here in fp32.  CPU tensors go to
     :func:`flash_attention_backward_ref`."""
-    global bwd_dq_launch_count, bwd_dkv_launch_count
+    global bwd_dq_launch_count, bwd_dkv_launch_count, bwd_sm90_launch_count
     _check(q, k, v)
     _check_residuals(q, out, lse, do)
     if q.device.type == "cpu":
@@ -266,10 +300,16 @@ def flash_attention_backward(q, k, v, out, lse, do, *, causal: bool,
     q, k, v, do, lse = (t.contiguous() for t in (q, k, v, do, lse))
     delta = _delta(out, do).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_attention_bwd_dq", (q, k, v, do, lse, delta, dq), q, k,
-            scale, causal)
+    route = _bwd_route(q.dtype, q.shape[3])
+    suffix = "_sm90" if route == "sm90" else ""
+    if route == "sm90":
+        _check_aligned(q, k, v, do, lse, delta, dq, dk, dv)
+    _launch("flash_attention_bwd_dq" + suffix,
+            (q, k, v, do, lse, delta, dq), q, k, scale, causal)
     bwd_dq_launch_count += 1
-    _launch("flash_attention_bwd_dkv", (q, k, v, do, lse, delta, dk, dv), q,
-            k, scale, causal)
+    _launch("flash_attention_bwd_dkv" + suffix,
+            (q, k, v, do, lse, delta, dk, dv), q, k, scale, causal)
     bwd_dkv_launch_count += 1
+    if route == "sm90":
+        bwd_sm90_launch_count += 1
     return dq, dk, dv

@@ -10,7 +10,8 @@ final line is printed:
 
 1. Setup: a CUDA device must exist; print the card's name and power
    limit (nvidia-smi); build every hand-written kernel from the sources
-   in this checkout, timed.
+   in this checkout, timed, and print the registers and spill bytes
+   ptxas reports for each tensor-core backward kernel.
 2. Kernels: the flash-attention forward kernel against its plain
    PyTorch version at the serving path's shapes (Llama-3-8B prefill:
    B=1, H=32, KVH=8, D=128, bf16, causal), at the training slice's
@@ -22,25 +23,37 @@ final line is printed:
    torch's scaled_dot_product_attention as a yardstick the port never
    calls; the bound is the larger of FLOPs over the card's peak for the
    input type and bytes over 3.35 TB/s.
-3. Backward kernels: dQ and dK/dV through flash_attention_backward
-   against flash_attention_backward_ref at the training slice's shape
-   and five others (BWD_TOL: max abs error over max |ref| per tensor).
-   Times: each kernel, the whole backward, its plain version, and as a
-   yardstick SDPA's backward (fwd+bwd through autograd minus fwd); the
-   bound counts 6*D (dQ), 8*D (dK/dV) and 10*D (the whole backward)
-   FLOPs per (q, k) pair against the bytes each must move.
+3. Backward kernels: dQ and dK/dV through flash_attention_backward, on
+   the route it picks (tensor-core "sm90" kernels for bf16 at head_dim
+   64 and 128, CUDA-core "simt" kernels otherwise), against
+   flash_attention_backward_ref at the training slice's shape and nine
+   others: llama3-1b's heads (D=64), length 192 (ragged on 128-row
+   tiles), Sq != Skv, fp32, and D=256 (BWD_TOL: max abs error over max
+   |ref| per tensor).  Each line gives per kernel its route, time,
+   achieved TFLOP/s and share of its bound; then the whole backward,
+   its plain version, and as a yardstick SDPA's backward (fwd+bwd
+   through autograd minus fwd).  The bound counts 6*D (dQ), 8*D (dK/dV)
+   and 10*D (the whole backward) FLOPs per (q, k) pair against the
+   bytes each must move.  At the training shape the CUDA-core pair is
+   also checked and timed, launched directly, for a before-and-after on
+   one card.
 4. Correctness of the model path on a small fp32 model with head_dim
    128: logits through the flash kernel against the plain reference
    attention on the card, and against the same model on the CPU; then
-   the loss and every gradient leaf through the kernels against
-   reference attention on the card and against the CPU, under remat
-   "none" and "full" (the forward kernel runs twice per layer there).
+   the loss and every gradient leaf through the kernels (the CUDA-core
+   backward) against reference attention on the card and against the
+   CPU, under remat "none" and "full" (the forward kernel runs twice per
+   layer there).  Then the same model in bf16: loss and every gradient
+   leaf through the sm90 backward against bf16 reference attention
+   (BF16_GRAD_TOL, reason beside it), with the sm90 pair run once per
+   layer.
 5. The serving slice: LLMEngine("llama3-8b", slots=8, max_seq=4096) with
    random weights from a fixed seed, five greedy prompts of 20, 100,
    700, 1500 and 3000 random token ids (buckets 32 to 4096) and one
    seeded sampled prompt of 300, 32 new tokens each.  The flash
    kernel's launch count is reset just before and read just after: it
-   must equal n_layers for every prefill with a bucket of 128 or more.
+   must equal n_layers for every prefill with a bucket of 128 or more,
+   with no backward launch.
    The 8B logits through the kernel are checked against blockwise
    attention, then prefill time per bucket, decode tokens/s and peak
    memory are printed, and a torch.profiler trace of a short and a long
@@ -49,10 +62,13 @@ final line is printed:
    layers, bf16, random weights from seed 0, one fixed batch of 8 x 2049
    token ids, AdamW (make_optimizer), remat "none": 3 warm-up and 10
    timed train_step calls.  The launch counts are reset just before and
-   read just after: every step must launch each kernel once per layer.
-   Prints the step time, tokens/s, MFU against the bf16 peak, peak
-   memory and a torch.profiler line of one step.
-7. One line {"kernels": [...]}, then the last line
+   read just after: every step must launch each kernel once per layer,
+   the backward on the sm90 route.  Prints the step time, tokens/s, MFU
+   against the bf16 peak, peak memory and a torch.profiler line of one
+   step.
+7. One line {"kernels": [...]} with the forward and the four backward
+   kernels (sm90 and CUDA-core dQ and dK/dV; launches by path, the main
+   path being serving and training), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 comparisons are
@@ -63,6 +79,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -80,6 +97,15 @@ TOL = {"bfloat16": (2e-2, 1e-3), "float32": (1e-4, 1e-4)}
 BWD_TOL = {"bfloat16": {"dq": 1e-2, "dk": 1e-2, "dv": 1e-2},
            "float32": {"dq": 1e-4, "dk": 1e-4, "dv": 1e-4}}
 GRAD_TOL = 1e-4   # fp32 model gradients, per leaf, over max |ref|
+# bf16 model gradients through the sm90 kernels against bf16 reference
+# attention, per leaf, over max |ref|.  The two paths round at different
+# points (the kernels round p before P.V, and p and ds before every
+# backward product; reference attention keeps its softmax in fp32), and
+# each rounding is up to 2^-9 relative; two layers of bf16 matmuls carry
+# that into every leaf.  5e-2 is about ten such roundings in a row, and
+# far below what a wrong tile, mask or layout gives (order 1).
+BF16_GRAD_TOL = 5e-2
+BF16_LOSS_TOL = 1e-2   # the loss (~5.7) on fp32 logits of bf16 layers
 REPS = 10
 
 
@@ -124,24 +150,22 @@ def _bound(batch, q_len, kv_len, heads, kv_heads, dim, dtype_name, causal):
 
 def _bwd_bounds(batch, q_len, kv_len, heads, kv_heads, dim, dtype_name,
                 causal):
-    """Least time (ms) and what sets it for the dQ kernel (S, dP, dS.K:
-    6*D FLOPs per pair; reads q, k, v, dO, lse, delta, writes dq), the
-    dK/dV kernel (S, dP, P^T.dO, dS^T.Q: 8*D; reads the same, writes dk,
-    dv) and the whole backward (five matmuls, 10*D; reads q, k, v, out,
-    dO, lse, writes dq, dk, dv)."""
+    """Least time (ms), what sets it, and the FLOPs counted, for the dQ
+    kernel (S, dP, dS.K: 6*D FLOPs per pair; reads q, k, v, dO, lse,
+    delta, writes dq), the dK/dV kernel (S, dP, P^T.dO, dS^T.Q: 8*D;
+    reads the same, writes dk, dv) and the whole backward (five matmuls,
+    10*D; reads q, k, v, out, dO, lse, writes dq, dk, dv)."""
     per_dim = batch * heads * dim * _pairs(q_len, kv_len, causal)
     elt = 2 if dtype_name == "bfloat16" else 4
     q_bytes = elt * batch * q_len * heads * dim
     kv_bytes = elt * batch * kv_len * kv_heads * dim
     row_bytes = 4 * batch * heads * q_len
-    return {
-        "dq": _roofline(6.0 * per_dim, 3 * q_bytes + 2 * kv_bytes
-                        + 2 * row_bytes, dtype_name),
-        "dkv": _roofline(8.0 * per_dim, 2 * q_bytes + 4 * kv_bytes
-                         + 2 * row_bytes, dtype_name),
-        "backward": _roofline(10.0 * per_dim, 4 * q_bytes + 4 * kv_bytes
-                              + row_bytes, dtype_name),
-    }
+    work = {"dq": (6.0, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes),
+            "dkv": (8.0, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes),
+            "backward": (10.0, 4 * q_bytes + 4 * kv_bytes + row_bytes)}
+    return {key: (*_roofline(per * per_dim, nbytes, dtype_name),
+                  per * per_dim)
+            for key, (per, nbytes) in work.items()}
 
 
 def _shape(batch, q_len, kv_len, heads, kv_heads, dim, dtype_name, causal):
@@ -209,18 +233,65 @@ def kernel_phase(torch, fa):
     return results
 
 
+def _bwd_errors(got, want, name, shape, label):
+    """Max abs error and max abs error over max |ref| per tensor; raises
+    beyond BWD_TOL."""
+    abs_err, rel_err = {}, {}
+    for key, g, w in zip(("dq", "dk", "dv"), got, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{key} is {g.dtype} {tuple(g.shape)}, "
+                                 f"want {w.dtype} {tuple(w.shape)}")
+        abs_err[key] = (g.float() - w.float()).abs().max().item()
+        rel_err[key] = abs_err[key] / w.float().abs().max().item()
+    if any(rel_err[key] > BWD_TOL[name][key] for key in rel_err):
+        raise AssertionError(
+            f"{label} disagree with their plain version at {shape}: max abs "
+            f"error over max |ref| {rel_err} (tol {BWD_TOL[name]})")
+    return abs_err, rel_err
+
+
+def _kernel_times(torch, fa, suffix, q, k, v, do, lse, delta, causal):
+    """Median ms of the dQ and dK/dV kernels named with ``suffix``
+    ("_sm90" or "" for the CUDA-core pair), launched directly (no count),
+    and their outputs from the last launch."""
+    scale = q.shape[3] ** -0.5
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    dq_ms = _median_ms(torch, lambda: fa._launch(
+        "flash_attention_bwd_dq" + suffix, (q, k, v, do, lse, delta, dq), q,
+        k, scale, causal))
+    dkv_ms = _median_ms(torch, lambda: fa._launch(
+        "flash_attention_bwd_dkv" + suffix,
+        (q, k, v, do, lse, delta, dk, dv), q, k, scale, causal))
+    return dq_ms, dkv_ms, (dq, dk, dv)
+
+
+def _kernel_stats(ms, bound):
+    """Per kernel: ms, achieved TFLOP/s of the FLOPs its bound counts, and
+    its share of the bound."""
+    bound_ms, _by, flops = bound
+    return {"ms": ms, "tflops": flops / (ms * 1e-3) / 1e12,
+            "share_of_bound": bound_ms / ms}
+
+
 def bwd_kernel_phase(torch, fa):
-    """The dQ and dK/dV kernels against flash_attention_backward_ref."""
+    """The dQ and dK/dV kernels, through the route the wrapper picks,
+    against flash_attention_backward_ref; at the training shape also the
+    CUDA-core pair of PR 2, launched directly, for a before-and-after on
+    one card."""
     import torch.nn.functional as F  # noqa: PLC0415
 
     bf16, fp32 = torch.bfloat16, torch.float32
     cases = [  # (batch, q_len, kv_len, heads, kv_heads, dim, dtype, causal)
         (8, 2048, 2048, 8, 4, 128, bf16, True),    # the training slice
         (1, 4096, 4096, 32, 8, 128, bf16, True),
+        (1, 2048, 2048, 32, 8, 64, bf16, True),    # llama3-1b's heads
+        (2, 192, 192, 8, 2, 128, bf16, True),      # ragged on 128-row tiles
+        (2, 192, 192, 8, 8, 64, bf16, False),
         (1, 1024, 1024, 32, 8, 64, fp32, True),
         (1, 1024, 1024, 32, 32, 128, bf16, False),
         (1, 128, 256, 32, 8, 128, bf16, True),
         (1, 512, 512, 8, 2, 256, fp32, True),
+        (1, 512, 512, 8, 2, 256, bf16, True),
     ]
     gen = torch.Generator(device="cuda").manual_seed(2)
     results = []
@@ -235,42 +306,52 @@ def bwd_kernel_phase(torch, fa):
         name = str(dtype).removeprefix("torch.")
         shape = _shape(batch, q_len, kv_len, heads, kv_heads, dim, name,
                        causal)
+        route = fa._bwd_route(dtype, dim)
         with torch.no_grad():
             out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal)
+        sm90_before = fa.bwd_sm90_launch_count
         got = fa.flash_attention_backward(q, k, v, out, lse, do,
                                           causal=causal)
         torch.cuda.synchronize()
+        took = "sm90" if fa.bwd_sm90_launch_count > sm90_before else "simt"
+        if took != route:
+            raise AssertionError(f"backward at {shape} took route {took}, "
+                                 f"expected {route}")
         want = fa.flash_attention_backward_ref(q, k, v, out, lse, do,
                                                causal=causal)
-        abs_err, rel_err = {}, {}
-        for key, g, w in zip(("dq", "dk", "dv"), got, want):
-            if g.dtype != w.dtype or g.shape != w.shape:
-                raise AssertionError(f"{key} is {g.dtype} {tuple(g.shape)}, "
-                                     f"want {w.dtype} {tuple(w.shape)}")
-            abs_err[key] = (g.float() - w.float()).abs().max().item()
-            rel_err[key] = abs_err[key] / w.float().abs().max().item()
-        if any(rel_err[key] > BWD_TOL[name][key] for key in rel_err):
-            raise AssertionError(
-                f"backward kernels disagree with their plain version at "
-                f"{shape}: max abs error over max |ref| {rel_err} (tol "
-                f"{BWD_TOL[name]})")
-        del got, want
+        abs_err, rel_err = _bwd_errors(got, want, name, shape,
+                                       f"{route} backward kernels")
+        del got
 
-        # Each kernel alone, on the wrapper's own inputs and outputs.
-        scale = dim ** -0.5
+        bounds = _bwd_bounds(batch, q_len, kv_len, heads, kv_heads, dim,
+                             name, causal)
+        suffix = "_sm90" if route == "sm90" else ""
         delta = fa._delta(out, do).contiguous()
-        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-        dq_ms = _median_ms(torch, lambda: fa._launch(
-            "flash_attention_bwd_dq", (q, k, v, do, lse, delta, dq), q, k,
-            scale, causal))
-        dkv_ms = _median_ms(torch, lambda: fa._launch(
-            "flash_attention_bwd_dkv", (q, k, v, do, lse, delta, dk, dv), q,
-            k, scale, causal))
+        dq_ms, dkv_ms, _ = _kernel_times(torch, fa, suffix, q, k, v, do,
+                                         lse, delta, causal)
+        kernels = {"dq": {"route": route, **_kernel_stats(dq_ms,
+                                                          bounds["dq"])},
+                   "dkv": {"route": route, **_kernel_stats(dkv_ms,
+                                                           bounds["dkv"])}}
+        simt = None
+        if route == "sm90" and not results:
+            # PR 2's CUDA-core pair on the same inputs, launched directly:
+            # the wrapper no longer routes bf16 at this head_dim there.
+            s_dq_ms, s_dkv_ms, s_got = _kernel_times(
+                torch, fa, "", q, k, v, do, lse, delta, causal)
+            s_abs, s_rel = _bwd_errors(s_got, want, name, shape,
+                                       "CUDA-core backward kernels")
+            simt = {"abs_err": s_abs, "rel_err": s_rel,
+                    "dq": {"route": "simt", **_kernel_stats(s_dq_ms,
+                                                            bounds["dq"])},
+                    "dkv": {"route": "simt", **_kernel_stats(s_dkv_ms,
+                                                             bounds["dkv"])}}
+            del s_got
+        del want, delta
         bwd_ms = _median_ms(torch, lambda: fa.flash_attention_backward(
             q, k, v, out, lse, do, causal=causal))
         plain_ms = _median_ms(torch, lambda: fa.flash_attention_backward_ref(
             q, k, v, out, lse, do, causal=causal))
-        del dq, dk, dv, delta
 
         # SDPA's backward as a yardstick: fwd+bwd through autograd minus
         # fwd, GQA without a head repeat, top-left causal as here.
@@ -285,15 +366,28 @@ def bwd_kernel_phase(torch, fa):
         sdpa_fwd_ms = _median_ms(torch, sdpa)
         sdpa_both_ms = _median_ms(torch, lambda: torch.autograd.grad(
             sdpa(), (qt, kt, vt), dot))
-        bounds = _bwd_bounds(batch, q_len, kv_len, heads, kv_heads, dim,
-                             name, causal)
-        row = {"shape": shape, "abs_err": abs_err, "rel_err": rel_err,
-               "tol": BWD_TOL[name], "dq_ms": dq_ms, "dkv_ms": dkv_ms,
-               "bwd_ms": bwd_ms, "plain_ms": plain_ms,
+        row = {"shape": shape, "route": route, "abs_err": abs_err,
+               "rel_err": rel_err, "tol": BWD_TOL[name], "kernels": kernels,
+               "bwd_ms": bwd_ms,
+               "bwd": _kernel_stats(bwd_ms, bounds["backward"]),
+               "plain_ms": plain_ms,
                "library_ms": sdpa_both_ms - sdpa_fwd_ms,
                "sdpa_fwd_ms": sdpa_fwd_ms, "sdpa_fwd_bwd_ms": sdpa_both_ms,
                "bounds": bounds}
+        if simt is not None:
+            row["simt"] = simt
         print("kernel flash_attention_bwd " + json.dumps(row), flush=True)
+        if simt is not None:
+            pair_ms = simt["dq"]["ms"] + simt["dkv"]["ms"]
+            print(f"backward at {shape}: sm90 dQ {dq_ms:.3f} ms "
+                  f"({kernels['dq']['share_of_bound']:.1%} of its bound), "
+                  f"dK/dV {dkv_ms:.3f} ms "
+                  f"({kernels['dkv']['share_of_bound']:.1%}); whole backward "
+                  f"{bwd_ms:.3f} ms against the CUDA-core pair's "
+                  f"{pair_ms:.3f} ms ({pair_ms / bwd_ms:.1f}x faster) and "
+                  f"SDPA's backward {row['library_ms']:.3f} ms "
+                  f"({bwd_ms / row['library_ms']:.2f}x its time)",
+                  flush=True)
         results.append(row)
         del q, k, v, do, out, lse, qt, kt, vt, dot
     return results
@@ -318,11 +412,13 @@ def model_check_phase(torch, llama):
         raise AssertionError("model check failed")
 
 
-def _small_model(torch, llama):
-    """The small fp32 model of the correctness checks (head_dim 128)."""
+def _small_model(torch, llama, dtype=None):
+    """The small model of the correctness checks (head_dim 128), fp32
+    unless ``dtype`` says otherwise."""
     cfg = dataclasses.replace(
         llama.CONFIGS["tiny"], dim=512, n_heads=4, n_kv_heads=2,
-        mlp_dim=512, n_layers=2, max_seq=512, dtype=torch.float32)
+        mlp_dim=512, n_layers=2, max_seq=512,
+        dtype=dtype or torch.float32)
     params = llama.init_params(
         cfg, generator=torch.Generator(device="cuda").manual_seed(1),
         device="cuda")
@@ -337,11 +433,23 @@ def _to_cpu(params):
 
 def _reset_counts(fa):
     fa.launch_count = fa.bwd_dq_launch_count = fa.bwd_dkv_launch_count = 0
+    fa.bwd_sm90_launch_count = 0
 
 
 def _counts(fa):
+    """Launches since the last reset: the forward, dQ and dK/dV on either
+    route, and backward calls that took the sm90 pair."""
     return {"fwd": fa.launch_count, "dq": fa.bwd_dq_launch_count,
-            "dkv": fa.bwd_dkv_launch_count}
+            "dkv": fa.bwd_dkv_launch_count, "sm90": fa.bwd_sm90_launch_count}
+
+
+def _by_kernel(counts):
+    """Launches of each of the five kernels from a _counts() dict."""
+    return {"flash_attention_fwd": counts["fwd"],
+            "flash_attention_bwd_dq_sm90": counts["sm90"],
+            "flash_attention_bwd_dkv_sm90": counts["sm90"],
+            "flash_attention_bwd_dq": counts["dq"] - counts["sm90"],
+            "flash_attention_bwd_dkv": counts["dkv"] - counts["sm90"]}
 
 
 def grad_check_phase(torch, fa, llama):
@@ -353,18 +461,10 @@ def grad_check_phase(torch, fa, llama):
         np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 257)))
 
     def loss_and_grads(params, toks, impl, remat):
-        leaves = {k: (v.detach().clone().requires_grad_() if k != "layers"
-                      else {n: w.detach().clone().requires_grad_()
-                            for n, w in v.items()})
-                  for k, v in params.items()}
-        flat = {**{k: v for k, v in leaves.items() if k != "layers"},
-                **{f"layers.{n}": w for n, w in leaves["layers"].items()}}
-        loss = llama.loss_fn(leaves, {"tokens": toks}, cfg, attn_impl=impl,
-                             remat=remat)
-        grads = torch.autograd.grad(loss, list(flat.values()))
-        return loss.item(), dict(zip(flat, grads))
+        return _loss_and_grads(torch, llama, cfg, params, toks, impl, remat)
 
     cpu_params = _to_cpu(params)
+    total = dict.fromkeys(_counts(fa), 0)
     for remat in ("none", "full"):
         _reset_counts(fa)
         loss, grads = loss_and_grads(params, toks.cuda(), "flash", remat)
@@ -381,7 +481,8 @@ def grad_check_phase(torch, fa, llama):
                       / cpu_grads[k].abs().max().item()
                       for k, g in grads.items())
         want = {"fwd": cfg.n_layers * (2 if remat == "full" else 1),
-                "dq": cfg.n_layers, "dkv": cfg.n_layers}
+                "dq": cfg.n_layers, "dkv": cfg.n_layers, "sm90": 0}
+        total = {key: total[key] + launches[key] for key in total}
         print(f"gradient check (fp32, head_dim 128, S=256, remat {remat}): "
               f"loss {loss:.6f}, reference {ref_loss:.6f}, CPU "
               f"{cpu_loss:.6f}; max grad error over max |ref| per leaf: vs "
@@ -392,6 +493,67 @@ def grad_check_phase(torch, fa, llama):
                 and err_ref <= GRAD_TOL and err_cpu <= GRAD_TOL
                 and launches == want):
             raise AssertionError(f"gradient check failed under remat {remat}")
+    return total
+
+
+def _loss_and_grads(torch, llama, cfg, params, toks, impl, remat):
+    """Loss and the gradient of every leaf (by name) of a fresh copy of
+    ``params``."""
+    leaves = {k: (v.detach().clone().requires_grad_() if k != "layers"
+                  else {n: w.detach().clone().requires_grad_()
+                        for n, w in v.items()})
+              for k, v in params.items()}
+    flat = {**{k: v for k, v in leaves.items() if k != "layers"},
+            **{f"layers.{n}": w for n, w in leaves["layers"].items()}}
+    loss = llama.loss_fn(leaves, {"tokens": toks}, cfg, attn_impl=impl,
+                         remat=remat)
+    grads = torch.autograd.grad(loss, list(flat.values()))
+    return loss.item(), dict(zip(flat, grads))
+
+
+def bf16_grad_check_phase(torch, fa, llama):
+    """Loss and every gradient leaf of the small model in bf16 through
+    the sm90 backward kernels, against reference attention on the card
+    in bf16; the spread of bf16 reference attention around the same
+    model in fp32 is printed beside it."""
+    cfg, params = _small_model(torch, llama, torch.bfloat16)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = {k: (v.float() if k != "layers" else
+                    {n: w.float() for n, w in v.items()})
+                for k, v in params.items()}
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 257))).cuda()
+    _reset_counts(fa)
+    loss, grads = _loss_and_grads(torch, llama, cfg, params, toks, "flash",
+                                  "none")
+    torch.cuda.synchronize()
+    launches = _counts(fa)
+    ref_loss, ref_grads = _loss_and_grads(torch, llama, cfg, params, toks,
+                                          "reference", "none")
+    _, fp32_grads = _loss_and_grads(torch, llama, cfg32, params32, toks,
+                                    "reference", "none")
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+
+    err = {k: rel(g, ref_grads[k]) for k, g in grads.items()}
+    spread = {k: rel(g, fp32_grads[k]) for k, g in ref_grads.items()}
+    worst = max(err, key=err.get)
+    want = {"fwd": cfg.n_layers, "dq": cfg.n_layers, "dkv": cfg.n_layers,
+            "sm90": cfg.n_layers}
+    print(f"gradient check (bf16, head_dim 128, S=256, remat none, sm90 "
+          f"backward): loss {loss:.6f}, reference {ref_loss:.6f}; max grad "
+          f"error over max |ref| per leaf vs bf16 reference "
+          f"{err[worst]:.3e} ({worst}; tol {BF16_GRAD_TOL}), bf16 reference "
+          f"vs fp32 reference up to {max(spread.values()):.3e}; launches "
+          f"{launches} (expected {want})", flush=True)
+    print("bf16 gradient errors per leaf " + json.dumps(
+        {k: [err[k], spread[k]] for k in err}), flush=True)
+    if not (abs(loss - ref_loss) <= BF16_LOSS_TOL
+            and err[worst] <= BF16_GRAD_TOL and launches == want):
+        raise AssertionError("bf16 gradient check failed")
+    return launches
 
 
 def train_phase(torch, fa, llama):
@@ -420,7 +582,8 @@ def train_phase(torch, fa, llama):
     torch.cuda.reset_peak_memory_stats()
     _reset_counts(fa)
     losses, step_ms = [], []
-    per_step = {"fwd": cfg.n_layers, "dq": cfg.n_layers, "dkv": cfg.n_layers}
+    per_step = {"fwd": cfg.n_layers, "dq": cfg.n_layers, "dkv": cfg.n_layers,
+                "sm90": cfg.n_layers}
     for i in range(13):
         before = _counts(fa)
         torch.cuda.synchronize()
@@ -493,7 +656,7 @@ def slice_phase(torch, fa, llama):
           f"launches {launches['fwd']} (expected {expected}), backward "
           f"kernel launches {launches['dq']} and {launches['dkv']} "
           f"(expected 0)", flush=True)
-    if launches != {"fwd": expected, "dq": 0, "dkv": 0}:
+    if launches != {"fwd": expected, "dq": 0, "dkv": 0, "sm90": 0}:
         raise AssertionError(f"serving launched {launches}, expected "
                              f"{expected} forward and no backward launches")
 
@@ -609,6 +772,26 @@ def _profile(torch, label, fn, top=6):
           flush=True)
 
 
+def _print_ptxas(build, lib):
+    """Registers and spills of each kernel of ``csrc/<lib>.cu``, from the
+    build's -Xptxas=-v log."""
+    log = build._library_path(lib).with_suffix(".log")
+    if not log.exists():
+        print(f"ptxas {lib}: no build log (library built elsewhere)",
+              flush=True)
+        return
+    kernel = None
+    for line in log.read_text().splitlines():
+        found = re.search(r"Compiling entry function .*?"
+                          r"(flash_bwd_\w+?_kernel)ILi(\d+)E", line)
+        if found:
+            kernel = f"{found.group(1)}<{found.group(2)}>"
+        elif kernel and ("spill" in line or "registers" in line):
+            print(f"ptxas {kernel}: {line.strip()}", flush=True)
+            if "registers" in line:
+                kernel = None
+
+
 def main() -> int:
     import torch
 
@@ -633,36 +816,51 @@ def main() -> int:
     names = _build.build_all()
     print(f"built {names} in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    _print_ptxas(_build, "flash_attention_bwd_sm90")
+
     rows = kernel_phase(torch, fa)
     bwd_rows = bwd_kernel_phase(torch, fa)
     model_check_phase(torch, llama)
-    grad_check_phase(torch, fa, llama)
-    serve = slice_phase(torch, fa, llama)
-    train = train_phase(torch, fa, llama)
+    paths = {"grad_check_fp32": grad_check_phase(torch, fa, llama),
+             "grad_check_bf16": bf16_grad_check_phase(torch, fa, llama)}
+    paths["serve"] = slice_phase(torch, fa, llama)
+    paths["train"] = train_phase(torch, fa, llama)
+    by_path = {path: _by_kernel(c) for path, c in paths.items()}
+    main_paths = ("serve", "train")
 
     # Forward: S=4096, the largest prefill of the serving slice.  Backward:
-    # the training slice's shape (the first backward case).
+    # the training slice's shape (the first backward case), where the
+    # CUDA-core pair was also timed.
     main_row = next(r for r in rows if r["shape"].startswith("B=1 Sq=4096 "))
     bwd_row = bwd_rows[0]
 
-    def launches(key):
-        return {"launches": serve[key] + train[key],
-                "launches_by_path": {"serve": serve[key],
-                                     "train": train[key]}}
+    def launches(name):
+        return {"launches": sum(by_path[p][name] for p in main_paths),
+                "launches_by_path": {p: by_path[p][name] for p in by_path}}
 
-    def bwd_entry(name, key, grads, line):
-        bound_ms, bound_by = bwd_row["bounds"][key]
+    def bwd_entry(name, key, grads, route, source, line):
+        if route == "sm90":
+            timed, err_rows = bwd_row["kernels"][key], [
+                r for r in bwd_rows if r["route"] == "sm90"]
+        else:
+            timed = bwd_row["simt"][key]
+            err_rows = [bwd_row["simt"]] + [r for r in bwd_rows
+                                            if r["route"] == "simt"]
+        bound_ms, bound_by, _flops = bwd_row["bounds"][key]
         return {
             "name": name,
             "route": "cuda",
-            "source": "ant_ray_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+            "bwd_route": route,
+            "source": f"ant_ray_tpu_torch/ops/csrc/{source}",
             "replaces": f"ant_ray_tpu/ops/pallas/flash_attention.py:{line}",
-            **launches(key),
-            "max_abs_err": max(r["abs_err"][g] for r in bwd_rows
+            **launches(name),
+            "max_abs_err": max(r["abs_err"][g] for r in err_rows
                                for g in grads),
-            "max_rel_err": max(r["rel_err"][g] for r in bwd_rows
+            "max_rel_err": max(r["rel_err"][g] for r in err_rows
                                for g in grads),
-            "ms": bwd_row[f"{key}_ms"],
+            "ms": timed["ms"],
+            "tflops": timed["tflops"],
+            "share_of_bound": timed["share_of_bound"],
             "plain_ms": bwd_row["plain_ms"],
             "plain": "flash_attention_backward_ref: dq, dk and dv in one call",
             "bound_ms": bound_ms,
@@ -673,12 +871,16 @@ def main() -> int:
             "shape": bwd_row["shape"],
         }
 
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq_sm90",
+                 "flash_attention_bwd_dkv_sm90"):
+        if not launches(name)["launches"]:
+            raise AssertionError(f"{name} was not launched on the main path")
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "ant_ray_tpu_torch/ops/csrc/flash_attention_fwd.cu",
         "replaces": "ant_ray_tpu/ops/pallas/flash_attention.py:56",
-        **launches("fwd"),
+        **launches("flash_attention_fwd"),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -686,8 +888,14 @@ def main() -> int:
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "shape": main_row["shape"],
-    }, bwd_entry("flash_attention_bwd_dq", "dq", ("dq",), 196),
-        bwd_entry("flash_attention_bwd_dkv", "dkv", ("dk", "dv"), 301)]}),
+    }, bwd_entry("flash_attention_bwd_dq_sm90", "dq", ("dq",), "sm90",
+                 "flash_attention_bwd_sm90.cu", 196),
+        bwd_entry("flash_attention_bwd_dkv_sm90", "dkv", ("dk", "dv"),
+                  "sm90", "flash_attention_bwd_sm90.cu", 301),
+        bwd_entry("flash_attention_bwd_dq", "dq", ("dq",), "simt",
+                  "flash_attention_bwd.cu", 196),
+        bwd_entry("flash_attention_bwd_dkv", "dkv", ("dk", "dv"), "simt",
+                  "flash_attention_bwd.cu", 301)]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,7 @@
 """The hand-written CUDA flash-attention kernels (forward, and the dQ and
-dK/dV backward) against their plain PyTorch versions, on the card.
+dK/dV backward on both routes: the tensor-core kernels for bf16 at
+head_dim 64 and 128, the CUDA-core kernels otherwise) against their
+plain PyTorch versions, on the card.
 These tests need a CUDA device and ``nvcc``: they skip on a machine
 without a card.  This file imports neither JAX nor the
 JAX package, so it also runs where JAX is not installed:
@@ -106,6 +108,53 @@ def test_backward_kernels_match_plain_version(cuda, q_len, kv_len, heads,
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         assert _rel_err(g, w) <= BWD_REL_TOL[dtype]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("groups", [1, 2, 4, 8])
+@pytest.mark.parametrize("dim", [64, 128])
+def test_sm90_backward_matches_plain_version_on_ragged_lengths(
+        cuda, dim, groups, causal):
+    """Length 192 is ragged against the sm90 kernels' 128-row tiles."""
+    _check_sm90_backward(cuda, 192, 192, 8, 8 // groups, dim, causal)
+
+
+@pytest.mark.parametrize("dim", [64, 128])
+def test_sm90_backward_matches_plain_version_with_more_keys(cuda, dim):
+    """Sq=128 against Skv=256, causal: keys 128..255 see no query."""
+    _check_sm90_backward(cuda, 128, 256, 8, 2, dim, True)
+
+
+def _check_sm90_backward(gen, q_len, kv_len, heads, kv_heads, dim, causal):
+    q, k, v = _qkv(gen, q_len, kv_len, heads, kv_heads, dim, torch.bfloat16)
+    do = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal)
+    before = fa.bwd_sm90_launch_count
+    got = fa.flash_attention_backward(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.bwd_sm90_launch_count == before + 1
+    want = fa.flash_attention_backward_ref(q, k, v, out, lse, do,
+                                           causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert _rel_err(g, w) <= BWD_REL_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype,dim,sm90", [
+    (torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
+    (torch.bfloat16, 256, False), (torch.float32, 64, False),
+    (torch.float32, 128, False), (torch.float32, 256, False),
+])
+def test_sm90_count_rises_only_on_its_route(cuda, dtype, dim, sm90):
+    q, k, v = _qkv(cuda, 128, 128, 4, 2, dim, dtype)
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd_lse(q, k, v)
+    before = (fa.bwd_sm90_launch_count, fa.bwd_dq_launch_count)
+    fa.flash_attention_backward(q, k, v, out, lse, q, causal=True)
+    torch.cuda.synchronize()
+    assert fa.bwd_sm90_launch_count == before[0] + int(sm90)
+    assert fa.bwd_dq_launch_count == before[1] + 1
 
 
 def test_gradients_through_flash_function_match_reference(cuda):
