@@ -9,11 +9,14 @@ to seconds.  The compiler's output (``-Xptxas=-v``: registers, shared
 memory and spills per kernel) is kept as ``<library>.log``.  A failed
 build raises; there is no fallback.
 
-Every source builds with the same flags.  The tensor-core backward
-(``flash_attention_bwd_sm90.cu``) needs no more: its TMA maps are
-encoded by ``cuTensorMapEncodeTiled``, a driver function that it fetches
-through the runtime (``cudaGetDriverEntryPoint``), so no library links
-``libcuda``, and it writes its PTX by hand, so no CUTLASS include path.
+Every source builds with the same flags, and a change to any ``.cuh``
+header rebuilds every library.  The tensor-core kernels
+(``flash_attention_fwd_sm90.cu`` and ``flash_attention_bwd_sm90.cu``,
+with their shared ``flash_attention_sm90.cuh``) need no more: their TMA
+maps are encoded by ``cuTensorMapEncodeTiled``, a driver function that
+they fetch through the runtime (``cudaGetDriverEntryPoint``), so no
+library links ``libcuda``, and they write their PTX by hand, so no
+CUTLASS include path.
 
 :func:`build_all` starts one ``nvcc`` per source at once, so the
 kernels build in parallel.

@@ -1,9 +1,10 @@
 """Flash attention: the hand-written CUDA kernels (forward with
-logsumexp, ``csrc/flash_attention_fwd.cu``; backward as a dQ sweep and a
-dK/dV sweep, on the tensor cores for bf16 at head_dim 64 and 128,
-``csrc/flash_attention_bwd_sm90.cu``, and on the CUDA cores for the rest,
-``csrc/flash_attention_bwd.cu``), their ctypes bindings, and their plain
-PyTorch versions.
+logsumexp, and backward as a dQ sweep and a dK/dV sweep), their ctypes
+bindings, and their plain PyTorch versions.  Each direction has two
+routes (:func:`_route`): the tensor-core kernels for bf16 at head_dim 64
+and 128 (``csrc/flash_attention_fwd_sm90.cu``,
+``csrc/flash_attention_bwd_sm90.cu``) and the CUDA-core kernels for the
+rest (``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``).
 
 Counterparts of ``flash_attention_fwd_lse`` and
 ``flash_attention_backward`` in ant_ray_tpu/ops/pallas/flash_attention.py,
@@ -22,13 +23,14 @@ import torch
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
-SM90_BWD_HEAD_DIMS = (64, 128)
+SM90_HEAD_DIMS = (64, 128)
 BLOCK = 64   # the kernels' lengths must be multiples of it
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches of each CUDA kernel; chip_smoke.py resets and reads them to
 # show that a main path went through the kernels.
-launch_count = 0           # flash_attention_fwd
+launch_count = 0           # forward, either route
+fwd_sm90_launch_count = 0  # forward launches of the sm90 kernel
 bwd_dq_launch_count = 0    # dQ, either route
 bwd_dkv_launch_count = 0   # dK/dV, either route
 bwd_sm90_launch_count = 0  # backward calls that ran the sm90 pair
@@ -38,6 +40,7 @@ bwd_sm90_launch_count = 0  # backward calls that ran the sm90 pair
 # dtype (int), scale (float), causal (int) and the stream.
 _ENTRY_POINTS = {
     "flash_attention_fwd": ("flash_attention_fwd", 5),
+    "flash_attention_fwd_sm90": ("flash_attention_fwd_sm90", 5),
     "flash_attention_bwd_dq": ("flash_attention_bwd", 7),
     "flash_attention_bwd_dkv": ("flash_attention_bwd", 8),
     "flash_attention_bwd_dq_sm90": ("flash_attention_bwd_sm90", 7),
@@ -125,9 +128,29 @@ def _check_aligned(*tensors):
     lie on a 16-byte boundary."""
     for t in tensors:
         if t.data_ptr() % 16:
-            raise ValueError(f"sm90 backward kernels want 16-byte aligned "
+            raise ValueError(f"sm90 kernels want 16-byte aligned "
                              f"tensors; a {t.dtype} {tuple(t.shape)} tensor "
                              f"starts at {t.data_ptr():#x}")
+
+
+def _route(dtype, head_dim) -> str:
+    """Which kernels take inputs of this dtype and head_dim, in both
+    directions: "sm90", the tensor-core kernels of
+    csrc/flash_attention_fwd_sm90.cu and csrc/flash_attention_bwd_sm90.cu,
+    for bf16 at head_dim 64 or 128; "simt", the CUDA-core kernels of
+    csrc/flash_attention_fwd.cu and csrc/flash_attention_bwd.cu, for the
+    rest.  fp32 stays on the CUDA cores because no tensor-core path keeps
+    fp32 results (TF32 would break the fp32 checks' 1e-4); bf16 at
+    head_dim 256 because the backward's dK and dV accumulators (2 x 64x256
+    fp32 per warpgroup) do not fit in registers in the sm90 design, and no
+    model uses it.  This is routing, not a fallback: each route launches
+    its kernels or raises."""
+    if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
+        return "sm90"
+    return "simt"
+
+
+_SUFFIX = {"sm90": "_sm90", "simt": ""}   # entry-point name per route
 
 
 def _scores(q, k, causal, scale):
@@ -172,14 +195,15 @@ def flash_attention_fwd_lse(q, k, v, *, causal: bool = True,
     """q: (batch, q_len, heads, dim); k/v: (batch, kv_len, kv_heads, dim).
     Returns (out (B,S,H,D) in q.dtype, lse (B,H,S) fp32).
 
-    CUDA tensors go to the hand-written kernel (fp32 or bf16, head_dim
-    64/128/256, lengths multiples of 64; anything else raises).  CPU
-    tensors go to :func:`flash_attention_fwd_lse_ref`.
+    CUDA tensors go to the hand-written kernel of the route
+    :func:`_route` picks (fp32 or bf16, head_dim 64/128/256, lengths
+    multiples of 64; anything else raises).  CPU tensors go to
+    :func:`flash_attention_fwd_lse_ref`.
 
     The kernel's output is invisible to autograd, so on CUDA this raises
     when grad mode is on and an input requires grad: differentiate
     through ``attention(..., impl="flash")`` instead."""
-    global launch_count
+    global launch_count, fwd_sm90_launch_count
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_fwd_lse_ref(q, k, v, causal=causal,
@@ -197,8 +221,14 @@ def flash_attention_fwd_lse(q, k, v, *, causal: bool = True,
     out = torch.empty_like(q)
     lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]),
                       dtype=torch.float32, device=q.device)
-    _launch("flash_attention_fwd", (q, k, v, out, lse), q, k, scale, causal)
+    route = _route(q.dtype, q.shape[3])
+    if route == "sm90":
+        _check_aligned(q, k, v, out, lse)
+    _launch("flash_attention_fwd" + _SUFFIX[route], (q, k, v, out, lse), q,
+            k, scale, causal)
     launch_count += 1
+    if route == "sm90":
+        fwd_sm90_launch_count += 1
     return out, lse
 
 
@@ -263,21 +293,6 @@ def flash_attention_backward_ref(q, k, v, out, lse, do, *, causal: bool,
             dv.to(v.dtype).transpose(1, 2))
 
 
-def _bwd_route(dtype, head_dim) -> str:
-    """Which pair of backward kernels takes inputs of this dtype and
-    head_dim: "sm90", the tensor-core kernels of
-    csrc/flash_attention_bwd_sm90.cu, for bf16 at head_dim 64 or 128;
-    "simt", the CUDA-core kernels of csrc/flash_attention_bwd.cu, for the
-    rest.  fp32 stays on the CUDA cores because no tensor-core path keeps
-    fp32 results (TF32 would break the fp32 gradient check's 1e-4); bf16
-    at head_dim 256 because its dK and dV accumulators (2 x 64x256 fp32
-    per warpgroup) do not fit in registers in the sm90 design.  This is
-    routing, not a fallback: each route launches its kernels or raises."""
-    if dtype == torch.bfloat16 and head_dim in SM90_BWD_HEAD_DIMS:
-        return "sm90"
-    return "simt"
-
-
 def flash_attention_backward(q, k, v, out, lse, do, *, causal: bool,
                              scale: float | None = None):
     """Returns (dq, dk, dv) in the input layouts (q: (B,S,H,D); k/v:
@@ -285,7 +300,7 @@ def flash_attention_backward(q, k, v, out, lse, do, *, causal: bool,
     the output gradient ``do``.
 
     CUDA tensors go to the dQ kernel and then the dK/dV kernel of the
-    route :func:`_bwd_route` picks (same dtypes, head dims and lengths as
+    route :func:`_route` picks (same dtypes, head dims and lengths as
     the forward; anything else raises), with delta = rowsum(dO * O)
     computed here in fp32.  CPU tensors go to
     :func:`flash_attention_backward_ref`."""
@@ -300,8 +315,8 @@ def flash_attention_backward(q, k, v, out, lse, do, *, causal: bool,
     q, k, v, do, lse = (t.contiguous() for t in (q, k, v, do, lse))
     delta = _delta(out, do).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    route = _bwd_route(q.dtype, q.shape[3])
-    suffix = "_sm90" if route == "sm90" else ""
+    route = _route(q.dtype, q.shape[3])
+    suffix = _SUFFIX[route]
     if route == "sm90":
         _check_aligned(q, k, v, do, lse, delta, dq, dk, dv)
     _launch("flash_attention_bwd_dq" + suffix,

@@ -11,18 +11,24 @@ final line is printed:
 1. Setup: a CUDA device must exist; print the card's name and power
    limit (nvidia-smi); build every hand-written kernel from the sources
    in this checkout, timed, and print the registers and spill bytes
-   ptxas reports for each tensor-core backward kernel.
-2. Kernels: the flash-attention forward kernel against its plain
-   PyTorch version at the serving path's shapes (Llama-3-8B prefill:
-   B=1, H=32, KVH=8, D=128, bf16, causal), at the training slice's
-   (B=8, S=2048, H=8, KVH=4) and at a few others (fp32 with D=64,
-   non-causal without GQA, Sq != Skv).  Tolerances: bf16 out
-   max abs error <= 2e-2 (bf16 rounds p and out at other points in the
-   tiled loop), lse <= 1e-3; fp32 both <= 1e-4.  Times by CUDA events,
-   median of 10 runs: the kernel, its plain version, and
-   torch's scaled_dot_product_attention as a yardstick the port never
-   calls; the bound is the larger of FLOPs over the card's peak for the
-   input type and bytes over 3.35 TB/s.
+   ptxas reports for each tensor-core kernel (forward and backward).
+2. Kernels: the flash-attention forward, through flash_attention_fwd_lse
+   on the route it picks (the tensor-core "sm90" kernel for bf16 at
+   head_dim 64 and 128, the CUDA-core "simt" kernel otherwise), against
+   its plain PyTorch version at the serving path's shapes (Llama-3-8B
+   prefill: B=1, H=32, KVH=8, D=128, bf16, causal), at the training
+   slice's (B=8, S=2048, H=8, KVH=4) and at others: llama3-1b's heads
+   (D=64), ragged lengths 192 and 320, fp32 with D=64, non-causal
+   without GQA, Sq < Skv and Sq > Skv, bf16 at D=256.  Tolerances: bf16
+   out max abs error <= 2e-2 (bf16 rounds p and out at other points in
+   the tiled loop), lse <= 1e-3; fp32 both <= 1e-4.  Times by CUDA
+   events, median of 10 runs: the kernel launched directly (with its
+   achieved TFLOP/s and share of its bound), the wrapper, the plain
+   version, and torch's scaled_dot_product_attention as a yardstick the
+   port never calls; the bound is the larger of FLOPs over the card's
+   peak for the input type and bytes over 3.35 TB/s.  At S=4096 and at
+   the training shape the CUDA-core kernel is also checked and timed,
+   launched directly, for a before-and-after on one card.
 3. Backward kernels: dQ and dK/dV through flash_attention_backward, on
    the route it picks (tensor-core "sm90" kernels for bf16 at head_dim
    64 and 128, CUDA-core "simt" kernels otherwise), against
@@ -41,19 +47,19 @@ final line is printed:
    128: logits through the flash kernel against the plain reference
    attention on the card, and against the same model on the CPU; then
    the loss and every gradient leaf through the kernels (the CUDA-core
-   backward) against reference attention on the card and against the
-   CPU, under remat "none" and "full" (the forward kernel runs twice per
-   layer there).  Then the same model in bf16: loss and every gradient
-   leaf through the sm90 backward against bf16 reference attention
-   (BF16_GRAD_TOL, reason beside it), with the sm90 pair run once per
-   layer.
+   forward and backward) against reference attention on the card and
+   against the CPU, under remat "none" and "full" (the forward kernel
+   runs twice per layer there).  Then the same model in bf16: loss and
+   every gradient leaf through the sm90 forward and backward against
+   bf16 reference attention (BF16_GRAD_TOL, reason beside it), with each
+   sm90 kernel run once per layer.
 5. The serving slice: LLMEngine("llama3-8b", slots=8, max_seq=4096) with
    random weights from a fixed seed, five greedy prompts of 20, 100,
    700, 1500 and 3000 random token ids (buckets 32 to 4096) and one
-   seeded sampled prompt of 300, 32 new tokens each.  The flash
-   kernel's launch count is reset just before and read just after: it
-   must equal n_layers for every prefill with a bucket of 128 or more,
-   with no backward launch.
+   seeded sampled prompt of 300, 32 new tokens each.  The launch counts
+   are reset just before and read just after: the sm90 forward must run
+   n_layers times for every prefill with a bucket of 128 or more, with
+   no CUDA-core forward and no backward launch.
    The 8B logits through the kernel are checked against blockwise
    attention, then prefill time per bucket, decode tokens/s and peak
    memory are printed, and a torch.profiler trace of a short and a long
@@ -62,13 +68,13 @@ final line is printed:
    layers, bf16, random weights from seed 0, one fixed batch of 8 x 2049
    token ids, AdamW (make_optimizer), remat "none": 3 warm-up and 10
    timed train_step calls.  The launch counts are reset just before and
-   read just after: every step must launch each kernel once per layer,
-   the backward on the sm90 route.  Prints the step time, tokens/s, MFU
-   against the bf16 peak, peak memory and a torch.profiler line of one
-   step.
-7. One line {"kernels": [...]} with the forward and the four backward
-   kernels (sm90 and CUDA-core dQ and dK/dV; launches by path, the main
-   path being serving and training), then the last line
+   read just after: every step must launch the forward, dQ and dK/dV
+   once per layer, all on the sm90 route.  Prints the step time,
+   tokens/s, MFU against the bf16 peak, peak memory and a torch.profiler
+   line of one step.
+7. One line {"kernels": [...]} with the six kernels (the sm90 and
+   CUDA-core forward, dQ and dK/dV; launches by path, the main path
+   being serving and training), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 comparisons are
@@ -140,12 +146,13 @@ def _roofline(flops, nbytes, dtype_name):
 
 
 def _bound(batch, q_len, kv_len, heads, kv_heads, dim, dtype_name, causal):
-    """Least time (ms) for the work these inputs need, and what sets it."""
+    """Least time (ms) for the work these inputs need, what sets it, and
+    the FLOPs counted (4*D per (q, k) pair: S = Q.K^T and P.V)."""
     flops = 4.0 * batch * heads * dim * _pairs(q_len, kv_len, causal)
     elt = 2 if dtype_name == "bfloat16" else 4
     nbytes = (elt * batch * dim * (2 * q_len * heads + 2 * kv_len * kv_heads)
               + 4 * batch * heads * q_len)
-    return _roofline(flops, nbytes, dtype_name)
+    return (*_roofline(flops, nbytes, dtype_name), flops)
 
 
 def _bwd_bounds(batch, q_len, kv_len, heads, kv_heads, dim, dtype_name,
@@ -173,7 +180,39 @@ def _shape(batch, q_len, kv_len, heads, kv_heads, dim, dtype_name, causal):
             f"D={dim} {dtype_name} {'causal' if causal else 'full'}")
 
 
+# Forward shapes at which the CUDA-core kernel (flash_attention_fwd.cu)
+# is also launched and timed beside the sm90 one, as (batch, q_len,
+# heads): the serving slice's largest prefill and the training slice.
+FWD_BEFORE_AFTER = {(1, 4096, 32), (8, 2048, 8)}
+
+
+def _fwd_errors(out, lse, ref_out, ref_lse, name, shape, label):
+    """Max abs error of out and of lse; raises beyond TOL."""
+    err_out = (out.float() - ref_out.float()).abs().max().item()
+    err_lse = (lse - ref_lse).abs().max().item()
+    tol_out, tol_lse = TOL[name]
+    if not (err_out <= tol_out and err_lse <= tol_lse):
+        raise AssertionError(
+            f"{label} disagrees with its plain version at {shape}: out err "
+            f"{err_out} (tol {tol_out}), lse err {err_lse} (tol {tol_lse})")
+    return err_out, err_lse
+
+
+def _fwd_kernel_ms(torch, fa, name, q, k, v, causal):
+    """Median ms of the forward kernel ``name``, launched directly (no
+    count), and its (out, lse) from the last launch."""
+    out = torch.empty_like(q)
+    lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]),
+                      dtype=torch.float32, device=q.device)
+    ms = _median_ms(torch, lambda: fa._launch(
+        name, (q, k, v, out, lse), q, k, q.shape[3] ** -0.5, causal))
+    return ms, out, lse
+
+
 def kernel_phase(torch, fa):
+    """The forward kernel, through the route the wrapper picks, against
+    flash_attention_fwd_lse_ref; at FWD_BEFORE_AFTER also the CUDA-core
+    kernel, launched directly, for a before-and-after on one card."""
     import torch.nn.functional as F  # noqa: PLC0415
 
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -184,9 +223,14 @@ def kernel_phase(torch, fa):
         (1, 2048, 2048, 32, 8, 128, bf16, True),
         (1, 4096, 4096, 32, 8, 128, bf16, True),
         (8, 2048, 2048, 8, 4, 128, bf16, True),    # the training slice
+        (1, 2048, 2048, 32, 8, 64, bf16, True),    # llama3-1b's heads
+        (2, 192, 192, 8, 2, 128, bf16, True),      # ragged on 128-row tiles
+        (2, 320, 320, 8, 8, 64, bf16, False),
         (1, 1024, 1024, 32, 8, 64, fp32, True),
         (1, 1024, 1024, 32, 32, 128, bf16, False),
         (1, 128, 256, 32, 8, 128, bf16, True),
+        (1, 256, 128, 32, 8, 128, bf16, True),
+        (1, 512, 512, 8, 2, 256, bf16, True),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = []
@@ -197,23 +241,40 @@ def kernel_phase(torch, fa):
         q = rand(batch, q_len, heads, dim)
         k = rand(batch, kv_len, kv_heads, dim)
         v = rand(batch, kv_len, kv_heads, dim)
-        out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        ref_out, ref_lse = fa.flash_attention_fwd_lse_ref(q, k, v,
-                                                          causal=causal)
-        err_out = (out.float() - ref_out.float()).abs().max().item()
-        err_lse = (lse - ref_lse).abs().max().item()
         name = str(dtype).removeprefix("torch.")
-        tol_out, tol_lse = TOL[name]
         shape = _shape(batch, q_len, kv_len, heads, kv_heads, dim, name,
                        causal)
-        if not (err_out <= tol_out and err_lse <= tol_lse):
-            raise AssertionError(
-                f"flash kernel disagrees with its plain version at {shape}: "
-                f"out err {err_out} (tol {tol_out}), lse err {err_lse} "
-                f"(tol {tol_lse})")
+        route = fa._route(dtype, dim)
+        sm90_before = fa.fwd_sm90_launch_count
+        out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        took = "sm90" if fa.fwd_sm90_launch_count > sm90_before else "simt"
+        if took != route:
+            raise AssertionError(f"forward at {shape} took route {took}, "
+                                 f"expected {route}")
+        ref_out, ref_lse = fa.flash_attention_fwd_lse_ref(q, k, v,
+                                                          causal=causal)
+        err_out, err_lse = _fwd_errors(out, lse, ref_out, ref_lse, name,
+                                       shape, f"{route} forward kernel")
+        bound = _bound(batch, q_len, kv_len, heads, kv_heads, dim, name,
+                       causal)
+        kernel = "flash_attention_fwd" + fa._SUFFIX[route]
+        ms, _, _ = _fwd_kernel_ms(torch, fa, kernel, q, k, v, causal)
+        simt = None
+        if route == "sm90" and (batch, q_len, heads) in FWD_BEFORE_AFTER:
+            # The CUDA-core kernel on the same inputs, launched
+            # directly: the wrapper no longer routes bf16 at this
+            # head_dim there.
+            s_ms, s_out, s_lse = _fwd_kernel_ms(
+                torch, fa, "flash_attention_fwd", q, k, v, causal)
+            s_err_out, s_err_lse = _fwd_errors(
+                s_out, s_lse, ref_out, ref_lse, name, shape,
+                "CUDA-core forward kernel")
+            simt = {"route": "simt", "max_abs_err": s_err_out,
+                    "lse_err": s_err_lse, **_kernel_stats(s_ms, bound)}
+            del s_out, s_lse
         del ref_out, ref_lse
-        ms = _median_ms(torch, lambda: fa.flash_attention_fwd_lse(
+        wrapper_ms = _median_ms(torch, lambda: fa.flash_attention_fwd_lse(
             q, k, v, causal=causal))
         plain_ms = _median_ms(torch, lambda: fa.flash_attention_fwd_lse_ref(
             q, k, v, causal=causal))
@@ -223,13 +284,23 @@ def kernel_phase(torch, fa):
         vt = v.repeat_interleave(groups, dim=2).transpose(1, 2).contiguous()
         library_ms = _median_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal))
-        bound_ms, bound_by = _bound(batch, q_len, kv_len, heads, kv_heads,
-                                    dim, name, causal)
-        row = {"shape": shape, "max_abs_err": err_out, "lse_err": err_lse,
-               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by}
+        row = {"shape": shape, "route": route, "max_abs_err": err_out,
+               "lse_err": err_lse, **_kernel_stats(ms, bound),
+               "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": bound[0],
+               "bound_by": bound[1]}
+        if simt is not None:
+            row["simt"] = simt
         print("kernel flash_attention_fwd " + json.dumps(row), flush=True)
+        if simt is not None:
+            print(f"forward at {shape}: sm90 {ms:.3f} ms "
+                  f"({row['share_of_bound']:.1%} of its bound, "
+                  f"{row['tflops']:.0f} TFLOP/s) against the CUDA-core "
+                  f"kernel's {simt['ms']:.3f} ms ({simt['ms'] / ms:.1f}x "
+                  f"faster) and SDPA's {library_ms:.3f} ms "
+                  f"({ms / library_ms:.2f}x its time)", flush=True)
         results.append(row)
+        del q, k, v, out, lse, qt, kt, vt
     return results
 
 
@@ -306,7 +377,7 @@ def bwd_kernel_phase(torch, fa):
         name = str(dtype).removeprefix("torch.")
         shape = _shape(batch, q_len, kv_len, heads, kv_heads, dim, name,
                        causal)
-        route = fa._bwd_route(dtype, dim)
+        route = fa._route(dtype, dim)
         with torch.no_grad():
             out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal)
         sm90_before = fa.bwd_sm90_launch_count
@@ -432,20 +503,24 @@ def _to_cpu(params):
 
 
 def _reset_counts(fa):
-    fa.launch_count = fa.bwd_dq_launch_count = fa.bwd_dkv_launch_count = 0
+    fa.launch_count = fa.fwd_sm90_launch_count = 0
+    fa.bwd_dq_launch_count = fa.bwd_dkv_launch_count = 0
     fa.bwd_sm90_launch_count = 0
 
 
 def _counts(fa):
-    """Launches since the last reset: the forward, dQ and dK/dV on either
-    route, and backward calls that took the sm90 pair."""
-    return {"fwd": fa.launch_count, "dq": fa.bwd_dq_launch_count,
-            "dkv": fa.bwd_dkv_launch_count, "sm90": fa.bwd_sm90_launch_count}
+    """Launches since the last reset: the forward on either route and on
+    the sm90 route, dQ and dK/dV on either route, and backward calls that
+    took the sm90 pair."""
+    return {"fwd": fa.launch_count, "fwd_sm90": fa.fwd_sm90_launch_count,
+            "dq": fa.bwd_dq_launch_count, "dkv": fa.bwd_dkv_launch_count,
+            "sm90": fa.bwd_sm90_launch_count}
 
 
 def _by_kernel(counts):
-    """Launches of each of the five kernels from a _counts() dict."""
-    return {"flash_attention_fwd": counts["fwd"],
+    """Launches of each of the six kernels from a _counts() dict."""
+    return {"flash_attention_fwd_sm90": counts["fwd_sm90"],
+            "flash_attention_fwd": counts["fwd"] - counts["fwd_sm90"],
             "flash_attention_bwd_dq_sm90": counts["sm90"],
             "flash_attention_bwd_dkv_sm90": counts["sm90"],
             "flash_attention_bwd_dq": counts["dq"] - counts["sm90"],
@@ -481,7 +556,8 @@ def grad_check_phase(torch, fa, llama):
                       / cpu_grads[k].abs().max().item()
                       for k, g in grads.items())
         want = {"fwd": cfg.n_layers * (2 if remat == "full" else 1),
-                "dq": cfg.n_layers, "dkv": cfg.n_layers, "sm90": 0}
+                "fwd_sm90": 0, "dq": cfg.n_layers, "dkv": cfg.n_layers,
+                "sm90": 0}
         total = {key: total[key] + launches[key] for key in total}
         print(f"gradient check (fp32, head_dim 128, S=256, remat {remat}): "
               f"loss {loss:.6f}, reference {ref_loss:.6f}, CPU "
@@ -540,8 +616,8 @@ def bf16_grad_check_phase(torch, fa, llama):
     err = {k: rel(g, ref_grads[k]) for k, g in grads.items()}
     spread = {k: rel(g, fp32_grads[k]) for k, g in ref_grads.items()}
     worst = max(err, key=err.get)
-    want = {"fwd": cfg.n_layers, "dq": cfg.n_layers, "dkv": cfg.n_layers,
-            "sm90": cfg.n_layers}
+    want = {"fwd": cfg.n_layers, "fwd_sm90": cfg.n_layers,
+            "dq": cfg.n_layers, "dkv": cfg.n_layers, "sm90": cfg.n_layers}
     print(f"gradient check (bf16, head_dim 128, S=256, remat none, sm90 "
           f"backward): loss {loss:.6f}, reference {ref_loss:.6f}; max grad "
           f"error over max |ref| per leaf vs bf16 reference "
@@ -582,8 +658,8 @@ def train_phase(torch, fa, llama):
     torch.cuda.reset_peak_memory_stats()
     _reset_counts(fa)
     losses, step_ms = [], []
-    per_step = {"fwd": cfg.n_layers, "dq": cfg.n_layers, "dkv": cfg.n_layers,
-                "sm90": cfg.n_layers}
+    per_step = {"fwd": cfg.n_layers, "fwd_sm90": cfg.n_layers,
+                "dq": cfg.n_layers, "dkv": cfg.n_layers, "sm90": cfg.n_layers}
     for i in range(13):
         before = _counts(fa)
         torch.cuda.synchronize()
@@ -652,13 +728,15 @@ def slice_phase(torch, fa, llama):
         if out.finish_reason not in ("length", "stop"):
             raise AssertionError(f"request finished with {out.finish_reason}")
     expected = cfg.n_layers * kernel_prefills
-    print(f"main path: {len(outs)} requests in {main_s:.2f} s, flash kernel "
-          f"launches {launches['fwd']} (expected {expected}), backward "
-          f"kernel launches {launches['dq']} and {launches['dkv']} "
+    print(f"main path: {len(outs)} requests in {main_s:.2f} s, flash "
+          f"forward launches {launches['fwd']}, of them sm90 "
+          f"{launches['fwd_sm90']} (expected {expected} and {expected}), "
+          f"backward kernel launches {launches['dq']} and {launches['dkv']} "
           f"(expected 0)", flush=True)
-    if launches != {"fwd": expected, "dq": 0, "dkv": 0, "sm90": 0}:
+    if launches != {"fwd": expected, "fwd_sm90": expected, "dq": 0, "dkv": 0,
+                    "sm90": 0}:
         raise AssertionError(f"serving launched {launches}, expected "
-                             f"{expected} forward and no backward launches")
+                             f"{expected} sm90 forward and no other launches")
 
     # Is the 8B path right?  Last-token logits of the 1500-token prompt
     # through the flash kernel against the same model with blockwise
@@ -783,7 +861,7 @@ def _print_ptxas(build, lib):
     kernel = None
     for line in log.read_text().splitlines():
         found = re.search(r"Compiling entry function .*?"
-                          r"(flash_bwd_\w+?_kernel)ILi(\d+)E", line)
+                          r"(flash_(?:fwd|bwd)_\w+?_kernel)ILi(\d+)E", line)
         if found:
             kernel = f"{found.group(1)}<{found.group(2)}>"
         elif kernel and ("spill" in line or "registers" in line):
@@ -816,7 +894,8 @@ def main() -> int:
     names = _build.build_all()
     print(f"built {names} in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    _print_ptxas(_build, "flash_attention_bwd_sm90")
+    for lib in ("flash_attention_fwd_sm90", "flash_attention_bwd_sm90"):
+        _print_ptxas(_build, lib)
 
     rows = kernel_phase(torch, fa)
     bwd_rows = bwd_kernel_phase(torch, fa)
@@ -828,15 +907,46 @@ def main() -> int:
     by_path = {path: _by_kernel(c) for path, c in paths.items()}
     main_paths = ("serve", "train")
 
-    # Forward: S=4096, the largest prefill of the serving slice.  Backward:
-    # the training slice's shape (the first backward case), where the
-    # CUDA-core pair was also timed.
+    # Forward: S=4096, the largest prefill of the serving slice, where the
+    # CUDA-core kernel was also timed.  Backward: the training slice's
+    # shape (the first backward case), where the CUDA-core pair was also
+    # timed.
     main_row = next(r for r in rows if r["shape"].startswith("B=1 Sq=4096 "))
+    train_row = next(r for r in rows if r["shape"].startswith("B=8 Sq=2048 "))
     bwd_row = bwd_rows[0]
 
     def launches(name):
         return {"launches": sum(by_path[p][name] for p in main_paths),
                 "launches_by_path": {p: by_path[p][name] for p in by_path}}
+
+    def fwd_entry(name, route, source):
+        if route == "sm90":
+            timed, train_timed = main_row, train_row
+            err_rows = [r for r in rows if r["route"] == "sm90"]
+        else:
+            timed, train_timed = main_row["simt"], train_row["simt"]
+            err_rows = [r["simt"] for r in rows if "simt" in r] + [
+                r for r in rows if r["route"] == "simt"]
+        return {
+            "name": name,
+            "route": "cuda",
+            "fwd_route": route,
+            "source": f"ant_ray_tpu_torch/ops/csrc/{source}",
+            "replaces": "ant_ray_tpu/ops/pallas/flash_attention.py:56",
+            **launches(name),
+            "max_abs_err": max(r["max_abs_err"] for r in err_rows),
+            "max_lse_err": max(r["lse_err"] for r in err_rows),
+            "ms": timed["ms"],
+            "tflops": timed["tflops"],
+            "share_of_bound": timed["share_of_bound"],
+            "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"],
+            "shape": main_row["shape"],
+            "train_shape_ms": train_timed["ms"],
+            "train_shape_share_of_bound": train_timed["share_of_bound"],
+        }
 
     def bwd_entry(name, key, grads, route, source, line):
         if route == "sm90":
@@ -871,25 +981,16 @@ def main() -> int:
             "shape": bwd_row["shape"],
         }
 
-    for name in ("flash_attention_fwd", "flash_attention_bwd_dq_sm90",
+    for name in ("flash_attention_fwd_sm90", "flash_attention_bwd_dq_sm90",
                  "flash_attention_bwd_dkv_sm90"):
         if not launches(name)["launches"]:
             raise AssertionError(f"{name} was not launched on the main path")
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "ant_ray_tpu_torch/ops/csrc/flash_attention_fwd.cu",
-        "replaces": "ant_ray_tpu/ops/pallas/flash_attention.py:56",
-        **launches("flash_attention_fwd"),
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "shape": main_row["shape"],
-    }, bwd_entry("flash_attention_bwd_dq_sm90", "dq", ("dq",), "sm90",
-                 "flash_attention_bwd_sm90.cu", 196),
+    print(json.dumps({"kernels": [
+        fwd_entry("flash_attention_fwd_sm90", "sm90",
+                  "flash_attention_fwd_sm90.cu"),
+        fwd_entry("flash_attention_fwd", "simt", "flash_attention_fwd.cu"),
+        bwd_entry("flash_attention_bwd_dq_sm90", "dq", ("dq",), "sm90",
+                  "flash_attention_bwd_sm90.cu", 196),
         bwd_entry("flash_attention_bwd_dkv_sm90", "dkv", ("dk", "dv"),
                   "sm90", "flash_attention_bwd_sm90.cu", 301),
         bwd_entry("flash_attention_bwd_dq", "dq", ("dq",), "simt",

@@ -1,7 +1,7 @@
-"""The hand-written CUDA flash-attention kernels (forward, and the dQ and
-dK/dV backward on both routes: the tensor-core kernels for bf16 at
-head_dim 64 and 128, the CUDA-core kernels otherwise) against their
-plain PyTorch versions, on the card.
+"""The hand-written CUDA flash-attention kernels (the forward, and the dQ
+and dK/dV backward, each on both routes: the tensor-core kernels for
+bf16 at head_dim 64 and 128, the CUDA-core kernels otherwise) against
+their plain PyTorch versions, on the card.
 These tests need a CUDA device and ``nvcc``: they skip on a machine
 without a card.  This file imports neither JAX nor the
 JAX package, so it also runs where JAX is not installed:
@@ -13,8 +13,10 @@ Tolerances as in chip_smoke.py: forward bf16 out max abs error <= 2e-2
 1e-3; fp32 both <= 1e-4.  Backward: max abs error over max |ref| per
 tensor, bf16 <= 1e-2 (p and ds round to bf16 at the same points on both
 sides, but sums run in another order, so a value near a rounding
-boundary may land one bf16 ulp away), fp32 <= 1e-4.  TF32 is switched
-off, so fp32 matmuls of the plain versions run in full fp32.
+boundary may land one bf16 ulp away), fp32 <= 1e-4.  Gradients in bf16
+through ``attention(impl="flash")`` against reference attention:
+BF16_GRAD_TOL, reason beside it.  TF32 is switched off, so fp32 matmuls
+of the plain versions run in full fp32.
 """
 
 import pytest
@@ -27,6 +29,12 @@ pytestmark = pytest.mark.gpu
 
 TOL = {torch.bfloat16: (2e-2, 1e-3), torch.float32: (1e-4, 1e-4)}
 BWD_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+# bf16 gradients through the kernels against reference attention, max abs
+# error over max |ref| per input: the kernels round p before P.V and p
+# and ds before every backward product, each up to 2^-9 relative, while
+# reference attention keeps its softmax in fp32 (chip_smoke.py's
+# BF16_GRAD_TOL).  A wrong tile, mask or layout gives errors of order 1.
+BF16_GRAD_TOL = 5e-2
 
 
 @pytest.fixture
@@ -78,6 +86,84 @@ def test_kernel_raises_on_what_it_does_not_take(cuda):
     q, k, v = _qkv(cuda, 128, 128, 4, 2, 64, torch.float16)
     with pytest.raises(ValueError, match="bfloat16"):
         fa.flash_attention_fwd_lse(q, k, v)
+
+
+@pytest.mark.parametrize("q_len", [192, 320])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("groups", [1, 2, 4, 8])
+@pytest.mark.parametrize("dim", [64, 128])
+def test_sm90_forward_matches_plain_version_on_ragged_lengths(
+        cuda, dim, groups, causal, q_len):
+    """Lengths 192 and 320 are ragged against the 128-row q tiles."""
+    _check_sm90_forward(cuda, q_len, q_len, 8, 8 // groups, dim, causal)
+
+
+@pytest.mark.parametrize("q_len,kv_len", [(128, 256), (256, 128)])
+@pytest.mark.parametrize("dim", [64, 128])
+def test_sm90_forward_matches_plain_version_when_lengths_differ(
+        cuda, dim, q_len, kv_len):
+    """Top-left causal alignment both ways: query i sees min(i + 1, Skv)
+    keys."""
+    _check_sm90_forward(cuda, q_len, kv_len, 8, 2, dim, True)
+
+
+def _check_sm90_forward(gen, q_len, kv_len, heads, kv_heads, dim, causal):
+    q, k, v = _qkv(gen, q_len, kv_len, heads, kv_heads, dim, torch.bfloat16)
+    before = (fa.fwd_sm90_launch_count, fa.launch_count)
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.fwd_sm90_launch_count, fa.launch_count) == \
+        (before[0] + 1, before[1] + 1)
+    want_out, want_lse = fa.flash_attention_fwd_lse_ref(q, k, v,
+                                                        causal=causal)
+    tol_out, tol_lse = TOL[torch.bfloat16]
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert (out.float() - want_out.float()).abs().max().item() <= tol_out
+    assert (lse - want_lse).abs().max().item() <= tol_lse
+
+
+@pytest.mark.parametrize("dtype,dim,sm90", [
+    (torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
+    (torch.bfloat16, 256, False), (torch.float32, 64, False),
+    (torch.float32, 128, False), (torch.float32, 256, False),
+])
+def test_fwd_sm90_count_rises_only_on_its_route(cuda, dtype, dim, sm90):
+    q, k, v = _qkv(cuda, 128, 128, 4, 2, dim, dtype)
+    before = (fa.fwd_sm90_launch_count, fa.launch_count)
+    fa.flash_attention_fwd_lse(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.fwd_sm90_launch_count == before[0] + int(sm90)
+    assert fa.launch_count == before[1] + 1
+
+
+def test_sm90_forward_refuses_an_unaligned_input(cuda):
+    q, k, v = _qkv(cuda, 128, 128, 4, 2, 64, torch.bfloat16)
+    shifted = torch.empty(q.numel() + 8, dtype=q.dtype, device="cuda")
+    q_off = shifted[1:q.numel() + 1].view(q.shape)    # 2 bytes in
+    q_off.copy_(q)
+    before = (fa.fwd_sm90_launch_count, fa.launch_count)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_fwd_lse(q_off, k, v)
+    assert (fa.fwd_sm90_launch_count, fa.launch_count) == before
+
+
+@pytest.mark.parametrize("dim", [64, 128])
+def test_bf16_gradients_through_flash_function_match_reference(cuda, dim):
+    """Both sm90 directions under autograd: forward, then dQ and dK/dV."""
+    q, k, v = _qkv(cuda, 256, 256, 8, 2, dim, torch.bfloat16)
+    w = torch.randn(q.shape, generator=cuda, device="cuda").bfloat16()
+    grads = []
+    before = (fa.fwd_sm90_launch_count, fa.bwd_sm90_launch_count)
+    for impl in ("flash", "reference"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = attention(*leaves, causal=True, impl=impl)
+        grads.append(torch.autograd.grad((out.float() * w).sum(), leaves))
+    torch.cuda.synchronize()
+    assert (fa.fwd_sm90_launch_count, fa.bwd_sm90_launch_count) == \
+        (before[0] + 1, before[1] + 1)
+    for g, r in zip(*grads):
+        assert g.dtype == torch.bfloat16
+        assert _rel_err(g, r) <= BF16_GRAD_TOL
 
 
 def _rel_err(got, want):
