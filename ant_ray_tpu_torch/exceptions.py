@@ -24,3 +24,22 @@ class BackPressureError(ArtError):
         return (BackPressureError, (str(self.args[0]) if self.args
                                     else "queue at capacity",
                                     self.retry_after_s))
+
+
+class KVRestoreError(ArtError):
+    """An offloaded LLM session's KV slab could not be restored.
+
+    Raised per-session (the engine loop keeps serving every other
+    session) when the fetch of an evicted slab fails.  Carries the
+    session id so callers can retry with a fresh session (the token
+    history is gone with the slab)."""
+
+    def __init__(self, message: str = "KV restore failed",
+                 session_id: str = ""):
+        self.session_id = session_id
+        super().__init__(message)
+
+    def __reduce__(self):
+        return (KVRestoreError, (str(self.args[0]) if self.args
+                                 else "KV restore failed",
+                                 self.session_id))

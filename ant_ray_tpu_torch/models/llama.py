@@ -323,6 +323,44 @@ def init_kv_cache(config: LlamaConfig, slots: int,
     }
 
 
+# One slot's slab, ``cache["k"][:, slot]``, is a strided view: n_layers
+# blocks of (max_seq, kv_heads, hd), each contiguous, ``slots`` blocks
+# apart.  Both functions below copy it block by block, so neither needs
+# a contiguous staging copy of the slab on the device.
+
+def extract_slot(cache: dict, slot: int):
+    """Copy one slot's slab to host memory: (k, v, length), k and v
+    contiguous CPU tensors of shape (layers, max_seq, kv_heads, hd) and
+    length an int.  From a CUDA cache the bytes land in pinned memory
+    and the call returns once they are there."""
+    src_k, src_v = cache["k"][:, slot], cache["v"][:, slot]
+    pin = src_k.is_cuda
+    k = torch.empty(src_k.shape, dtype=src_k.dtype, pin_memory=pin)
+    v = torch.empty(src_v.shape, dtype=src_v.dtype, pin_memory=pin)
+    for i in range(src_k.shape[0]):
+        k[i].copy_(src_k[i], non_blocking=pin)
+        v[i].copy_(src_v[i], non_blocking=pin)
+    if pin:
+        torch.cuda.current_stream(src_k.device).synchronize()
+    return k, v, int(cache["length"][slot])
+
+
+def install_slot(cache: dict, k, v, length: int, slot: int):
+    """Write a slab from ``extract_slot`` into ``slot``; returns the
+    cache.  The copies are queued on the current stream, so they land
+    before any later work on it (the next decode or prefill).  From
+    pinned memory the host does not wait for them; from pageable memory
+    each copy blocks the host for its transfer."""
+    dst_k, dst_v = cache["k"][:, slot], cache["v"][:, slot]
+    for i in range(dst_k.shape[0]):
+        dst_k[i].copy_(k[i], non_blocking=True)
+        dst_v[i].copy_(v[i], non_blocking=True)
+    # fill_ with a Python number is a kernel: no host-to-device copy of
+    # the value, which from pageable memory would wait for the stream.
+    cache["length"][slot].fill_(int(length))
+    return cache
+
+
 def prefill_into_cache(params: dict, tokens, cache: dict, slot: int,
                        length: int, config: LlamaConfig, *,
                        attn_impl: str = "auto"):
@@ -437,10 +475,13 @@ def decode_step(params: dict, last_tokens, cache: dict,
     pc = cos[rope_pos][:, None, :]              # (slots, 1, hd/2)
     ps = sin[rope_pos][:, None, :]
     group = c.n_heads // c.n_kv_heads
-    # Columns past every slot's position are masked to -inf (weight
-    # exactly 0), so the slab is cut there: same result, less traffic.
-    t_max = min(int(pos.max()) + 1, max_seq)
-    valid = torch.arange(t_max, device=device)[None, :] <= pos[:, None]
+    # Attention runs over the whole slab, masked per slot, as in the
+    # reference.  Cutting it at the batch's longest position would move
+    # fewer bytes, but each slot's softmax and P.V would then reduce over
+    # a length set by the other slots, and round with it: on an H100 a
+    # session's greedy tokens then changed with the requests that shared
+    # its decode steps.  Over the whole slab every shape is fixed.
+    valid = torch.arange(max_seq, device=device)[None, :] <= pos[:, None]
     keep = write[:, None, None]
 
     x = params["embed"][last_tokens].to(c.dtype)   # (slots, dim)
@@ -457,12 +498,12 @@ def decode_step(params: dict, last_tokens, cache: dict,
         cv[rows, write_pos] = torch.where(keep, xv.to(cv.dtype),
                                           cv[rows, write_pos])
         q = xq.reshape(slots, c.n_kv_heads, group, c.head_dim).float()
-        scores = torch.einsum("skgd,stkd->skgt", q, ck[:, :t_max].float())
+        scores = torch.einsum("skgd,stkd->skgt", q, ck.float())
         scores = scores / math.sqrt(c.head_dim)
         scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
         probs = torch.softmax(scores, dim=-1)
         out = torch.einsum("skgt,stkd->skgd", probs.to(ck.dtype).float(),
-                           cv[:, :t_max].float())
+                           cv.float())
         out = out.reshape(slots, c.n_heads * c.head_dim).to(x.dtype)
         x = x + (out @ layer["wo"]).to(x.dtype)
         h = rmsnorm(x, layer["ln_mlp"], c.norm_eps)

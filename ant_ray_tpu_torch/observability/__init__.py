@@ -1,0 +1,8 @@
+"""ant_ray_tpu_torch.observability — instruments of the port (the
+counterpart of ant_ray_tpu.observability): the per-step phase
+profiler."""
+
+from ant_ray_tpu_torch.observability.step_profiler import (StepProfiler,
+                                                           StepRecord)
+
+__all__ = ["StepProfiler", "StepRecord"]

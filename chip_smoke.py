@@ -64,7 +64,32 @@ final line is printed:
    attention, then prefill time per bucket, decode tokens/s and peak
    memory are printed, and a torch.profiler trace of a short and a long
    prefill and of one decode step gives the device's busy share.
-6. The training slice: llama-400m at its published widths and all 24
+6. Sessions (chunked prefill, offload and restore) on the serving
+   slice's 8B weights: LLMEngine(slots=4, max_seq=4096,
+   prefill_chunk_tokens=512, profiler=StepProfiler()) with a store that
+   keeps one slab in memory and spills the rest to a temporary
+   directory in this checkout.  Six greedy sessions whose first turns
+   are 300 to 1500 random token ids and second turns 50, 8 new tokens
+   each, so that admission evicts idle sessions and their next turns
+   restore them; a seventh, sampled, session evicted by force
+   mid-generation; a restore held in flight (the store's get waits on an
+   event) while an unrelated request runs start to finish.  Gates:
+   every turn's tokens equal an engine of the same shape where each
+   session runs alone and nothing is evicted; every slab bitwise equal
+   (torch.equal) on the host after its offload and in its slot after
+   its install; at least two pressure evictions and two restores, the
+   forced restore, the held one, a restore from a spill file; no restore
+   failure; no flash launch.  Prints the slab's bytes, offload ms and GB/s (host clock,
+   into pinned memory), install ms on the card and on the host, step
+   times of plain decode steps, of steps that install and of steps with
+   a restore fetch in flight, restore_wait_s, peak memory and the
+   profiler's summary.
+7. EngineLoop on the same weights: four client threads submit eight
+   requests of 90 to 600 tokens, half of them in sessions; every handle
+   must finish within 120 s without error and stream exactly its final
+   tokens; a second turn, then evict_session and end_session through the
+   loop.  Prints TTFT per request and loop.stats(); no flash launch.
+8. The training slice: llama-400m at its published widths and all 24
    layers, bf16, random weights from seed 0, one fixed batch of 8 x 2049
    token ids, AdamW (make_optimizer), remat "none": 3 warm-up and 10
    timed train_step calls.  The launch counts are reset just before and
@@ -72,9 +97,9 @@ final line is printed:
    once per layer, all on the sm90 route.  Prints the step time,
    tokens/s, MFU against the bf16 peak, peak memory and a torch.profiler
    line of one step.
-7. One line {"kernels": [...]} with the six kernels (the sm90 and
-   CUDA-core forward, dQ and dK/dV; launches by path, the main path
-   being serving and training), then the last line
+9. One line {"kernels": [...]} with the six kernels (the sm90 and
+   CUDA-core forward, dQ and dK/dV; launches by path, the main paths
+   being serving, sessions, the loop and training), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 comparisons are
@@ -85,10 +110,13 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -691,6 +719,9 @@ def train_phase(torch, fa, llama):
 
 
 def slice_phase(torch, fa, llama):
+    """The serving slice; returns the launches of its main path and the
+    8B weights, which the sessions and loop phases reuse (the engine and
+    its cache go when this returns)."""
     from ant_ray_tpu_torch.llm import LLMEngine, SamplingParams  # noqa: PLC0415
     from ant_ray_tpu_torch.llm.engine import _bucket  # noqa: PLC0415
 
@@ -810,6 +841,461 @@ def slice_phase(torch, fa, llama):
                          engine.params, t, engine.cache, 0, n, cfg))
         _profile(torch, f"decode step, {engine.slots} slots, context "
                  f"{context}", step)
+    return launches, engine.params
+
+
+# Sessions phase: Llama-3-8B, 4 slots of 4096 positions, 512-token chunks.
+FIRST_TURNS = (300, 560, 820, 1080, 1340, 1500)  # prompt tokens, turn 1
+SECOND_TURN = 50                                  # prompt tokens, turns 2-3
+SESSION_TOKENS = 8                                # new tokens per turn
+FORCED_TURN = (400, 16)         # the force-evicted session: prompt, new
+SESSION_DEADLINE_S = 300
+
+
+def _restore_state(engine) -> str:
+    """"fetch" while a restore fetch of ``engine`` runs, "pending" while
+    a fetched slab waits for a slot, else "none"."""
+    if any(not t["done"] for t in engine._restoring.values()):
+        return "fetch"
+    return "pending" if engine._restoring else "none"
+
+
+def _drive(engine, deadline_s=SESSION_DEADLINE_S, after_step=None):
+    """Step ``engine`` until it has nothing left; returns its outputs by
+    request id.  Raises on a request that finished with an error and on
+    a run past ``deadline_s``.  ``after_step(state)`` runs after each
+    step, given the _restore_state when it began."""
+    outs = {}
+    deadline = time.monotonic() + deadline_s
+    while engine.has_unfinished():
+        inflight = _restore_state(engine)
+        if inflight == "fetch" and not (engine._waiting or engine._active
+                                        or engine._prefilling):
+            time.sleep(0.001)     # only a fetch to wait for: no empty steps
+            continue
+        for out in engine.step():
+            if out.finish_reason == "error":
+                raise AssertionError(f"request {out.request_id} failed: "
+                                     f"{out.error}")
+            outs[out.request_id] = out
+        if after_step is not None:
+            after_step(inflight)
+        if time.monotonic() > deadline:
+            raise AssertionError(f"engine still busy after {deadline_s} s")
+    return outs
+
+
+def _first_difference(got, want):
+    """Index of the first token where two streams differ."""
+    got = got or []
+    return next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                min(len(got), len(want)))
+
+
+def _session_turn(engine, sid, prompt, sampling):
+    rid = engine.add_request(prompt, sampling, admit=False, session_id=sid)
+    return _drive(engine)[rid].token_ids
+
+
+class _SlabLog:
+    """Times and checks every slab that moves between the card and the
+    host while installed: wraps ``llama.extract_slot`` and
+    ``llama.install_slot``, the two functions the engine moves slabs
+    with.  Each offload clones the slot on the card first and is timed
+    alone (host clock; it returns once the bytes are on the host); each
+    install is timed on the host and by CUDA events, then the slot is
+    cloned on the card (two queued copies, inside the engine's
+    restore_install phase).  The comparisons run in ``check()``, after
+    the step: the host slab against the slot before its offload, and the
+    slot after its install against the slot before that session's last
+    offload, all with torch.equal."""
+
+    def __init__(self, torch, llama, engine):
+        self.torch, self.llama, self.engine = torch, llama, engine
+        self.real = (llama.extract_slot, llama.install_slot)
+        self.offload_ms, self.install_host_ms, self.install_ms = [], [], []
+        self.pending = []
+        self.before = {}          # session -> (k, v) on the host
+        self.checked = {"offload": 0, "install": 0}
+        self.clone_bytes = self.clone_peak = 0
+
+    def __enter__(self):
+        self.llama.extract_slot = self._extract
+        self.llama.install_slot = self._install
+        return self
+
+    def __exit__(self, *exc):
+        self.llama.extract_slot, self.llama.install_slot = self.real
+        return False
+
+    def _clone(self, cache, slot):
+        pair = (cache["k"][:, slot].clone(), cache["v"][:, slot].clone())
+        self.clone_bytes += 2 * pair[0].nbytes
+        self.clone_peak = max(self.clone_peak, self.clone_bytes)
+        return pair
+
+    def _extract(self, cache, slot):
+        torch = self.torch
+        sid = next(s.session_id for s in self.engine._sessions.values()
+                   if s.slot == slot)
+        before = self._clone(cache, slot)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        k, v, length = self.real[0](cache, slot)
+        self.offload_ms.append((time.perf_counter() - t0) * 1e3)
+        self.pending.append(("offload", sid, before, (k, v)))
+        return k, v, length
+
+    def _install(self, cache, k, v, length, slot):
+        torch = self.torch
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        out = self.real[1](cache, k, v, length, slot)
+        self.install_host_ms.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        self.pending.append(("install", slot, self._clone(cache, slot),
+                             (start, end)))
+        return out
+
+    def check(self):
+        torch = self.torch
+        for kind, key, pair, extra in self.pending:
+            host = tuple(x.cpu() for x in pair)
+            self.clone_bytes -= 2 * pair[0].nbytes
+            if kind == "offload":
+                if not all(torch.equal(a, b) for a, b in zip(host, extra)):
+                    raise AssertionError(f"offload of session {key}: the "
+                                         "host slab differs from the slot")
+                self.before[key] = host
+            else:
+                sid = next(s.session_id
+                           for s in self.engine._sessions.values()
+                           if s.slot == key)
+                if not all(torch.equal(a, b)
+                           for a, b in zip(host, self.before[sid])):
+                    raise AssertionError(f"restore of session {sid}: the "
+                                         "slot differs from the slot "
+                                         "before its offload")
+                self.install_ms.append(extra[0].elapsed_time(extra[1]))
+            self.checked[kind] += 1
+        self.pending = []
+
+
+def sessions_phase(torch, fa, llama, params):
+    """Sessions on Llama-3-8B: six greedy conversations of two turns on
+    4 slots, so that admission evicts idle sessions to host memory
+    (all but the latest spilled to disk) and their next turns restore
+    them; a seventh,
+    sampled, session evicted by force mid-generation; and a restore held
+    in flight while an unrelated request runs start to finish.  Every
+    turn's tokens must equal an engine of the same shape where each
+    session runs alone and nothing is evicted, and every slab must come
+    back bit for bit.  Returns the launches (none: chunked prefill and
+    decode run no flash kernel)."""
+    from ant_ray_tpu_torch.llm import LLMEngine, SamplingParams  # noqa: PLC0415
+    from ant_ray_tpu_torch.llm.kv_offload import LocalKvStore  # noqa: PLC0415
+    from ant_ray_tpu_torch.observability import StepProfiler  # noqa: PLC0415
+
+    class HeldStore(LocalKvStore):
+        """A store whose get() waits while ``release`` is clear, and
+        which times the puts that spill a slab and the gets that read
+        one back from its file."""
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.release = threading.Event()
+            self.release.set()
+            self.spill_ms, self.unspill_ms = [], []
+
+        def put(self, key, slab):
+            spills, t0 = self.spills, time.perf_counter()
+            out = super().put(key, slab)
+            if self.spills > spills:
+                self.spill_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def get(self, handle):
+            if not self.release.wait(SESSION_DEADLINE_S):
+                raise TimeoutError("restore never released")
+            spilled, t0 = handle not in self._mem, time.perf_counter()
+            out = super().get(handle)
+            if spilled:
+                self.unspill_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+    torch.cuda.empty_cache()
+    cfg = llama.CONFIGS["llama3-8b"]
+    rng = np.random.default_rng(5)
+
+    def tokens(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    first = {f"s{i}": tokens(n) for i, n in enumerate(FIRST_TURNS)}
+    second = {sid: tokens(SECOND_TURN) for sid in first}
+    third = tokens(SECOND_TURN)                 # s0's held turn
+    forced_prompt = tokens(FORCED_TURN[0])
+    other_prompt = tokens(200)                  # runs under the held restore
+    greedy = SamplingParams(max_tokens=SESSION_TOKENS)
+    sampled = SamplingParams(max_tokens=FORCED_TURN[1], temperature=0.8,
+                             top_k=50, top_p=0.95, seed=77)
+
+    def engine(**kw):
+        return LLMEngine(cfg, params, slots=4, max_seq=4096,
+                         prefill_chunk_tokens=512, **kw)
+
+    _reset_counts(fa)
+    # The uninterrupted run: each session alone, its turns back to back,
+    # then ended, so nothing is ever evicted.
+    t0 = time.perf_counter()
+    base = engine()
+    want = {}
+    for sid in first:
+        want[sid, 1] = _session_turn(base, sid, first[sid], greedy)
+        want[sid, 2] = _session_turn(base, sid, second[sid], greedy)
+        if sid == "s0":
+            want[sid, 3] = _session_turn(base, sid, third, greedy)
+        base.end_session(sid)
+    want["forced", 1] = _session_turn(base, "forced", forced_prompt,
+                                      sampled)
+    want["other", 1] = base.generate([other_prompt], greedy)[0].token_ids
+    if base.stats["offloads"]:
+        raise AssertionError("the uninterrupted run evicted a session")
+    base_s = time.perf_counter() - t0
+    del base
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(
+            dir=os.path.dirname(os.path.abspath(__file__))) as spill:
+        store = HeldStore(spill_dir=spill, capacity_slabs=1)
+        prof = StepProfiler(history=4096)
+        eng = engine(kv_offload_store=store, profiler=prof)
+        # Per step: the _restore_state when it began ("held" while the
+        # held store keeps a fetch waiting); its profiler record; the
+        # offloads so far.
+        steps = []
+        torch.cuda.reset_peak_memory_stats()
+        with _SlabLog(torch, llama, eng) as log:
+            def after_step(state):
+                log.check()
+                steps.append((state, prof.last, len(log.offload_ms)))
+
+            t0 = time.perf_counter()
+            got = {}
+            for turn, prompts in ((1, first), (2, second)):
+                rids = {eng.add_request(p, greedy, admit=False,
+                                        session_id=sid): sid
+                        for sid, p in prompts.items()}
+                outs = _drive(eng, after_step=after_step)
+                got.update({(sid, turn): outs[rid].token_ids
+                            for rid, sid in rids.items()})
+            pressure = eng.stats["pressure_evictions"]
+            restores = eng.stats["restores"]
+
+            # Forced eviction mid-generation, sampled.
+            rid = eng.add_request(forced_prompt, sampled, admit=False,
+                                  session_id="forced")
+            seq = None
+            while seq is None or len(seq.generated) < 4:
+                eng.step()
+                log.check()
+                seq = next((s for s in eng._active.values()
+                            if s.request_id == rid), None)
+            if not eng.evict_session("forced", force=True):
+                raise AssertionError("forced eviction refused")
+            log.check()
+            got["forced", 1] = _drive(eng, after_step=after_step)[
+                rid].token_ids
+            forced_restores = eng.stats["restores"] - restores
+
+            # A restore held in flight while another request runs.
+            if eng._sessions["s0"].state == "resident":
+                eng.evict_session("s0")
+                log.check()
+            store.release.clear()
+            rid = eng.add_request(third, greedy, admit=False,
+                                  session_id="s0")
+            other = eng.add_request(other_prompt, greedy, admit=False)
+            held_restores = eng.stats["restores"]
+            outs = {}
+            deadline = time.monotonic() + SESSION_DEADLINE_S
+            while other not in outs:
+                state = "held" if _restore_state(eng) == "fetch" else "none"
+                outs.update({o.request_id: o for o in eng.step()})
+                after_step(state)
+                if time.monotonic() > deadline:
+                    raise AssertionError("request under the held restore "
+                                         "never finished")
+            held_ok = (eng.stats["restores"] == held_restores
+                       and eng._sessions["s0"].state == "restoring")
+            store.release.set()
+            outs.update(_drive(eng, after_step=after_step))
+            got["s0", 3] = outs[rid].token_ids
+            got["other", 1] = outs[other].token_ids
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        slab_bytes = 2 * eng.cache["k"][:, 0].numel() * 2
+    launches = _counts(fa)
+
+    stats = eng.stats
+    print(f"sessions llama3-8b slots 4 max_seq 4096 chunk 512: slab "
+          f"{slab_bytes} B; first turns {list(FIRST_TURNS)} tokens, second "
+          f"{SECOND_TURN}, {SESSION_TOKENS} new each; uninterrupted run "
+          f"{base_s:.1f} s, this run {run_s:.1f} s; stats "
+          + json.dumps(stats), flush=True)
+    mismatched = {str(key): _first_difference(got.get(key), want[key])
+                  for key in want if got.get(key) != want[key]}
+    # Host ms of steps that only decode and offload nothing, by whether
+    # a restore fetch was in flight; of steps that install a slab and
+    # otherwise only decode; and the decode phase of every step, by
+    # whether a fetch was in flight.
+    decode_ms = {state: [] for state in ("none", "fetch", "pending", "held")}
+    phase_ms = {state: [] for state in decode_ms}
+    installs, quiet_installs = [], []
+    offloads_before = 0
+    for state, rec, offloads in steps:
+        ran = set(rec.phases) - {"compute"}
+        offloaded = offloads != offloads_before
+        offloads_before = offloads
+        if "decode" in ran:
+            phase_ms[state].append(rec.phases["decode"] * 1e3)
+        if "restore_install" in ran:
+            installs.append(rec)
+            if ran == {"restore_install", "decode"} and not offloaded:
+                quiet_installs.append(rec.total_s * 1e3)
+        elif ran == {"decode"} and not offloaded:
+            decode_ms[state].append(rec.total_s * 1e3)
+    plain = decode_ms["none"]
+
+    def med(xs):
+        return statistics.median(xs) if xs else float("nan")
+
+    gbps = [slab_bytes / (ms * 1e6) for ms in log.offload_ms]
+    print(f"offload: {len(log.offload_ms)} slabs, median "
+          f"{med(log.offload_ms):.2f} ms = {med(gbps):.2f} GB/s (host clock, "
+          f"into pinned memory; all "
+          f"{[round(x, 2) for x in log.offload_ms]}); store spills "
+          f"{store.spills}", flush=True)
+    print(f"install: {len(log.install_ms)} slabs, median device "
+          f"{med(log.install_ms):.2f} ms = "
+          f"{slab_bytes / (med(log.install_ms) * 1e6):.2f} GB/s, host call "
+          f"{med(log.install_host_ms):.3f} ms (all "
+          f"{[round(x, 3) for x in log.install_host_ms]}); steps that "
+          f"install {[round(r.total_s * 1e3, 1) for r in installs]} ms "
+          f"(restore_install phase "
+          f"{[round(r.phases['restore_install'] * 1e3, 3) for r in installs]}"
+          f" ms), of them install and decode only {quiet_installs} ms, "
+          f"against plain decode steps {med(plain):.2f} ms ({len(plain)} "
+          f"steps)", flush=True)
+    print("restore in flight: decode-only steps (median ms, count) "
+          + json.dumps({k: [med(v), len(v)] for k, v in decode_ms.items()})
+          + "; decode phase of every step "
+          + json.dumps({k: [med(v), len(v)] for k, v in phase_ms.items()})
+          + f" (none: no restore; fetch: a fetch running; pending: a "
+          f"fetched slab waiting for a slot; held: the held fetch); spills "
+          f"{[round(x, 1) for x in store.spill_ms]} ms on the step thread, "
+          f"reads of spilled slabs {[round(x, 1) for x in store.unspill_ms]}"
+          f" ms on the fetch thread; restore_wait_s "
+          f"{stats['restore_wait_s']:.3f}; peak memory {peak_gb:.2f} GB "
+          f"(of it at most {log.clone_peak / 1e9:.2f} GB of the check's "
+          f"clones)", flush=True)
+    print("profiler summary " + json.dumps(prof.summary()), flush=True)
+    print(f"sessions gates: mismatched turns (first differing token) "
+          f"{mismatched} of {len(want)}; "
+          f"slabs checked {log.checked}; pressure evictions {pressure} and "
+          f"restores {restores} in turns 1-2, forced restores "
+          f"{forced_restores}, held restore pending while the other request "
+          f"ran {held_ok}; launches {launches}", flush=True)
+    if mismatched:
+        raise AssertionError(f"turns {sorted(mismatched)} differ from the "
+                             "uninterrupted run")
+    if not (log.checked["offload"] == stats["offloads"] > 0
+            and log.checked["install"] == stats["restores"] > 0):
+        raise AssertionError(f"slab checks {log.checked} do not cover "
+                             f"{stats['offloads']} offloads and "
+                             f"{stats['restores']} restores")
+    if not (pressure >= 2 and restores >= 2 and forced_restores == 1
+            and held_ok and stats["restore_failures"] == 0
+            and store.unspill_ms):
+        raise AssertionError("the sessions run did not exercise pressure "
+                             "eviction, restores, a forced eviction, a held "
+                             "restore and a restore from a spill file as it "
+                             "must")
+    if any(launches.values()):
+        raise AssertionError(f"the sessions path launched {launches}, "
+                             "expected no flash kernel")
+    return launches
+
+
+def loop_phase(torch, fa, llama, params):
+    """EngineLoop on Llama-3-8B: four client threads submit eight
+    requests, half of them in sessions; every handle must finish without
+    error within its timeout, streaming exactly its final tokens; then
+    one session is evicted and every session ended through the loop."""
+    from ant_ray_tpu_torch.llm import EngineLoop, LLMEngine, SamplingParams  # noqa: PLC0415
+
+    cfg = llama.CONFIGS["llama3-8b"]
+    rng = np.random.default_rng(9)
+    lengths = (120, 480, 250, 600, 90, 360, 530, 200)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+    greedy = SamplingParams(max_tokens=SESSION_TOKENS)
+    sids = {j: f"loop-{j}" for j in range(len(prompts)) if j % 2}
+    engine = LLMEngine(cfg, params, slots=4, max_seq=4096,
+                       prefill_chunk_tokens=512)
+    _reset_counts(fa)
+    loop = EngineLoop(engine, metrics_interval_s=0.5)
+    handles, errors = {}, []
+    try:
+        def client(c):
+            try:
+                for j in (2 * c, 2 * c + 1):
+                    handles[j] = loop.submit(prompts[j], greedy,
+                                             session_id=sids.get(j))
+            except Exception as exc:  # noqa: BLE001 — reported below
+                errors.append(exc)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        if errors or len(handles) != len(prompts):
+            raise AssertionError(f"submission failed: {errors}")
+        outs = {j: handles[j].wait(timeout=120) for j in sorted(handles)}
+        wall_s = time.perf_counter() - t0
+        for j, h in sorted(handles.items()):
+            streamed = [e["token_id"] for e in h if e["type"] == "token"]
+            if streamed != outs[j].token_ids or not outs[j].token_ids:
+                raise AssertionError(f"request {j} streamed {streamed}, "
+                                     f"returned {outs[j].token_ids}")
+        # A second turn for one session, evicted through the loop after.
+        again = loop.submit(prompts[0][:SECOND_TURN], greedy,
+                            session_id=sids[1])
+        again.wait(timeout=120)
+        stats = loop.stats()
+        evicted = loop.evict_session(sids[1])
+        ended = [loop.end_session(sid) for sid in sids.values()]
+    finally:
+        loop.shutdown(timeout=30)
+    launches = _counts(fa)
+    ttft = {j: round(h.ttft_s() * 1e3, 1) for j, h in sorted(handles.items())}
+    print(f"loop llama3-8b slots 4: {len(outs)} requests from 4 threads in "
+          f"{wall_s:.2f} s; TTFT ms by request (prompt tokens "
+          f"{list(lengths)}) {ttft}; evicted {evicted}, ended {ended}; "
+          f"stats {json.dumps(stats)}; engine stats "
+          f"{json.dumps(engine.stats)}; launches {launches}", flush=True)
+    if loop._thread.is_alive():
+        raise AssertionError("the loop thread did not stop")
+    if not (evicted and all(ended) and engine.resident_sessions() == 0):
+        raise AssertionError("evict_session / end_session through the loop "
+                             "failed")
+    if any(launches.values()):
+        raise AssertionError(f"the loop path launched {launches}, expected "
+                             "no flash kernel")
     return launches
 
 
@@ -902,10 +1388,13 @@ def main() -> int:
     model_check_phase(torch, llama)
     paths = {"grad_check_fp32": grad_check_phase(torch, fa, llama),
              "grad_check_bf16": bf16_grad_check_phase(torch, fa, llama)}
-    paths["serve"] = slice_phase(torch, fa, llama)
+    paths["serve"], params = slice_phase(torch, fa, llama)
+    paths["sessions"] = sessions_phase(torch, fa, llama, params)
+    paths["loop"] = loop_phase(torch, fa, llama, params)
+    del params
     paths["train"] = train_phase(torch, fa, llama)
     by_path = {path: _by_kernel(c) for path, c in paths.items()}
-    main_paths = ("serve", "train")
+    main_paths = ("serve", "sessions", "loop", "train")
 
     # Forward: S=4096, the largest prefill of the serving slice, where the
     # CUDA-core kernel was also timed.  Backward: the training slice's

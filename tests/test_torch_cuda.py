@@ -1,7 +1,9 @@
 """The hand-written CUDA flash-attention kernels (the forward, and the dQ
 and dK/dV backward, each on both routes: the tensor-core kernels for
 bf16 at head_dim 64 and 128, the CUDA-core kernels otherwise) against
-their plain PyTorch versions, on the card.
+their plain PyTorch versions, on the card; and the session slabs' round
+trip between the card and host memory, bitwise, with an install from
+pinned memory that does not wait for the card.
 These tests need a CUDA device and ``nvcc``: they skip on a machine
 without a card.  This file imports neither JAX nor the
 JAX package, so it also runs where JAX is not installed:
@@ -269,3 +271,125 @@ def test_backward_wrapper_raises_on_what_it_does_not_take(cuda):
     lse = torch.zeros((2, 4, 128), device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_backward(q, k, v, q, lse, q, causal=True)
+
+
+# ------------------------------------------------------- session slabs
+
+def _bf16_cache(slots=4, max_seq=256):
+    from ant_ray_tpu_torch.models import llama
+
+    cfg = llama.CONFIGS["tiny"]
+    cache = llama.init_kv_cache(cfg, slots, max_seq, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for name in ("k", "v"):
+        cache[name] = torch.randn(cache[name].shape, generator=gen,
+                                  device="cuda").to(torch.bfloat16)
+    cache["length"][1] = 77
+    return cache
+
+
+@pytest.mark.parametrize("pinned", [True, False])
+def test_slab_round_trip_on_the_card_is_bitwise(cuda, pinned):
+    from ant_ray_tpu_torch.models import llama
+
+    cache = _bf16_cache()
+    before = {n: cache[n][:, 1].clone() for n in ("k", "v")}
+    k, v, length = llama.extract_slot(cache, 1)
+    assert k.is_pinned() and v.is_pinned() and length == 77
+    if not pinned:                  # as a slab unpickled from a spill file
+        k, v = k.clone(), v.clone()
+        assert not k.is_pinned()
+    with torch.inference_mode():
+        llama.install_slot(cache, k, v, length, 3)
+    torch.cuda.synchronize()
+    for name in ("k", "v"):
+        assert torch.equal(cache[name][:, 3], before[name])
+        assert torch.equal(cache[name][:, 1], before[name])
+    assert int(cache["length"][3]) == 77
+
+
+def test_install_from_pinned_memory_does_not_wait_for_the_card(cuda):
+    """A long kernel queued first: the install's copies queue behind it,
+    the host returns at once, and the bytes are right once it drains."""
+    import time
+
+    from ant_ray_tpu_torch.models import llama
+
+    cache = _bf16_cache()
+    k, v, length = llama.extract_slot(cache, 1)
+    with torch.inference_mode():
+        # Once untimed: a kernel's first launch loads its module, which
+        # may wait for the card.
+        llama.install_slot(cache, k, v, length, 3)
+    torch.cuda.synchronize()
+    sleep = torch.cuda.Event(enable_timing=True)
+    done = torch.cuda.Event(enable_timing=True)
+    sleep.record()
+    torch.cuda._sleep(2_000_000_000)          # ~1 s of device time
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        llama.install_slot(cache, k, v, length, 2)
+    host_s = time.perf_counter() - t0
+    done.record()
+    assert not done.query()                   # still behind the sleep
+    done.synchronize()
+    device_s = sleep.elapsed_time(done) / 1e3
+    assert host_s < 0.1 * device_s, (host_s, device_s)
+    assert torch.equal(cache["k"][:, 2], k.cuda())
+    assert torch.equal(cache["v"][:, 2], v.cuda())
+
+
+def test_session_restore_from_a_spill_file_on_the_card(cuda, tmp_path):
+    """Every slab spilled (capacity 0), so each restore unpickles a
+    pageable slab that the fetch thread pins; every turn's tokens equal
+    an engine that never evicts."""
+    from ant_ray_tpu_torch.llm import LLMEngine, SamplingParams
+    from ant_ray_tpu_torch.llm.kv_offload import LocalKvStore
+
+    def run(evict):
+        store = LocalKvStore(spill_dir=str(tmp_path / str(evict)),
+                             capacity_slabs=0)
+        eng = LLMEngine("tiny", slots=2, max_seq=96, device="cuda",
+                        prefill_chunk_tokens=8, kv_offload_store=store,
+                        kv_idle_evict_s=0.0 if evict else None)
+        got = []
+        for prompt in ([5, 9, 17], [3, 88, 41, 2], [11, 12]):
+            eng.add_request(prompt, SamplingParams(max_tokens=6),
+                            admit=False, session_id="s")
+            while eng.has_unfinished():
+                got += [o.token_ids for o in eng.step()]
+            eng.step()                        # the idle sweep, if on
+        return got, eng.stats, store.spills
+
+    want, base_stats, _ = run(False)
+    got, stats, spills = run(True)
+    assert got == want and base_stats["offloads"] == 0
+    assert stats["restores"] == 2 and spills == stats["offloads"] == 3
+
+
+def test_decode_of_a_slot_does_not_depend_on_the_other_slots(cuda):
+    """A slot's logits are bitwise the same whatever length the other
+    (inactive) slots hold: decode's shapes must not follow the batch."""
+    import dataclasses
+
+    from ant_ray_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(
+        llama.CONFIGS["tiny"], dim=512, n_heads=4, n_kv_heads=2,
+        mlp_dim=512, n_layers=2, max_seq=4096, dtype=torch.bfloat16)
+    params = llama.init_params(cfg, generator=cuda, device="cuda")
+    cache = llama.init_kv_cache(cfg, 4, 4096, device="cuda")
+    for name in ("k", "v"):
+        cache[name].copy_(torch.randn(cache[name].shape, generator=cuda,
+                                      device="cuda"))
+    last = torch.tensor([5, 6, 7, 8], device="cuda")
+    active = torch.tensor([True, False, False, False], device="cuda")
+    outs = []
+    with torch.inference_mode():
+        for other in (100, 1000, 3000):
+            cache["length"].fill_(other)
+            cache["length"][0] = 700
+            logits, _ = llama.decode_step(params, last, cache, cfg,
+                                          active=active)
+            outs.append(logits[0].clone())
+    assert all(torch.equal(outs[0], o) for o in outs[1:])

@@ -123,9 +123,7 @@ def test_unported_options_raise(weights):
     with pytest.raises(NotImplementedError):
         _engine(weights, tensor_parallel_size=2)
     with pytest.raises(NotImplementedError):
-        _engine(weights, kv_idle_evict_s=1.0)
-    with pytest.raises(NotImplementedError):
-        _engine(weights).add_request([1, 2], session_id="s")
+        _engine(weights).add_request([1, 2], trace_ctx=object())
     with pytest.raises(NotImplementedError):
         LLMEngine("/no/such/checkpoint", device="cpu")
     with pytest.raises(ValueError):
