@@ -43,3 +43,11 @@ class KVRestoreError(ArtError):
         return (KVRestoreError, (str(self.args[0]) if self.args
                                  else "KV restore failed",
                                  self.session_id))
+
+
+class DeadlineExceededError(ArtError, TimeoutError):
+    """The request's end-to-end deadline expired.
+
+    Expired work is SHED, never executed: the server checks the stamped
+    deadline (serve/api.py ``get_request_deadline``) before it submits a
+    request, and a wait that outlives the deadline raises this."""

@@ -30,10 +30,9 @@ The reference's jitted device calls are plain calls here; everything
 that writes the cache runs under ``torch.inference_mode()``.
 
 Not in this port yet: the tracing plane (``trace_ctx``, ``llm:restore``
-spans), the object-plane offload stores, publishing the loop's gauges,
-tensor parallelism (``tensor_parallel_size`` / ``mesh``) and loading a
-checkpoint directory.  Passing any of them raises
-``NotImplementedError``.
+spans), the object-plane offload stores, publishing the loop's gauges and
+tensor parallelism (``tensor_parallel_size`` / ``mesh``).  Passing any of
+them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -56,6 +55,7 @@ from ant_ray_tpu_torch.exceptions import BackPressureError, KVRestoreError
 from ant_ray_tpu_torch.llm.kv_offload import LocalKvStore
 from ant_ray_tpu_torch.llm.sampling import SamplingParams
 from ant_ray_tpu_torch.llm.tokenizer import get_tokenizer
+from ant_ray_tpu_torch.models import checkpoint as ckpt
 from ant_ray_tpu_torch.models import llama
 
 logger = logging.getLogger(__name__)
@@ -125,11 +125,13 @@ def _timer(prof, name: str):
 class LLMEngine:
     """Synchronous engine core.
 
-    ``model`` is a config name from models/llama.CONFIGS or a
-    LlamaConfig; ``params`` (a dict of tensors, e.g. from
-    models/convert.py) overrides the random initialisation made from
-    ``seed`` on ``device``.  ``device=None`` is the current CUDA device;
-    without one, and without ``device="cpu"``, construction raises.
+    ``model`` is a config name from models/llama.CONFIGS, a LOCAL
+    CHECKPOINT DIRECTORY (HF Llama layout — real weights, loaded onto
+    ``device`` by models/checkpoint.py), or a LlamaConfig; ``params`` (a
+    dict of tensors, e.g. from models/convert.py) overrides both (random
+    initialisation from ``seed`` remains the default for named configs).
+    ``device=None`` is the current CUDA device; without one, and without
+    ``device="cpu"``, construction raises.
     """
 
     def __init__(self, model="tiny", params=None, *, slots: int = 8,
@@ -159,10 +161,13 @@ class LLMEngine:
             raise _not_in_port("tensor parallelism (tensor_parallel_size, "
                                "mesh)")
         if isinstance(model, str):
-            if model not in llama.CONFIGS:
-                raise _not_in_port(f"loading a checkpoint ({model!r} is not "
-                                   f"one of {sorted(llama.CONFIGS)})")
-            self.config = llama.CONFIGS[model]
+            # Explicit params: only the config is needed — don't read
+            # gigabytes of weights to drop them.
+            loaded, self.config, is_dir = ckpt.resolve_model(
+                model, self.device, load=params is None)
+            params = loaded if params is None else params
+            if tokenizer is None and is_dir:
+                tokenizer = get_tokenizer(model)  # checkpoint dir
         else:
             self.config = model
         self.max_seq = min(max_seq or self.config.max_seq,

@@ -16,10 +16,13 @@ bounded deque — records materialize into :class:`StepRecord` objects and
 the MFU / compute-remainder math runs only when something *reads* them
 (``last``, ``summary()``).
 
+MFU needs the card's peak: without ``peak_flops`` the profiler looks up
+the current CUDA device's name in :data:`PEAK_BF16_FLOPS` (the reference
+reads a TPU table); on the CPU or an unlisted card MFU stays None, as in
+the reference off a TPU.
+
 Not in the port yet (ROADMAP.md): the attached stats streams of a device
-feed and of collective fusion, publishing records to the runtime, and
-peak detection — MFU needs an explicit ``peak_flops`` and is None
-without one, as in the reference off a TPU.
+feed and of collective fusion, and publishing records to the runtime.
 """
 
 from __future__ import annotations
@@ -28,6 +31,12 @@ import time
 from collections import deque
 from dataclasses import dataclass
 from typing import Any
+
+import torch
+
+# Dense bf16 peak FLOP/s by torch.cuda.get_device_name() (NVIDIA's data
+# sheet, SXM part, at the full 700 W power limit).
+PEAK_BF16_FLOPS = {"NVIDIA H100 80GB HBM3": 989e12}
 
 
 @dataclass
@@ -78,8 +87,11 @@ class StepProfiler:
                 ...
         prof.summary()
 
-    ``flops_per_step`` with ``peak_flops`` (the card's peak for the
-    step's dtype) enables MFU.
+    ``flops_per_step`` enables MFU, against ``peak_flops`` (the card's
+    peak for the step's dtype) or, without it, the current card's bf16
+    peak from :data:`PEAK_BF16_FLOPS`.  A process steps on one card, so
+    the peak is one card's (the reference sums the host's TPU chips,
+    which one JAX process drives together).
     """
 
     __slots__ = ("_flops_per_step", "_peak_flops", "records",
@@ -88,7 +100,8 @@ class StepProfiler:
     def __init__(self, *, flops_per_step: float | None = None,
                  peak_flops: float | None = None, history: int = 256):
         self._flops_per_step = flops_per_step
-        self._peak_flops = peak_flops
+        self._peak_flops = (peak_flops if peak_flops is not None
+                            else self._detect_peak_flops())
         # raw (step, wall_ts, total_s, phases) tuples — materialized
         # into StepRecords only on read, keeping the step path cheap
         self.records: Any = deque(maxlen=max(1, history))
@@ -97,6 +110,12 @@ class StepProfiler:
         self._t0 = 0.0
         self._wall0 = 0.0
         self._timers: dict[str, _PhaseTimer] = {}
+
+    @staticmethod
+    def _detect_peak_flops() -> float | None:
+        if not torch.cuda.is_available():
+            return None             # off the card: MFU needs peak_flops=
+        return PEAK_BF16_FLOPS.get(torch.cuda.get_device_name())
 
     # -------------------------------------------------------- step path
 

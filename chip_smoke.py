@@ -89,7 +89,36 @@ final line is printed:
    must finish within 120 s without error and stream exactly its final
    tokens; a second turn, then evict_session and end_session through the
    loop.  Prints TTFT per request and loop.stats(); no flash launch.
-8. The training slice: llama-400m at its published widths and all 24
+   The 8B weights are freed after this phase.
+8. Serving from a checkpoint directory: llama-400m at its published
+   widths and depth (bf16, seed 0) written to a temporary directory of
+   this checkout in the HF layout twice, as model.safetensors (a writer
+   here: the format's header and raw buffers) and as pytorch_model.bin
+   (torch.save); each loaded onto the card through LLMEngine(<dir>,
+   slots=8, max_seq=4096, prefill_chunk_tokens=None).  Gates: every leaf
+   bitwise equal to the weights in memory; greedy tokens of prompts of
+   100, 700 and 1500 token ids equal to an engine on the weights in
+   memory; one completion through LLMServer(<dir>) equal to the
+   engine's; the sm90 forward launched 24 times per prefill (every bucket
+   is 128 or more), nothing else.  Prints per format the file's bytes,
+   write and load seconds and GB/s (host clock; the write ends in fsync,
+   the load is the engine's construction), then the launches and peak
+   memory.
+9. LLMServer on Llama-3-8B (random weights from seed 0, slots=8,
+   max_seq=4096, the reference's serving defaults: chunks of 64,
+   kv_offload="local").  Four client threads send four completions of
+   100 to 1500 token ids (one opening a session), two chats, two streams
+   (a completion and one of the chats) and the session's second turn;
+   then end_session, load_signals, a request whose deadline has passed
+   and one whose deadline (0.5 s) runs out mid-generation.  Gates: every
+   greedy answer equal to the same request served alone afterwards; each
+   stream carrying its answer's tokens, each chunk its token's text;
+   chat usage matching the tokens; the expired request shed with the
+   engine's stats and request ids untouched; the late one raising after
+   its first token; no flash launch.  Prints TTFT per request
+   (handle.ttft_s() through the server's loop), the wall time,
+   load_signals, device_memory_stats() and peak memory.
+10. The training slice: llama-400m at its published widths and all 24
    layers, bf16, random weights from seed 0, one fixed batch of 8 x 2049
    token ids, AdamW (make_optimizer), remat "none": 3 warm-up and 10
    timed train_step calls.  The launch counts are reset just before and
@@ -97,9 +126,10 @@ final line is printed:
    once per layer, all on the sm90 route.  Prints the step time,
    tokens/s, MFU against the bf16 peak, peak memory and a torch.profiler
    line of one step.
-9. One line {"kernels": [...]} with the six kernels (the sm90 and
+11. One line {"kernels": [...]} with the six kernels (the sm90 and
    CUDA-core forward, dQ and dK/dV; launches by path, the main paths
-   being serving, sessions, the loop and training), then the last line
+   being serving, sessions, the loop, the checkpoint directory, the
+   server and training), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 comparisons are
@@ -109,6 +139,7 @@ made in full fp32.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import os
 import re
@@ -1299,6 +1330,377 @@ def loop_phase(torch, fa, llama, params):
     return launches
 
 
+def _write_safetensors(torch, path, state):
+    """A bf16 state dict as one safetensors file: an 8-byte little-endian
+    header length, a JSON header of each tensor's dtype, shape and byte
+    range (padded with spaces to 8 bytes), then the raw buffers."""
+    header, offset = {}, 0
+    for name, t in state.items():
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{name}: the writer takes bf16, not {t.dtype}")
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": "BF16", "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little"))
+        f.write(blob)
+        for t in state.values():
+            f.write(t.reshape(-1).view(torch.uint8).numpy())
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def _bitwise_equal(torch, a, b):
+    """Every leaf of two trees has the same dtype, shape and bits."""
+    flat_a = {**{k: v for k, v in a.items() if k != "layers"},
+              **{f"layers.{k}": v for k, v in a["layers"].items()}}
+    flat_b = {**{k: v for k, v in b.items() if k != "layers"},
+              **{f"layers.{k}": v for k, v in b["layers"].items()}}
+    return flat_a.keys() == flat_b.keys() and all(
+        v.dtype == flat_b[k].dtype and v.shape == flat_b[k].shape
+        and torch.equal(v.view(torch.int16), flat_b[k].view(torch.int16))
+        for k, v in flat_a.items())
+
+
+# Checkpoint phase: llama-400m, greedy prompts (buckets 128, 1024, 2048).
+CKPT_PROMPTS = (100, 700, 1500)
+CKPT_TOKENS = 16
+
+
+def checkpoint_phase(torch, fa, llama):
+    """Serving from a checkpoint directory: llama-400m's random weights
+    (seed 0) written as a HF directory twice, as model.safetensors (by
+    _write_safetensors) and as pytorch_model.bin (torch.save), in a
+    temporary directory of this checkout; each loaded onto the card
+    through LLMEngine(<dir>, prefill_chunk_tokens=None).  Gates: leaves
+    bitwise equal to the weights in memory; greedy tokens of three
+    prompts equal to an engine on the weights in memory; one completion
+    through LLMServer(<dir>) equal to the engine's; the sm90 forward
+    launched n_layers times per prefill (every bucket here is 128 or
+    more), nothing else.  Returns the launches of the directory engines
+    and the server."""
+    from ant_ray_tpu_torch.llm import (LLMEngine, LLMServer,  # noqa: PLC0415
+                                       SamplingParams, get_tokenizer)
+    from ant_ray_tpu_torch.models import checkpoint as ckpt  # noqa: PLC0415
+
+    torch.cuda.empty_cache()
+    cfg = llama.CONFIGS["llama-400m"]
+    params = llama.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+        device="cuda")
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in CKPT_PROMPTS]
+    greedy = SamplingParams(max_tokens=CKPT_TOKENS)
+    kw = dict(slots=8, max_seq=4096, prefill_chunk_tokens=None)
+
+    ref = LLMEngine(cfg, params, **kw)
+    want = [o.token_ids for o in ref.generate(prompts, greedy)]
+    want_solo = ref.generate([prompts[1]], greedy)[0].token_ids
+    del ref
+    state = ckpt.hf_state_dict(params)
+    nbytes = sum(t.numel() * t.element_size() for t in state.values())
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(fa)
+    per_format = {}
+    with tempfile.TemporaryDirectory(
+            dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        for fmt, fname in (("safetensors", "model.safetensors"),
+                           ("bin", "pytorch_model.bin")):
+            path = os.path.join(tmp, fmt)
+            os.makedirs(path)
+            with open(os.path.join(path, "config.json"), "w") as f:
+                json.dump(ckpt.hf_config(cfg), f)
+            t0 = time.perf_counter()
+            if fmt == "safetensors":
+                _write_safetensors(torch, os.path.join(path, fname), state)
+            else:
+                with open(os.path.join(path, fname), "wb") as f:
+                    torch.save(state, f)
+                    f.flush()
+                    os.fsync(f.fileno())
+            write_s = time.perf_counter() - t0
+            size = os.path.getsize(os.path.join(path, fname))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loaded, _ = ckpt.load_llama_params(path)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            bitwise = _bitwise_equal(torch, loaded, params)
+            del loaded
+            # LLMEngine(<dir>) also asks get_tokenizer(<dir>) for the
+            # directory's tokenizer: timed alone here (the first call
+            # imports transformers where it exists).
+            t0 = time.perf_counter()
+            get_tokenizer(path)
+            tokenizer_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            engine = LLMEngine(path, **kw)
+            torch.cuda.synchronize()
+            engine_s = time.perf_counter() - t0
+            bitwise = bitwise and _bitwise_equal(torch, engine.params, params)
+            before = _counts(fa)["fwd_sm90"]
+            got = [o.token_ids for o in engine.generate(prompts, greedy)]
+            launched = _counts(fa)["fwd_sm90"] - before
+            per_format[fmt] = {
+                "file_bytes": size, "write_s": write_s,
+                "write_GBps": size / write_s / 1e9, "load_s": load_s,
+                "load_GBps": size / load_s / 1e9,
+                "get_tokenizer_s": tokenizer_s, "engine_s": engine_s,
+                "bitwise": bitwise,
+                "tokens_equal": got == want, "sm90_launches": launched}
+            print(f"checkpoint llama-400m {fmt}: "
+                  f"{json.dumps(per_format[fmt])}", flush=True)
+            del engine
+            if fmt == "safetensors":
+                server = LLMServer(path, prefill_chunk_tokens=None, slots=8,
+                                   max_seq=4096)
+                try:
+                    answer = server({"prompt": prompts[1],
+                                     "max_tokens": CKPT_TOKENS})
+                finally:
+                    server.shutdown()
+                server_tokens = answer["choices"][0]["token_ids"]
+                server_ok = (_bitwise_equal(torch, server.engine.params,
+                                            params)
+                             and server_tokens == want_solo)
+                del server
+    torch.cuda.synchronize()
+    launches = _counts(fa)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_prefill = cfg.n_layers          # every bucket here is 128 or more
+    expected = per_prefill * (2 * len(prompts) + 1)
+    has_hf = importlib.util.find_spec("transformers") is not None
+    print(f"checkpoint llama-400m: {nbytes} bytes of bf16 weights "
+          f"({cfg.num_params() / 1e6:.1f} M params; load_s is "
+          f"load_llama_params alone, get_tokenizer_s get_tokenizer(<dir>) "
+          f"alone, engine_s LLMEngine(<dir>) after both; transformers "
+          f"installed {has_hf}), server completion "
+          f"equal to the engine's {server_ok}; launches {launches} "
+          f"(expected {expected} sm90 forward, nothing else); peak memory "
+          f"{peak_gb:.2f} GB", flush=True)
+    if not (all(r["bitwise"] and r["tokens_equal"]
+                and r["sm90_launches"] == per_prefill * len(prompts)
+                for r in per_format.values()) and server_ok):
+        raise AssertionError(f"checkpoint phase failed: {per_format}, "
+                             f"server ok {server_ok}")
+    if launches != {"fwd": expected, "fwd_sm90": expected, "dq": 0, "dkv": 0,
+                    "sm90": 0}:
+        raise AssertionError(f"checkpoint phase launched {launches}")
+    return launches
+
+
+# Server phase: Llama-3-8B behind LLMServer, the reference's defaults.
+SERVER_TOKENS = 16
+
+
+def server_phase(torch, fa, llama):
+    """LLMServer("llama3-8b", slots=8, max_seq=4096, kv_offload="local")
+    with chunks of 64 (the reference's serving default), random weights
+    from seed 0.  Four client threads send four completions of 100-1500
+    token ids (one opening a session), two chats, two streams (a
+    completion and the first chat), and the session's second turn; then
+    end_session, load_signals, a request whose deadline has passed and
+    one whose deadline runs out mid-generation.  Gates: every greedy
+    answer equals the same request served alone afterwards; each stream
+    equals its request's answer; chat usage matches the tokens; the
+    expired request touches nothing; no flash launch (chunked prefill and
+    decode run no kernel of ours)."""
+    from ant_ray_tpu_torch.exceptions import DeadlineExceededError  # noqa: PLC0415
+    from ant_ray_tpu_torch.llm import LLMServer  # noqa: PLC0415
+    from ant_ray_tpu_torch.llm.chat import render_chat  # noqa: PLC0415
+    from ant_ray_tpu_torch.observability import device_memory_stats  # noqa: PLC0415
+    from ant_ray_tpu_torch.serve.api import _request_deadline  # noqa: PLC0415
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    srv = LLMServer("llama3-8b", slots=8, max_seq=4096, seed=0,
+                    kv_offload="local")
+    torch.cuda.synchronize()
+    print(f"llama3-8b LLMServer up in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    cfg, tok = srv.engine.config, srv.engine.tokenizer
+    rng = np.random.default_rng(13)
+
+    def ids(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    def completion(n, **extra):
+        return {"prompt": ids(n), "max_tokens": SERVER_TOKENS, **extra}
+
+    chat_a = {"messages": [{"role": "system", "content": "You are terse."},
+                           {"role": "user", "content": "Name three rivers "
+                            "of Europe and their lengths."}],
+              "max_tokens": SERVER_TOKENS}
+    chat_b = {"messages": [{"role": "user", "content": "Say hello."}],
+              "max_tokens": SERVER_TOKENS}
+    reqs = {"c100": completion(100), "c500s": completion(500, session_id="s"),
+            "c1000": completion(1000), "c1500": completion(1500),
+            "chat_a": chat_a, "chat_b": chat_b,
+            "stream_c300": completion(300), "stream_chat_a": dict(chat_a),
+            "s_turn2": completion(50, session_id="s")}
+    plan = [["c100", "c500s", "s_turn2"], ["c1000", "stream_c300"],
+            ["chat_a", "chat_b"], ["c1500", "stream_chat_a"]]
+    label = threading.local()
+    handles: dict = {}
+    submit = srv._loop.submit
+
+    def recording_submit(prompt, sampling, session_id=None):
+        handle = submit(prompt, sampling, session_id=session_id)
+        handles[label.name] = handle
+        return handle
+
+    srv._loop.submit = recording_submit
+    answers, errors = {}, []
+
+    def serve(name):
+        label.name = name
+        req = dict(reqs[name])
+        if name.startswith("stream"):
+            return list(srv.stream(req))
+        return srv(req)
+
+    def client(names):
+        try:
+            for name in names:
+                answers[name] = serve(name)
+        except Exception as exc:  # noqa: BLE001 — reported below
+            errors.append(exc)
+
+    _reset_counts(fa)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(names,))
+                   for names in plan]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(SESSION_DEADLINE_S)
+        wall_s = time.perf_counter() - t0
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"server clients failed: {errors}")
+        ttft = {name: round(h.ttft_s() * 1e3, 1)
+                for name, h in handles.items()}
+        ended = srv.end_session("s")
+        signals = srv.load_signals()
+
+        # Each request again, alone (the session replayed under another
+        # id, its turns in order).
+        solo = {}
+        for names in plan:
+            for name in names:
+                req = dict(reqs[name])
+                if req.get("session_id"):
+                    req["session_id"] = "s-solo"
+                label.name = f"solo {name}"
+                solo[name] = (list(srv.stream(dict(req)))
+                              if name.startswith("stream") else srv(req))
+        srv.end_session("s-solo")
+        # The streams' requests as completions, for their token ids: the
+        # chat one as the token ids its template renders to, which is
+        # what the chat path submits.
+        whole = {"stream_c300": srv(dict(reqs["stream_c300"])),
+                 "stream_chat_a": srv({
+                     "prompt": render_chat(tok, chat_a["messages"]),
+                     "max_tokens": SERVER_TOKENS})}
+
+        # A request whose deadline has passed: shed, engine untouched.
+        stats, counter = dict(srv.engine.stats), repr(srv.engine._req_counter)
+        token = _request_deadline.set(time.time() - 1.0)
+        shed = False
+        try:
+            srv(completion(100))
+        except DeadlineExceededError:
+            shed = (srv.engine.stats == stats
+                    and repr(srv.engine._req_counter) == counter)
+        finally:
+            _request_deadline.reset(token)
+
+        # A deadline that runs out mid-generation: 0.5 s for 64 tokens.
+        label.name = "deadline"
+        token = _request_deadline.set(time.time() + 0.5)
+        t0 = time.perf_counter()
+        expired_s = None
+        try:
+            srv({"prompt": ids(100), "max_tokens": 64})
+        except DeadlineExceededError:
+            expired_s = time.perf_counter() - t0
+        finally:
+            _request_deadline.reset(token)
+        late = handles["deadline"]
+        late_out = late.wait(SESSION_DEADLINE_S)      # it runs to its end
+        mid_generation = (expired_s is not None and late.ttft_s() is not None
+                          and late.ttft_s() < expired_s
+                          and len(late_out.token_ids) > 1)
+    finally:
+        srv.shutdown()
+        del srv._loop.submit   # the wrapper holds the loop: free the 8B now
+    launches = _counts(fa)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    def streamed(name):
+        """The texts and token ids of a stream's token chunks."""
+        body = [c["choices"][0] for c in answers[name][:-1]]
+        return ([b.get("text", b.get("delta", {}).get("content"))
+                 for b in body], [b.get("token_id") for b in body])
+
+    def per_token(ids):
+        return [tok.decode([t]) for t in ids]
+
+    equal = {name: answers[name] == solo[name] for name in answers}
+    c300 = whole["stream_c300"]["choices"][0]
+    chat_ids = whole["stream_chat_a"]["choices"][0]["token_ids"]
+    chat = answers["chat_a"]
+    # A stream carries each token's own text; joined, it equals the
+    # answer's text unless a multi-byte character spans two tokens.
+    streams_ok = (
+        all(answers[n][-1]["done"] for n in ("stream_c300", "stream_chat_a"))
+        and streamed("stream_c300") == (per_token(c300["token_ids"]),
+                                        c300["token_ids"])
+        and streamed("stream_chat_a")[0] == per_token(chat_ids)
+        and chat["choices"][0]["message"]["content"] == tok.decode(chat_ids))
+    joined_equal = {
+        "stream_c300": "".join(streamed("stream_c300")[0]) == c300["text"],
+        "stream_chat_a": "".join(streamed("stream_chat_a")[0])
+        == chat["choices"][0]["message"]["content"]}
+    usage_ok = all(
+        answers[n]["usage"]["prompt_tokens"] == len(render_chat(
+            tok, reqs[n]["messages"]))
+        and answers[n]["usage"]["total_tokens"]
+        == answers[n]["usage"]["prompt_tokens"]
+        + answers[n]["usage"]["completion_tokens"]
+        for n in ("chat_a", "chat_b")) and (
+        chat["usage"]["completion_tokens"] == len(chat_ids))
+    usage = {n: answers[n]["usage"] for n in ("chat_a", "chat_b")}
+    print(f"server llama3-8b slots 8 chunks 64: {len(answers)} requests from "
+          f"{len(plan)} threads in {wall_s:.2f} s; TTFT ms by request "
+          f"{json.dumps(ttft)}; equal to alone {json.dumps(equal)}; streams "
+          f"carry their answers' tokens {streams_ok}, joined text equal to "
+          f"the answer's {json.dumps(joined_equal)}; chat usage "
+          f"{json.dumps(usage)} ok {usage_ok}; end_session {ended}; load_signals "
+          f"{json.dumps(signals)}; expired deadline shed with the engine "
+          f"untouched {shed}; deadline of 0.5 s raised after "
+          f"{expired_s if expired_s is None else round(expired_s, 3)} s, "
+          f"first token at {late.ttft_s()} s, request ran on to "
+          f"{len(late_out.token_ids)} tokens; engine stats "
+          f"{json.dumps(srv.engine.stats)}; launches {launches}; peak memory "
+          f"{peak_gb:.2f} GB; device_memory_stats "
+          f"{json.dumps(device_memory_stats())}", flush=True)
+    if not (all(equal.values()) and streams_ok and usage_ok and ended
+            and set(signals) == set(srv._loop.METRIC_NAMES) and shed
+            and mid_generation):
+        raise AssertionError("server phase gates failed")
+    if any(launches.values()):
+        raise AssertionError(f"the server path launched {launches}, "
+                             "expected no flash kernel")
+    return launches
+
+
 def _profile(torch, label, fn, top=6):
     """Where one call's time goes, from a torch.profiler trace: the
     device's busy share of the host wall time, and the ``top`` kernels
@@ -1362,6 +1764,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # LLMEngine(<dir>) asks transformers, where it is installed, for the
+    # directory's tokenizer: from local files only.
+    os.environ["HF_HUB_OFFLINE"] = os.environ["TRANSFORMERS_OFFLINE"] = "1"
     # A reference states and sets both: fp32 comparisons in full fp32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1392,9 +1797,12 @@ def main() -> int:
     paths["sessions"] = sessions_phase(torch, fa, llama, params)
     paths["loop"] = loop_phase(torch, fa, llama, params)
     del params
+    paths["checkpoint"] = checkpoint_phase(torch, fa, llama)
+    paths["server"] = server_phase(torch, fa, llama)
     paths["train"] = train_phase(torch, fa, llama)
     by_path = {path: _by_kernel(c) for path, c in paths.items()}
-    main_paths = ("serve", "sessions", "loop", "train")
+    main_paths = ("serve", "sessions", "loop", "checkpoint", "server",
+                  "train")
 
     # Forward: S=4096, the largest prefill of the serving slice, where the
     # CUDA-core kernel was also timed.  Backward: the training slice's

@@ -393,3 +393,64 @@ def test_decode_of_a_slot_does_not_depend_on_the_other_slots(cuda):
                                           active=active)
             outs.append(logits[0].clone())
     assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+def test_bf16_directory_loads_onto_the_card_as_on_the_cpu(cuda, tmp_path):
+    import dataclasses
+    import json
+
+    from ant_ray_tpu_torch.models import checkpoint as ckpt
+    from ant_ray_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(
+        llama.CONFIGS["tiny"], dim=256, n_heads=2, n_kv_heads=1,
+        mlp_dim=512, n_layers=2, max_seq=512, dtype=torch.bfloat16)
+    params = llama.init_params(cfg, generator=torch.Generator().manual_seed(3),
+                               device="cpu")
+    torch.save(ckpt.hf_state_dict(params), str(tmp_path / "pytorch_model.bin"))
+    (tmp_path / "config.json").write_text(json.dumps(ckpt.hf_config(cfg)))
+    on_card, config = ckpt.load_llama_params(str(tmp_path), device="cuda")
+    on_cpu, _ = ckpt.load_llama_params(str(tmp_path), device="cpu")
+    assert config == cfg
+    flat = [(k, v) for k, v in on_card.items() if k != "layers"]
+    flat += [(f"layers.{k}", v) for k, v in on_card["layers"].items()]
+    for name, leaf in flat:
+        want = (on_cpu["layers"][name[7:]] if name.startswith("layers.")
+                else on_cpu[name])
+        orig = (params["layers"][name[7:]] if name.startswith("layers.")
+                else params[name])
+        assert leaf.is_cuda and leaf.dtype == torch.bfloat16, name
+        assert torch.equal(leaf.cpu().view(torch.int16),
+                           want.view(torch.int16)), name
+        assert torch.equal(want.view(torch.int16),
+                           orig.view(torch.int16)), name
+
+
+def test_device_memory_stats_report_the_card(cuda):
+    from ant_ray_tpu_torch.observability import device_memory_stats
+
+    held = torch.empty(1 << 26, dtype=torch.uint8, device="cuda")
+    stats = device_memory_stats()
+    assert len(stats) == torch.cuda.device_count()
+    entry = stats[torch.cuda.current_device()]
+    assert entry["platform"] == "gpu"
+    assert entry["bytes_in_use"] >= held.numel()
+    assert entry["peak_bytes_in_use"] >= entry["bytes_in_use"]
+    assert entry["bytes_limit"] == torch.cuda.get_device_properties(
+        torch.cuda.current_device()).total_memory
+
+
+def test_step_profiler_gives_mfu_against_the_cards_peak(cuda):
+    from ant_ray_tpu_torch.observability import StepProfiler
+    from ant_ray_tpu_torch.observability.step_profiler import PEAK_BF16_FLOPS
+
+    a = torch.randn(2048, 2048, device="cuda", dtype=torch.bfloat16)
+    prof = StepProfiler(flops_per_step=2 * 2048 ** 3)
+    for _ in range(3):
+        with prof.step():
+            (a @ a).sum().item()
+    summary = prof.summary()
+    if torch.cuda.get_device_name() in PEAK_BF16_FLOPS:
+        assert 0 < summary["mfu_mean"] < 1
+    else:
+        assert "mfu_mean" not in summary

@@ -124,7 +124,7 @@ def test_unported_options_raise(weights):
         _engine(weights, tensor_parallel_size=2)
     with pytest.raises(NotImplementedError):
         _engine(weights).add_request([1, 2], trace_ctx=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="neither a named config"):
         LLMEngine("/no/such/checkpoint", device="cpu")
     with pytest.raises(ValueError):
         _engine(weights).add_request([1, 999])      # outside the vocab

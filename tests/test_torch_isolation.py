@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``ant_ray_tpu_torch``, and not
-``chip_smoke.py``, imports JAX or the JAX package, and nothing runs on
-the CPU unless asked to."""
+``chip_smoke.py``, imports JAX or the JAX package (nor ``safetensors``,
+which the card's machine lacks: the port reads the format itself), and
+nothing runs on the CPU unless asked to."""
 
 import ast
 import os
@@ -14,7 +15,8 @@ import ant_ray_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "ant_ray_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "ant_ray_tpu", "flax", "optax", "orbax")
+FORBIDDEN = ("jax", "jaxlib", "ant_ray_tpu", "flax", "optax", "orbax",
+             "safetensors")
 
 
 def _port_modules():
@@ -35,13 +37,17 @@ def _forbidden(name: str) -> bool:
 
 def test_importing_every_module_loads_neither_jax_nor_the_jax_package():
     modules = _port_modules()
-    assert "ant_ray_tpu_torch.llm.engine" in modules
+    assert {"ant_ray_tpu_torch.llm.engine", "ant_ray_tpu_torch.llm.serve_llm",
+            "ant_ray_tpu_torch.llm.chat", "ant_ray_tpu_torch.serve.api",
+            "ant_ray_tpu_torch.models.checkpoint",
+            "ant_ray_tpu_torch.observability.device_stats"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'ant_ray_tpu'))\n"
+        "             if m.split('.')[0] in ('jax', 'ant_ray_tpu',\n"
+        "                                    'safetensors'))\n"
         "print(bad)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
