@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from ant_ray_tpu_torch._device import resolve_device
-from ant_ray_tpu_torch.models.llama import LlamaConfig, param_shapes
+from ant_ray_tpu_torch.models import gpt2, llama
 
 
 def _tensor(arr, dtype: torch.dtype, device) -> torch.Tensor:
@@ -41,18 +41,21 @@ def _check_shapes(tree: dict, shapes: dict, path: str = ""):
                              f"config wants {want}")
 
 
-def params_from_jax_numpy(tree: dict, config: LlamaConfig,
+def params_from_jax_numpy(tree: dict,
+                          config: llama.LlamaConfig | gpt2.Gpt2Config,
                           device=None) -> dict:
     """A nested dict of numpy arrays from the JAX package → the same
     dict of tensors on ``device``: floating leaves in ``config.dtype``,
     integer leaves as int64.
 
-    Works for a parameter tree (checked leaf by leaf against
-    :func:`param_shapes`) and for a KV cache from ``init_kv_cache`` /
-    the serving functions (``k``, ``v``, ``length``)."""
+    Works for a parameter tree of either family (checked leaf by leaf
+    against the ``param_shapes`` of the config's family) and for a
+    Llama KV cache from ``init_kv_cache`` / the serving functions
+    (``k``, ``v``, ``length``)."""
     device = resolve_device(device)
-    if "embed" in tree:
-        _check_shapes(tree, param_shapes(config))
+    if "layers" in tree:
+        family = gpt2 if isinstance(config, gpt2.Gpt2Config) else llama
+        _check_shapes(tree, family.param_shapes(config))
 
     def convert(node):
         if isinstance(node, dict):

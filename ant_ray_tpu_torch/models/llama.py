@@ -29,10 +29,18 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from ant_ray_tpu_torch._device import resolve_device
-from ant_ray_tpu_torch.ops.attention import attention
+from ant_ray_tpu_torch.ops.attention import (
+    attention,
+    dots_with_no_batch_dims_saveable,
+    saveable_attention_policy,
+)
 from ant_ray_tpu_torch.ops.rmsnorm import rmsnorm
 from ant_ray_tpu_torch.ops.rope import apply_rope, rope_frequencies, rope_one
 
@@ -99,6 +107,12 @@ CONFIGS: dict[str, LlamaConfig] = {
 
 _NORMS = ("ln_attn", "ln_mlp", "norm_f")
 
+# remat mode -> the selective-checkpoint policy of its blocks ("none"
+# checkpoints nothing, "full" saves only each block's input).
+_REMAT_POLICIES = {"none": None, "full": None,
+                   "dots": dots_with_no_batch_dims_saveable,
+                   "matmuls": saveable_attention_policy}
+
 
 # ---------------------------------------------------------------- params
 
@@ -139,24 +153,37 @@ def init_params(config: LlamaConfig, *,
                 generator: torch.Generator | None = None,
                 device=None) -> dict:
     """Random weights made directly on ``device`` in the config dtype:
-    norms are ones, everything else N(0, 0.02).  Drawn one leading-axis
-    slice at a time in fp32, so no full-size fp32 copy of a leaf ever
-    exists (for Llama-3-8B that would be 32 GB).  ``generator`` must
+    norms are ones, everything else N(0, 0.02).  ``generator`` must
     live on ``device``; None means one seeded with 0."""
+    return init_leaves(param_shapes(config), config.dtype,
+                       lambda name: 1.0 if name in _NORMS else None,
+                       generator=generator, device=device)
+
+
+def init_leaves(shapes: dict, dtype: torch.dtype, constant, *,
+                generator: torch.Generator | None = None,
+                device=None) -> dict:
+    """Tensors of ``shapes`` (a ``param_shapes`` dict, the stacked
+    ``layers`` after the top-level leaves) on ``device`` in ``dtype``:
+    filled with ``constant(name)`` where that is not None, else drawn
+    from N(0, 0.02) one leading-axis slice at a time in fp32, so no
+    full-size fp32 copy of a leaf ever exists (for Llama-3-8B that
+    would be 32 GB).  ``generator`` must live on ``device``; None means
+    one seeded with 0."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
 
     def _init(name, shape):
-        if name in _NORMS:
-            return torch.ones(shape, dtype=config.dtype, device=device)
-        out = torch.empty(shape, dtype=config.dtype, device=device)
+        value = constant(name)
+        if value is not None:
+            return torch.full(shape, value, dtype=dtype, device=device)
+        out = torch.empty(shape, dtype=dtype, device=device)
         for row in out:
             row.copy_(torch.randn(row.shape, generator=generator,
                                   device=device).mul_(0.02))
         return out
 
-    shapes = param_shapes(config)
     params = {name: _init(name, shape) for name, shape in shapes.items()
               if name != "layers"}
     params["layers"] = {name: _init(name, shape)
@@ -237,19 +264,26 @@ def forward(params: dict, tokens, config: LlamaConfig, *,
     only — (b, vocab) — skipping the full-sequence lm-head matmul.
 
     ``remat`` trades memory for recompute in the backward pass when
-    autograd records the forward: "none" saves everything; "full"
-    checkpoints every block (non-reentrant ``torch.utils.checkpoint``),
-    so the backward re-runs each block's forward, the flash kernel
-    included, as ``jax.checkpoint`` does.  The reference's "dots" and
-    "matmuls" raise ``NotImplementedError``."""
+    autograd records the forward; every mode but "none" runs each block
+    under non-reentrant ``torch.utils.checkpoint``, as the reference
+    runs it under ``jax.checkpoint``.  "none" saves everything; "full"
+    saves only each block's input, so the backward re-runs the block's
+    forward, the flash kernel included; "dots" saves the outputs of the
+    matmuls without batch dimensions
+    (:func:`~ant_ray_tpu_torch.ops.attention.dots_with_no_batch_dims_saveable`)
+    and recomputes the rest, the flash forward included; "matmuls" also
+    saves batched matmuls and the flash forward's (out, lse)
+    (:func:`~ant_ray_tpu_torch.ops.attention.saveable_attention_policy`),
+    so only the elementwise work is recomputed.
+
+    Unlike the reference's, the selective policies here do not sit
+    between "none" and "full": they run a Python dispatch mode over
+    every op of each block, in the forward and in the recompute, and
+    that host work sets the step.  On llama-400m at 8 x 2048 on an H100
+    "full" was both faster and smaller than "dots" and "matmuls"
+    (PERF.md section 6), so "full" is the policy to fall back to."""
     c = config
-    if remat in ("dots", "matmuls"):
-        raise NotImplementedError(
-            f"remat={remat!r}: selective checkpointing that keeps the "
-            "flash kernel's out and lse needs the kernel registered as a "
-            "torch.library custom op (ROADMAP.md, queue A, item 2); use "
-            "'none' or 'full'")
-    if remat not in ("none", "full"):
+    if remat not in _REMAT_POLICIES:
         raise ValueError(f"unknown remat policy {remat!r}")
     cos, sin = rope_frequencies(c.head_dim, c.max_seq, c.rope_theta,
                                 torch.float32, device=tokens.device)
@@ -258,9 +292,13 @@ def forward(params: dict, tokens, config: LlamaConfig, *,
         return attention(xq, xk, xv, causal=True, impl=attn_impl)
 
     run_block = apply_block
-    if remat == "full" and torch.is_grad_enabled():
+    if remat != "none" and torch.is_grad_enabled():
+        policy = _REMAT_POLICIES[remat]
+        context_fn = (noop_context_fn if policy is None else functools.partial(
+            create_selective_checkpoint_contexts, policy()))
         run_block = functools.partial(checkpoint, apply_block,
-                                      use_reentrant=False)
+                                      use_reentrant=False,
+                                      context_fn=context_fn)
 
     x = params["embed"][tokens].to(c.dtype)
     ks, vs = [], []

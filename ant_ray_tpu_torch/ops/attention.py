@@ -3,25 +3,30 @@ ant_ray_tpu/ops/attention.py).
 
 * :func:`blockwise_attention` — flash-style attention in plain PyTorch:
   a loop over KV blocks with online softmax, O(seq · block) memory.
-* :class:`_FlashFunction` — the hand-written CUDA flash kernels
-  (ops/flash_attention.py) under autograd, in the role of the JAX
-  package's ``_flash`` custom VJP: the forward kernel saves (q, k, v,
-  out, lse), the backward runs the dQ and dK/dV kernels.
+* ``impl="flash"`` — the hand-written CUDA flash kernels through the
+  custom op ``ant_ray_tpu_torch::flash_fwd`` (ops/flash_attention.py),
+  in the role of the JAX package's ``_flash`` custom VJP: the forward
+  kernel saves (q, k, v, out, lse), the backward runs the dQ and dK/dV
+  kernels.
 * :func:`reference_attention` — plain full attention (the testing
   oracle, from ant_ray_tpu/parallel/ring.py).
 * :func:`attention` — dispatcher: the flash kernels on CUDA when shapes
   tile cleanly, blockwise otherwise.  Every variant is differentiable.
+* :func:`saveable_attention_policy` and
+  :func:`dots_with_no_batch_dims_saveable` — selective-checkpoint
+  policies, the counterparts of the JAX remat policies "matmuls" and
+  "dots".
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import CheckpointPolicy
 
 from ant_ray_tpu_torch.ops.flash_attention import (
     HEAD_DIMS,
     NEG_INF,
-    flash_attention_backward,
-    flash_attention_fwd_lse,
+    flash_fwd,
 )
 
 
@@ -94,30 +99,41 @@ def reference_attention(q, k, v, causal: bool = True,
     return out.to(q.dtype)
 
 
-class _FlashFunction(torch.autograd.Function):
-    """Flash attention with its own backward kernels: the counterpart of
-    ``_flash`` (ant_ray_tpu/ops/attention.py), whose custom VJP saves the
-    forward kernel's (q, k, v, out, lse) and runs the two backward
-    kernels.  Under ``torch.inference_mode()`` or ``no_grad`` no graph is
-    built and only the forward kernel runs.  Non-reentrant activation
-    checkpointing re-runs :meth:`forward` in the backward pass."""
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_BATCHED_DOTS = (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        out, lse = flash_attention_fwd_lse(q, k, v, causal=causal,
-                                           scale=scale)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return out
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(
-            q, k, v, out, lse, dout.contiguous(), causal=ctx.causal,
-            scale=ctx.scale)
-        return dq, dk, dv, None, None
+def _save_only(ops):
+    """A selective-checkpoint policy (``torch.utils.checkpoint.
+    create_selective_checkpoint_contexts``) that saves the outputs of
+    ``ops`` and recomputes everything else."""
+    ops = frozenset(ops)
+
+    def policy(_ctx, op, *_args, **_kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in ops
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return policy
+
+
+def dots_with_no_batch_dims_saveable():
+    """Counterpart of ``jax.checkpoint_policies.
+    dots_with_no_batch_dims_saveable`` (remat "dots"): save the outputs
+    of matmuls without batch dimensions.  ``x @ W`` with a 3-D ``x``
+    reaches the dispatcher as ``aten.mm``; batched products
+    (``aten.bmm``) and the flash forward are recomputed."""
+    return _save_only(_DOTS)
+
+
+def saveable_attention_policy():
+    """Counterpart of ``saveable_attention_policy`` in
+    ant_ray_tpu/ops/attention.py (remat "matmuls"): save every matmul
+    output, batch dimensions included (``dots_saveable``), and the flash
+    forward's (out, lse) (the reference's named ``attn_out`` and
+    ``attn_lse``), so the backward pass never re-runs the attention
+    forward."""
+    return _save_only(_DOTS + _BATCHED_DOTS
+                      + (torch.ops.ant_ray_tpu_torch.flash_fwd.default,))
 
 
 def attention(q, k, v, *, causal: bool = True, scale: float | None = None,
@@ -127,15 +143,17 @@ def attention(q, k, v, *, causal: bool = True, scale: float | None = None,
     'auto' takes the flash kernel for CUDA tensors whose lengths are
     multiples of 128 and whose head_dim is 64, 128 or 256 (the
     reference's rule, with "on TPU" read as "on CUDA"), blockwise
-    otherwise.  'flash' runs the kernels through :class:`_FlashFunction`
-    (on CPU tensors, their plain versions)."""
+    otherwise.  'flash' runs the kernels (on CPU tensors, their plain
+    versions) through the custom op ``ant_ray_tpu_torch::flash_fwd``,
+    in every autograd mode."""
     if impl == "auto":
         seq_ok = q.shape[1] % 128 == 0 and k.shape[1] % 128 == 0
         dim_ok = q.shape[-1] in HEAD_DIMS
         impl = ("flash" if q.device.type == "cuda" and seq_ok and dim_ok
                 else "blockwise")
     if impl == "flash":
-        return _FlashFunction.apply(q, k, v, causal, scale)
+        scale = scale if scale is not None else q.shape[-1] ** -0.5
+        return flash_fwd(q, k, v, causal, scale)[0]
     if impl == "blockwise":
         return blockwise_attention(q, k, v, causal=causal, scale=scale)
     if impl == "reference":

@@ -11,8 +11,16 @@ Counterparts of ``flash_attention_fwd_lse`` and
 with the same signatures and layouts.  For CUDA tensors a wrapper
 launches its kernels or raises; the plain versions run only for tensors
 that lie on the CPU (and as the comparison in the tests and
-chip_smoke.py).  Autograd reaches these kernels through
-``attention()`` (ops/attention.py), never through the raw forward.
+chip_smoke.py).
+
+Both wrappers are also registered as ``torch.library`` custom ops,
+``ant_ray_tpu_torch::flash_fwd`` and ``ant_ray_tpu_torch::flash_bwd``,
+the forward's autograd formula calling the backward.  Autograd reaches
+the kernels through them (``attention(impl="flash")`` in
+ops/attention.py), never through the raw forward; and, being ops of the
+dispatcher, they are what a selective-checkpoint policy can name
+(``saveable_attention_policy``), as the JAX package's remat policies
+name the flash kernel's residuals.
 """
 
 from __future__ import annotations
@@ -328,3 +336,68 @@ def flash_attention_backward(q, k, v, out, lse, do, *, causal: bool,
     if route == "sm90":
         bwd_sm90_launch_count += 1
     return dq, dk, dv
+
+
+# ---------------------------------------------------------- custom ops
+# Each op's function is the wrapper above, so a CUDA tensor launches the
+# kernels of its route (and counts them) or raises, and a CPU tensor runs
+# the plain version.  Outputs are made contiguous: the kernels write
+# contiguous tensors, and a fake tensor must describe what the op
+# returns on every device.
+
+
+@torch.library.custom_op("ant_ray_tpu_torch::flash_fwd", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, scale: float) -> tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """:func:`flash_attention_fwd_lse` as an op: (out, lse)."""
+    out, lse = flash_attention_fwd_lse(q, k, v, causal=causal, scale=scale)
+    return out.contiguous(), lse.contiguous()
+
+
+@flash_fwd.register_fake
+def _flash_fwd_fake(q, k, v, causal, scale):
+    batch, q_len, heads, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((batch, heads, q_len), dtype=torch.float32))
+
+
+@torch.library.custom_op("ant_ray_tpu_torch::flash_bwd", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+              causal: bool, scale: float) -> tuple[torch.Tensor,
+                                                   torch.Tensor,
+                                                   torch.Tensor]:
+    """:func:`flash_attention_backward` as an op: (dq, dk, dv)."""
+    grads = flash_attention_backward(q, k, v, out, lse, do, causal=causal,
+                                     scale=scale)
+    return tuple(g.contiguous() for g in grads)
+
+
+@flash_bwd.register_fake
+def _flash_bwd_fake(q, k, v, out, lse, do, causal, scale):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _flash_fwd_setup(ctx, inputs, output):
+    """Saves what the JAX package's ``_flash`` custom VJP saves: (q, k, v,
+    out, lse).  lse is a residual, not a result to differentiate: the
+    backward kernels take no gradient of it."""
+    q, k, v, causal, scale = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.causal, ctx.scale = causal, scale
+    ctx.mark_non_differentiable(lse)
+
+
+def _flash_fwd_backward(ctx, dout, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = flash_bwd(q, k, v, out, lse, dout.contiguous(), ctx.causal,
+                           ctx.scale)
+    return dq, dk, dv, None, None
+
+
+flash_fwd.register_autograd(_flash_fwd_backward,
+                            setup_context=_flash_fwd_setup)

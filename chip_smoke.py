@@ -19,7 +19,8 @@ final line is printed:
    prefill: B=1, H=32, KVH=8, D=128, bf16, causal), at the training
    slice's (B=8, S=2048, H=8, KVH=4) and at others: llama3-1b's heads
    (D=64), ragged lengths 192 and 320, fp32 with D=64, non-causal
-   without GQA, Sq < Skv and Sq > Skv, bf16 at D=256.  Tolerances: bf16
+   without GQA, Sq < Skv and Sq > Skv, bf16 at D=256, and GPT-2's (B=8,
+   S=1024, H=KVH=12, D=64) in fp32 and bf16.  Tolerances: bf16
    out max abs error <= 2e-2 (bf16 rounds p and out at other points in
    the tiled loop), lse <= 1e-3; fp32 both <= 1e-4.  Times by CUDA
    events, median of 10 runs: the kernel launched directly (with its
@@ -32,10 +33,11 @@ final line is printed:
 3. Backward kernels: dQ and dK/dV through flash_attention_backward, on
    the route it picks (tensor-core "sm90" kernels for bf16 at head_dim
    64 and 128, CUDA-core "simt" kernels otherwise), against
-   flash_attention_backward_ref at the training slice's shape and nine
+   flash_attention_backward_ref at the training slice's shape and eleven
    others: llama3-1b's heads (D=64), length 192 (ragged on 128-row
-   tiles), Sq != Skv, fp32, and D=256 (BWD_TOL: max abs error over max
-   |ref| per tensor).  Each line gives per kernel its route, time,
+   tiles), Sq != Skv, fp32, D=256, and GPT-2's in fp32 and bf16
+   (BWD_TOL: max abs error over max |ref| per tensor).  Each line gives
+   per kernel its route, time,
    achieved TFLOP/s and share of its bound; then the whole backward,
    its plain version, and as a yardstick SDPA's backward (fwd+bwd
    through autograd minus fwd).  The bound counts 6*D (dQ), 8*D (dK/dV)
@@ -48,11 +50,12 @@ final line is printed:
    attention on the card, and against the same model on the CPU; then
    the loss and every gradient leaf through the kernels (the CUDA-core
    forward and backward) against reference attention on the card and
-   against the CPU, under remat "none" and "full" (the forward kernel
-   runs twice per layer there).  Then the same model in bf16: loss and
-   every gradient leaf through the sm90 forward and backward against
-   bf16 reference attention (BF16_GRAD_TOL, reason beside it), with each
-   sm90 kernel run once per layer.
+   against the CPU, under each remat policy ("none", "full", "dots",
+   "matmuls"; the forward kernel runs twice per layer under "full" and
+   "dots", once where its out and lse are saved).  Then the same model
+   in bf16: loss and every gradient leaf through the sm90 forward and
+   backward against bf16 reference attention (BF16_GRAD_TOL, reason
+   beside it), with each sm90 kernel run once per layer.
 5. The serving slice: LLMEngine("llama3-8b", slots=8, max_seq=4096) with
    random weights from a fixed seed, five greedy prompts of 20, 100,
    700, 1500 and 3000 random token ids (buckets 32 to 4096) and one
@@ -126,10 +129,34 @@ final line is printed:
    once per layer, all on the sm90 route.  Prints the step time,
    tokens/s, MFU against the bf16 peak, peak memory and a torch.profiler
    line of one step.
-11. One line {"kernels": [...]} with the six kernels (the sm90 and
+11. Remat: the training slice again, from the same weights, under
+   each remat policy ("none", "full", "dots", "matmuls"), 3 warm-up and
+   10 timed steps each.  Gates: the forward kernel launched twice per
+   layer and step under "full" and "dots" and once under "none" and
+   "matmuls" (whose selective-checkpoint policy saves the flash
+   forward's out and lse), the backward pair once; the losses of the
+   first two steps equal across the policies within BF16_LOSS_TOL.
+   Prints per policy the step time, tokens/s, MFU and peak memory, a
+   profile, and the step on 1 x 128 tokens, where the host sets the
+   time.
+12. GPT-2: `gpt2` (124 M) at its published widths and depth, in its
+   published fp32 (the CUDA-core kernels) and in a bf16 copy (the sm90
+   kernels at head_dim 64, plain multi-head attention), random weights
+   from seed 0, a fixed batch of 8 x 1025 token ids, AdamW, 3 warm-up
+   and 10 timed steps; every block checkpointed, as in the reference.
+   Gates: launches per step (forward twice per layer, backward pair
+   once, on the dtype's route); the first loss within GPT2_LOSS_TOL of
+   the plain fp32 loss (reference attention) on the same weights; the
+   loss falling; the last-position logits of a 1024-token forward within
+   GPT2_LOGIT_TOL of reference attention's and the greedy next tokens
+   equal but for ties.  Prints step time, tokens/s, MFU against the
+   peak of the dtype the step computes in, and peak memory.
+13. One line {"kernels": [...]} with the six kernels (the sm90 and
    CUDA-core forward, dQ and dK/dV; launches by path, the main paths
    being serving, sessions, the loop, the checkpoint directory, the
-   server and training), then the last line
+   server, training, training under each remat policy and GPT-2 in fp32
+   and bf16; each kernel's times also at GPT-2's shape on its route),
+   then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 comparisons are
@@ -290,6 +317,8 @@ def kernel_phase(torch, fa):
         (1, 128, 256, 32, 8, 128, bf16, True),
         (1, 256, 128, 32, 8, 128, bf16, True),
         (1, 512, 512, 8, 2, 256, bf16, True),
+        (8, 1024, 1024, 12, 12, 64, fp32, True),   # GPT-2, fp32 (simt)
+        (8, 1024, 1024, 12, 12, 64, bf16, True),   # GPT-2, bf16 (sm90)
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = []
@@ -422,6 +451,8 @@ def bwd_kernel_phase(torch, fa):
         (1, 128, 256, 32, 8, 128, bf16, True),
         (1, 512, 512, 8, 2, 256, fp32, True),
         (1, 512, 512, 8, 2, 256, bf16, True),
+        (8, 1024, 1024, 12, 12, 64, fp32, True),   # GPT-2, fp32 (simt)
+        (8, 1024, 1024, 12, 12, 64, bf16, True),   # GPT-2, bf16 (sm90)
     ]
     gen = torch.Generator(device="cuda").manual_seed(2)
     results = []
@@ -586,10 +617,16 @@ def _by_kernel(counts):
             "flash_attention_bwd_dkv": counts["dkv"] - counts["sm90"]}
 
 
+# Forward-kernel launches per layer and training step under each remat
+# policy: "full" and "dots" recompute the flash forward in the backward,
+# "none" and "matmuls" keep its (out, lse).
+FWD_PER_LAYER = {"none": 1, "full": 2, "dots": 2, "matmuls": 1}
+
+
 def grad_check_phase(torch, fa, llama):
     """Loss and every gradient leaf of the small fp32 model through the
     kernels, against reference attention on the card and against the
-    CPU, under remat "none" and "full"."""
+    CPU, under each remat policy."""
     cfg, params = _small_model(torch, llama)
     toks = torch.from_numpy(
         np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 257)))
@@ -599,7 +636,7 @@ def grad_check_phase(torch, fa, llama):
 
     cpu_params = _to_cpu(params)
     total = dict.fromkeys(_counts(fa), 0)
-    for remat in ("none", "full"):
+    for remat in FWD_PER_LAYER:
         _reset_counts(fa)
         loss, grads = loss_and_grads(params, toks.cuda(), "flash", remat)
         torch.cuda.synchronize()
@@ -614,7 +651,7 @@ def grad_check_phase(torch, fa, llama):
         err_cpu = max((g.cpu() - cpu_grads[k]).abs().max().item()
                       / cpu_grads[k].abs().max().item()
                       for k, g in grads.items())
-        want = {"fwd": cfg.n_layers * (2 if remat == "full" else 1),
+        want = {"fwd": cfg.n_layers * FWD_PER_LAYER[remat],
                 "fwd_sm90": 0, "dq": cfg.n_layers, "dkv": cfg.n_layers,
                 "sm90": 0}
         total = {key: total[key] + launches[key] for key in total}
@@ -691,35 +728,16 @@ def bf16_grad_check_phase(torch, fa, llama):
     return launches
 
 
-def train_phase(torch, fa, llama):
-    """The training slice: llama-400m, batch 8 x 2048, AdamW, remat
-    "none"; returns the kernels' launches over its 13 steps."""
-    from ant_ray_tpu_torch.train import make_optimizer, train_step  # noqa: PLC0415
-
-    torch.cuda.empty_cache()
-    cfg = llama.CONFIGS["llama-400m"]
-    batch, seq, remat = 8, 2048, "none"
-    t0 = time.perf_counter()
-    params = llama.init_params(
-        cfg, generator=torch.Generator(device="cuda").manual_seed(0),
-        device="cuda")
-    optimizer = make_optimizer(params)
-    tokens = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (batch, seq + 1))).cuda()
-    torch.cuda.synchronize()
-    print(f"llama-400m up in {time.perf_counter() - t0:.1f} s "
-          f"({cfg.num_params() / 1e6:.1f} M params, {cfg.dtype}, "
-          f"{cfg.n_layers} layers)", flush=True)
-
-    def step():
-        return train_step(params, optimizer, tokens, cfg, remat=remat)
-
+def _train_steps(torch, fa, step, per_step, n_steps=13):
+    """``n_steps`` calls of ``step`` (a train_step closure), host-timed
+    to the loss's ``item()``, with the launch counts reset just before
+    and every step's launches held to ``per_step``.  Returns the losses,
+    the step times (ms), the launches of the whole run and the peak
+    memory (GB)."""
     torch.cuda.reset_peak_memory_stats()
     _reset_counts(fa)
     losses, step_ms = [], []
-    per_step = {"fwd": cfg.n_layers, "fwd_sm90": cfg.n_layers,
-                "dq": cfg.n_layers, "dkv": cfg.n_layers, "sm90": cfg.n_layers}
-    for i in range(13):
+    for i in range(n_steps):
         before = _counts(fa)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -731,7 +749,44 @@ def train_phase(torch, fa, llama):
             raise AssertionError(f"step {i} launched {delta}, expected "
                                  f"{per_step}")
     launches = _counts(fa)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    return losses, step_ms, launches, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _llama_400m(torch, llama):
+    """llama-400m at its published widths and depth, bf16, weights from
+    seed 0, and one fixed batch of 8 x 2049 token ids."""
+    cfg = llama.CONFIGS["llama-400m"]
+    params = llama.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+        device="cuda")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (8, 2049))).cuda()
+    return cfg, params, tokens
+
+
+def train_phase(torch, fa, llama):
+    """The training slice: llama-400m, batch 8 x 2048, AdamW, remat
+    "none"; returns the kernels' launches over its 13 steps."""
+    from ant_ray_tpu_torch.train import make_optimizer, train_step  # noqa: PLC0415
+
+    torch.cuda.empty_cache()
+    remat = "none"
+    t0 = time.perf_counter()
+    cfg, params, tokens = _llama_400m(torch, llama)
+    batch, seq = tokens.shape[0], tokens.shape[1] - 1
+    optimizer = make_optimizer(params)
+    torch.cuda.synchronize()
+    print(f"llama-400m up in {time.perf_counter() - t0:.1f} s "
+          f"({cfg.num_params() / 1e6:.1f} M params, {cfg.dtype}, "
+          f"{cfg.n_layers} layers)", flush=True)
+
+    def step():
+        return train_step(params, optimizer, tokens, cfg, remat=remat)
+
+    per_step = {"fwd": cfg.n_layers, "fwd_sm90": cfg.n_layers,
+                "dq": cfg.n_layers, "dkv": cfg.n_layers, "sm90": cfg.n_layers}
+    losses, step_ms, launches, peak_gb = _train_steps(torch, fa, step,
+                                                      per_step)
     ms = statistics.median(step_ms[3:])
     tokens_per_s = batch * seq / (ms / 1e3)
     mfu = tokens_per_s * llama.flops_per_token(cfg, seq) / PEAK_FLOPS[
@@ -746,6 +801,196 @@ def train_phase(torch, fa, llama):
         raise AssertionError(f"training losses {losses}: not finite or not "
                              "falling")
     _profile(torch, f"train step llama-400m {batch} x {seq}", step, top=16)
+    return launches
+
+
+def remat_phase(torch, fa, llama):
+    """llama-400m's training slice under each remat policy, each from the
+    same weights: 3 warm-up and 10 timed steps, a profile, and the step
+    on 1 x 128 tokens, where the host sets the time.  Gates: the forward
+    kernel launched FWD_PER_LAYER[remat] times per layer and step, the
+    backward pair once; the losses of the first two steps (the second
+    after one update, so it carries the first step's gradients) equal
+    across the policies within BF16_LOSS_TOL.  Returns the launches per
+    policy, keyed "remat_<policy>"."""
+    from ant_ray_tpu_torch.train import make_optimizer, train_step  # noqa: PLC0415
+
+    paths, first = {}, {}
+    for remat, fwd in FWD_PER_LAYER.items():
+        torch.cuda.empty_cache()
+        cfg, params, tokens = _llama_400m(torch, llama)
+        batch, seq = tokens.shape[0], tokens.shape[1] - 1
+        optimizer = make_optimizer(params)
+
+        def step():
+            return train_step(params, optimizer, tokens, cfg, remat=remat)
+
+        n = cfg.n_layers
+        per_step = {"fwd": fwd * n, "fwd_sm90": fwd * n, "dq": n, "dkv": n,
+                    "sm90": n}
+        losses, step_ms, launches, peak_gb = _train_steps(torch, fa, step,
+                                                          per_step)
+        ms = statistics.median(step_ms[3:])
+        tokens_per_s = batch * seq / (ms / 1e3)
+        mfu = tokens_per_s * llama.flops_per_token(cfg, seq) / PEAK_FLOPS[
+            "bfloat16"]
+        print(f"remat {remat} llama-400m batch {batch} x seq {seq}: step "
+              f"{ms:.2f} ms (median of 10 after 3 warm-up; all "
+              f"{[round(x, 1) for x in step_ms]}), {tokens_per_s:.0f} "
+              f"tokens/s, MFU {mfu:.4f} (bf16 peak), peak memory "
+              f"{peak_gb:.2f} GB; launches per step {per_step}; losses "
+              f"{[round(x, 4) for x in losses]}", flush=True)
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"remat {remat}: losses {losses} not "
+                                 "finite or not falling")
+        first[remat] = losses[:2]
+        paths[f"remat_{remat}"] = launches
+        if remat != "none":      # "none" is profiled by train_phase
+            _profile(torch, f"train step llama-400m {batch} x {seq} remat "
+                     f"{remat}", step, top=16)
+        # The host's share: the same step on 1 x 128 tokens, where the
+        # card's work is a few ms and the wall time is the host's dispatch
+        # of every op (and, under "dots" and "matmuls", the selective-
+        # checkpoint dispatch mode's handling of each).
+        small = tokens[:1, :129]
+        host_ms = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(params, optimizer, small, cfg, remat=remat).item()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"remat {remat} llama-400m batch 1 x seq 128 (host-bound): "
+              f"step {statistics.median(host_ms[2:]):.2f} ms (median of 5 "
+              f"after 2 warm-up; all {[round(x, 1) for x in host_ms]})",
+              flush=True)
+        del params, optimizer, tokens
+    spread = [max(v[i] for v in first.values())
+              - min(v[i] for v in first.values()) for i in range(2)]
+    print(f"remat gates: losses of steps 1 and 2 per policy "
+          f"{json.dumps(first)}; spread {spread} (tol {BF16_LOSS_TOL})",
+          flush=True)
+    if max(spread) > BF16_LOSS_TOL:
+        raise AssertionError(f"remat policies disagree on the loss: {first}")
+    return paths
+
+
+# GPT-2's first loss on the card against the plain fp32 loss (reference
+# attention) on the same weights.  Both losses are fp32 (log-softmax of
+# fp32 logits); what differs is the forward in front of them.  At random
+# init the final LayerNorm holds the loss near ln V whatever the hidden
+# state, so attention faults move it little.  Readings at this phase's
+# shapes (tools/gpt2_loss_faults.py, H100 80GB HBM3 at 700 W): sound runs
+# 0 (fp32) and 1.05e-4 (bf16); planted faults, bf16 (fp32 alike):
+# log-softmax in bf16 3.6e-4, softmax scale doubled 6.6e-4, no causal
+# mask 2.1e-3, no attention 4.5e-3, K/V of the next head 1.6e-2, scale
+# halved 7e-5 (bf16) and 2.7e-4 (fp32).  Each limit sits between the
+# sound reading and the smallest fault above it (bf16: about their
+# geometric mean); the halved scale in bf16 is left to the logit gate.
+GPT2_LOSS_TOL = {"float32": 1e-4, "bfloat16": 2e-4}
+# Last-position logits of a 1024-token forward through the kernels
+# against reference attention in the same dtype (max abs; the largest
+# logits of the random model are ~2-4).  fp32: summation order only.
+# bf16: both paths round every matmul and the residual stream to bf16 but
+# at other points inside attention, so errors of a few ulps (0.016 at 2-4)
+# pass through twelve layers.  Readings on the initial weights
+# (tools/gpt2_loss_faults.py): sound 4.4e-6 (fp32) and 0.033 (bf16); the
+# faults above 0.17 (scale halved) to 3.2 in either dtype.
+GPT2_LOGIT_TOL = {"float32": 1e-3, "bfloat16": 0.125}
+PEAK_NAME = {"float32": "fp32 outside the tensor cores (TF32 off)",
+             "bfloat16": "bf16 dense"}
+
+
+def gpt2_phase(torch, fa, dtype_name):
+    """GPT-2 (124 M) at its published widths and depth in ``dtype_name``
+    (its published fp32, or a bf16 copy), weights from seed 0, a fixed
+    batch of 8 x 1025 token ids (T = 1024 = n_positions), AdamW: 3
+    warm-up and 10 timed train_step calls.  Gates: every block
+    checkpointed, so per step the forward kernel runs twice per layer and
+    the backward pair once, all on the route of the dtype (CUDA cores in
+    fp32, sm90 in bf16); the first step's loss within GPT2_LOSS_TOL of
+    gpt2.loss_fn in fp32 with reference attention on the same weights;
+    the loss falling; then, on the trained weights, the last-position
+    logits of each of the 8 rows of a 1024-token forward through the
+    kernels within GPT2_LOGIT_TOL of the plain path's (reference
+    attention, same dtype), and its greedy next tokens equal to the
+    plain path's but for ties.  Returns the launches of the training
+    steps."""
+    from ant_ray_tpu_torch.models import gpt2  # noqa: PLC0415
+    from ant_ray_tpu_torch.train import make_optimizer, train_step  # noqa: PLC0415
+
+    torch.cuda.empty_cache()
+    dtype = getattr(torch, dtype_name)
+    cfg = dataclasses.replace(gpt2.CONFIGS["gpt2"], dtype=dtype)
+    params = gpt2.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+        device="cuda")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (8, cfg.n_positions + 1))).cuda()
+    batch, seq = tokens.shape[0], tokens.shape[1] - 1
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    with torch.no_grad():
+        params32 = {k: (v.float() if k != "layers" else
+                        {n: w.float() for n, w in v.items()})
+                    for k, v in params.items()}
+        plain_loss = gpt2.loss_fn(params32, {"tokens": tokens}, cfg32,
+                                  attn_impl="reference").item()
+        del params32
+    optimizer = make_optimizer(params)
+
+    def step():
+        return train_step(params, optimizer, tokens, cfg)
+
+    n = cfg.n_layers
+    sm90 = n if fa._route(dtype, cfg.head_dim) == "sm90" else 0
+    per_step = {"fwd": 2 * n, "fwd_sm90": 2 * sm90, "dq": n, "dkv": n,
+                "sm90": sm90}
+    losses, step_ms, launches, peak_gb = _train_steps(torch, fa, step,
+                                                      per_step)
+    ms = statistics.median(step_ms[3:])
+    tokens_per_s = batch * seq / (ms / 1e3)
+    mfu = tokens_per_s * gpt2.flops_per_token(cfg, seq) / PEAK_FLOPS[
+        dtype_name]
+    loss_err = abs(losses[0] - plain_loss)
+    print(f"gpt2 {dtype_name} batch {batch} x seq {seq} "
+          f"({cfg.num_params() / 1e6:.1f} M params, {n} layers, "
+          f"{cfg.n_heads} heads of {cfg.head_dim}): step {ms:.2f} ms (median "
+          f"of 10 after 3 warm-up; all {[round(x, 1) for x in step_ms]}), "
+          f"{tokens_per_s:.0f} tokens/s, MFU {mfu:.4f} against "
+          f"{PEAK_FLOPS[dtype_name] / 1e12:.0f} TFLOP/s "
+          f"({PEAK_NAME[dtype_name]}), peak memory {peak_gb:.2f} GB; "
+          f"launches per step {per_step}; losses "
+          f"{[round(x, 4) for x in losses]}; first loss against plain fp32 "
+          f"{plain_loss:.6f}: error {loss_err:.3e} (tol "
+          f"{GPT2_LOSS_TOL[dtype_name]})", flush=True)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and loss_err <= GPT2_LOSS_TOL[dtype_name]):
+        raise AssertionError(f"gpt2 {dtype_name}: losses {losses}, plain "
+                             f"{plain_loss}")
+    _profile(torch, f"train step gpt2 {dtype_name} {batch} x {seq}", step,
+             top=16)
+
+    prompts = tokens[:, :seq]
+    with torch.inference_mode():
+        flash = gpt2.forward(params, prompts, cfg)[:, -1].float()
+        plain = gpt2.forward(params, prompts, cfg,
+                             attn_impl="reference")[:, -1].float()
+    got, want = flash.argmax(-1), plain.argmax(-1)
+    logit_err = (flash - plain).abs().max().item()
+    # With every logit within GPT2_LOGIT_TOL of the plain path's, the
+    # card can pick another token only where the plain path's logits of
+    # the two lie within twice that: a tie at this precision.
+    gap = plain.gather(-1, want[:, None]) - plain.gather(-1, got[:, None])
+    tie = gap[:, 0] <= 2 * GPT2_LOGIT_TOL[dtype_name]
+    differ = got != want
+    print(f"gpt2 {dtype_name} greedy next tokens after {seq}: card "
+          f"{got.tolist()}, plain {want.tolist()}; differ at "
+          f"{differ.nonzero().flatten().tolist()} (plain logit gaps there "
+          f"{gap[differ, 0].tolist()}); max logit difference "
+          f"{logit_err:.3e} (tol {GPT2_LOGIT_TOL[dtype_name]})", flush=True)
+    if logit_err > GPT2_LOGIT_TOL[dtype_name] or (differ & ~tie).any():
+        raise AssertionError(f"gpt2 {dtype_name}: greedy tokens differ "
+                             "beyond a tie")
+    del params, optimizer, tokens
     return launches
 
 
@@ -1758,6 +2003,131 @@ def _print_ptxas(build, lib):
                 kernel = None
 
 
+def kernels_line(rows, bwd_rows, paths):
+    """The {"kernels": [...]} record of the six kernels from the kernel
+    phases' rows and the launches of every path; raises if a kernel was
+    not launched on a main path."""
+    by_path = {path: _by_kernel(c) for path, c in paths.items()}
+    main_paths = [p for p in paths if not p.startswith("grad_check")]
+
+    # Forward: S=4096, the largest prefill of the serving slice, where the
+    # CUDA-core kernel was also timed.  Backward: the training slice's
+    # shape (the first backward case), where the CUDA-core pair was also
+    # timed.
+    main_row = next(r for r in rows if r["shape"].startswith("B=1 Sq=4096 "))
+    train_row = next(r for r in rows if r["shape"].startswith("B=8 Sq=2048 "))
+    bwd_row = bwd_rows[0]
+    # GPT-2's shape, the main path of the CUDA-core kernels (fp32) and of
+    # the sm90 kernels at head_dim 64 without GQA (bf16).
+    gpt2_shape = "B=8 Sq=1024 Skv=1024 H=12 KVH=12 D=64 {} causal"
+    gpt2_rows = {route: next(r for r in rows
+                             if r["shape"] == gpt2_shape.format(dtype))
+                 for route, dtype in (("simt", "float32"),
+                                      ("sm90", "bfloat16"))}
+    gpt2_bwd_rows = {route: next(r for r in bwd_rows
+                                 if r["shape"] == gpt2_shape.format(dtype))
+                     for route, dtype in (("simt", "float32"),
+                                          ("sm90", "bfloat16"))}
+
+    def _gpt2_keys(timed, bound_ms, plain_ms, library_ms):
+        return {"gpt2_shape": gpt2_shape.format(
+                    "float32" if timed["route"] == "simt" else "bfloat16"),
+                "gpt2_shape_ms": timed["ms"],
+                "gpt2_shape_share_of_bound": timed["share_of_bound"],
+                "gpt2_shape_bound_ms": bound_ms,
+                "gpt2_shape_plain_ms": plain_ms,
+                "gpt2_shape_library_ms": library_ms}
+
+    def launches(name):
+        return {"launches": sum(by_path[p][name] for p in main_paths),
+                "launches_by_path": {p: by_path[p][name] for p in by_path}}
+
+    def fwd_entry(name, route, source):
+        if route == "sm90":
+            timed, train_timed = main_row, train_row
+            err_rows = [r for r in rows if r["route"] == "sm90"]
+        else:
+            timed, train_timed = main_row["simt"], train_row["simt"]
+            err_rows = [r["simt"] for r in rows if "simt" in r] + [
+                r for r in rows if r["route"] == "simt"]
+        return {
+            "name": name,
+            "route": "cuda",
+            "fwd_route": route,
+            "source": f"ant_ray_tpu_torch/ops/csrc/{source}",
+            "replaces": "ant_ray_tpu/ops/pallas/flash_attention.py:56",
+            **launches(name),
+            "max_abs_err": max(r["max_abs_err"] for r in err_rows),
+            "max_lse_err": max(r["lse_err"] for r in err_rows),
+            "ms": timed["ms"],
+            "tflops": timed["tflops"],
+            "share_of_bound": timed["share_of_bound"],
+            "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"],
+            "shape": main_row["shape"],
+            "train_shape_ms": train_timed["ms"],
+            "train_shape_share_of_bound": train_timed["share_of_bound"],
+            **_gpt2_keys(gpt2_rows[route], gpt2_rows[route]["bound_ms"],
+                         gpt2_rows[route]["plain_ms"],
+                         gpt2_rows[route]["library_ms"]),
+        }
+
+    def bwd_entry(name, key, grads, route, source, line):
+        if route == "sm90":
+            timed, err_rows = bwd_row["kernels"][key], [
+                r for r in bwd_rows if r["route"] == "sm90"]
+        else:
+            timed = bwd_row["simt"][key]
+            err_rows = [bwd_row["simt"]] + [r for r in bwd_rows
+                                            if r["route"] == "simt"]
+        bound_ms, bound_by, _flops = bwd_row["bounds"][key]
+        return {
+            "name": name,
+            "route": "cuda",
+            "bwd_route": route,
+            "source": f"ant_ray_tpu_torch/ops/csrc/{source}",
+            "replaces": f"ant_ray_tpu/ops/pallas/flash_attention.py:{line}",
+            **launches(name),
+            "max_abs_err": max(r["abs_err"][g] for r in err_rows
+                               for g in grads),
+            "max_rel_err": max(r["rel_err"][g] for r in err_rows
+                               for g in grads),
+            "ms": timed["ms"],
+            "tflops": timed["tflops"],
+            "share_of_bound": timed["share_of_bound"],
+            "plain_ms": bwd_row["plain_ms"],
+            "plain": "flash_attention_backward_ref: dq, dk and dv in one call",
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": bwd_row["library_ms"],
+            "library": "scaled_dot_product_attention backward (fwd+bwd "
+                       "minus fwd): dq, dk and dv",
+            "shape": bwd_row["shape"],
+            **_gpt2_keys(gpt2_bwd_rows[route]["kernels"][key],
+                         gpt2_bwd_rows[route]["bounds"][key][0],
+                         gpt2_bwd_rows[route]["plain_ms"],
+                         gpt2_bwd_rows[route]["library_ms"]),
+        }
+
+    for name in next(iter(by_path.values())):
+        if not launches(name)["launches"]:
+            raise AssertionError(f"{name} was not launched on the main path")
+    return {"kernels": [
+        fwd_entry("flash_attention_fwd_sm90", "sm90",
+                  "flash_attention_fwd_sm90.cu"),
+        fwd_entry("flash_attention_fwd", "simt", "flash_attention_fwd.cu"),
+        bwd_entry("flash_attention_bwd_dq_sm90", "dq", ("dq",), "sm90",
+                  "flash_attention_bwd_sm90.cu", 196),
+        bwd_entry("flash_attention_bwd_dkv_sm90", "dkv", ("dk", "dv"),
+                  "sm90", "flash_attention_bwd_sm90.cu", 301),
+        bwd_entry("flash_attention_bwd_dq", "dq", ("dq",), "simt",
+                  "flash_attention_bwd.cu", 196),
+        bwd_entry("flash_attention_bwd_dkv", "dkv", ("dk", "dv"), "simt",
+                  "flash_attention_bwd.cu", 301)]}
+
+
 def main() -> int:
     import torch
 
@@ -1800,101 +2170,10 @@ def main() -> int:
     paths["checkpoint"] = checkpoint_phase(torch, fa, llama)
     paths["server"] = server_phase(torch, fa, llama)
     paths["train"] = train_phase(torch, fa, llama)
-    by_path = {path: _by_kernel(c) for path, c in paths.items()}
-    main_paths = ("serve", "sessions", "loop", "checkpoint", "server",
-                  "train")
-
-    # Forward: S=4096, the largest prefill of the serving slice, where the
-    # CUDA-core kernel was also timed.  Backward: the training slice's
-    # shape (the first backward case), where the CUDA-core pair was also
-    # timed.
-    main_row = next(r for r in rows if r["shape"].startswith("B=1 Sq=4096 "))
-    train_row = next(r for r in rows if r["shape"].startswith("B=8 Sq=2048 "))
-    bwd_row = bwd_rows[0]
-
-    def launches(name):
-        return {"launches": sum(by_path[p][name] for p in main_paths),
-                "launches_by_path": {p: by_path[p][name] for p in by_path}}
-
-    def fwd_entry(name, route, source):
-        if route == "sm90":
-            timed, train_timed = main_row, train_row
-            err_rows = [r for r in rows if r["route"] == "sm90"]
-        else:
-            timed, train_timed = main_row["simt"], train_row["simt"]
-            err_rows = [r["simt"] for r in rows if "simt" in r] + [
-                r for r in rows if r["route"] == "simt"]
-        return {
-            "name": name,
-            "route": "cuda",
-            "fwd_route": route,
-            "source": f"ant_ray_tpu_torch/ops/csrc/{source}",
-            "replaces": "ant_ray_tpu/ops/pallas/flash_attention.py:56",
-            **launches(name),
-            "max_abs_err": max(r["max_abs_err"] for r in err_rows),
-            "max_lse_err": max(r["lse_err"] for r in err_rows),
-            "ms": timed["ms"],
-            "tflops": timed["tflops"],
-            "share_of_bound": timed["share_of_bound"],
-            "plain_ms": main_row["plain_ms"],
-            "bound_ms": main_row["bound_ms"],
-            "bound_by": main_row["bound_by"],
-            "library_ms": main_row["library_ms"],
-            "shape": main_row["shape"],
-            "train_shape_ms": train_timed["ms"],
-            "train_shape_share_of_bound": train_timed["share_of_bound"],
-        }
-
-    def bwd_entry(name, key, grads, route, source, line):
-        if route == "sm90":
-            timed, err_rows = bwd_row["kernels"][key], [
-                r for r in bwd_rows if r["route"] == "sm90"]
-        else:
-            timed = bwd_row["simt"][key]
-            err_rows = [bwd_row["simt"]] + [r for r in bwd_rows
-                                            if r["route"] == "simt"]
-        bound_ms, bound_by, _flops = bwd_row["bounds"][key]
-        return {
-            "name": name,
-            "route": "cuda",
-            "bwd_route": route,
-            "source": f"ant_ray_tpu_torch/ops/csrc/{source}",
-            "replaces": f"ant_ray_tpu/ops/pallas/flash_attention.py:{line}",
-            **launches(name),
-            "max_abs_err": max(r["abs_err"][g] for r in err_rows
-                               for g in grads),
-            "max_rel_err": max(r["rel_err"][g] for r in err_rows
-                               for g in grads),
-            "ms": timed["ms"],
-            "tflops": timed["tflops"],
-            "share_of_bound": timed["share_of_bound"],
-            "plain_ms": bwd_row["plain_ms"],
-            "plain": "flash_attention_backward_ref: dq, dk and dv in one call",
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "library_ms": bwd_row["library_ms"],
-            "library": "scaled_dot_product_attention backward (fwd+bwd "
-                       "minus fwd): dq, dk and dv",
-            "shape": bwd_row["shape"],
-        }
-
-    for name in ("flash_attention_fwd_sm90", "flash_attention_bwd_dq_sm90",
-                 "flash_attention_bwd_dkv_sm90"):
-        if not launches(name)["launches"]:
-            raise AssertionError(f"{name} was not launched on the main path")
-    print(json.dumps({"kernels": [
-        fwd_entry("flash_attention_fwd_sm90", "sm90",
-                  "flash_attention_fwd_sm90.cu"),
-        fwd_entry("flash_attention_fwd", "simt", "flash_attention_fwd.cu"),
-        bwd_entry("flash_attention_bwd_dq_sm90", "dq", ("dq",), "sm90",
-                  "flash_attention_bwd_sm90.cu", 196),
-        bwd_entry("flash_attention_bwd_dkv_sm90", "dkv", ("dk", "dv"),
-                  "sm90", "flash_attention_bwd_sm90.cu", 301),
-        bwd_entry("flash_attention_bwd_dq", "dq", ("dq",), "simt",
-                  "flash_attention_bwd.cu", 196),
-        bwd_entry("flash_attention_bwd_dkv", "dkv", ("dk", "dv"), "simt",
-                  "flash_attention_bwd.cu", 301)]}),
-        flush=True)
+    paths.update(remat_phase(torch, fa, llama))
+    paths["gpt2_fp32"] = gpt2_phase(torch, fa, "float32")
+    paths["gpt2_bf16"] = gpt2_phase(torch, fa, "bfloat16")
+    print(json.dumps(kernels_line(rows, bwd_rows, paths)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

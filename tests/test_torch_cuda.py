@@ -1,7 +1,8 @@
 """The hand-written CUDA flash-attention kernels (the forward, and the dQ
 and dK/dV backward, each on both routes: the tensor-core kernels for
 bf16 at head_dim 64 and 128, the CUDA-core kernels otherwise) against
-their plain PyTorch versions, on the card; and the session slabs' round
+their plain PyTorch versions, on the card; GPT-2 and the remat policies
+through the kernels; and the session slabs' round
 trip between the card and host memory, bitwise, with an install from
 pinned memory that does not wait for the card.
 These tests need a CUDA device and ``nvcc``: they skip on a machine
@@ -165,6 +166,87 @@ def test_bf16_gradients_through_flash_function_match_reference(cuda, dim):
         (before[0] + 1, before[1] + 1)
     for g, r in zip(*grads):
         assert g.dtype == torch.bfloat16
+        assert _rel_err(g, r) <= BF16_GRAD_TOL
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.float32, "simt"),
+                                         (torch.bfloat16, "sm90")])
+def test_gpt2_gradients_through_the_kernels_match_reference(cuda, dtype,
+                                                            route):
+    """GPT-2 (plain multi-head attention, head_dim 64) through the
+    kernels of its dtype's route, against reference attention on the
+    card: every block checkpointed, so the forward kernel runs twice per
+    layer and the backward pair once."""
+    import dataclasses
+
+    from ant_ray_tpu_torch.models import gpt2
+
+    cfg = dataclasses.replace(gpt2.CONFIGS["tiny"], dim=256, n_heads=4,
+                              n_positions=256, dtype=dtype)
+    params = gpt2.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(4), device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 257), device="cuda",
+                         generator=cuda)
+    leaves = [params["wte"], *params["layers"].values()]
+    results = {}
+    for impl in ("flash", "reference"):
+        before = (fa.launch_count, fa.fwd_sm90_launch_count,
+                  fa.bwd_dq_launch_count, fa.bwd_sm90_launch_count)
+        with torch.enable_grad():
+            for leaf in leaves:
+                leaf.requires_grad_()
+            loss = gpt2.loss_fn(params, {"tokens": toks}, cfg,
+                                attn_impl=impl)
+            results[impl] = (loss.item(), torch.autograd.grad(loss, leaves))
+        after = (fa.launch_count, fa.fwd_sm90_launch_count,
+                 fa.bwd_dq_launch_count, fa.bwd_sm90_launch_count)
+        launched = tuple(a - b for a, b in zip(after, before))
+        sm90 = int(route == "sm90" and impl == "flash")
+        want = (2, 2 * sm90, 1, sm90) if impl == "flash" else (0, 0, 0, 0)
+        assert launched == tuple(n * cfg.n_layers for n in want)
+    loss, grads = results["flash"]
+    ref_loss, ref_grads = results["reference"]
+    tol = BF16_GRAD_TOL if dtype == torch.bfloat16 else \
+        BWD_REL_TOL[torch.float32]
+    assert abs(loss - ref_loss) <= (1e-2 if dtype == torch.bfloat16
+                                    else 1e-5)
+    for g, r in zip(grads, ref_grads):
+        assert _rel_err(g, r) <= tol
+
+
+@pytest.mark.parametrize("remat,fwd_per_layer", [
+    ("none", 1), ("full", 2), ("dots", 2), ("matmuls", 1)])
+def test_remat_policies_launch_the_forward_kernel_as_they_save(
+        cuda, remat, fwd_per_layer):
+    """Under "matmuls" the flash forward's (out, lse) are saved, so the
+    backward does not launch the forward kernel again; under "full" and
+    "dots" it does.  Gradients equal those of remat "none"."""
+    import dataclasses
+
+    from ant_ray_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.CONFIGS["tiny"], dim=256, n_heads=4,
+                              n_kv_heads=2, mlp_dim=256, n_layers=2,
+                              max_seq=256, dtype=torch.bfloat16)
+    params = llama.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(5), device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 129), device="cuda",
+                         generator=cuda)
+    leaves = [params["embed"], *params["layers"].values()]
+    grads = {}
+    for policy in ("none", remat):
+        before = (fa.fwd_sm90_launch_count, fa.bwd_sm90_launch_count)
+        with torch.enable_grad():
+            for leaf in leaves:
+                leaf.requires_grad_()
+            loss = llama.loss_fn(params, {"tokens": toks}, cfg,
+                                 attn_impl="flash", remat=policy)
+            grads[policy] = torch.autograd.grad(loss, leaves)
+        launched = (fa.fwd_sm90_launch_count - before[0],
+                    fa.bwd_sm90_launch_count - before[1])
+        per_layer = fwd_per_layer if policy == remat else 1
+        assert launched == (per_layer * cfg.n_layers, cfg.n_layers)
+    for g, r in zip(grads[remat], grads["none"]):
         assert _rel_err(g, r) <= BF16_GRAD_TOL
 
 

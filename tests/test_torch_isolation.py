@@ -40,6 +40,7 @@ def test_importing_every_module_loads_neither_jax_nor_the_jax_package():
     assert {"ant_ray_tpu_torch.llm.engine", "ant_ray_tpu_torch.llm.serve_llm",
             "ant_ray_tpu_torch.llm.chat", "ant_ray_tpu_torch.serve.api",
             "ant_ray_tpu_torch.models.checkpoint",
+            "ant_ray_tpu_torch.models.gpt2",
             "ant_ray_tpu_torch.observability.device_stats"} <= set(modules)
     code = (
         "import importlib, sys\n"

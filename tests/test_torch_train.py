@@ -90,7 +90,10 @@ def _tokens(seed, batch, seq, vocab=256):
     return np.random.default_rng(seed).integers(0, vocab, (batch, seq))
 
 
-@pytest.mark.parametrize("remat", ["none", "full"])
+REMATS = ["none", "full", "dots", "matmuls"]
+
+
+@pytest.mark.parametrize("remat", REMATS)
 @pytest.mark.parametrize("impls", [("pallas", "flash"),
                                    ("blockwise", "blockwise")])
 def test_loss_and_grads_match_jax(impls, remat):
@@ -107,18 +110,16 @@ def test_masked_loss_and_grads_match_jax():
                           "pallas", "flash", "none")
 
 
-def test_moe_grads_match_jax_router_included():
+@pytest.mark.parametrize("remat", ["none", "matmuls"])
+def test_moe_grads_match_jax_router_included(remat):
     _check_loss_and_grads("moe-tiny", {}, {"tokens": _tokens(3, 2, 33)},
-                          "auto", "auto", "none", seed=4)
+                          "auto", "auto", remat, seed=4)
 
 
-def test_selective_remat_is_not_ported_yet():
+def test_unknown_remat_policy_raises():
     _, tcfg = _configs("tiny")
     params = tl.init_params(tcfg, device="cpu")
     toks = torch.from_numpy(_tokens(5, 1, 17))
-    for remat in ("dots", "matmuls"):
-        with pytest.raises(NotImplementedError, match="queue A"):
-            tl.loss_fn(params, {"tokens": toks}, tcfg, remat=remat)
     with pytest.raises(ValueError, match="remat"):
         tl.loss_fn(params, {"tokens": toks}, tcfg, remat="some")
 
@@ -163,7 +164,7 @@ def test_adamw_matches_optax_over_three_steps():
         torch.float32
 
 
-@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("remat", REMATS)
 def test_train_step_learns(remat):
     """A few steps on a repetitive sequence cut the loss, as the JAX
     package's tests/test_llama.py shows for its own step."""
