@@ -1,10 +1,12 @@
 """Flash attention: the hand-written CUDA kernels (forward with
 logsumexp, and backward as a dQ sweep and a dK/dV sweep), their ctypes
-bindings, and their plain PyTorch versions.  Each direction has two
-routes (:func:`_route`): the tensor-core kernels for bf16 at head_dim 64
-and 128 (``csrc/flash_attention_fwd_sm90.cu``,
-``csrc/flash_attention_bwd_sm90.cu``) and the CUDA-core kernels for the
-rest (``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``).
+bindings, and their plain PyTorch versions.  :func:`_route` picks the
+kernels per dtype, head_dim and direction: the bf16 tensor-core kernels
+at head_dim 64 and 128 (``csrc/flash_attention_fwd_sm90.cu``,
+``csrc/flash_attention_bwd_sm90.cu``), the fp32 backward on the tensor
+cores in 3xTF32 at head_dim 64 and 128
+(``csrc/flash_attention_bwd_tf32x3.cu``), and the CUDA-core kernels for
+the rest (``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``).
 
 Counterparts of ``flash_attention_fwd_lse`` and
 ``flash_attention_backward`` in ant_ray_tpu/ops/pallas/flash_attention.py,
@@ -31,7 +33,7 @@ import torch
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
-SM90_HEAD_DIMS = (64, 128)
+SM90_HEAD_DIMS = (64, 128)     # the sm90 and tf32x3 routes' head dims
 BLOCK = 64   # the kernels' lengths must be multiples of it
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -39,9 +41,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # show that a main path went through the kernels.
 launch_count = 0           # forward, either route
 fwd_sm90_launch_count = 0  # forward launches of the sm90 kernel
-bwd_dq_launch_count = 0    # dQ, either route
-bwd_dkv_launch_count = 0   # dK/dV, either route
+bwd_dq_launch_count = 0    # dQ, any route
+bwd_dkv_launch_count = 0   # dK/dV, any route
 bwd_sm90_launch_count = 0  # backward calls that ran the sm90 pair
+bwd_tf32x3_launch_count = 0  # backward calls that ran the tf32x3 pair
 
 # C entry point -> (library, number of pointer arguments).  Every entry
 # point then takes batch, q_len, kv_len, heads, kv_heads, head_dim and
@@ -53,6 +56,8 @@ _ENTRY_POINTS = {
     "flash_attention_bwd_dkv": ("flash_attention_bwd", 8),
     "flash_attention_bwd_dq_sm90": ("flash_attention_bwd_sm90", 7),
     "flash_attention_bwd_dkv_sm90": ("flash_attention_bwd_sm90", 8),
+    "flash_attention_bwd_dq_tf32x3": ("flash_attention_bwd_tf32x3", 7),
+    "flash_attention_bwd_dkv_tf32x3": ("flash_attention_bwd_tf32x3", 8),
 }
 _fns: dict = {}
 
@@ -132,33 +137,48 @@ def _check_kernel_inputs(q, k):
 
 
 def _check_aligned(*tensors):
-    """The sm90 kernels copy 16 bytes at a time: every base address must
-    lie on a 16-byte boundary."""
+    """The sm90 and tf32x3 kernels copy 16 bytes at a time: every base
+    address must lie on a 16-byte boundary."""
     for t in tensors:
         if t.data_ptr() % 16:
-            raise ValueError(f"sm90 kernels want 16-byte aligned "
+            raise ValueError(f"sm90 and tf32x3 kernels want 16-byte aligned "
                              f"tensors; a {t.dtype} {tuple(t.shape)} tensor "
                              f"starts at {t.data_ptr():#x}")
 
 
-def _route(dtype, head_dim) -> str:
-    """Which kernels take inputs of this dtype and head_dim, in both
-    directions: "sm90", the tensor-core kernels of
-    csrc/flash_attention_fwd_sm90.cu and csrc/flash_attention_bwd_sm90.cu,
-    for bf16 at head_dim 64 or 128; "simt", the CUDA-core kernels of
-    csrc/flash_attention_fwd.cu and csrc/flash_attention_bwd.cu, for the
-    rest.  fp32 stays on the CUDA cores because no tensor-core path keeps
-    fp32 results (TF32 would break the fp32 checks' 1e-4); bf16 at
-    head_dim 256 because the backward's dK and dV accumulators (2 x 64x256
-    fp32 per warpgroup) do not fit in registers in the sm90 design, and no
-    model uses it.  This is routing, not a fallback: each route launches
-    its kernels or raises."""
-    if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
-        return "sm90"
+def _route(dtype, head_dim, direction: str) -> str:
+    """Which kernels take inputs of this dtype and head_dim in this
+    direction ("fwd" or "bwd"):
+
+    * "sm90", the bf16 tensor-core kernels (wgmma + TMA) of
+      csrc/flash_attention_fwd_sm90.cu and csrc/flash_attention_bwd_sm90.cu,
+      for bf16 at head_dim 64 or 128, both directions;
+    * "tf32x3", the fp32 backward on the tensor cores of
+      csrc/flash_attention_bwd_tf32x3.cu, for fp32 at head_dim 64 or 128.
+      Each fp32 operand splits into a TF32 high part and a TF32 remainder,
+      and three tensor-core products (lo.hi, hi.lo, hi.hi) keep ~22
+      mantissa bits: fp32's accuracy, which one TF32 product (~2^-11 per
+      product) would not keep;
+    * "simt", the CUDA-core kernels of csrc/flash_attention_fwd.cu and
+      csrc/flash_attention_bwd.cu, for the rest: the fp32 forward (its
+      3xTF32 kernel is still to come), and head_dim 256 in either dtype,
+      where the backward's dK and dV accumulators do not fit in registers
+      in the tensor-core designs (no model uses it).
+
+    This is routing, not a fallback: each route launches its kernels or
+    raises."""
+    if direction not in ("fwd", "bwd"):
+        raise ValueError(f"direction is 'fwd' or 'bwd', not {direction!r}")
+    if head_dim in SM90_HEAD_DIMS:
+        if dtype == torch.bfloat16:
+            return "sm90"
+        if dtype == torch.float32 and direction == "bwd":
+            return "tf32x3"
     return "simt"
 
 
-_SUFFIX = {"sm90": "_sm90", "simt": ""}   # entry-point name per route
+# Entry-point name suffix per route.
+_SUFFIX = {"sm90": "_sm90", "simt": "", "tf32x3": "_tf32x3"}
 
 
 def _scores(q, k, causal, scale):
@@ -229,7 +249,7 @@ def flash_attention_fwd_lse(q, k, v, *, causal: bool = True,
     out = torch.empty_like(q)
     lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]),
                       dtype=torch.float32, device=q.device)
-    route = _route(q.dtype, q.shape[3])
+    route = _route(q.dtype, q.shape[3], "fwd")
     if route == "sm90":
         _check_aligned(q, k, v, out, lse)
     _launch("flash_attention_fwd" + _SUFFIX[route], (q, k, v, out, lse), q,
@@ -313,6 +333,7 @@ def flash_attention_backward(q, k, v, out, lse, do, *, causal: bool,
     computed here in fp32.  CPU tensors go to
     :func:`flash_attention_backward_ref`."""
     global bwd_dq_launch_count, bwd_dkv_launch_count, bwd_sm90_launch_count
+    global bwd_tf32x3_launch_count
     _check(q, k, v)
     _check_residuals(q, out, lse, do)
     if q.device.type == "cpu":
@@ -323,9 +344,9 @@ def flash_attention_backward(q, k, v, out, lse, do, *, causal: bool,
     q, k, v, do, lse = (t.contiguous() for t in (q, k, v, do, lse))
     delta = _delta(out, do).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    route = _route(q.dtype, q.shape[3])
+    route = _route(q.dtype, q.shape[3], "bwd")
     suffix = _SUFFIX[route]
-    if route == "sm90":
+    if route != "simt":
         _check_aligned(q, k, v, do, lse, delta, dq, dk, dv)
     _launch("flash_attention_bwd_dq" + suffix,
             (q, k, v, do, lse, delta, dq), q, k, scale, causal)
@@ -335,6 +356,8 @@ def flash_attention_backward(q, k, v, out, lse, do, *, causal: bool,
     bwd_dkv_launch_count += 1
     if route == "sm90":
         bwd_sm90_launch_count += 1
+    elif route == "tf32x3":
+        bwd_tf32x3_launch_count += 1
     return dq, dk, dv
 
 

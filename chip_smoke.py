@@ -11,7 +11,8 @@ final line is printed:
 1. Setup: a CUDA device must exist; print the card's name and power
    limit (nvidia-smi); build every hand-written kernel from the sources
    in this checkout, timed, and print the registers and spill bytes
-   ptxas reports for each tensor-core kernel (forward and backward).
+   ptxas reports for each tensor-core kernel (forward and backward, bf16
+   and 3xTF32).
 2. Kernels: the flash-attention forward, through flash_attention_fwd_lse
    on the route it picks (the tensor-core "sm90" kernel for bf16 at
    head_dim 64 and 128, the CUDA-core "simt" kernel otherwise), against
@@ -32,24 +33,27 @@ final line is printed:
    launched directly, for a before-and-after on one card.
 3. Backward kernels: dQ and dK/dV through flash_attention_backward, on
    the route it picks (tensor-core "sm90" kernels for bf16 at head_dim
-   64 and 128, CUDA-core "simt" kernels otherwise), against
-   flash_attention_backward_ref at the training slice's shape and eleven
-   others: llama3-1b's heads (D=64), length 192 (ragged on 128-row
-   tiles), Sq != Skv, fp32, D=256, and GPT-2's in fp32 and bf16
-   (BWD_TOL: max abs error over max |ref| per tensor).  Each line gives
-   per kernel its route, time,
-   achieved TFLOP/s and share of its bound; then the whole backward,
-   its plain version, and as a yardstick SDPA's backward (fwd+bwd
-   through autograd minus fwd).  The bound counts 6*D (dQ), 8*D (dK/dV)
-   and 10*D (the whole backward) FLOPs per (q, k) pair against the
-   bytes each must move.  At the training shape the CUDA-core pair is
-   also checked and timed, launched directly, for a before-and-after on
-   one card.
+   64 and 128, tensor-core "tf32x3" kernels for fp32 there, CUDA-core
+   "simt" kernels at head_dim 256), against flash_attention_backward_ref
+   at the training slice's shape and fourteen others: llama3-1b's heads
+   (D=64), length 192 (ragged on 128-row tiles), Sq != Skv, fp32 at
+   D=64 and D=128 with GQA, ragged and with more keys, D=256, and
+   GPT-2's in fp32 and bf16 (BWD_TOL: max abs error over max |ref| per
+   tensor).  Each line gives per kernel its route, time, achieved
+   TFLOP/s and share of its bound (tf32x3's at 3xTF32's rate, 494.7/3
+   TFLOP/s, and also at the 67 TFLOP/s of fp32 FMAs); then the whole backward, its plain version, and as a
+   yardstick SDPA's backward (fwd+bwd through autograd minus fwd).  The
+   bound counts 6*D (dQ), 8*D (dK/dV) and 10*D (the whole backward)
+   FLOPs per (q, k) pair against the bytes each must move.  At the
+   training shape (sm90) and at GPT-2's fp32 shape (tf32x3) the
+   CUDA-core pair is also checked and timed, launched directly, for a
+   before-and-after on one card; at GPT-2's fp32 shape a profile names
+   SDPA's kernels.
 4. Correctness of the model path on a small fp32 model with head_dim
    128: logits through the flash kernel against the plain reference
    attention on the card, and against the same model on the CPU; then
    the loss and every gradient leaf through the kernels (the CUDA-core
-   forward and backward) against reference attention on the card and
+   forward, the 3xTF32 backward) against reference attention on the card and
    against the CPU, under each remat policy ("none", "full", "dots",
    "matmuls"; the forward kernel runs twice per layer under "full" and
    "dots", once where its out and lse are saved).  Then the same model
@@ -140,8 +144,9 @@ final line is printed:
    profile, and the step on 1 x 128 tokens, where the host sets the
    time.
 12. GPT-2: `gpt2` (124 M) at its published widths and depth, in its
-   published fp32 (the CUDA-core kernels) and in a bf16 copy (the sm90
-   kernels at head_dim 64, plain multi-head attention), random weights
+   published fp32 (the CUDA-core forward, the 3xTF32 backward) and in a
+   bf16 copy (the sm90 kernels at head_dim 64, plain multi-head
+   attention), random weights
    from seed 0, a fixed batch of 8 x 1025 token ids, AdamW, 3 warm-up
    and 10 timed steps; every block checkpointed, as in the reference.
    Gates: launches per step (forward twice per layer, backward pair
@@ -151,11 +156,14 @@ final line is printed:
    GPT2_LOGIT_TOL of reference attention's and the greedy next tokens
    equal but for ties.  Prints step time, tokens/s, MFU against the
    peak of the dtype the step computes in, and peak memory.
-13. One line {"kernels": [...]} with the six kernels (the sm90 and
-   CUDA-core forward, dQ and dK/dV; launches by path, the main paths
-   being serving, sessions, the loop, the checkpoint directory, the
-   server, training, training under each remat policy and GPT-2 in fp32
-   and bf16; each kernel's times also at GPT-2's shape on its route),
+13. One line {"kernels": [...]} with the eight kernels (the sm90 and
+   CUDA-core forward; the sm90, tf32x3 and CUDA-core dQ and dK/dV;
+   launches by path, the main paths being serving, sessions, the loop,
+   the checkpoint directory, the server, training, training under each
+   remat policy and GPT-2 in fp32 and bf16; each kernel's times also at
+   GPT-2's shape on its route).  The CUDA-core dQ and dK/dV serve only
+   head_dim 256, which no main path uses: they show 0 launches there,
+   and every other kernel must show some;
    then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -180,15 +188,23 @@ import time
 import numpy as np
 
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
+# fp32-accurate products in 3xTF32: three TF32 tensor-core products (495
+# TFLOP/s dense, 494.7 in NVIDIA's data sheet) for each fp32 one.
+TF32X3_FLOPS = 494.7e12 / 3
 PEAK_BYTES = 3.35e12
 TOL = {"bfloat16": (2e-2, 1e-3), "float32": (1e-4, 1e-4)}
 # Backward: max abs error over max |ref|, per tensor (dq, dk, dv).  bf16:
 # both sides round p and ds to bf16 at the same points but sum in another
 # order, so a value near a rounding boundary may land one bf16 ulp
-# (2^-8 relative) away; fp32: summation order only.
+# (2^-8 relative) away; fp32: summation order only (the 3xTF32 products
+# keep ~22 mantissa bits).  fp32 readings (tools/fp32_gate_readings.py,
+# H100 80GB HBM3 at 700 W): 3xTF32 up to 3.6e-5; the same kernels with
+# one TF32 product 3.3e-4 to 9.3e-4, refused.
 BWD_TOL = {"bfloat16": {"dq": 1e-2, "dk": 1e-2, "dv": 1e-2},
            "float32": {"dq": 1e-4, "dk": 1e-4, "dv": 1e-4}}
-GRAD_TOL = 1e-4   # fp32 model gradients, per leaf, over max |ref|
+# fp32 model gradients, per leaf, over max |ref|: 7.9e-6 through the
+# 3xTF32 backward, 5.3e-4 with one TF32 product (same readings).
+GRAD_TOL = 1e-4
 # bf16 model gradients through the sm90 kernels against bf16 reference
 # attention, per leaf, over max |ref|.  The two paths round at different
 # points (the kernels round p before P.V, and p and ds before every
@@ -224,8 +240,8 @@ def _pairs(q_len, kv_len, causal):
     return q_len * kv_len
 
 
-def _roofline(flops, nbytes, dtype_name):
-    t_ops = flops / PEAK_FLOPS[dtype_name]
+def _roofline(flops, nbytes, dtype_name, peak_flops=None):
+    t_ops = flops / (peak_flops or PEAK_FLOPS[dtype_name])
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -242,12 +258,13 @@ def _bound(batch, q_len, kv_len, heads, kv_heads, dim, dtype_name, causal):
 
 
 def _bwd_bounds(batch, q_len, kv_len, heads, kv_heads, dim, dtype_name,
-                causal):
+                causal, peak_flops=None):
     """Least time (ms), what sets it, and the FLOPs counted, for the dQ
     kernel (S, dP, dS.K: 6*D FLOPs per pair; reads q, k, v, dO, lse,
     delta, writes dq), the dK/dV kernel (S, dP, P^T.dO, dS^T.Q: 8*D;
     reads the same, writes dk, dv) and the whole backward (five matmuls,
-    10*D; reads q, k, v, out, dO, lse, writes dq, dk, dv)."""
+    10*D; reads q, k, v, out, dO, lse, writes dq, dk, dv), at the
+    dtype's peak unless ``peak_flops`` names another."""
     per_dim = batch * heads * dim * _pairs(q_len, kv_len, causal)
     elt = 2 if dtype_name == "bfloat16" else 4
     q_bytes = elt * batch * q_len * heads * dim
@@ -256,7 +273,7 @@ def _bwd_bounds(batch, q_len, kv_len, heads, kv_heads, dim, dtype_name,
     work = {"dq": (6.0, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes),
             "dkv": (8.0, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes),
             "backward": (10.0, 4 * q_bytes + 4 * kv_bytes + row_bytes)}
-    return {key: (*_roofline(per * per_dim, nbytes, dtype_name),
+    return {key: (*_roofline(per * per_dim, nbytes, dtype_name, peak_flops),
                   per * per_dim)
             for key, (per, nbytes) in work.items()}
 
@@ -332,7 +349,7 @@ def kernel_phase(torch, fa):
         name = str(dtype).removeprefix("torch.")
         shape = _shape(batch, q_len, kv_len, heads, kv_heads, dim, name,
                        causal)
-        route = fa._route(dtype, dim)
+        route = fa._route(dtype, dim, "fwd")
         sm90_before = fa.fwd_sm90_launch_count
         out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal)
         torch.cuda.synchronize()
@@ -432,11 +449,16 @@ def _kernel_stats(ms, bound):
             "share_of_bound": bound_ms / ms}
 
 
+# GPT-2's attention (B, Sq, Skv, H, KVH, D): the main path of the fp32
+# backward on the tf32x3 route and of the bf16 one at head_dim 64.
+GPT2_ATTN = (8, 1024, 1024, 12, 12, 64)
+
+
 def bwd_kernel_phase(torch, fa):
     """The dQ and dK/dV kernels, through the route the wrapper picks,
-    against flash_attention_backward_ref; at the training shape also the
-    CUDA-core pair of PR 2, launched directly, for a before-and-after on
-    one card."""
+    against flash_attention_backward_ref; at the training shape (sm90)
+    and at GPT-2's fp32 shape (tf32x3) also the CUDA-core pair,
+    launched directly, for a before-and-after on one card."""
     import torch.nn.functional as F  # noqa: PLC0415
 
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -447,12 +469,15 @@ def bwd_kernel_phase(torch, fa):
         (2, 192, 192, 8, 2, 128, bf16, True),      # ragged on 128-row tiles
         (2, 192, 192, 8, 8, 64, bf16, False),
         (1, 1024, 1024, 32, 8, 64, fp32, True),
+        (1, 1024, 1024, 32, 8, 128, fp32, True),   # fp32, D=128, GQA 4
+        (2, 192, 192, 8, 2, 128, fp32, False),     # fp32, three 64-row tiles
+        (1, 128, 256, 32, 8, 64, fp32, True),      # fp32, Sq < Skv
         (1, 1024, 1024, 32, 32, 128, bf16, False),
         (1, 128, 256, 32, 8, 128, bf16, True),
         (1, 512, 512, 8, 2, 256, fp32, True),
         (1, 512, 512, 8, 2, 256, bf16, True),
-        (8, 1024, 1024, 12, 12, 64, fp32, True),   # GPT-2, fp32 (simt)
-        (8, 1024, 1024, 12, 12, 64, bf16, True),   # GPT-2, bf16 (sm90)
+        (*GPT2_ATTN, fp32, True),                  # GPT-2, fp32 (tf32x3)
+        (*GPT2_ATTN, bf16, True),                  # GPT-2, bf16 (sm90)
     ]
     gen = torch.Generator(device="cuda").manual_seed(2)
     results = []
@@ -467,14 +492,16 @@ def bwd_kernel_phase(torch, fa):
         name = str(dtype).removeprefix("torch.")
         shape = _shape(batch, q_len, kv_len, heads, kv_heads, dim, name,
                        causal)
-        route = fa._route(dtype, dim)
+        route = fa._route(dtype, dim, "bwd")
         with torch.no_grad():
             out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal)
-        sm90_before = fa.bwd_sm90_launch_count
+        before = (fa.bwd_sm90_launch_count, fa.bwd_tf32x3_launch_count)
         got = fa.flash_attention_backward(q, k, v, out, lse, do,
                                           causal=causal)
         torch.cuda.synchronize()
-        took = "sm90" if fa.bwd_sm90_launch_count > sm90_before else "simt"
+        took = ("sm90" if fa.bwd_sm90_launch_count > before[0] else
+                "tf32x3" if fa.bwd_tf32x3_launch_count > before[1] else
+                "simt")
         if took != route:
             raise AssertionError(f"backward at {shape} took route {took}, "
                                  f"expected {route}")
@@ -484,29 +511,40 @@ def bwd_kernel_phase(torch, fa):
                                        f"{route} backward kernels")
         del got
 
-        bounds = _bwd_bounds(batch, q_len, kv_len, heads, kv_heads, dim,
-                             name, causal)
-        suffix = "_sm90" if route == "sm90" else ""
+        # At the dtype's peak: the CUDA-core pair's ceiling (fp32 FMAs) and
+        # the sm90 kernels' (bf16 tensor cores).
+        fma_bounds = _bwd_bounds(batch, q_len, kv_len, heads, kv_heads, dim,
+                                 name, causal)
+        # tf32x3 does fp32-accurate products on the tensor cores, whose
+        # ceiling for them is 3xTF32's rate; its bound is taken there.
+        bounds = (_bwd_bounds(batch, q_len, kv_len, heads, kv_heads, dim,
+                              name, causal, TF32X3_FLOPS)
+                  if route == "tf32x3" else fma_bounds)
         delta = fa._delta(out, do).contiguous()
-        dq_ms, dkv_ms, _ = _kernel_times(torch, fa, suffix, q, k, v, do,
-                                         lse, delta, causal)
-        kernels = {"dq": {"route": route, **_kernel_stats(dq_ms,
-                                                          bounds["dq"])},
-                   "dkv": {"route": route, **_kernel_stats(dkv_ms,
-                                                           bounds["dkv"])}}
+        dq_ms, dkv_ms, _ = _kernel_times(torch, fa, fa._SUFFIX[route], q, k,
+                                         v, do, lse, delta, causal)
+        kernels = {key: {"route": route, **_kernel_stats(ms, bounds[key])}
+                   for key, ms in (("dq", dq_ms), ("dkv", dkv_ms))}
+        if route == "tf32x3":
+            for key, row in kernels.items():
+                row["fp32_fma_bound_ms"] = fma_bounds[key][0]
+                row["share_of_fp32_fma_bound"] = (fma_bounds[key][0]
+                                                  / row["ms"])
         simt = None
-        if route == "sm90" and not results:
+        gpt2 = (batch, q_len, kv_len, heads, kv_heads, dim) == GPT2_ATTN
+        if (route == "sm90" and not results) or (route == "tf32x3"
+                                                 and gpt2):
             # PR 2's CUDA-core pair on the same inputs, launched directly:
-            # the wrapper no longer routes bf16 at this head_dim there.
+            # the wrapper no longer routes this dtype and head_dim there.
             s_dq_ms, s_dkv_ms, s_got = _kernel_times(
                 torch, fa, "", q, k, v, do, lse, delta, causal)
             s_abs, s_rel = _bwd_errors(s_got, want, name, shape,
                                        "CUDA-core backward kernels")
             simt = {"abs_err": s_abs, "rel_err": s_rel,
                     "dq": {"route": "simt", **_kernel_stats(s_dq_ms,
-                                                            bounds["dq"])},
-                    "dkv": {"route": "simt", **_kernel_stats(s_dkv_ms,
-                                                             bounds["dkv"])}}
+                                                            fma_bounds["dq"])},
+                    "dkv": {"route": "simt", **_kernel_stats(
+                        s_dkv_ms, fma_bounds["dkv"])}}
             del s_got
         del want, delta
         bwd_ms = _median_ms(torch, lambda: fa.flash_attention_backward(
@@ -524,9 +562,16 @@ def bwd_kernel_phase(torch, fa):
             return F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, enable_gqa=True)
 
+        def sdpa_both():
+            return torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
         sdpa_fwd_ms = _median_ms(torch, sdpa)
-        sdpa_both_ms = _median_ms(torch, lambda: torch.autograd.grad(
-            sdpa(), (qt, kt, vt), dot))
+        sdpa_both_ms = _median_ms(torch, sdpa_both)
+        if route == "tf32x3" and gpt2:
+            # Which kernels SDPA runs for fp32 (their names say which
+            # backend, and so whether the tensor cores do its products).
+            _profile(torch, f"SDPA forward and backward at {shape}",
+                     sdpa_both, top=8)
         row = {"shape": shape, "route": route, "abs_err": abs_err,
                "rel_err": rel_err, "tol": BWD_TOL[name], "kernels": kernels,
                "bwd_ms": bwd_ms,
@@ -534,19 +579,26 @@ def bwd_kernel_phase(torch, fa):
                "plain_ms": plain_ms,
                "library_ms": sdpa_both_ms - sdpa_fwd_ms,
                "sdpa_fwd_ms": sdpa_fwd_ms, "sdpa_fwd_bwd_ms": sdpa_both_ms,
-               "bounds": bounds}
+               "bounds": bounds, "fma_bounds": fma_bounds}
         if simt is not None:
             row["simt"] = simt
         print("kernel flash_attention_bwd " + json.dumps(row), flush=True)
         if simt is not None:
             pair_ms = simt["dq"]["ms"] + simt["dkv"]["ms"]
-            print(f"backward at {shape}: sm90 dQ {dq_ms:.3f} ms "
-                  f"({kernels['dq']['share_of_bound']:.1%} of its bound), "
-                  f"dK/dV {dkv_ms:.3f} ms "
-                  f"({kernels['dkv']['share_of_bound']:.1%}); whole backward "
+
+            def share(key):
+                if route != "tf32x3":
+                    return f"{kernels[key]['share_of_bound']:.1%} of its bound"
+                return (f"{kernels[key]['share_of_bound']:.1%} of its 3xTF32 "
+                        f"bound, {kernels[key]['share_of_fp32_fma_bound']:.1%}"
+                        f" of the fp32 FMA one")
+
+            print(f"backward at {shape}: {route} dQ {dq_ms:.3f} ms "
+                  f"({share('dq')}), dK/dV {dkv_ms:.3f} ms ({share('dkv')}); "
+                  f"pair {dq_ms + dkv_ms:.3f} ms, whole backward "
                   f"{bwd_ms:.3f} ms against the CUDA-core pair's "
-                  f"{pair_ms:.3f} ms ({pair_ms / bwd_ms:.1f}x faster) and "
-                  f"SDPA's backward {row['library_ms']:.3f} ms "
+                  f"{pair_ms:.3f} ms ({pair_ms / (dq_ms + dkv_ms):.2f}x "
+                  f"faster) and SDPA's backward {row['library_ms']:.3f} ms "
                   f"({bwd_ms / row['library_ms']:.2f}x its time)",
                   flush=True)
         results.append(row)
@@ -595,26 +647,30 @@ def _to_cpu(params):
 def _reset_counts(fa):
     fa.launch_count = fa.fwd_sm90_launch_count = 0
     fa.bwd_dq_launch_count = fa.bwd_dkv_launch_count = 0
-    fa.bwd_sm90_launch_count = 0
+    fa.bwd_sm90_launch_count = fa.bwd_tf32x3_launch_count = 0
 
 
 def _counts(fa):
     """Launches since the last reset: the forward on either route and on
-    the sm90 route, dQ and dK/dV on either route, and backward calls that
-    took the sm90 pair."""
+    the sm90 route, dQ and dK/dV on any route, and backward calls that
+    took the sm90 pair and the tf32x3 pair."""
     return {"fwd": fa.launch_count, "fwd_sm90": fa.fwd_sm90_launch_count,
             "dq": fa.bwd_dq_launch_count, "dkv": fa.bwd_dkv_launch_count,
-            "sm90": fa.bwd_sm90_launch_count}
+            "sm90": fa.bwd_sm90_launch_count,
+            "tf32x3": fa.bwd_tf32x3_launch_count}
 
 
 def _by_kernel(counts):
-    """Launches of each of the six kernels from a _counts() dict."""
+    """Launches of each of the eight kernels from a _counts() dict."""
+    tensor_cores = counts["sm90"] + counts["tf32x3"]
     return {"flash_attention_fwd_sm90": counts["fwd_sm90"],
             "flash_attention_fwd": counts["fwd"] - counts["fwd_sm90"],
             "flash_attention_bwd_dq_sm90": counts["sm90"],
             "flash_attention_bwd_dkv_sm90": counts["sm90"],
-            "flash_attention_bwd_dq": counts["dq"] - counts["sm90"],
-            "flash_attention_bwd_dkv": counts["dkv"] - counts["sm90"]}
+            "flash_attention_bwd_dq_tf32x3": counts["tf32x3"],
+            "flash_attention_bwd_dkv_tf32x3": counts["tf32x3"],
+            "flash_attention_bwd_dq": counts["dq"] - tensor_cores,
+            "flash_attention_bwd_dkv": counts["dkv"] - tensor_cores}
 
 
 # Forward-kernel launches per layer and training step under each remat
@@ -626,7 +682,8 @@ FWD_PER_LAYER = {"none": 1, "full": 2, "dots": 2, "matmuls": 1}
 def grad_check_phase(torch, fa, llama):
     """Loss and every gradient leaf of the small fp32 model through the
     kernels, against reference attention on the card and against the
-    CPU, under each remat policy."""
+    CPU, under each remat policy.  Returns the launches and, per policy,
+    the two gradient errors."""
     cfg, params = _small_model(torch, llama)
     toks = torch.from_numpy(
         np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 257)))
@@ -636,6 +693,7 @@ def grad_check_phase(torch, fa, llama):
 
     cpu_params = _to_cpu(params)
     total = dict.fromkeys(_counts(fa), 0)
+    readings = {}
     for remat in FWD_PER_LAYER:
         _reset_counts(fa)
         loss, grads = loss_and_grads(params, toks.cuda(), "flash", remat)
@@ -653,8 +711,9 @@ def grad_check_phase(torch, fa, llama):
                       for k, g in grads.items())
         want = {"fwd": cfg.n_layers * FWD_PER_LAYER[remat],
                 "fwd_sm90": 0, "dq": cfg.n_layers, "dkv": cfg.n_layers,
-                "sm90": 0}
+                "sm90": 0, "tf32x3": cfg.n_layers}
         total = {key: total[key] + launches[key] for key in total}
+        readings[remat] = {"vs_reference": err_ref, "vs_cpu": err_cpu}
         print(f"gradient check (fp32, head_dim 128, S=256, remat {remat}): "
               f"loss {loss:.6f}, reference {ref_loss:.6f}, CPU "
               f"{cpu_loss:.6f}; max grad error over max |ref| per leaf: vs "
@@ -665,20 +724,21 @@ def grad_check_phase(torch, fa, llama):
                 and err_ref <= GRAD_TOL and err_cpu <= GRAD_TOL
                 and launches == want):
             raise AssertionError(f"gradient check failed under remat {remat}")
-    return total
+    return total, readings
 
 
-def _loss_and_grads(torch, llama, cfg, params, toks, impl, remat):
+def _loss_and_grads(torch, model, cfg, params, toks, impl, remat=None):
     """Loss and the gradient of every leaf (by name) of a fresh copy of
-    ``params``."""
+    ``params``, through ``model.loss_fn`` (llama's under ``remat``, or
+    gpt2's, which checkpoints every block)."""
     leaves = {k: (v.detach().clone().requires_grad_() if k != "layers"
                   else {n: w.detach().clone().requires_grad_()
                         for n, w in v.items()})
               for k, v in params.items()}
     flat = {**{k: v for k, v in leaves.items() if k != "layers"},
             **{f"layers.{n}": w for n, w in leaves["layers"].items()}}
-    loss = llama.loss_fn(leaves, {"tokens": toks}, cfg, attn_impl=impl,
-                         remat=remat)
+    kw = {} if remat is None else {"remat": remat}
+    loss = model.loss_fn(leaves, {"tokens": toks}, cfg, attn_impl=impl, **kw)
     grads = torch.autograd.grad(loss, list(flat.values()))
     return loss.item(), dict(zip(flat, grads))
 
@@ -713,7 +773,8 @@ def bf16_grad_check_phase(torch, fa, llama):
     spread = {k: rel(g, fp32_grads[k]) for k, g in ref_grads.items()}
     worst = max(err, key=err.get)
     want = {"fwd": cfg.n_layers, "fwd_sm90": cfg.n_layers,
-            "dq": cfg.n_layers, "dkv": cfg.n_layers, "sm90": cfg.n_layers}
+            "dq": cfg.n_layers, "dkv": cfg.n_layers, "sm90": cfg.n_layers,
+            "tf32x3": 0}
     print(f"gradient check (bf16, head_dim 128, S=256, remat none, sm90 "
           f"backward): loss {loss:.6f}, reference {ref_loss:.6f}; max grad "
           f"error over max |ref| per leaf vs bf16 reference "
@@ -784,7 +845,8 @@ def train_phase(torch, fa, llama):
         return train_step(params, optimizer, tokens, cfg, remat=remat)
 
     per_step = {"fwd": cfg.n_layers, "fwd_sm90": cfg.n_layers,
-                "dq": cfg.n_layers, "dkv": cfg.n_layers, "sm90": cfg.n_layers}
+                "dq": cfg.n_layers, "dkv": cfg.n_layers, "sm90": cfg.n_layers,
+                "tf32x3": 0}
     losses, step_ms, launches, peak_gb = _train_steps(torch, fa, step,
                                                       per_step)
     ms = statistics.median(step_ms[3:])
@@ -827,7 +889,7 @@ def remat_phase(torch, fa, llama):
 
         n = cfg.n_layers
         per_step = {"fwd": fwd * n, "fwd_sm90": fwd * n, "dq": n, "dkv": n,
-                    "sm90": n}
+                    "sm90": n, "tf32x3": 0}
         losses, step_ms, launches, peak_gb = _train_steps(torch, fa, step,
                                                           per_step)
         ms = statistics.median(step_ms[3:])
@@ -896,6 +958,14 @@ GPT2_LOSS_TOL = {"float32": 1e-4, "bfloat16": 2e-4}
 # (tools/gpt2_loss_faults.py): sound 4.4e-6 (fp32) and 0.033 (bf16); the
 # faults above 0.17 (scale halved) to 3.2 in either dtype.
 GPT2_LOGIT_TOL = {"float32": 1e-3, "bfloat16": 0.125}
+# GPT-2's fp32 gradients on the initial weights through the kernels
+# against reference attention, per leaf, max abs error over max |ref|:
+# the one GPT-2 gate that sees the backward (the first loss and the
+# logits are forward quantities, and read alike for a backward of one
+# TF32 product: 0 and 3.8e-6).  Readings (tools/fp32_gate_readings.py,
+# H100 80GB HBM3 at 700 W): 4.0e-5 through the 3xTF32 backward, 2.9e-4
+# with one TF32 product; the limit sits between them.
+GPT2_GRAD_TOL = 1e-4
 PEAK_NAME = {"float32": "fp32 outside the tensor cores (TF32 off)",
              "bfloat16": "bf16 dense"}
 
@@ -906,15 +976,18 @@ def gpt2_phase(torch, fa, dtype_name):
     batch of 8 x 1025 token ids (T = 1024 = n_positions), AdamW: 3
     warm-up and 10 timed train_step calls.  Gates: every block
     checkpointed, so per step the forward kernel runs twice per layer and
-    the backward pair once, all on the route of the dtype (CUDA cores in
-    fp32, sm90 in bf16); the first step's loss within GPT2_LOSS_TOL of
-    gpt2.loss_fn in fp32 with reference attention on the same weights;
-    the loss falling; then, on the trained weights, the last-position
-    logits of each of the 8 rows of a 1024-token forward through the
-    kernels within GPT2_LOGIT_TOL of the plain path's (reference
-    attention, same dtype), and its greedy next tokens equal to the
-    plain path's but for ties.  Returns the launches of the training
-    steps."""
+    the backward pair once, on the routes of the dtype (in fp32 the
+    CUDA-core forward and the tf32x3 backward, in bf16 sm90); in fp32,
+    before training, every gradient leaf of the loss through the kernels
+    within GPT2_GRAD_TOL of reference attention's (the only gate here
+    that sees the backward); the first step's loss within GPT2_LOSS_TOL
+    of gpt2.loss_fn in fp32 with reference attention on the same
+    weights; the loss falling; then, on the trained weights, the
+    last-position logits of each of the 8 rows of a 1024-token forward
+    through the kernels within GPT2_LOGIT_TOL of the plain path's
+    (reference attention, same dtype), and its greedy next tokens equal
+    to the plain path's but for ties.  Returns the launches of the
+    training steps and the gates' readings."""
     from ant_ray_tpu_torch.models import gpt2  # noqa: PLC0415
     from ant_ray_tpu_torch.train import make_optimizer, train_step  # noqa: PLC0415
 
@@ -935,15 +1008,34 @@ def gpt2_phase(torch, fa, dtype_name):
         plain_loss = gpt2.loss_fn(params32, {"tokens": tokens}, cfg32,
                                   attn_impl="reference").item()
         del params32
+    grad_err = None
+    if dtype_name == "float32":
+        _, grads = _loss_and_grads(torch, gpt2, cfg, params, tokens, "flash")
+        _, ref_grads = _loss_and_grads(torch, gpt2, cfg, params, tokens,
+                                       "reference")
+        errs = {key: ((g - ref_grads[key]).abs().max()
+                      / ref_grads[key].abs().max()).item()
+                for key, g in grads.items()}
+        worst = max(errs, key=errs.get)
+        grad_err = errs[worst]
+        del grads, ref_grads
+        print(f"gpt2 {dtype_name} gradients on the initial weights through "
+              f"the kernels against reference attention: max error over "
+              f"max |ref| {grad_err:.3e} ({worst}; tol {GPT2_GRAD_TOL})",
+              flush=True)
+        if not grad_err <= GPT2_GRAD_TOL:
+            raise AssertionError(f"gpt2 {dtype_name}: gradient error "
+                                 f"{grad_err} at {worst}")
     optimizer = make_optimizer(params)
 
     def step():
         return train_step(params, optimizer, tokens, cfg)
 
     n = cfg.n_layers
-    sm90 = n if fa._route(dtype, cfg.head_dim) == "sm90" else 0
-    per_step = {"fwd": 2 * n, "fwd_sm90": 2 * sm90, "dq": n, "dkv": n,
-                "sm90": sm90}
+    fwd, bwd = (fa._route(dtype, cfg.head_dim, d) for d in ("fwd", "bwd"))
+    per_step = {"fwd": 2 * n, "fwd_sm90": 2 * n * (fwd == "sm90"), "dq": n,
+                "dkv": n, "sm90": n * (bwd == "sm90"),
+                "tf32x3": n * (bwd == "tf32x3")}
     losses, step_ms, launches, peak_gb = _train_steps(torch, fa, step,
                                                       per_step)
     ms = statistics.median(step_ms[3:])
@@ -991,7 +1083,8 @@ def gpt2_phase(torch, fa, dtype_name):
         raise AssertionError(f"gpt2 {dtype_name}: greedy tokens differ "
                              "beyond a tie")
     del params, optimizer, tokens
-    return launches
+    return launches, {"loss_err": loss_err, "logit_err": logit_err,
+                      "grad_err": grad_err}
 
 
 def slice_phase(torch, fa, llama):
@@ -1041,7 +1134,7 @@ def slice_phase(torch, fa, llama):
           f"backward kernel launches {launches['dq']} and {launches['dkv']} "
           f"(expected 0)", flush=True)
     if launches != {"fwd": expected, "fwd_sm90": expected, "dq": 0, "dkv": 0,
-                    "sm90": 0}:
+                    "sm90": 0, "tf32x3": 0}:
         raise AssertionError(f"serving launched {launches}, expected "
                              f"{expected} sm90 forward and no other launches")
 
@@ -1734,7 +1827,7 @@ def checkpoint_phase(torch, fa, llama):
         raise AssertionError(f"checkpoint phase failed: {per_format}, "
                              f"server ok {server_ok}")
     if launches != {"fwd": expected, "fwd_sm90": expected, "dq": 0, "dkv": 0,
-                    "sm90": 0}:
+                    "sm90": 0, "tf32x3": 0}:
         raise AssertionError(f"checkpoint phase launched {launches}")
     return launches
 
@@ -2004,34 +2097,32 @@ def _print_ptxas(build, lib):
 
 
 def kernels_line(rows, bwd_rows, paths):
-    """The {"kernels": [...]} record of the six kernels from the kernel
-    phases' rows and the launches of every path; raises if a kernel was
-    not launched on a main path."""
+    """The {"kernels": [...]} record of the eight kernels from the kernel
+    phases' rows and the launches of every path; raises if a kernel that
+    a main path should run was not launched on one."""
     by_path = {path: _by_kernel(c) for path, c in paths.items()}
     main_paths = [p for p in paths if not p.startswith("grad_check")]
 
     # Forward: S=4096, the largest prefill of the serving slice, where the
     # CUDA-core kernel was also timed.  Backward: the training slice's
-    # shape (the first backward case), where the CUDA-core pair was also
-    # timed.
+    # shape (the first backward case) for sm90, where the CUDA-core pair
+    # was also timed, and GPT-2's fp32 shape for tf32x3, where it was too.
     main_row = next(r for r in rows if r["shape"].startswith("B=1 Sq=4096 "))
     train_row = next(r for r in rows if r["shape"].startswith("B=8 Sq=2048 "))
     bwd_row = bwd_rows[0]
-    # GPT-2's shape, the main path of the CUDA-core kernels (fp32) and of
-    # the sm90 kernels at head_dim 64 without GQA (bf16).
+    # GPT-2's shape, the main path of the CUDA-core forward and the
+    # tf32x3 backward (fp32) and of the sm90 kernels at head_dim 64
+    # without GQA (bf16).
     gpt2_shape = "B=8 Sq=1024 Skv=1024 H=12 KVH=12 D=64 {} causal"
-    gpt2_rows = {route: next(r for r in rows
+    gpt2_rows = {dtype: next(r for r in rows
                              if r["shape"] == gpt2_shape.format(dtype))
-                 for route, dtype in (("simt", "float32"),
-                                      ("sm90", "bfloat16"))}
-    gpt2_bwd_rows = {route: next(r for r in bwd_rows
+                 for dtype in ("float32", "bfloat16")}
+    gpt2_bwd_rows = {dtype: next(r for r in bwd_rows
                                  if r["shape"] == gpt2_shape.format(dtype))
-                     for route, dtype in (("simt", "float32"),
-                                          ("sm90", "bfloat16"))}
+                     for dtype in ("float32", "bfloat16")}
 
-    def _gpt2_keys(timed, bound_ms, plain_ms, library_ms):
-        return {"gpt2_shape": gpt2_shape.format(
-                    "float32" if timed["route"] == "simt" else "bfloat16"),
+    def _gpt2_keys(dtype, timed, bound_ms, plain_ms, library_ms):
+        return {"gpt2_shape": gpt2_shape.format(dtype),
                 "gpt2_shape_ms": timed["ms"],
                 "gpt2_shape_share_of_bound": timed["share_of_bound"],
                 "gpt2_shape_bound_ms": bound_ms,
@@ -2046,10 +2137,12 @@ def kernels_line(rows, bwd_rows, paths):
         if route == "sm90":
             timed, train_timed = main_row, train_row
             err_rows = [r for r in rows if r["route"] == "sm90"]
+            gpt2 = gpt2_rows["bfloat16"]
         else:
             timed, train_timed = main_row["simt"], train_row["simt"]
             err_rows = [r["simt"] for r in rows if "simt" in r] + [
                 r for r in rows if r["route"] == "simt"]
+            gpt2 = gpt2_rows["float32"]
         return {
             "name": name,
             "route": "cuda",
@@ -2069,20 +2162,37 @@ def kernels_line(rows, bwd_rows, paths):
             "shape": main_row["shape"],
             "train_shape_ms": train_timed["ms"],
             "train_shape_share_of_bound": train_timed["share_of_bound"],
-            **_gpt2_keys(gpt2_rows[route], gpt2_rows[route]["bound_ms"],
-                         gpt2_rows[route]["plain_ms"],
-                         gpt2_rows[route]["library_ms"]),
+            **_gpt2_keys("bfloat16" if route == "sm90" else "float32", gpt2,
+                         gpt2["bound_ms"], gpt2["plain_ms"],
+                         gpt2["library_ms"]),
         }
 
     def bwd_entry(name, key, grads, route, source, line):
+        g32 = gpt2_bwd_rows["float32"]
+        extra = {}
         if route == "sm90":
-            timed, err_rows = bwd_row["kernels"][key], [
-                r for r in bwd_rows if r["route"] == "sm90"]
+            at, timed = bwd_row, bwd_row["kernels"][key]
+            err_rows = [r for r in bwd_rows if r["route"] == "sm90"]
+            gpt2 = ("bfloat16", gpt2_bwd_rows["bfloat16"]["kernels"][key],
+                    gpt2_bwd_rows["bfloat16"])
+        elif route == "tf32x3":
+            # Its main shape is GPT-2's fp32 one.
+            at, timed = g32, g32["kernels"][key]
+            err_rows = [r for r in bwd_rows if r["route"] == "tf32x3"]
+            gpt2 = ("float32", timed, g32)
+            extra = {"bound_ms_fp32_fma": timed["fp32_fma_bound_ms"],
+                     "share_of_fp32_fma_bound":
+                         timed["share_of_fp32_fma_bound"],
+                     "simt_pair_ms_same_inputs": g32["simt"]["dq"]["ms"]
+                     + g32["simt"]["dkv"]["ms"]}
         else:
-            timed = bwd_row["simt"][key]
-            err_rows = [bwd_row["simt"]] + [r for r in bwd_rows
-                                            if r["route"] == "simt"]
-        bound_ms, bound_by, _flops = bwd_row["bounds"][key]
+            at, timed = bwd_row, bwd_row["simt"][key]
+            err_rows = [bwd_row["simt"], g32["simt"]] + [
+                r for r in bwd_rows if r["route"] == "simt"]
+            gpt2 = ("float32", g32["simt"][key], g32)
+        bounds_key = "fma_bounds" if route == "simt" else "bounds"
+        bound_ms, bound_by, _flops = at[bounds_key][key]
+        dtype, gpt2_timed, gpt2_row = gpt2
         return {
             "name": name,
             "route": "cuda",
@@ -2097,22 +2207,25 @@ def kernels_line(rows, bwd_rows, paths):
             "ms": timed["ms"],
             "tflops": timed["tflops"],
             "share_of_bound": timed["share_of_bound"],
-            "plain_ms": bwd_row["plain_ms"],
+            "plain_ms": at["plain_ms"],
             "plain": "flash_attention_backward_ref: dq, dk and dv in one call",
             "bound_ms": bound_ms,
             "bound_by": bound_by,
-            "library_ms": bwd_row["library_ms"],
+            **extra,
+            "library_ms": at["library_ms"],
             "library": "scaled_dot_product_attention backward (fwd+bwd "
                        "minus fwd): dq, dk and dv",
-            "shape": bwd_row["shape"],
-            **_gpt2_keys(gpt2_bwd_rows[route]["kernels"][key],
-                         gpt2_bwd_rows[route]["bounds"][key][0],
-                         gpt2_bwd_rows[route]["plain_ms"],
-                         gpt2_bwd_rows[route]["library_ms"]),
+            "shape": at["shape"],
+            **_gpt2_keys(dtype, gpt2_timed,
+                         gpt2_row[bounds_key][key][0], gpt2_row["plain_ms"],
+                         gpt2_row["library_ms"]),
         }
 
+    # The CUDA-core dQ and dK/dV take only head_dim 256 now, which no
+    # main path uses; every other kernel must run on one.
+    off_main_paths = {"flash_attention_bwd_dq", "flash_attention_bwd_dkv"}
     for name in next(iter(by_path.values())):
-        if not launches(name)["launches"]:
+        if name not in off_main_paths and not launches(name)["launches"]:
             raise AssertionError(f"{name} was not launched on the main path")
     return {"kernels": [
         fwd_entry("flash_attention_fwd_sm90", "sm90",
@@ -2122,6 +2235,10 @@ def kernels_line(rows, bwd_rows, paths):
                   "flash_attention_bwd_sm90.cu", 196),
         bwd_entry("flash_attention_bwd_dkv_sm90", "dkv", ("dk", "dv"),
                   "sm90", "flash_attention_bwd_sm90.cu", 301),
+        bwd_entry("flash_attention_bwd_dq_tf32x3", "dq", ("dq",), "tf32x3",
+                  "flash_attention_bwd_tf32x3.cu", 196),
+        bwd_entry("flash_attention_bwd_dkv_tf32x3", "dkv", ("dk", "dv"),
+                  "tf32x3", "flash_attention_bwd_tf32x3.cu", 301),
         bwd_entry("flash_attention_bwd_dq", "dq", ("dq",), "simt",
                   "flash_attention_bwd.cu", 196),
         bwd_entry("flash_attention_bwd_dkv", "dkv", ("dk", "dv"), "simt",
@@ -2155,13 +2272,14 @@ def main() -> int:
     names = _build.build_all()
     print(f"built {names} in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    for lib in ("flash_attention_fwd_sm90", "flash_attention_bwd_sm90"):
+    for lib in ("flash_attention_fwd_sm90", "flash_attention_bwd_sm90",
+                "flash_attention_bwd_tf32x3"):
         _print_ptxas(_build, lib)
 
     rows = kernel_phase(torch, fa)
     bwd_rows = bwd_kernel_phase(torch, fa)
     model_check_phase(torch, llama)
-    paths = {"grad_check_fp32": grad_check_phase(torch, fa, llama),
+    paths = {"grad_check_fp32": grad_check_phase(torch, fa, llama)[0],
              "grad_check_bf16": bf16_grad_check_phase(torch, fa, llama)}
     paths["serve"], params = slice_phase(torch, fa, llama)
     paths["sessions"] = sessions_phase(torch, fa, llama, params)
@@ -2171,8 +2289,8 @@ def main() -> int:
     paths["server"] = server_phase(torch, fa, llama)
     paths["train"] = train_phase(torch, fa, llama)
     paths.update(remat_phase(torch, fa, llama))
-    paths["gpt2_fp32"] = gpt2_phase(torch, fa, "float32")
-    paths["gpt2_bf16"] = gpt2_phase(torch, fa, "bfloat16")
+    paths["gpt2_fp32"] = gpt2_phase(torch, fa, "float32")[0]
+    paths["gpt2_bf16"] = gpt2_phase(torch, fa, "bfloat16")[0]
     print(json.dumps(kernels_line(rows, bwd_rows, paths)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """The hand-written CUDA flash-attention kernels (the forward, and the dQ
-and dK/dV backward, each on both routes: the tensor-core kernels for
-bf16 at head_dim 64 and 128, the CUDA-core kernels otherwise) against
-their plain PyTorch versions, on the card; GPT-2 and the remat policies
+and dK/dV backward, each on its routes: the bf16 tensor-core kernels at
+head_dim 64 and 128, the fp32 backward in 3xTF32 on the tensor cores at
+head_dim 64 and 128, the CUDA-core kernels otherwise) against their
+plain PyTorch versions, on the card; GPT-2 and the remat policies
 through the kernels; and the session slabs' round
 trip between the card and host memory, bitwise, with an install from
 pinned memory that does not wait for the card.
@@ -169,14 +170,15 @@ def test_bf16_gradients_through_flash_function_match_reference(cuda, dim):
         assert _rel_err(g, r) <= BF16_GRAD_TOL
 
 
-@pytest.mark.parametrize("dtype,route", [(torch.float32, "simt"),
+@pytest.mark.parametrize("dtype,route", [(torch.float32, "tf32x3"),
                                          (torch.bfloat16, "sm90")])
 def test_gpt2_gradients_through_the_kernels_match_reference(cuda, dtype,
                                                             route):
     """GPT-2 (plain multi-head attention, head_dim 64) through the
     kernels of its dtype's route, against reference attention on the
     card: every block checkpointed, so the forward kernel runs twice per
-    layer and the backward pair once."""
+    layer and the backward pair once (fp32: the CUDA-core forward and the
+    3xTF32 backward)."""
     import dataclasses
 
     from ant_ray_tpu_torch.models import gpt2
@@ -191,7 +193,8 @@ def test_gpt2_gradients_through_the_kernels_match_reference(cuda, dtype,
     results = {}
     for impl in ("flash", "reference"):
         before = (fa.launch_count, fa.fwd_sm90_launch_count,
-                  fa.bwd_dq_launch_count, fa.bwd_sm90_launch_count)
+                  fa.bwd_dq_launch_count, fa.bwd_sm90_launch_count,
+                  fa.bwd_tf32x3_launch_count)
         with torch.enable_grad():
             for leaf in leaves:
                 leaf.requires_grad_()
@@ -199,10 +202,12 @@ def test_gpt2_gradients_through_the_kernels_match_reference(cuda, dtype,
                                 attn_impl=impl)
             results[impl] = (loss.item(), torch.autograd.grad(loss, leaves))
         after = (fa.launch_count, fa.fwd_sm90_launch_count,
-                 fa.bwd_dq_launch_count, fa.bwd_sm90_launch_count)
+                 fa.bwd_dq_launch_count, fa.bwd_sm90_launch_count,
+                 fa.bwd_tf32x3_launch_count)
         launched = tuple(a - b for a, b in zip(after, before))
-        sm90 = int(route == "sm90" and impl == "flash")
-        want = (2, 2 * sm90, 1, sm90) if impl == "flash" else (0, 0, 0, 0)
+        sm90 = int(route == "sm90")
+        want = ((2, 2 * sm90, 1, sm90, 1 - sm90) if impl == "flash"
+                else (0, 0, 0, 0, 0))
         assert launched == tuple(n * cfg.n_layers for n in want)
     loss, grads = results["flash"]
     ref_loss, ref_grads = results["reference"]
@@ -325,6 +330,69 @@ def test_sm90_count_rises_only_on_its_route(cuda, dtype, dim, sm90):
     torch.cuda.synchronize()
     assert fa.bwd_sm90_launch_count == before[0] + int(sm90)
     assert fa.bwd_dq_launch_count == before[1] + 1
+
+
+@pytest.mark.parametrize("q_len,kv_len,heads,kv_heads,causal", [
+    (256, 256, 8, 8, True),     # H = KVH, as GPT-2
+    (256, 256, 8, 8, False),
+    (256, 256, 8, 2, True),     # GQA, 4 query heads a KV head
+    (256, 256, 8, 2, False),
+    (192, 192, 4, 1, True),     # ragged: three 64-row tiles
+    (128, 256, 8, 2, True),     # Sq < Skv: keys 128..255 see no query
+    (256, 128, 8, 2, True),     # Sq > Skv
+    (256, 128, 8, 4, False),
+])
+@pytest.mark.parametrize("dim", [64, 128])
+def test_tf32x3_backward_matches_plain_version(cuda, dim, q_len, kv_len,
+                                              heads, kv_heads, causal):
+    """The fp32 backward on the tensor cores (3xTF32) holds fp32's 1e-4:
+    one TF32 product (~2^-11 relative) would not."""
+    q, k, v = _qkv(cuda, q_len, kv_len, heads, kv_heads, dim, torch.float32)
+    do = torch.randn(q.shape, generator=cuda, device="cuda")
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal)
+    before = (fa.bwd_tf32x3_launch_count, fa.bwd_dq_launch_count,
+              fa.bwd_dkv_launch_count, fa.bwd_sm90_launch_count)
+    got = fa.flash_attention_backward(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.bwd_tf32x3_launch_count, fa.bwd_dq_launch_count,
+            fa.bwd_dkv_launch_count, fa.bwd_sm90_launch_count) == \
+        (before[0] + 1, before[1] + 1, before[2] + 1, before[3])
+    want = fa.flash_attention_backward_ref(q, k, v, out, lse, do,
+                                           causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert torch.isfinite(g).all()
+        assert _rel_err(g, w) <= BWD_REL_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype,dim,tf32x3", [
+    (torch.float32, 64, True), (torch.float32, 128, True),
+    (torch.float32, 256, False), (torch.bfloat16, 64, False),
+    (torch.bfloat16, 128, False), (torch.bfloat16, 256, False),
+])
+def test_tf32x3_count_rises_only_on_its_route(cuda, dtype, dim, tf32x3):
+    q, k, v = _qkv(cuda, 128, 128, 4, 2, dim, dtype)
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd_lse(q, k, v)
+    before = (fa.bwd_tf32x3_launch_count, fa.bwd_dq_launch_count)
+    fa.flash_attention_backward(q, k, v, out, lse, q, causal=True)
+    torch.cuda.synchronize()
+    assert fa.bwd_tf32x3_launch_count == before[0] + int(tf32x3)
+    assert fa.bwd_dq_launch_count == before[1] + 1
+
+
+def test_tf32x3_backward_refuses_an_unaligned_input(cuda):
+    q, k, v = _qkv(cuda, 128, 128, 4, 2, 64, torch.float32)
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd_lse(q, k, v)
+    shifted = torch.empty(q.numel() + 4, device="cuda")
+    do = shifted[1:q.numel() + 1].view(q.shape)     # 4 bytes in
+    do.copy_(q)
+    before = (fa.bwd_tf32x3_launch_count, fa.bwd_dq_launch_count)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_backward(q, k, v, out, lse, do, causal=True)
+    assert (fa.bwd_tf32x3_launch_count, fa.bwd_dq_launch_count) == before
 
 
 def test_gradients_through_flash_function_match_reference(cuda):
