@@ -3,10 +3,11 @@ logsumexp, and backward as a dQ sweep and a dK/dV sweep), their ctypes
 bindings, and their plain PyTorch versions.  :func:`_route` picks the
 kernels per dtype, head_dim and direction: the bf16 tensor-core kernels
 at head_dim 64 and 128 (``csrc/flash_attention_fwd_sm90.cu``,
-``csrc/flash_attention_bwd_sm90.cu``), the fp32 backward on the tensor
-cores in 3xTF32 at head_dim 64 and 128
-(``csrc/flash_attention_bwd_tf32x3.cu``), and the CUDA-core kernels for
-the rest (``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``).
+``csrc/flash_attention_bwd_sm90.cu``), fp32 on the tensor cores in
+3xTF32 at head_dim 64 and 128 (``csrc/flash_attention_fwd_tf32x3.cu``,
+``csrc/flash_attention_bwd_tf32x3.cu``, sharing
+``csrc/flash_attention_tf32x3.cuh``), and the CUDA-core kernels at head_dim
+256 (``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``).
 
 Counterparts of ``flash_attention_fwd_lse`` and
 ``flash_attention_backward`` in ant_ray_tpu/ops/pallas/flash_attention.py,
@@ -39,8 +40,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches of each CUDA kernel; chip_smoke.py resets and reads them to
 # show that a main path went through the kernels.
-launch_count = 0           # forward, either route
+launch_count = 0           # forward, any route
 fwd_sm90_launch_count = 0  # forward launches of the sm90 kernel
+fwd_tf32x3_launch_count = 0  # forward launches of the tf32x3 kernel
 bwd_dq_launch_count = 0    # dQ, any route
 bwd_dkv_launch_count = 0   # dK/dV, any route
 bwd_sm90_launch_count = 0  # backward calls that ran the sm90 pair
@@ -52,6 +54,7 @@ bwd_tf32x3_launch_count = 0  # backward calls that ran the tf32x3 pair
 _ENTRY_POINTS = {
     "flash_attention_fwd": ("flash_attention_fwd", 5),
     "flash_attention_fwd_sm90": ("flash_attention_fwd_sm90", 5),
+    "flash_attention_fwd_tf32x3": ("flash_attention_fwd_tf32x3", 5),
     "flash_attention_bwd_dq": ("flash_attention_bwd", 7),
     "flash_attention_bwd_dkv": ("flash_attention_bwd", 8),
     "flash_attention_bwd_dq_sm90": ("flash_attention_bwd_sm90", 7),
@@ -153,15 +156,15 @@ def _route(dtype, head_dim, direction: str) -> str:
     * "sm90", the bf16 tensor-core kernels (wgmma + TMA) of
       csrc/flash_attention_fwd_sm90.cu and csrc/flash_attention_bwd_sm90.cu,
       for bf16 at head_dim 64 or 128, both directions;
-    * "tf32x3", the fp32 backward on the tensor cores of
-      csrc/flash_attention_bwd_tf32x3.cu, for fp32 at head_dim 64 or 128.
-      Each fp32 operand splits into a TF32 high part and a TF32 remainder,
-      and three tensor-core products (lo.hi, hi.lo, hi.hi) keep ~22
-      mantissa bits: fp32's accuracy, which one TF32 product (~2^-11 per
-      product) would not keep;
+    * "tf32x3", the fp32 tensor-core kernels (mma.sync) of
+      csrc/flash_attention_fwd_tf32x3.cu and
+      csrc/flash_attention_bwd_tf32x3.cu, for fp32 at head_dim 64 or 128,
+      both directions.  Each fp32 operand splits into a TF32 high part
+      and a TF32 remainder, and three tensor-core products (lo.hi, hi.lo,
+      hi.hi) keep ~22 mantissa bits: fp32's accuracy, which one TF32
+      product (~2^-11 per product) would not keep;
     * "simt", the CUDA-core kernels of csrc/flash_attention_fwd.cu and
-      csrc/flash_attention_bwd.cu, for the rest: the fp32 forward (its
-      3xTF32 kernel is still to come), and head_dim 256 in either dtype,
+      csrc/flash_attention_bwd.cu, for head_dim 256 in either dtype,
       where the backward's dK and dV accumulators do not fit in registers
       in the tensor-core designs (no model uses it).
 
@@ -172,7 +175,7 @@ def _route(dtype, head_dim, direction: str) -> str:
     if head_dim in SM90_HEAD_DIMS:
         if dtype == torch.bfloat16:
             return "sm90"
-        if dtype == torch.float32 and direction == "bwd":
+        if dtype == torch.float32:
             return "tf32x3"
     return "simt"
 
@@ -231,7 +234,7 @@ def flash_attention_fwd_lse(q, k, v, *, causal: bool = True,
     The kernel's output is invisible to autograd, so on CUDA this raises
     when grad mode is on and an input requires grad: differentiate
     through ``attention(..., impl="flash")`` instead."""
-    global launch_count, fwd_sm90_launch_count
+    global launch_count, fwd_sm90_launch_count, fwd_tf32x3_launch_count
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_fwd_lse_ref(q, k, v, causal=causal,
@@ -250,13 +253,15 @@ def flash_attention_fwd_lse(q, k, v, *, causal: bool = True,
     lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]),
                       dtype=torch.float32, device=q.device)
     route = _route(q.dtype, q.shape[3], "fwd")
-    if route == "sm90":
+    if route != "simt":
         _check_aligned(q, k, v, out, lse)
     _launch("flash_attention_fwd" + _SUFFIX[route], (q, k, v, out, lse), q,
             k, scale, causal)
     launch_count += 1
     if route == "sm90":
         fwd_sm90_launch_count += 1
+    elif route == "tf32x3":
+        fwd_tf32x3_launch_count += 1
     return out, lse
 
 

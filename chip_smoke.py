@@ -14,22 +14,26 @@ final line is printed:
    ptxas reports for each tensor-core kernel (forward and backward, bf16
    and 3xTF32).
 2. Kernels: the flash-attention forward, through flash_attention_fwd_lse
-   on the route it picks (the tensor-core "sm90" kernel for bf16 at
-   head_dim 64 and 128, the CUDA-core "simt" kernel otherwise), against
-   its plain PyTorch version at the serving path's shapes (Llama-3-8B
-   prefill: B=1, H=32, KVH=8, D=128, bf16, causal), at the training
-   slice's (B=8, S=2048, H=8, KVH=4) and at others: llama3-1b's heads
-   (D=64), ragged lengths 192 and 320, fp32 with D=64, non-causal
-   without GQA, Sq < Skv and Sq > Skv, bf16 at D=256, and GPT-2's (B=8,
-   S=1024, H=KVH=12, D=64) in fp32 and bf16.  Tolerances: bf16
+   on the route it picks (told apart by the route counters: the
+   tensor-core "sm90" kernel for bf16 at head_dim 64 and 128, the
+   tensor-core "tf32x3" kernel for fp32 there, the CUDA-core "simt"
+   kernel at head_dim 256), against its plain PyTorch version at the
+   serving path's shapes (Llama-3-8B prefill: B=1, H=32, KVH=8, D=128,
+   bf16, causal), at the training slice's (B=8, S=2048, H=8, KVH=4) and
+   at others: llama3-1b's heads (D=64), ragged lengths 192 and 320, fp32
+   at D=64 and at D=128 with GQA, ragged, non-causal and with Sq < Skv
+   and Sq > Skv, non-causal without GQA, bf16 at D=256, and GPT-2's
+   (B=8, S=1024, H=KVH=12, D=64) in fp32 and bf16.  Tolerances: bf16
    out max abs error <= 2e-2 (bf16 rounds p and out at other points in
    the tiled loop), lse <= 1e-3; fp32 both <= 1e-4.  Times by CUDA
    events, median of 10 runs: the kernel launched directly (with its
    achieved TFLOP/s and share of its bound), the wrapper, the plain
    version, and torch's scaled_dot_product_attention as a yardstick the
    port never calls; the bound is the larger of FLOPs over the card's
-   peak for the input type and bytes over 3.35 TB/s.  At S=4096 and at
-   the training shape the CUDA-core kernel is also checked and timed,
+   peak for the input type and bytes over 3.35 TB/s, tf32x3's at
+   3xTF32's rate (494.7/3 TFLOP/s) and also at the 67 TFLOP/s of fp32
+   FMAs.  At S=4096 and at the training shape (sm90) and at GPT-2's
+   fp32 shape (tf32x3) the CUDA-core kernel is also checked and timed,
    launched directly, for a before-and-after on one card.
 3. Backward kernels: dQ and dK/dV through flash_attention_backward, on
    the route it picks (tensor-core "sm90" kernels for bf16 at head_dim
@@ -52,8 +56,8 @@ final line is printed:
 4. Correctness of the model path on a small fp32 model with head_dim
    128: logits through the flash kernel against the plain reference
    attention on the card, and against the same model on the CPU; then
-   the loss and every gradient leaf through the kernels (the CUDA-core
-   forward, the 3xTF32 backward) against reference attention on the card and
+   the loss and every gradient leaf through the kernels (the 3xTF32
+   forward and backward) against reference attention on the card and
    against the CPU, under each remat policy ("none", "full", "dots",
    "matmuls"; the forward kernel runs twice per layer under "full" and
    "dots", once where its out and lse are saved).  Then the same model
@@ -144,7 +148,7 @@ final line is printed:
    profile, and the step on 1 x 128 tokens, where the host sets the
    time.
 12. GPT-2: `gpt2` (124 M) at its published widths and depth, in its
-   published fp32 (the CUDA-core forward, the 3xTF32 backward) and in a
+   published fp32 (the 3xTF32 forward and backward) and in a
    bf16 copy (the sm90 kernels at head_dim 64, plain multi-head
    attention), random weights
    from seed 0, a fixed batch of 8 x 1025 token ids, AdamW, 3 warm-up
@@ -156,14 +160,14 @@ final line is printed:
    GPT2_LOGIT_TOL of reference attention's and the greedy next tokens
    equal but for ties.  Prints step time, tokens/s, MFU against the
    peak of the dtype the step computes in, and peak memory.
-13. One line {"kernels": [...]} with the eight kernels (the sm90 and
-   CUDA-core forward; the sm90, tf32x3 and CUDA-core dQ and dK/dV;
-   launches by path, the main paths being serving, sessions, the loop,
-   the checkpoint directory, the server, training, training under each
-   remat policy and GPT-2 in fp32 and bf16; each kernel's times also at
-   GPT-2's shape on its route).  The CUDA-core dQ and dK/dV serve only
-   head_dim 256, which no main path uses: they show 0 launches there,
-   and every other kernel must show some;
+13. One line {"kernels": [...]} with the nine kernels (the sm90,
+   tf32x3 and CUDA-core forward; the sm90, tf32x3 and CUDA-core dQ and
+   dK/dV; launches by path, the main paths being serving, sessions, the
+   loop, the checkpoint directory, the server, training, training under
+   each remat policy and GPT-2 in fp32 and bf16; each kernel's times
+   also at GPT-2's shape).  The CUDA-core forward, dQ and dK/dV serve
+   only head_dim 256, which no main path uses: they show 0 launches
+   there, and every other kernel must show some;
    then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -192,6 +196,10 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
 # TFLOP/s dense, 494.7 in NVIDIA's data sheet) for each fp32 one.
 TF32X3_FLOPS = 494.7e12 / 3
 PEAK_BYTES = 3.35e12
+# Forward: max abs error of out and of lse.  fp32 readings
+# (tools/fp32_gate_readings.py, H100 80GB HBM3 at 700 W): the 3xTF32
+# forward up to 6.1e-6 (out) and 4.8e-6 (lse); the same kernel with one
+# TF32 product 3.9e-4 to 1.8e-3 and 2.4e-4 to 1.1e-3, refused.
 TOL = {"bfloat16": (2e-2, 1e-3), "float32": (1e-4, 1e-4)}
 # Backward: max abs error over max |ref|, per tensor (dq, dk, dv).  bf16:
 # both sides round p and ds to bf16 at the same points but sum in another
@@ -247,14 +255,16 @@ def _roofline(flops, nbytes, dtype_name, peak_flops=None):
                                        else "bytes")
 
 
-def _bound(batch, q_len, kv_len, heads, kv_heads, dim, dtype_name, causal):
+def _bound(batch, q_len, kv_len, heads, kv_heads, dim, dtype_name, causal,
+           peak_flops=None):
     """Least time (ms) for the work these inputs need, what sets it, and
-    the FLOPs counted (4*D per (q, k) pair: S = Q.K^T and P.V)."""
+    the FLOPs counted (4*D per (q, k) pair: S = Q.K^T and P.V), at the
+    dtype's peak unless ``peak_flops`` names another."""
     flops = 4.0 * batch * heads * dim * _pairs(q_len, kv_len, causal)
     elt = 2 if dtype_name == "bfloat16" else 4
     nbytes = (elt * batch * dim * (2 * q_len * heads + 2 * kv_len * kv_heads)
               + 4 * batch * heads * q_len)
-    return (*_roofline(flops, nbytes, dtype_name), flops)
+    return (*_roofline(flops, nbytes, dtype_name, peak_flops), flops)
 
 
 def _bwd_bounds(batch, q_len, kv_len, heads, kv_heads, dim, dtype_name,
@@ -287,6 +297,10 @@ def _shape(batch, q_len, kv_len, heads, kv_heads, dim, dtype_name, causal):
 # is also launched and timed beside the sm90 one, as (batch, q_len,
 # heads): the serving slice's largest prefill and the training slice.
 FWD_BEFORE_AFTER = {(1, 4096, 32), (8, 2048, 8)}
+# GPT-2's attention (B, Sq, Skv, H, KVH, D): the main path of the fp32
+# forward and backward on the tf32x3 route and of the bf16 ones at
+# head_dim 64; in fp32 the CUDA-core kernels are also timed there.
+GPT2_ATTN = (8, 1024, 1024, 12, 12, 64)
 
 
 def _fwd_errors(out, lse, ref_out, ref_lse, name, shape, label):
@@ -312,10 +326,20 @@ def _fwd_kernel_ms(torch, fa, name, q, k, v, causal):
     return ms, out, lse
 
 
+def _shares(row):
+    """A timed row's share of its bound; for tf32x3 at 3xTF32's rate and
+    at the fp32 FMA rate."""
+    if "share_of_fp32_fma_bound" not in row:
+        return f"{row['share_of_bound']:.1%} of its bound"
+    return (f"{row['share_of_bound']:.1%} of its 3xTF32 bound, "
+            f"{row['share_of_fp32_fma_bound']:.1%} of the fp32 FMA one")
+
+
 def kernel_phase(torch, fa):
     """The forward kernel, through the route the wrapper picks, against
-    flash_attention_fwd_lse_ref; at FWD_BEFORE_AFTER also the CUDA-core
-    kernel, launched directly, for a before-and-after on one card."""
+    flash_attention_fwd_lse_ref; at FWD_BEFORE_AFTER (sm90) and at
+    GPT-2's fp32 shape (tf32x3) also the CUDA-core kernel, launched
+    directly, for a before-and-after on one card."""
     import torch.nn.functional as F  # noqa: PLC0415
 
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -330,12 +354,16 @@ def kernel_phase(torch, fa):
         (2, 192, 192, 8, 2, 128, bf16, True),      # ragged on 128-row tiles
         (2, 320, 320, 8, 8, 64, bf16, False),
         (1, 1024, 1024, 32, 8, 64, fp32, True),
+        (1, 1024, 1024, 32, 8, 128, fp32, True),   # fp32, D=128, GQA 4
+        (2, 192, 192, 8, 2, 128, fp32, False),     # fp32, three 64-row tiles
+        (1, 128, 256, 32, 8, 64, fp32, True),      # fp32, Sq < Skv
+        (1, 256, 128, 32, 8, 128, fp32, True),     # fp32, Sq > Skv
         (1, 1024, 1024, 32, 32, 128, bf16, False),
         (1, 128, 256, 32, 8, 128, bf16, True),
         (1, 256, 128, 32, 8, 128, bf16, True),
         (1, 512, 512, 8, 2, 256, bf16, True),
-        (8, 1024, 1024, 12, 12, 64, fp32, True),   # GPT-2, fp32 (simt)
-        (8, 1024, 1024, 12, 12, 64, bf16, True),   # GPT-2, bf16 (sm90)
+        (*GPT2_ATTN, fp32, True),                  # GPT-2, fp32 (tf32x3)
+        (*GPT2_ATTN, bf16, True),                  # GPT-2, bf16 (sm90)
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = []
@@ -350,10 +378,12 @@ def kernel_phase(torch, fa):
         shape = _shape(batch, q_len, kv_len, heads, kv_heads, dim, name,
                        causal)
         route = fa._route(dtype, dim, "fwd")
-        sm90_before = fa.fwd_sm90_launch_count
+        before = (fa.fwd_sm90_launch_count, fa.fwd_tf32x3_launch_count)
         out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        took = "sm90" if fa.fwd_sm90_launch_count > sm90_before else "simt"
+        took = ("sm90" if fa.fwd_sm90_launch_count > before[0] else
+                "tf32x3" if fa.fwd_tf32x3_launch_count > before[1] else
+                "simt")
         if took != route:
             raise AssertionError(f"forward at {shape} took route {took}, "
                                  f"expected {route}")
@@ -361,14 +391,23 @@ def kernel_phase(torch, fa):
                                                           causal=causal)
         err_out, err_lse = _fwd_errors(out, lse, ref_out, ref_lse, name,
                                        shape, f"{route} forward kernel")
-        bound = _bound(batch, q_len, kv_len, heads, kv_heads, dim, name,
-                       causal)
+        # At the dtype's peak: the CUDA-core kernel's ceiling (fp32 FMAs)
+        # and the sm90 kernel's (bf16 tensor cores).  tf32x3 does
+        # fp32-accurate products on the tensor cores, whose ceiling for
+        # them is 3xTF32's rate; its bound is taken there.
+        fma_bound = _bound(batch, q_len, kv_len, heads, kv_heads, dim, name,
+                           causal)
+        bound = (_bound(batch, q_len, kv_len, heads, kv_heads, dim, name,
+                        causal, TF32X3_FLOPS)
+                 if route == "tf32x3" else fma_bound)
         kernel = "flash_attention_fwd" + fa._SUFFIX[route]
         ms, _, _ = _fwd_kernel_ms(torch, fa, kernel, q, k, v, causal)
         simt = None
-        if route == "sm90" and (batch, q_len, heads) in FWD_BEFORE_AFTER:
+        gpt2 = (batch, q_len, kv_len, heads, kv_heads, dim) == GPT2_ATTN
+        if ((route == "sm90" and (batch, q_len, heads) in FWD_BEFORE_AFTER)
+                or (route == "tf32x3" and gpt2)):
             # The CUDA-core kernel on the same inputs, launched
-            # directly: the wrapper no longer routes bf16 at this
+            # directly: the wrapper no longer routes this dtype and
             # head_dim there.
             s_ms, s_out, s_lse = _fwd_kernel_ms(
                 torch, fa, "flash_attention_fwd", q, k, v, causal)
@@ -376,7 +415,7 @@ def kernel_phase(torch, fa):
                 s_out, s_lse, ref_out, ref_lse, name, shape,
                 "CUDA-core forward kernel")
             simt = {"route": "simt", "max_abs_err": s_err_out,
-                    "lse_err": s_err_lse, **_kernel_stats(s_ms, bound)}
+                    "lse_err": s_err_lse, **_kernel_stats(s_ms, fma_bound)}
             del s_out, s_lse
         del ref_out, ref_lse
         wrapper_ms = _median_ms(torch, lambda: fa.flash_attention_fwd_lse(
@@ -394,16 +433,19 @@ def kernel_phase(torch, fa):
                "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound[0],
                "bound_by": bound[1]}
+        if route == "tf32x3":
+            row["fp32_fma_bound_ms"] = fma_bound[0]
+            row["share_of_fp32_fma_bound"] = fma_bound[0] / ms
         if simt is not None:
             row["simt"] = simt
         print("kernel flash_attention_fwd " + json.dumps(row), flush=True)
         if simt is not None:
-            print(f"forward at {shape}: sm90 {ms:.3f} ms "
-                  f"({row['share_of_bound']:.1%} of its bound, "
-                  f"{row['tflops']:.0f} TFLOP/s) against the CUDA-core "
-                  f"kernel's {simt['ms']:.3f} ms ({simt['ms'] / ms:.1f}x "
-                  f"faster) and SDPA's {library_ms:.3f} ms "
-                  f"({ms / library_ms:.2f}x its time)", flush=True)
+            print(f"forward at {shape}: {route} {ms:.3f} ms "
+                  f"({_shares(row)}, {row['tflops']:.0f} TFLOP/s) against "
+                  f"the CUDA-core kernel's {simt['ms']:.3f} ms "
+                  f"({simt['ms'] / ms:.2f}x faster) and SDPA's "
+                  f"{library_ms:.3f} ms ({ms / library_ms:.2f}x its time)",
+                  flush=True)
         results.append(row)
         del q, k, v, out, lse, qt, kt, vt
     return results
@@ -447,11 +489,6 @@ def _kernel_stats(ms, bound):
     bound_ms, _by, flops = bound
     return {"ms": ms, "tflops": flops / (ms * 1e-3) / 1e12,
             "share_of_bound": bound_ms / ms}
-
-
-# GPT-2's attention (B, Sq, Skv, H, KVH, D): the main path of the fp32
-# backward on the tf32x3 route and of the bf16 one at head_dim 64.
-GPT2_ATTN = (8, 1024, 1024, 12, 12, 64)
 
 
 def bwd_kernel_phase(torch, fa):
@@ -586,15 +623,9 @@ def bwd_kernel_phase(torch, fa):
         if simt is not None:
             pair_ms = simt["dq"]["ms"] + simt["dkv"]["ms"]
 
-            def share(key):
-                if route != "tf32x3":
-                    return f"{kernels[key]['share_of_bound']:.1%} of its bound"
-                return (f"{kernels[key]['share_of_bound']:.1%} of its 3xTF32 "
-                        f"bound, {kernels[key]['share_of_fp32_fma_bound']:.1%}"
-                        f" of the fp32 FMA one")
-
             print(f"backward at {shape}: {route} dQ {dq_ms:.3f} ms "
-                  f"({share('dq')}), dK/dV {dkv_ms:.3f} ms ({share('dkv')}); "
+                  f"({_shares(kernels['dq'])}), dK/dV {dkv_ms:.3f} ms "
+                  f"({_shares(kernels['dkv'])}); "
                   f"pair {dq_ms + dkv_ms:.3f} ms, whole backward "
                   f"{bwd_ms:.3f} ms against the CUDA-core pair's "
                   f"{pair_ms:.3f} ms ({pair_ms / (dq_ms + dkv_ms):.2f}x "
@@ -645,26 +676,29 @@ def _to_cpu(params):
 
 
 def _reset_counts(fa):
-    fa.launch_count = fa.fwd_sm90_launch_count = 0
+    fa.launch_count = fa.fwd_sm90_launch_count = fa.fwd_tf32x3_launch_count = 0
     fa.bwd_dq_launch_count = fa.bwd_dkv_launch_count = 0
     fa.bwd_sm90_launch_count = fa.bwd_tf32x3_launch_count = 0
 
 
 def _counts(fa):
-    """Launches since the last reset: the forward on either route and on
-    the sm90 route, dQ and dK/dV on any route, and backward calls that
-    took the sm90 pair and the tf32x3 pair."""
+    """Launches since the last reset: the forward on any route, on the
+    sm90 route and on the tf32x3 route, dQ and dK/dV on any route, and
+    backward calls that took the sm90 pair and the tf32x3 pair."""
     return {"fwd": fa.launch_count, "fwd_sm90": fa.fwd_sm90_launch_count,
+            "fwd_tf32x3": fa.fwd_tf32x3_launch_count,
             "dq": fa.bwd_dq_launch_count, "dkv": fa.bwd_dkv_launch_count,
             "sm90": fa.bwd_sm90_launch_count,
             "tf32x3": fa.bwd_tf32x3_launch_count}
 
 
 def _by_kernel(counts):
-    """Launches of each of the eight kernels from a _counts() dict."""
+    """Launches of each of the nine kernels from a _counts() dict."""
     tensor_cores = counts["sm90"] + counts["tf32x3"]
     return {"flash_attention_fwd_sm90": counts["fwd_sm90"],
-            "flash_attention_fwd": counts["fwd"] - counts["fwd_sm90"],
+            "flash_attention_fwd_tf32x3": counts["fwd_tf32x3"],
+            "flash_attention_fwd": (counts["fwd"] - counts["fwd_sm90"]
+                                    - counts["fwd_tf32x3"]),
             "flash_attention_bwd_dq_sm90": counts["sm90"],
             "flash_attention_bwd_dkv_sm90": counts["sm90"],
             "flash_attention_bwd_dq_tf32x3": counts["tf32x3"],
@@ -709,9 +743,10 @@ def grad_check_phase(torch, fa, llama):
         err_cpu = max((g.cpu() - cpu_grads[k]).abs().max().item()
                       / cpu_grads[k].abs().max().item()
                       for k, g in grads.items())
-        want = {"fwd": cfg.n_layers * FWD_PER_LAYER[remat],
-                "fwd_sm90": 0, "dq": cfg.n_layers, "dkv": cfg.n_layers,
-                "sm90": 0, "tf32x3": cfg.n_layers}
+        fwd = cfg.n_layers * FWD_PER_LAYER[remat]
+        want = {"fwd": fwd, "fwd_sm90": 0, "fwd_tf32x3": fwd,
+                "dq": cfg.n_layers, "dkv": cfg.n_layers, "sm90": 0,
+                "tf32x3": cfg.n_layers}
         total = {key: total[key] + launches[key] for key in total}
         readings[remat] = {"vs_reference": err_ref, "vs_cpu": err_cpu}
         print(f"gradient check (fp32, head_dim 128, S=256, remat {remat}): "
@@ -772,7 +807,7 @@ def bf16_grad_check_phase(torch, fa, llama):
     err = {k: rel(g, ref_grads[k]) for k, g in grads.items()}
     spread = {k: rel(g, fp32_grads[k]) for k, g in ref_grads.items()}
     worst = max(err, key=err.get)
-    want = {"fwd": cfg.n_layers, "fwd_sm90": cfg.n_layers,
+    want = {"fwd": cfg.n_layers, "fwd_sm90": cfg.n_layers, "fwd_tf32x3": 0,
             "dq": cfg.n_layers, "dkv": cfg.n_layers, "sm90": cfg.n_layers,
             "tf32x3": 0}
     print(f"gradient check (bf16, head_dim 128, S=256, remat none, sm90 "
@@ -845,8 +880,8 @@ def train_phase(torch, fa, llama):
         return train_step(params, optimizer, tokens, cfg, remat=remat)
 
     per_step = {"fwd": cfg.n_layers, "fwd_sm90": cfg.n_layers,
-                "dq": cfg.n_layers, "dkv": cfg.n_layers, "sm90": cfg.n_layers,
-                "tf32x3": 0}
+                "fwd_tf32x3": 0, "dq": cfg.n_layers, "dkv": cfg.n_layers,
+                "sm90": cfg.n_layers, "tf32x3": 0}
     losses, step_ms, launches, peak_gb = _train_steps(torch, fa, step,
                                                       per_step)
     ms = statistics.median(step_ms[3:])
@@ -888,8 +923,8 @@ def remat_phase(torch, fa, llama):
             return train_step(params, optimizer, tokens, cfg, remat=remat)
 
         n = cfg.n_layers
-        per_step = {"fwd": fwd * n, "fwd_sm90": fwd * n, "dq": n, "dkv": n,
-                    "sm90": n, "tf32x3": 0}
+        per_step = {"fwd": fwd * n, "fwd_sm90": fwd * n, "fwd_tf32x3": 0,
+                    "dq": n, "dkv": n, "sm90": n, "tf32x3": 0}
         losses, step_ms, launches, peak_gb = _train_steps(torch, fa, step,
                                                           per_step)
         ms = statistics.median(step_ms[3:])
@@ -951,20 +986,24 @@ def remat_phase(torch, fa, llama):
 GPT2_LOSS_TOL = {"float32": 1e-4, "bfloat16": 2e-4}
 # Last-position logits of a 1024-token forward through the kernels
 # against reference attention in the same dtype (max abs; the largest
-# logits of the random model are ~2-4).  fp32: summation order only.
-# bf16: both paths round every matmul and the residual stream to bf16 but
-# at other points inside attention, so errors of a few ulps (0.016 at 2-4)
-# pass through twelve layers.  Readings on the initial weights
-# (tools/gpt2_loss_faults.py): sound 4.4e-6 (fp32) and 0.033 (bf16); the
-# faults above 0.17 (scale halved) to 3.2 in either dtype.
-GPT2_LOGIT_TOL = {"float32": 1e-3, "bfloat16": 0.125}
+# logits of the random model are ~2-4).  fp32: summation order and
+# 3xTF32's ~22 bits per product.  bf16: both paths round every matmul and
+# the residual stream to bf16 but at other points inside attention, so
+# errors of a few ulps (0.016 at 2-4) pass through twelve layers.
+# Readings on the initial weights (tools/gpt2_loss_faults.py): sound
+# 4.4e-6 (fp32, the CUDA-core forward) and 0.033 (bf16); the faults
+# above 0.17 (scale halved) to 3.2 in either dtype.  On the trained
+# weights (tools/fp32_gate_readings.py, H100 80GB HBM3 at 700 W): fp32
+# 2.0e-5 through the 3xTF32 forward, 2.3e-4 with one TF32 product; the
+# fp32 limit sits between them.
+GPT2_LOGIT_TOL = {"float32": 1e-4, "bfloat16": 0.125}
 # GPT-2's fp32 gradients on the initial weights through the kernels
-# against reference attention, per leaf, max abs error over max |ref|:
-# the one GPT-2 gate that sees the backward (the first loss and the
-# logits are forward quantities, and read alike for a backward of one
-# TF32 product: 0 and 3.8e-6).  Readings (tools/fp32_gate_readings.py,
-# H100 80GB HBM3 at 700 W): 4.0e-5 through the 3xTF32 backward, 2.9e-4
-# with one TF32 product; the limit sits between them.
+# against reference attention, per leaf, max abs error over max |ref|.
+# Readings (tools/fp32_gate_readings.py, H100 80GB HBM3 at 700 W): 3.8e-5
+# through the 3xTF32 kernels, 3.2e-4 with one TF32 product in both
+# directions (2.9e-4 with it in the backward alone); the limit sits
+# between them.  The first loss reads 0 and 9.5e-7 (one ulp at ~11), so
+# GPT2_LOSS_TOL cannot tell them apart.
 GPT2_GRAD_TOL = 1e-4
 PEAK_NAME = {"float32": "fp32 outside the tensor cores (TF32 off)",
              "bfloat16": "bf16 dense"}
@@ -976,11 +1015,11 @@ def gpt2_phase(torch, fa, dtype_name):
     batch of 8 x 1025 token ids (T = 1024 = n_positions), AdamW: 3
     warm-up and 10 timed train_step calls.  Gates: every block
     checkpointed, so per step the forward kernel runs twice per layer and
-    the backward pair once, on the routes of the dtype (in fp32 the
-    CUDA-core forward and the tf32x3 backward, in bf16 sm90); in fp32,
-    before training, every gradient leaf of the loss through the kernels
-    within GPT2_GRAD_TOL of reference attention's (the only gate here
-    that sees the backward); the first step's loss within GPT2_LOSS_TOL
+    the backward pair once, on the routes of the dtype (tf32x3 in fp32,
+    sm90 in bf16); in fp32, before training, every gradient leaf of the
+    loss through the kernels within GPT2_GRAD_TOL of reference
+    attention's (the only gate here that sees the backward); the first
+    step's loss within GPT2_LOSS_TOL
     of gpt2.loss_fn in fp32 with reference attention on the same
     weights; the loss falling; then, on the trained weights, the
     last-position logits of each of the 8 rows of a 1024-token forward
@@ -1033,9 +1072,9 @@ def gpt2_phase(torch, fa, dtype_name):
 
     n = cfg.n_layers
     fwd, bwd = (fa._route(dtype, cfg.head_dim, d) for d in ("fwd", "bwd"))
-    per_step = {"fwd": 2 * n, "fwd_sm90": 2 * n * (fwd == "sm90"), "dq": n,
-                "dkv": n, "sm90": n * (bwd == "sm90"),
-                "tf32x3": n * (bwd == "tf32x3")}
+    per_step = {"fwd": 2 * n, "fwd_sm90": 2 * n * (fwd == "sm90"),
+                "fwd_tf32x3": 2 * n * (fwd == "tf32x3"), "dq": n, "dkv": n,
+                "sm90": n * (bwd == "sm90"), "tf32x3": n * (bwd == "tf32x3")}
     losses, step_ms, launches, peak_gb = _train_steps(torch, fa, step,
                                                       per_step)
     ms = statistics.median(step_ms[3:])
@@ -1133,8 +1172,8 @@ def slice_phase(torch, fa, llama):
           f"{launches['fwd_sm90']} (expected {expected} and {expected}), "
           f"backward kernel launches {launches['dq']} and {launches['dkv']} "
           f"(expected 0)", flush=True)
-    if launches != {"fwd": expected, "fwd_sm90": expected, "dq": 0, "dkv": 0,
-                    "sm90": 0, "tf32x3": 0}:
+    if launches != {"fwd": expected, "fwd_sm90": expected, "fwd_tf32x3": 0,
+                    "dq": 0, "dkv": 0, "sm90": 0, "tf32x3": 0}:
         raise AssertionError(f"serving launched {launches}, expected "
                              f"{expected} sm90 forward and no other launches")
 
@@ -1826,8 +1865,8 @@ def checkpoint_phase(torch, fa, llama):
                 for r in per_format.values()) and server_ok):
         raise AssertionError(f"checkpoint phase failed: {per_format}, "
                              f"server ok {server_ok}")
-    if launches != {"fwd": expected, "fwd_sm90": expected, "dq": 0, "dkv": 0,
-                    "sm90": 0, "tf32x3": 0}:
+    if launches != {"fwd": expected, "fwd_sm90": expected, "fwd_tf32x3": 0,
+                    "dq": 0, "dkv": 0, "sm90": 0, "tf32x3": 0}:
         raise AssertionError(f"checkpoint phase launched {launches}")
     return launches
 
@@ -2097,22 +2136,24 @@ def _print_ptxas(build, lib):
 
 
 def kernels_line(rows, bwd_rows, paths):
-    """The {"kernels": [...]} record of the eight kernels from the kernel
+    """The {"kernels": [...]} record of the nine kernels from the kernel
     phases' rows and the launches of every path; raises if a kernel that
     a main path should run was not launched on one."""
     by_path = {path: _by_kernel(c) for path, c in paths.items()}
     main_paths = [p for p in paths if not p.startswith("grad_check")]
 
-    # Forward: S=4096, the largest prefill of the serving slice, where the
-    # CUDA-core kernel was also timed.  Backward: the training slice's
-    # shape (the first backward case) for sm90, where the CUDA-core pair
-    # was also timed, and GPT-2's fp32 shape for tf32x3, where it was too.
+    # Forward: S=4096, the largest prefill of the serving slice, for sm90,
+    # where the CUDA-core kernel was also timed; GPT-2's fp32 shape for
+    # tf32x3, where it was too; head_dim 256 for the CUDA-core kernel,
+    # its own route.  Backward: the training slice's shape (the first
+    # backward case) for sm90, where the CUDA-core pair was also timed,
+    # and GPT-2's fp32 shape for tf32x3, where it was too.
     main_row = next(r for r in rows if r["shape"].startswith("B=1 Sq=4096 "))
     train_row = next(r for r in rows if r["shape"].startswith("B=8 Sq=2048 "))
+    simt_row = next(r for r in rows if r["route"] == "simt")
     bwd_row = bwd_rows[0]
-    # GPT-2's shape, the main path of the CUDA-core forward and the
-    # tf32x3 backward (fp32) and of the sm90 kernels at head_dim 64
-    # without GQA (bf16).
+    # GPT-2's shape, the main path of the tf32x3 kernels (fp32) and of
+    # the sm90 kernels at head_dim 64 without GQA (bf16).
     gpt2_shape = "B=8 Sq=1024 Skv=1024 H=12 KVH=12 D=64 {} causal"
     gpt2_rows = {dtype: next(r for r in rows
                              if r["shape"] == gpt2_shape.format(dtype))
@@ -2134,15 +2175,31 @@ def kernels_line(rows, bwd_rows, paths):
                 "launches_by_path": {p: by_path[p][name] for p in by_path}}
 
     def fwd_entry(name, route, source):
+        g32 = gpt2_rows["float32"]
+        extra = {}
         if route == "sm90":
-            timed, train_timed = main_row, train_row
+            at = timed = main_row
             err_rows = [r for r in rows if r["route"] == "sm90"]
-            gpt2 = gpt2_rows["bfloat16"]
+            b16 = gpt2_rows["bfloat16"]
+            gpt2 = ("bfloat16", b16, b16["bound_ms"])
+            extra = {"train_shape_ms": train_row["ms"],
+                     "train_shape_share_of_bound": train_row["share_of_bound"]}
+        elif route == "tf32x3":
+            # Its main shape is GPT-2's fp32 one.
+            at = timed = g32
+            err_rows = [r for r in rows if r["route"] == "tf32x3"]
+            gpt2 = ("float32", g32, g32["bound_ms"])
+            extra = {"bound_ms_fp32_fma": g32["fp32_fma_bound_ms"],
+                     "share_of_fp32_fma_bound": g32["share_of_fp32_fma_bound"],
+                     "simt_ms_same_inputs": g32["simt"]["ms"]}
         else:
-            timed, train_timed = main_row["simt"], train_row["simt"]
+            at = timed = simt_row
             err_rows = [r["simt"] for r in rows if "simt" in r] + [
                 r for r in rows if r["route"] == "simt"]
-            gpt2 = gpt2_rows["float32"]
+            gpt2 = ("float32", g32["simt"], g32["fp32_fma_bound_ms"])
+            extra = {"s4096_ms": main_row["simt"]["ms"],
+                     "train_shape_ms": train_row["simt"]["ms"]}
+        dtype, gpt2_timed, gpt2_bound_ms = gpt2
         return {
             "name": name,
             "route": "cuda",
@@ -2155,16 +2212,15 @@ def kernels_line(rows, bwd_rows, paths):
             "ms": timed["ms"],
             "tflops": timed["tflops"],
             "share_of_bound": timed["share_of_bound"],
-            "plain_ms": main_row["plain_ms"],
-            "bound_ms": main_row["bound_ms"],
-            "bound_by": main_row["bound_by"],
-            "library_ms": main_row["library_ms"],
-            "shape": main_row["shape"],
-            "train_shape_ms": train_timed["ms"],
-            "train_shape_share_of_bound": train_timed["share_of_bound"],
-            **_gpt2_keys("bfloat16" if route == "sm90" else "float32", gpt2,
-                         gpt2["bound_ms"], gpt2["plain_ms"],
-                         gpt2["library_ms"]),
+            "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"],
+            "bound_by": at["bound_by"],
+            **extra,
+            "library_ms": at["library_ms"],
+            "shape": at["shape"],
+            **_gpt2_keys(dtype, gpt2_timed, gpt2_bound_ms,
+                         gpt2_rows[dtype]["plain_ms"],
+                         gpt2_rows[dtype]["library_ms"]),
         }
 
     def bwd_entry(name, key, grads, route, source, line):
@@ -2221,15 +2277,18 @@ def kernels_line(rows, bwd_rows, paths):
                          gpt2_row["library_ms"]),
         }
 
-    # The CUDA-core dQ and dK/dV take only head_dim 256 now, which no
-    # main path uses; every other kernel must run on one.
-    off_main_paths = {"flash_attention_bwd_dq", "flash_attention_bwd_dkv"}
+    # The CUDA-core forward, dQ and dK/dV take only head_dim 256 now,
+    # which no main path uses; every other kernel must run on one.
+    off_main_paths = {"flash_attention_fwd", "flash_attention_bwd_dq",
+                      "flash_attention_bwd_dkv"}
     for name in next(iter(by_path.values())):
         if name not in off_main_paths and not launches(name)["launches"]:
             raise AssertionError(f"{name} was not launched on the main path")
     return {"kernels": [
         fwd_entry("flash_attention_fwd_sm90", "sm90",
                   "flash_attention_fwd_sm90.cu"),
+        fwd_entry("flash_attention_fwd_tf32x3", "tf32x3",
+                  "flash_attention_fwd_tf32x3.cu"),
         fwd_entry("flash_attention_fwd", "simt", "flash_attention_fwd.cu"),
         bwd_entry("flash_attention_bwd_dq_sm90", "dq", ("dq",), "sm90",
                   "flash_attention_bwd_sm90.cu", 196),
@@ -2273,7 +2332,7 @@ def main() -> int:
     print(f"built {names} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     for lib in ("flash_attention_fwd_sm90", "flash_attention_bwd_sm90",
-                "flash_attention_bwd_tf32x3"):
+                "flash_attention_fwd_tf32x3", "flash_attention_bwd_tf32x3"):
         _print_ptxas(_build, lib)
 
     rows = kernel_phase(torch, fa)

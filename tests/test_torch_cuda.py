@@ -1,7 +1,7 @@
 """The hand-written CUDA flash-attention kernels (the forward, and the dQ
 and dK/dV backward, each on its routes: the bf16 tensor-core kernels at
-head_dim 64 and 128, the fp32 backward in 3xTF32 on the tensor cores at
-head_dim 64 and 128, the CUDA-core kernels otherwise) against their
+head_dim 64 and 128, fp32 in 3xTF32 on the tensor cores at head_dim 64
+and 128, the CUDA-core kernels at head_dim 256) against their
 plain PyTorch versions, on the card; GPT-2 and the remat policies
 through the kernels; and the session slabs' round
 trip between the card and host memory, bitwise, with an install from
@@ -140,6 +140,64 @@ def test_fwd_sm90_count_rises_only_on_its_route(cuda, dtype, dim, sm90):
     assert fa.launch_count == before[1] + 1
 
 
+@pytest.mark.parametrize("q_len,kv_len,heads,kv_heads,causal", [
+    (256, 256, 8, 8, True),     # H = KVH, as GPT-2
+    (256, 256, 8, 8, False),
+    (256, 256, 8, 2, True),     # GQA, 4 query heads a KV head
+    (256, 256, 8, 2, False),
+    (192, 192, 4, 1, True),     # ragged: three 64-row tiles
+    (192, 192, 4, 1, False),
+    (128, 256, 8, 2, True),     # Sq < Skv: query i sees keys 0..i
+    (256, 128, 8, 2, True),     # Sq > Skv: queries 128.. see every key
+    (256, 128, 8, 4, False),
+])
+@pytest.mark.parametrize("dim", [64, 128])
+def test_tf32x3_forward_matches_plain_version(cuda, dim, q_len, kv_len,
+                                             heads, kv_heads, causal):
+    """The fp32 forward on the tensor cores (3xTF32) holds fp32's 1e-4 on
+    out and lse: one TF32 product (~2^-11 relative) would not."""
+    q, k, v = _qkv(cuda, q_len, kv_len, heads, kv_heads, dim, torch.float32)
+    before = (fa.fwd_tf32x3_launch_count, fa.launch_count,
+              fa.fwd_sm90_launch_count)
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.fwd_tf32x3_launch_count, fa.launch_count,
+            fa.fwd_sm90_launch_count) == (before[0] + 1, before[1] + 1,
+                                          before[2])
+    want_out, want_lse = fa.flash_attention_fwd_lse_ref(q, k, v,
+                                                        causal=causal)
+    tol_out, tol_lse = TOL[torch.float32]
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert (out - want_out).abs().max().item() <= tol_out
+    assert (lse - want_lse).abs().max().item() <= tol_lse
+
+
+@pytest.mark.parametrize("dtype,dim,tf32x3", [
+    (torch.float32, 64, True), (torch.float32, 128, True),
+    (torch.float32, 256, False), (torch.bfloat16, 64, False),
+    (torch.bfloat16, 128, False), (torch.bfloat16, 256, False),
+])
+def test_fwd_tf32x3_count_rises_only_on_its_route(cuda, dtype, dim, tf32x3):
+    q, k, v = _qkv(cuda, 128, 128, 4, 2, dim, dtype)
+    before = (fa.fwd_tf32x3_launch_count, fa.launch_count)
+    fa.flash_attention_fwd_lse(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.fwd_tf32x3_launch_count == before[0] + int(tf32x3)
+    assert fa.launch_count == before[1] + 1
+
+
+def test_tf32x3_forward_refuses_an_unaligned_input(cuda):
+    q, k, v = _qkv(cuda, 128, 128, 4, 2, 64, torch.float32)
+    shifted = torch.empty(k.numel() + 4, device="cuda")
+    k_off = shifted[1:k.numel() + 1].view(k.shape)     # 4 bytes in
+    k_off.copy_(k)
+    before = (fa.fwd_tf32x3_launch_count, fa.launch_count)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_fwd_lse(q, k_off, v)
+    assert (fa.fwd_tf32x3_launch_count, fa.launch_count) == before
+
+
 def test_sm90_forward_refuses_an_unaligned_input(cuda):
     q, k, v = _qkv(cuda, 128, 128, 4, 2, 64, torch.bfloat16)
     shifted = torch.empty(q.numel() + 8, dtype=q.dtype, device="cuda")
@@ -177,8 +235,8 @@ def test_gpt2_gradients_through_the_kernels_match_reference(cuda, dtype,
     """GPT-2 (plain multi-head attention, head_dim 64) through the
     kernels of its dtype's route, against reference attention on the
     card: every block checkpointed, so the forward kernel runs twice per
-    layer and the backward pair once (fp32: the CUDA-core forward and the
-    3xTF32 backward)."""
+    layer and the backward pair once (fp32: the 3xTF32 forward and
+    backward)."""
     import dataclasses
 
     from ant_ray_tpu_torch.models import gpt2
@@ -193,8 +251,8 @@ def test_gpt2_gradients_through_the_kernels_match_reference(cuda, dtype,
     results = {}
     for impl in ("flash", "reference"):
         before = (fa.launch_count, fa.fwd_sm90_launch_count,
-                  fa.bwd_dq_launch_count, fa.bwd_sm90_launch_count,
-                  fa.bwd_tf32x3_launch_count)
+                  fa.fwd_tf32x3_launch_count, fa.bwd_dq_launch_count,
+                  fa.bwd_sm90_launch_count, fa.bwd_tf32x3_launch_count)
         with torch.enable_grad():
             for leaf in leaves:
                 leaf.requires_grad_()
@@ -202,12 +260,12 @@ def test_gpt2_gradients_through_the_kernels_match_reference(cuda, dtype,
                                 attn_impl=impl)
             results[impl] = (loss.item(), torch.autograd.grad(loss, leaves))
         after = (fa.launch_count, fa.fwd_sm90_launch_count,
-                 fa.bwd_dq_launch_count, fa.bwd_sm90_launch_count,
-                 fa.bwd_tf32x3_launch_count)
+                 fa.fwd_tf32x3_launch_count, fa.bwd_dq_launch_count,
+                 fa.bwd_sm90_launch_count, fa.bwd_tf32x3_launch_count)
         launched = tuple(a - b for a, b in zip(after, before))
         sm90 = int(route == "sm90")
-        want = ((2, 2 * sm90, 1, sm90, 1 - sm90) if impl == "flash"
-                else (0, 0, 0, 0, 0))
+        want = ((2, 2 * sm90, 2 * (1 - sm90), 1, sm90, 1 - sm90)
+                if impl == "flash" else (0, 0, 0, 0, 0, 0))
         assert launched == tuple(n * cfg.n_layers for n in want)
     loss, grads = results["flash"]
     ref_loss, ref_grads = results["reference"]

@@ -4,10 +4,11 @@ refuse, checked on the CPU (no card, no nvcc).
 One rule (``_route``) names the kernels per dtype, head_dim and
 direction: bf16 at head_dim 64 and 128 goes to the tensor-core kernels
 of ``csrc/flash_attention_fwd_sm90.cu`` and
-``csrc/flash_attention_bwd_sm90.cu`` in both directions; the fp32
-backward at head_dim 64 and 128 to the 3xTF32 tensor-core kernels of
-``csrc/flash_attention_bwd_tf32x3.cu``; the fp32 forward, and head_dim
-256 in either dtype, to the CUDA-core kernels of
+``csrc/flash_attention_bwd_sm90.cu`` in both directions; fp32 at head_dim
+64 and 128 to the 3xTF32 tensor-core kernels of
+``csrc/flash_attention_fwd_tf32x3.cu`` and
+``csrc/flash_attention_bwd_tf32x3.cu`` in both directions; head_dim 256
+in either dtype to the CUDA-core kernels of
 ``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``.
 Shapes no kernel takes raise before any launch (tested on the meta
 device, which reaches the kernel checks without a card), and CPU tensors
@@ -23,7 +24,8 @@ from ant_ray_tpu_torch.ops import flash_attention as fa
 DTYPES = (torch.float32, torch.bfloat16)
 
 
-COUNTERS = ("launch_count", "fwd_sm90_launch_count", "bwd_dq_launch_count",
+COUNTERS = ("launch_count", "fwd_sm90_launch_count",
+            "fwd_tf32x3_launch_count", "bwd_dq_launch_count",
             "bwd_dkv_launch_count", "bwd_sm90_launch_count",
             "bwd_tf32x3_launch_count")
 
@@ -32,12 +34,9 @@ def _counts():
     return tuple(getattr(fa, name) for name in COUNTERS)
 
 
-def _want_route(dtype, head_dim, direction):
+def _want_route(dtype, head_dim):
     if head_dim in (64, 128):
-        if dtype == torch.bfloat16:
-            return "sm90"
-        if direction == "bwd":
-            return "tf32x3"
+        return "sm90" if dtype == torch.bfloat16 else "tf32x3"
     return "simt"
 
 
@@ -55,10 +54,12 @@ def test_bwd_route_by_dtype_and_head_dim(dtype, head_dim):
 @pytest.mark.parametrize("head_dim", fa.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_fwd_route_by_dtype_and_head_dim(dtype, head_dim):
-    """The forward keeps its two routes: sm90 for bf16 at 64 and 128, the
-    CUDA cores for fp32 and for head_dim 256."""
-    sm90 = dtype == torch.bfloat16 and head_dim in (64, 128)
-    assert fa._route(dtype, head_dim, "fwd") == ("sm90" if sm90 else "simt")
+    """The forward, as the backward: tf32x3 for fp32 at 64 and 128, sm90
+    for bf16 there, the CUDA cores at 256."""
+    want = {(torch.float32, 64): "tf32x3", (torch.float32, 128): "tf32x3",
+            (torch.bfloat16, 64): "sm90", (torch.bfloat16, 128): "sm90"}
+    assert fa._route(dtype, head_dim, "fwd") == want.get((dtype, head_dim),
+                                                         "simt")
 
 
 def test_route_refuses_an_unknown_direction():
@@ -82,13 +83,13 @@ def test_both_wrappers_launch_the_entry_points_of_one_route(
     q, k, v, _, _, do = _meta_inputs(128, 4, 2, head_dim, dtype)
     out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=True)
     fa.flash_attention_backward(q, k, v, out, lse, do, causal=True)
-    fwd, bwd = (_want_route(dtype, head_dim, d) for d in ("fwd", "bwd"))
-    suffix = {"sm90": "_sm90", "tf32x3": "_tf32x3", "simt": ""}
-    assert launched == [f"flash_attention_fwd{suffix[fwd]}",
-                        f"flash_attention_bwd_dq{suffix[bwd]}",
-                        f"flash_attention_bwd_dkv{suffix[bwd]}"]
-    assert _counts() == (1, int(fwd == "sm90"), 1, 1, int(bwd == "sm90"),
-                         int(bwd == "tf32x3"))
+    route = _want_route(dtype, head_dim)
+    suffix = {"sm90": "_sm90", "tf32x3": "_tf32x3", "simt": ""}[route]
+    assert launched == [f"flash_attention_fwd{suffix}",
+                        f"flash_attention_bwd_dq{suffix}",
+                        f"flash_attention_bwd_dkv{suffix}"]
+    sm90, tf32x3 = int(route == "sm90"), int(route == "tf32x3")
+    assert _counts() == (1, sm90, tf32x3, 1, 1, sm90, tf32x3)
 
 
 @pytest.mark.parametrize("suffix", ["", "_sm90", "_tf32x3"])
@@ -97,9 +98,6 @@ def test_every_route_names_an_entry_point_with_a_source(kernel, suffix):
     """Each route's entry points, for each direction it serves, exist with
     their pointer counts in a source that defines them."""
     name = f"flash_attention_{kernel}{suffix}"
-    if suffix == "_tf32x3" and kernel == "fwd":
-        assert name not in fa._ENTRY_POINTS        # the backward only
-        return
     lib, n_ptr = fa._ENTRY_POINTS[name]
     assert f"int {name}(" in (_build.CSRC / f"{lib}.cu").read_text()
     assert n_ptr == {"fwd": 5, "bwd_dq": 7, "bwd_dkv": 8}[kernel]
@@ -175,6 +173,30 @@ def test_the_fp32_backward_checks_alignment_on_the_tf32x3_route(
                 ("launch", f"flash_attention_bwd_dkv{suffix}")]
     assert events == (launches if head_dim == 256
                       else [("aligned", 9)] + launches)
+
+
+@pytest.mark.parametrize("head_dim", fa.HEAD_DIMS)
+def test_the_fp32_forward_checks_alignment_on_the_tf32x3_route(
+        monkeypatch, head_dim):
+    """The 3xTF32 forward copies 16 bytes at a time too: its route checks
+    the alignment of q, k, v, out and lse before the launch; the
+    CUDA-core kernel (head_dim 256) needs no such check."""
+    events = []
+    monkeypatch.setattr(fa, "_check_kernel_inputs", lambda q, k: None)
+    monkeypatch.setattr(fa, "_check_aligned",
+                        lambda *ts: events.append(("aligned", len(ts))))
+    monkeypatch.setattr(fa, "_launch",
+                        lambda name, *args: events.append(("launch", name)))
+    for counter in COUNTERS:
+        monkeypatch.setattr(fa, counter, 0)
+    q, k, v, _, _, _ = _meta_inputs(128, 4, 2, head_dim, torch.float32)
+    fa.flash_attention_fwd_lse(q, k, v, causal=True)
+    if head_dim == 256:
+        assert events == [("launch", "flash_attention_fwd")]
+    else:
+        assert events == [("aligned", 5),
+                          ("launch", "flash_attention_fwd_tf32x3")]
+    assert _counts()[:3] == (1, 0, int(head_dim != 256))
 
 
 @pytest.mark.parametrize("causal", [True, False])

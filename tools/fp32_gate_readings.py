@@ -1,25 +1,26 @@
 #!/usr/bin/env python3
 """What chip_smoke's fp32 gates read for a checkout, without gating: the
-readings behind ``BWD_TOL["float32"]``, ``GRAD_TOL`` and
-``GPT2_GRAD_TOL``, and those of ``GPT2_LOSS_TOL`` and
+readings behind ``TOL["float32"]``, ``BWD_TOL["float32"]``, ``GRAD_TOL``
+and ``GPT2_GRAD_TOL``, and those of ``GPT2_LOSS_TOL`` and
 ``GPT2_LOGIT_TOL`` in fp32.  One NVIDIA GPU:
 
     python3 tools/fp32_gate_readings.py [CHECKOUT]
 
 CHECKOUT (default: this repository) is a directory holding a
 ``chip_smoke.py`` and an ``ant_ray_tpu_torch`` package; its kernels are
-built from its own sources.  Point it at a copy whose fp32 backward
-kernels were changed, e.g. to one TF32 product instead of three (in
-``flash_attention_bwd_tf32x3.cu``, ``mma_3xtf32`` keeping only
-``a.hi . b.hi``), to see whether each gate tells that copy from the sound
-one.
+built from its own sources.  Point it at a copy whose fp32 kernels were
+changed, e.g. to one TF32 product instead of three (in
+``flash_attention_tf32x3.cuh``, shared by the forward and the backward,
+``mma_3xtf32`` keeping only ``a.hi . b.hi``), to see whether each gate
+tells that copy from the sound one.
 
 Runs, with every tolerance of the checkout's chip_smoke set to infinity
-(launch and route gates stay): its backward kernel phase (the fp32 rows:
-max abs error over max |ref| per tensor), its fp32 gradient check (per
-remat policy, against reference attention and the CPU) and its GPT-2
-fp32 phase (the gradients on the initial weights, the first loss against
-plain fp32, the logits after training).  Prints one JSON line.
+(launch and route gates stay): its forward kernel phase (the fp32 rows:
+max abs error of out and of lse), its backward kernel phase (the fp32
+rows: max abs error over max |ref| per tensor), its fp32 gradient check
+(per remat policy, against reference attention and the CPU) and its
+GPT-2 fp32 phase (the gradients on the initial weights, the first loss
+against plain fp32, the logits after training).  Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -48,20 +49,25 @@ def readings(checkout: str) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     _build.build_all()
     inf = math.inf
+    cs.TOL = {name: (inf, inf) for name in cs.TOL}
     cs.BWD_TOL = {name: dict.fromkeys(tol, inf)
                   for name, tol in cs.BWD_TOL.items()}
     cs.GRAD_TOL = cs.GPT2_GRAD_TOL = inf
     cs.GPT2_LOSS_TOL = dict.fromkeys(cs.GPT2_LOSS_TOL, inf)
     cs.GPT2_LOGIT_TOL = dict.fromkeys(cs.GPT2_LOGIT_TOL, inf)
 
+    rows = cs.kernel_phase(torch, fa)
+    forward = {r["shape"]: {"route": r["route"], "out_err": r["max_abs_err"],
+                            "lse_err": r["lse_err"]}
+               for r in rows if "float32" in r["shape"]}
     rows = cs.bwd_kernel_phase(torch, fa)
     backward = {r["shape"]: {"route": r["route"], "rel_err": r["rel_err"]}
                 for r in rows if "float32" in r["shape"]}
     _, grad_check = cs.grad_check_phase(torch, fa, llama)
     _, gpt2 = cs.gpt2_phase(torch, fa, "float32")
     return {"checkout": os.path.abspath(checkout),
-            "source": str(_build.CSRC / "flash_attention_bwd_tf32x3.cu"),
-            "backward": backward, "grad_check": grad_check, "gpt2": gpt2}
+            "source": str(_build.CSRC / "flash_attention_tf32x3.cuh"),
+            "forward": forward, "backward": backward, "grad_check": grad_check, "gpt2": gpt2}
 
 
 def main() -> int:
