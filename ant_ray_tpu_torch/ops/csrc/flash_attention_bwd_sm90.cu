@@ -417,37 +417,11 @@ __global__ void __launch_bounds__(kThreadsSm90, 1)
 
 // ------------------------------------------------------------ launch
 
-struct Args {
-  const void *q, *k, *v, *dout, *lse, *delta;
-  void *out0, *out1;  // dq; or dk and dv
-  int batch, q_len, kv_len, heads, kv_heads;
-  float scale;
-  int causal;
-  cudaStream_t stream;
-};
-
-// Maps of q, k, v and dO with `q_rows`-row boxes for q and dO and
-// `kv_rows`-row boxes for k and v.
-cudaError_t make_maps(const Args& a, int head_dim, int q_rows, int kv_rows,
-                      CUtensorMap (&maps)[4]) {
-  cudaError_t err;
-  if ((err = make_map(&maps[0], a.q, a.batch, a.q_len, a.heads, head_dim,
-                      q_rows)) != cudaSuccess ||
-      (err = make_map(&maps[1], a.k, a.batch, a.kv_len, a.kv_heads, head_dim,
-                      kv_rows)) != cudaSuccess ||
-      (err = make_map(&maps[2], a.v, a.batch, a.kv_len, a.kv_heads, head_dim,
-                      kv_rows)) != cudaSuccess ||
-      (err = make_map(&maps[3], a.dout, a.batch, a.q_len, a.heads, head_dim,
-                      q_rows)) != cudaSuccess)
-    return err;
-  return cudaSuccess;
-}
-
 template <int D>
-cudaError_t launch_dq(const Args& a) {
+cudaError_t launch_dq(const BwdArgs& a) {
   constexpr int smem = DqSmem<D>::kBytes + kAlignSlack;
   CUtensorMap maps[4];
-  cudaError_t err = make_maps(a, D, kTileRows, kRingRows, maps);
+  cudaError_t err = make_bwd_maps(a, D, kTileRows, kRingRows, maps);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(flash_bwd_dq_sm90_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -462,10 +436,10 @@ cudaError_t launch_dq(const Args& a) {
 }
 
 template <int D>
-cudaError_t launch_dkv(const Args& a) {
+cudaError_t launch_dkv(const BwdArgs& a) {
   constexpr int smem = DkvSmem<D>::kBytes + kAlignSlack;
   CUtensorMap maps[4];
-  cudaError_t err = make_maps(a, D, kRingRows, kTileRows, maps);
+  cudaError_t err = make_bwd_maps(a, D, kRingRows, kTileRows, maps);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(flash_bwd_dkv_sm90_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -484,16 +458,8 @@ cudaError_t launch_dkv(const Args& a) {
 // Calls launch(std::integral_constant<int, D>) for what the kernels take
 // (shape_ok) at head_dim 64 or 128; anything else is cudaErrorInvalidValue.
 template <typename F>
-cudaError_t dispatch(const Args& a, int head_dim, int dtype, F&& launch) {
-  const uintptr_t addr_bits =
-      reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
-      reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.dout) |
-      reinterpret_cast<uintptr_t>(a.lse) |
-      reinterpret_cast<uintptr_t>(a.delta) |
-      reinterpret_cast<uintptr_t>(a.out0) | reinterpret_cast<uintptr_t>(a.out1);
-  if (!shape_ok(addr_bits, dtype, a.batch, a.q_len, a.kv_len, a.heads,
-                a.kv_heads))
-    return cudaErrorInvalidValue;
+cudaError_t dispatch(const BwdArgs& a, int head_dim, int dtype, F&& launch) {
+  if (!bwd_shape_ok(a, dtype)) return cudaErrorInvalidValue;
   return dispatch_head_dim(head_dim, launch);
 }
 
@@ -508,9 +474,9 @@ extern "C" int flash_attention_bwd_dq_sm90(const void* q, const void* k,
                                            int kv_heads, int head_dim,
                                            int dtype, float scale, int causal,
                                            void* stream) {
-  const Args a{q, k, v, dout, lse, delta, dq, nullptr,
-               batch, q_len, kv_len, heads, kv_heads, scale, causal,
-               static_cast<cudaStream_t>(stream)};
+  const BwdArgs a{q, k, v, dout, lse, delta, dq, nullptr,
+                  batch, q_len, kv_len, heads, kv_heads, scale, causal,
+                  static_cast<cudaStream_t>(stream)};
   return static_cast<int>(dispatch(a, head_dim, dtype, [&](auto d) {
     return launch_dq<decltype(d)::value>(a);
   }));
@@ -525,9 +491,9 @@ extern "C" int flash_attention_bwd_dkv_sm90(const void* q, const void* k,
                                             int kv_heads, int head_dim,
                                             int dtype, float scale,
                                             int causal, void* stream) {
-  const Args a{q, k, v, dout, lse, delta, dk, dv,
-               batch, q_len, kv_len, heads, kv_heads, scale, causal,
-               static_cast<cudaStream_t>(stream)};
+  const BwdArgs a{q, k, v, dout, lse, delta, dk, dv,
+                  batch, q_len, kv_len, heads, kv_heads, scale, causal,
+                  static_cast<cudaStream_t>(stream)};
   return static_cast<int>(dispatch(a, head_dim, dtype, [&](auto d) {
     return launch_dkv<decltype(d)::value>(a);
   }));

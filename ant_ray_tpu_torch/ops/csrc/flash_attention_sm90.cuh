@@ -239,10 +239,12 @@ __device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
   return desc(tile + (kk / 4) * (R * 128) + (kk % 4) * 32, 16, 1024);
 }
 
-// Descriptor of k-step kk (16 rows) of a 64-row tile read MN-major: its
-// rows are the k dimension, its D columns the N dimension.
+// Descriptor of k-step kk (16 rows) of an R-row tile read MN-major: its
+// rows are the k dimension, its D columns the N dimension (64-column
+// blocks R * 128 bytes apart).
+template <int R = kRingRows>
 __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
-  return desc(tile + kk * 16 * 128, kRingRows * 128, 1024);
+  return desc(tile + kk * 16 * 128, R * 128, 1024);
 }
 
 // 64 x D fp32 accumulator rows (row0, row0 + 8 of each thread) as bf16
@@ -328,6 +330,46 @@ inline bool shape_ok(uintptr_t addr_bits, int dtype, int batch, int q_len,
   return dtype == 1 && (addr_bits & 15) == 0 && batch > 0 && q_len > 0 &&
          kv_len > 0 && heads > 0 && kv_heads > 0 && heads % kv_heads == 0 &&
          q_len % kLengthMultiple == 0 && kv_len % kLengthMultiple == 0;
+}
+
+// One backward launch (flash_attention_bwd_sm90.cu and
+// flash_attention_bwd_sm90_d256.cu): its pointers and sizes.
+struct BwdArgs {
+  const void *q, *k, *v, *dout, *lse, *delta;
+  void *out0, *out1;  // dq; or dk and dv
+  int batch, q_len, kv_len, heads, kv_heads;
+  float scale;
+  int causal;
+  cudaStream_t stream;
+};
+
+// shape_ok for a backward launch, over all eight of its pointers.
+inline bool bwd_shape_ok(const BwdArgs& a, int dtype) {
+  const uintptr_t addr_bits =
+      reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+      reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.dout) |
+      reinterpret_cast<uintptr_t>(a.lse) |
+      reinterpret_cast<uintptr_t>(a.delta) |
+      reinterpret_cast<uintptr_t>(a.out0) | reinterpret_cast<uintptr_t>(a.out1);
+  return shape_ok(addr_bits, dtype, a.batch, a.q_len, a.kv_len, a.heads,
+                  a.kv_heads);
+}
+
+// Maps of a backward launch's q, k, v and dO with `q_rows`-row boxes for q
+// and dO and `kv_rows`-row boxes for k and v.
+inline cudaError_t make_bwd_maps(const BwdArgs& a, int head_dim, int q_rows,
+                                 int kv_rows, CUtensorMap (&maps)[4]) {
+  cudaError_t err;
+  if ((err = make_map(&maps[0], a.q, a.batch, a.q_len, a.heads, head_dim,
+                      q_rows)) != cudaSuccess ||
+      (err = make_map(&maps[1], a.k, a.batch, a.kv_len, a.kv_heads, head_dim,
+                      kv_rows)) != cudaSuccess ||
+      (err = make_map(&maps[2], a.v, a.batch, a.kv_len, a.kv_heads, head_dim,
+                      kv_rows)) != cudaSuccess ||
+      (err = make_map(&maps[3], a.dout, a.batch, a.q_len, a.heads, head_dim,
+                      q_rows)) != cudaSuccess)
+    return err;
+  return cudaSuccess;
 }
 
 // Calls launch(std::integral_constant<int, D>{}) for head_dim 64 or 128;

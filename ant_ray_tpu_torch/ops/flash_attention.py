@@ -3,11 +3,14 @@ logsumexp, and backward as a dQ sweep and a dK/dV sweep), their ctypes
 bindings, and their plain PyTorch versions.  :func:`_route` picks the
 kernels per dtype, head_dim and direction: the bf16 tensor-core kernels
 at head_dim 64 and 128 (``csrc/flash_attention_fwd_sm90.cu``,
-``csrc/flash_attention_bwd_sm90.cu``), fp32 on the tensor cores in
-3xTF32 at head_dim 64 and 128 (``csrc/flash_attention_fwd_tf32x3.cu``,
+``csrc/flash_attention_bwd_sm90.cu``), the bf16 tensor-core backward at
+head_dim 256 (``csrc/flash_attention_bwd_sm90_d256.cu``), fp32 on the
+tensor cores in 3xTF32 at head_dim 64 and 128
+(``csrc/flash_attention_fwd_tf32x3.cu``,
 ``csrc/flash_attention_bwd_tf32x3.cu``, sharing
-``csrc/flash_attention_tf32x3.cuh``), and the CUDA-core kernels at head_dim
-256 (``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``).
+``csrc/flash_attention_tf32x3.cuh``), and the CUDA-core kernels for the
+rest of head_dim 256: the forward in either dtype and the fp32 backward
+(``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``).
 
 Counterparts of ``flash_attention_fwd_lse`` and
 ``flash_attention_backward`` in ant_ray_tpu/ops/pallas/flash_attention.py,
@@ -47,6 +50,7 @@ bwd_dq_launch_count = 0    # dQ, any route
 bwd_dkv_launch_count = 0   # dK/dV, any route
 bwd_sm90_launch_count = 0  # backward calls that ran the sm90 pair
 bwd_tf32x3_launch_count = 0  # backward calls that ran the tf32x3 pair
+bwd_sm90_d256_launch_count = 0  # backward calls that ran the sm90_d256 pair
 
 # C entry point -> (library, number of pointer arguments).  Every entry
 # point then takes batch, q_len, kv_len, heads, kv_heads, head_dim and
@@ -61,6 +65,9 @@ _ENTRY_POINTS = {
     "flash_attention_bwd_dkv_sm90": ("flash_attention_bwd_sm90", 8),
     "flash_attention_bwd_dq_tf32x3": ("flash_attention_bwd_tf32x3", 7),
     "flash_attention_bwd_dkv_tf32x3": ("flash_attention_bwd_tf32x3", 8),
+    "flash_attention_bwd_dq_sm90_d256": ("flash_attention_bwd_sm90_d256", 7),
+    "flash_attention_bwd_dkv_sm90_d256": ("flash_attention_bwd_sm90_d256",
+                                          8),
 }
 _fns: dict = {}
 
@@ -140,11 +147,11 @@ def _check_kernel_inputs(q, k):
 
 
 def _check_aligned(*tensors):
-    """The sm90 and tf32x3 kernels copy 16 bytes at a time: every base
-    address must lie on a 16-byte boundary."""
+    """The tensor-core kernels (sm90, sm90_d256, tf32x3) copy 16 bytes at
+    a time: every base address must lie on a 16-byte boundary."""
     for t in tensors:
         if t.data_ptr() % 16:
-            raise ValueError(f"sm90 and tf32x3 kernels want 16-byte aligned "
+            raise ValueError(f"tensor-core kernels want 16-byte aligned "
                              f"tensors; a {t.dtype} {tuple(t.shape)} tensor "
                              f"starts at {t.data_ptr():#x}")
 
@@ -163,10 +170,14 @@ def _route(dtype, head_dim, direction: str) -> str:
       and a TF32 remainder, and three tensor-core products (lo.hi, hi.lo,
       hi.hi) keep ~22 mantissa bits: fp32's accuracy, which one TF32
       product (~2^-11 per product) would not keep;
+    * "sm90_d256", the bf16 tensor-core backward (wgmma + TMA) of
+      csrc/flash_attention_bwd_sm90_d256.cu, for bf16 at head_dim 256:
+      its own design, since a 64 x 256 fp32 accumulator is 128 registers
+      a thread and the D<=128 layouts need more shared memory than a
+      block has (the file's header says how it splits the work);
     * "simt", the CUDA-core kernels of csrc/flash_attention_fwd.cu and
-      csrc/flash_attention_bwd.cu, for head_dim 256 in either dtype,
-      where the backward's dK and dV accumulators do not fit in registers
-      in the tensor-core designs (no model uses it).
+      csrc/flash_attention_bwd.cu, for the rest of head_dim 256: the
+      forward in either dtype and the fp32 backward.
 
     This is routing, not a fallback: each route launches its kernels or
     raises."""
@@ -177,11 +188,14 @@ def _route(dtype, head_dim, direction: str) -> str:
             return "sm90"
         if dtype == torch.float32:
             return "tf32x3"
+    if dtype == torch.bfloat16 and direction == "bwd":
+        return "sm90_d256"
     return "simt"
 
 
 # Entry-point name suffix per route.
-_SUFFIX = {"sm90": "_sm90", "simt": "", "tf32x3": "_tf32x3"}
+_SUFFIX = {"sm90": "_sm90", "simt": "", "tf32x3": "_tf32x3",
+           "sm90_d256": "_sm90_d256"}
 
 
 def _scores(q, k, causal, scale):
@@ -338,7 +352,7 @@ def flash_attention_backward(q, k, v, out, lse, do, *, causal: bool,
     computed here in fp32.  CPU tensors go to
     :func:`flash_attention_backward_ref`."""
     global bwd_dq_launch_count, bwd_dkv_launch_count, bwd_sm90_launch_count
-    global bwd_tf32x3_launch_count
+    global bwd_tf32x3_launch_count, bwd_sm90_d256_launch_count
     _check(q, k, v)
     _check_residuals(q, out, lse, do)
     if q.device.type == "cpu":
@@ -363,6 +377,8 @@ def flash_attention_backward(q, k, v, out, lse, do, *, causal: bool,
         bwd_sm90_launch_count += 1
     elif route == "tf32x3":
         bwd_tf32x3_launch_count += 1
+    elif route == "sm90_d256":
+        bwd_sm90_d256_launch_count += 1
     return dq, dk, dv
 
 

@@ -12,7 +12,7 @@ final line is printed:
    limit (nvidia-smi); build every hand-written kernel from the sources
    in this checkout, timed, and print the registers and spill bytes
    ptxas reports for each tensor-core kernel (forward and backward, bf16
-   and 3xTF32).
+   and 3xTF32, and the bf16 backward at head_dim 256).
 2. Kernels: the flash-attention forward, through flash_attention_fwd_lse
    on the route it picks (told apart by the route counters: the
    tensor-core "sm90" kernel for bf16 at head_dim 64 and 128, the
@@ -22,8 +22,11 @@ final line is printed:
    bf16, causal), at the training slice's (B=8, S=2048, H=8, KVH=4) and
    at others: llama3-1b's heads (D=64), ragged lengths 192 and 320, fp32
    at D=64 and at D=128 with GQA, ragged, non-causal and with Sq < Skv
-   and Sq > Skv, non-causal without GQA, bf16 at D=256, and GPT-2's
-   (B=8, S=1024, H=KVH=12, D=64) in fp32 and bf16.  Tolerances: bf16
+   and Sq > Skv, non-causal without GQA, bf16 at D=256, GPT-2's
+   (B=8, S=1024, H=KVH=12, D=64) in fp32 and bf16, and bf16 at
+   Gemma-7B's and Gemma-2B's attention (B=4, S=2048, D=256, H=KVH=16 and
+   H=8 KVH=1) and the head_dim-256 path's own (phase 13: B=2, S=2048,
+   H=8, KVH=1; the CUDA-core kernel's route).  Tolerances: bf16
    out max abs error <= 2e-2 (bf16 rounds p and out at other points in
    the tiled loop), lse <= 1e-3; fp32 both <= 1e-4.  Times by CUDA
    events, median of 10 runs: the kernel launched directly (with its
@@ -37,22 +40,26 @@ final line is printed:
    launched directly, for a before-and-after on one card.
 3. Backward kernels: dQ and dK/dV through flash_attention_backward, on
    the route it picks (tensor-core "sm90" kernels for bf16 at head_dim
-   64 and 128, tensor-core "tf32x3" kernels for fp32 there, CUDA-core
-   "simt" kernels at head_dim 256), against flash_attention_backward_ref
-   at the training slice's shape and fourteen others: llama3-1b's heads
-   (D=64), length 192 (ragged on 128-row tiles), Sq != Skv, fp32 at
-   D=64 and D=128 with GQA, ragged and with more keys, D=256, and
-   GPT-2's in fp32 and bf16 (BWD_TOL: max abs error over max |ref| per
-   tensor).  Each line gives per kernel its route, time, achieved
-   TFLOP/s and share of its bound (tf32x3's at 3xTF32's rate, 494.7/3
-   TFLOP/s, and also at the 67 TFLOP/s of fp32 FMAs); then the whole backward, its plain version, and as a
+   64 and 128, tensor-core "tf32x3" kernels for fp32 there, tensor-core
+   "sm90_d256" kernels for bf16 at head_dim 256, CUDA-core "simt"
+   kernels for fp32 at head_dim 256), against
+   flash_attention_backward_ref at the training slice's shape and
+   seventeen others: llama3-1b's heads (D=64), length 192 (ragged on
+   128-row tiles), Sq != Skv, fp32 at D=64 and D=128 with GQA, ragged
+   and with more keys, D=256 in fp32 and bf16, GPT-2's in fp32 and
+   bf16, and Gemma-7B's and Gemma-2B's attention and the head_dim-256
+   path's (phase 13: B=2, S=2048, H=8, KVH=1) in bf16 (BWD_TOL: max
+   abs error over max |ref| per tensor).  Each line gives per kernel
+   its route, time, achieved TFLOP/s and share of its bound (tf32x3's
+   at 3xTF32's rate, 494.7/3 TFLOP/s, and also at the 67 TFLOP/s of
+   fp32 FMAs); then the whole backward, its plain version, and as a
    yardstick SDPA's backward (fwd+bwd through autograd minus fwd).  The
    bound counts 6*D (dQ), 8*D (dK/dV) and 10*D (the whole backward)
    FLOPs per (q, k) pair against the bytes each must move.  At the
-   training shape (sm90) and at GPT-2's fp32 shape (tf32x3) the
-   CUDA-core pair is also checked and timed, launched directly, for a
-   before-and-after on one card; at GPT-2's fp32 shape a profile names
-   SDPA's kernels.
+   training shape (sm90), at GPT-2's fp32 shape (tf32x3) and at
+   Gemma-7B's attention (sm90_d256) the CUDA-core pair is also checked
+   and timed, launched directly, for a before-and-after on one card; at
+   GPT-2's fp32 shape a profile names SDPA's kernels.
 4. Correctness of the model path on a small fp32 model with head_dim
    128: logits through the flash kernel against the plain reference
    attention on the card, and against the same model on the CPU; then
@@ -160,19 +167,48 @@ final line is printed:
    GPT2_LOGIT_TOL of reference attention's and the greedy next tokens
    equal but for ties.  Prints step time, tokens/s, MFU against the
    peak of the dtype the step computes in, and peak memory.
-13. One line {"kernels": [...]} with the nine kernels (the sm90,
-   tf32x3 and CUDA-core forward; the sm90, tf32x3 and CUDA-core dQ and
-   dK/dV; launches by path, the main paths being serving, sessions, the
-   loop, the checkpoint directory, the server, training, training under
-   each remat policy and GPT-2 in fp32 and bf16; each kernel's times
-   also at GPT-2's shape).  The CUDA-core forward, dQ and dK/dV serve
-   only head_dim 256, which no main path uses: they show 0 launches
-   there, and every other kernel must show some;
+13. Head_dim 256: a Llama at Gemma-2B's widths (hidden 2048, 8 heads
+   of 256, 1 KV head, MLP 16384, vocab 256000, tied embeddings, 18
+   layers; 2.51 B parameters; SwiGLU and no embedding scale, so not
+   Gemma), bf16, random weights from seed 0, a fixed batch of 2 x 2049
+   token ids, AdamW, remat "none".  First one step's loss and every
+   gradient leaf through the kernels against reference attention on the
+   card (D256_GRAD_TOL per leaf, max abs error over max |ref|;
+   BF16_LOSS_TOL), then 3 warm-up and 10 timed steps.  Gates: per step
+   the CUDA-core forward and the sm90_d256 dQ and dK/dV once per layer,
+   nothing else; the first step's loss within BF16_LOSS_TOL of reference
+   attention's; the loss falling.  Prints
+   step time, tokens/s, MFU, peak memory and a profile of one step with
+   the attention kernels' share.
+14. One line {"kernels": [...]} with the eleven kernels (the sm90,
+   tf32x3 and CUDA-core forward; the sm90, tf32x3, sm90_d256 and
+   CUDA-core dQ and dK/dV; launches by path, the main paths being
+   serving, sessions, the loop, the checkpoint directory, the server,
+   training, training under each remat policy, GPT-2 in fp32 and bf16
+   and the head_dim-256 Llama; the older kernels' times also at GPT-2's
+   shape, the head_dim-256 ones at Gemma-7B's and Gemma-2B's attention
+   and at the head_dim-256 path's own).
+   The CUDA-core dQ and dK/dV serve only fp32 at head_dim 256, which no
+   main path uses: they show 0 launches there, and every other kernel
+   must show some;
    then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 comparisons are
 made in full fp32.
+
+Two more modes give the readings behind D256_GRAD_TOL (one GPU):
+
+    python3 chip_smoke.py --d256-gate-readings [CHECKOUT]
+    python3 chip_smoke.py --plant-d256-fault FAULT DIR
+
+The first runs CHECKOUT's (default: this directory's) backward kernel
+phase and its head_dim-256 gradient check with BWD_TOL["bfloat16"],
+D256_GRAD_TOL and BF16_LOSS_TOL at infinity (launch and route gates
+stay), then the gradient check twice more with the kernels' plain
+versions patched in (the backward, then both directions), and prints
+one JSON line.  The second copies this script and the package into DIR
+(new) with one of D256_FAULTS planted in the sm90_d256 backward.
 """
 
 from __future__ import annotations
@@ -222,6 +258,17 @@ GRAD_TOL = 1e-4
 # far below what a wrong tile, mask or layout gives (order 1).
 BF16_GRAD_TOL = 5e-2
 BF16_LOSS_TOL = 1e-2   # the loss (~5.7) on fp32 logits of bf16 layers
+# The head_dim-256 Llama's gradients (d256_phase) through the CUDA-core
+# forward and the sm90_d256 backward against bf16 reference attention
+# (softmax in fp32), per leaf, over max |ref|.  Readings
+# (--d256-gate-readings, H100 80GB HBM3 at 700 W): the kernels
+# 5.37e-2, their plain versions on the same path 5.50e-2 (backward only)
+# and 5.34e-2 (both): 18 layers carry the bf16 rounding of p and ds into
+# every leaf, where BF16_GRAD_TOL's two layers read 1.2e-2.  Faults
+# planted in the backward: dQ's diagonal masked 0.163, dK/dV's 0.489, a
+# cluster rank's partial dropped 0.702, the warpgroups' trade skipped
+# 1.32.  The limit lies between.
+D256_GRAD_TOL = 0.1
 REPS = 10
 
 
@@ -301,6 +348,37 @@ FWD_BEFORE_AFTER = {(1, 4096, 32), (8, 2048, 8)}
 # forward and backward on the tf32x3 route and of the bf16 ones at
 # head_dim 64; in fp32 the CUDA-core kernels are also timed there.
 GPT2_ATTN = (8, 1024, 1024, 12, 12, 64)
+# Gemma-7B's and Gemma-2B's attention (B, Sq, Skv, H, KVH, D) at a
+# training batch of 4 x 2048: the shapes of the bf16 head_dim-256 kernels
+# (the sm90_d256 backward, the CUDA-core forward); at Gemma-7B's the
+# CUDA-core backward pair is also timed.
+GEMMA7B_ATTN = (4, 2048, 2048, 16, 16, 256)
+GEMMA2B_ATTN = (4, 2048, 2048, 8, 1, 256)
+# The head_dim-256 path's batch of token ids (d256_phase): 2 sequences
+# of 2048 tokens and the next one.
+D256_TOKENS = (2, 2049)
+
+
+def _d256_config():
+    """A Llama at Gemma-2B's widths (google/gemma-2b's config.json: hidden
+    2048, 8 heads of 256, 1 KV head, intermediate 16384, vocab 256000,
+    tied embeddings, 18 layers, rope theta 10000, norm eps 1e-6): SwiGLU
+    and no embedding scale, so a Llama with Gemma's widths, not Gemma;
+    bf16."""
+    from ant_ray_tpu_torch.models import llama  # noqa: PLC0415
+
+    return llama.LlamaConfig(
+        vocab_size=256000, dim=2048, n_layers=18, n_heads=8, n_kv_heads=1,
+        mlp_dim=16384, max_seq=8192, rope_theta=10000.0, norm_eps=1e-6,
+        tie_embeddings=True)
+
+
+def _d256_attn():
+    """The head_dim-256 path's attention (B, Sq, Skv, H, KVH, D), from
+    _d256_config and D256_TOKENS."""
+    cfg = _d256_config()
+    batch, seq = D256_TOKENS[0], D256_TOKENS[1] - 1
+    return (batch, seq, seq, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
 
 
 def _fwd_errors(out, lse, ref_out, ref_lse, name, shape, label):
@@ -364,6 +442,9 @@ def kernel_phase(torch, fa):
         (1, 512, 512, 8, 2, 256, bf16, True),
         (*GPT2_ATTN, fp32, True),                  # GPT-2, fp32 (tf32x3)
         (*GPT2_ATTN, bf16, True),                  # GPT-2, bf16 (sm90)
+        (*GEMMA7B_ATTN, bf16, True),               # head_dim 256 (simt)
+        (*GEMMA2B_ATTN, bf16, True),
+        (*_d256_attn(), bf16, True),               # the d256 path's
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = []
@@ -469,8 +550,8 @@ def _bwd_errors(got, want, name, shape, label):
 
 
 def _kernel_times(torch, fa, suffix, q, k, v, do, lse, delta, causal):
-    """Median ms of the dQ and dK/dV kernels named with ``suffix``
-    ("_sm90" or "" for the CUDA-core pair), launched directly (no count),
+    """Median ms of the dQ and dK/dV kernels named with ``suffix`` (a
+    route's, "" for the CUDA-core pair), launched directly (no count),
     and their outputs from the last launch."""
     scale = q.shape[3] ** -0.5
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
@@ -493,9 +574,10 @@ def _kernel_stats(ms, bound):
 
 def bwd_kernel_phase(torch, fa):
     """The dQ and dK/dV kernels, through the route the wrapper picks,
-    against flash_attention_backward_ref; at the training shape (sm90)
-    and at GPT-2's fp32 shape (tf32x3) also the CUDA-core pair,
-    launched directly, for a before-and-after on one card."""
+    against flash_attention_backward_ref; at the training shape (sm90),
+    at GPT-2's fp32 shape (tf32x3) and at Gemma-7B's attention
+    (sm90_d256) also the CUDA-core pair, launched directly, for a
+    before-and-after on one card."""
     import torch.nn.functional as F  # noqa: PLC0415
 
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -515,6 +597,9 @@ def bwd_kernel_phase(torch, fa):
         (1, 512, 512, 8, 2, 256, bf16, True),
         (*GPT2_ATTN, fp32, True),                  # GPT-2, fp32 (tf32x3)
         (*GPT2_ATTN, bf16, True),                  # GPT-2, bf16 (sm90)
+        (*GEMMA7B_ATTN, bf16, True),               # head_dim 256 (sm90_d256)
+        (*GEMMA2B_ATTN, bf16, True),
+        (*_d256_attn(), bf16, True),               # the d256 path's
     ]
     gen = torch.Generator(device="cuda").manual_seed(2)
     results = []
@@ -532,13 +617,15 @@ def bwd_kernel_phase(torch, fa):
         route = fa._route(dtype, dim, "bwd")
         with torch.no_grad():
             out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal)
-        before = (fa.bwd_sm90_launch_count, fa.bwd_tf32x3_launch_count)
+        before = (fa.bwd_sm90_launch_count, fa.bwd_tf32x3_launch_count,
+                  fa.bwd_sm90_d256_launch_count)
         got = fa.flash_attention_backward(q, k, v, out, lse, do,
                                           causal=causal)
         torch.cuda.synchronize()
         took = ("sm90" if fa.bwd_sm90_launch_count > before[0] else
                 "tf32x3" if fa.bwd_tf32x3_launch_count > before[1] else
-                "simt")
+                "sm90_d256" if fa.bwd_sm90_d256_launch_count > before[2]
+                else "simt")
         if took != route:
             raise AssertionError(f"backward at {shape} took route {took}, "
                                  f"expected {route}")
@@ -568,9 +655,10 @@ def bwd_kernel_phase(torch, fa):
                 row["share_of_fp32_fma_bound"] = (fma_bounds[key][0]
                                                   / row["ms"])
         simt = None
-        gpt2 = (batch, q_len, kv_len, heads, kv_heads, dim) == GPT2_ATTN
-        if (route == "sm90" and not results) or (route == "tf32x3"
-                                                 and gpt2):
+        attn = (batch, q_len, kv_len, heads, kv_heads, dim)
+        gpt2 = attn == GPT2_ATTN
+        if ((route == "sm90" and not results) or (route == "tf32x3" and gpt2)
+                or (route == "sm90_d256" and attn == GEMMA7B_ATTN)):
             # PR 2's CUDA-core pair on the same inputs, launched directly:
             # the wrapper no longer routes this dtype and head_dim there.
             s_dq_ms, s_dkv_ms, s_got = _kernel_times(
@@ -679,22 +767,25 @@ def _reset_counts(fa):
     fa.launch_count = fa.fwd_sm90_launch_count = fa.fwd_tf32x3_launch_count = 0
     fa.bwd_dq_launch_count = fa.bwd_dkv_launch_count = 0
     fa.bwd_sm90_launch_count = fa.bwd_tf32x3_launch_count = 0
+    fa.bwd_sm90_d256_launch_count = 0
 
 
 def _counts(fa):
     """Launches since the last reset: the forward on any route, on the
     sm90 route and on the tf32x3 route, dQ and dK/dV on any route, and
-    backward calls that took the sm90 pair and the tf32x3 pair."""
+    backward calls that took the sm90, the tf32x3 and the sm90_d256
+    pair."""
     return {"fwd": fa.launch_count, "fwd_sm90": fa.fwd_sm90_launch_count,
             "fwd_tf32x3": fa.fwd_tf32x3_launch_count,
             "dq": fa.bwd_dq_launch_count, "dkv": fa.bwd_dkv_launch_count,
             "sm90": fa.bwd_sm90_launch_count,
-            "tf32x3": fa.bwd_tf32x3_launch_count}
+            "tf32x3": fa.bwd_tf32x3_launch_count,
+            "sm90_d256": fa.bwd_sm90_d256_launch_count}
 
 
 def _by_kernel(counts):
-    """Launches of each of the nine kernels from a _counts() dict."""
-    tensor_cores = counts["sm90"] + counts["tf32x3"]
+    """Launches of each of the eleven kernels from a _counts() dict."""
+    tensor_cores = counts["sm90"] + counts["tf32x3"] + counts["sm90_d256"]
     return {"flash_attention_fwd_sm90": counts["fwd_sm90"],
             "flash_attention_fwd_tf32x3": counts["fwd_tf32x3"],
             "flash_attention_fwd": (counts["fwd"] - counts["fwd_sm90"]
@@ -703,6 +794,8 @@ def _by_kernel(counts):
             "flash_attention_bwd_dkv_sm90": counts["sm90"],
             "flash_attention_bwd_dq_tf32x3": counts["tf32x3"],
             "flash_attention_bwd_dkv_tf32x3": counts["tf32x3"],
+            "flash_attention_bwd_dq_sm90_d256": counts["sm90_d256"],
+            "flash_attention_bwd_dkv_sm90_d256": counts["sm90_d256"],
             "flash_attention_bwd_dq": counts["dq"] - tensor_cores,
             "flash_attention_bwd_dkv": counts["dkv"] - tensor_cores}
 
@@ -746,7 +839,7 @@ def grad_check_phase(torch, fa, llama):
         fwd = cfg.n_layers * FWD_PER_LAYER[remat]
         want = {"fwd": fwd, "fwd_sm90": 0, "fwd_tf32x3": fwd,
                 "dq": cfg.n_layers, "dkv": cfg.n_layers, "sm90": 0,
-                "tf32x3": cfg.n_layers}
+                "tf32x3": cfg.n_layers, "sm90_d256": 0}
         total = {key: total[key] + launches[key] for key in total}
         readings[remat] = {"vs_reference": err_ref, "vs_cpu": err_cpu}
         print(f"gradient check (fp32, head_dim 128, S=256, remat {remat}): "
@@ -778,6 +871,12 @@ def _loss_and_grads(torch, model, cfg, params, toks, impl, remat=None):
     return loss.item(), dict(zip(flat, grads))
 
 
+def _rel_err(got, want):
+    """Max abs error of ``got`` over max |want|."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
 def bf16_grad_check_phase(torch, fa, llama):
     """Loss and every gradient leaf of the small model in bf16 through
     the sm90 backward kernels, against reference attention on the card
@@ -800,16 +899,12 @@ def bf16_grad_check_phase(torch, fa, llama):
     _, fp32_grads = _loss_and_grads(torch, llama, cfg32, params32, toks,
                                     "reference", "none")
 
-    def rel(a, b):
-        return ((a.float() - b.float()).abs().max()
-                / b.float().abs().max()).item()
-
-    err = {k: rel(g, ref_grads[k]) for k, g in grads.items()}
-    spread = {k: rel(g, fp32_grads[k]) for k, g in ref_grads.items()}
+    err = {k: _rel_err(g, ref_grads[k]) for k, g in grads.items()}
+    spread = {k: _rel_err(g, fp32_grads[k]) for k, g in ref_grads.items()}
     worst = max(err, key=err.get)
     want = {"fwd": cfg.n_layers, "fwd_sm90": cfg.n_layers, "fwd_tf32x3": 0,
             "dq": cfg.n_layers, "dkv": cfg.n_layers, "sm90": cfg.n_layers,
-            "tf32x3": 0}
+            "tf32x3": 0, "sm90_d256": 0}
     print(f"gradient check (bf16, head_dim 128, S=256, remat none, sm90 "
           f"backward): loss {loss:.6f}, reference {ref_loss:.6f}; max grad "
           f"error over max |ref| per leaf vs bf16 reference "
@@ -881,7 +976,7 @@ def train_phase(torch, fa, llama):
 
     per_step = {"fwd": cfg.n_layers, "fwd_sm90": cfg.n_layers,
                 "fwd_tf32x3": 0, "dq": cfg.n_layers, "dkv": cfg.n_layers,
-                "sm90": cfg.n_layers, "tf32x3": 0}
+                "sm90": cfg.n_layers, "tf32x3": 0, "sm90_d256": 0}
     losses, step_ms, launches, peak_gb = _train_steps(torch, fa, step,
                                                       per_step)
     ms = statistics.median(step_ms[3:])
@@ -924,7 +1019,8 @@ def remat_phase(torch, fa, llama):
 
         n = cfg.n_layers
         per_step = {"fwd": fwd * n, "fwd_sm90": fwd * n, "fwd_tf32x3": 0,
-                    "dq": n, "dkv": n, "sm90": n, "tf32x3": 0}
+                    "dq": n, "dkv": n, "sm90": n, "tf32x3": 0,
+                    "sm90_d256": 0}
         losses, step_ms, launches, peak_gb = _train_steps(torch, fa, step,
                                                           per_step)
         ms = statistics.median(step_ms[3:])
@@ -1074,7 +1170,8 @@ def gpt2_phase(torch, fa, dtype_name):
     fwd, bwd = (fa._route(dtype, cfg.head_dim, d) for d in ("fwd", "bwd"))
     per_step = {"fwd": 2 * n, "fwd_sm90": 2 * n * (fwd == "sm90"),
                 "fwd_tf32x3": 2 * n * (fwd == "tf32x3"), "dq": n, "dkv": n,
-                "sm90": n * (bwd == "sm90"), "tf32x3": n * (bwd == "tf32x3")}
+                "sm90": n * (bwd == "sm90"), "tf32x3": n * (bwd == "tf32x3"),
+                "sm90_d256": n * (bwd == "sm90_d256")}
     losses, step_ms, launches, peak_gb = _train_steps(torch, fa, step,
                                                       per_step)
     ms = statistics.median(step_ms[3:])
@@ -1126,6 +1223,117 @@ def gpt2_phase(torch, fa, dtype_name):
                       "grad_err": grad_err}
 
 
+def _llama_d256(torch, llama):
+    """_d256_config's Llama, weights from seed 0, and one fixed batch of
+    D256_TOKENS token ids."""
+    cfg = _d256_config()
+    params = llama.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+        device="cuda")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, D256_TOKENS)).cuda()
+    return cfg, params, tokens
+
+
+def _d256_grad_check(torch, fa, llama, cfg, params, tokens):
+    """One step's loss and every gradient leaf of the head_dim-256 Llama
+    through the kernels (remat "none") against reference attention on
+    the card.  Returns the loss, the reference's, the per-leaf max abs
+    error over max |ref| and the launches of the kernels' step."""
+    ref_loss, ref_grads = _loss_and_grads(torch, llama, cfg, params, tokens,
+                                          "reference", "none")
+    _reset_counts(fa)
+    loss, grads = _loss_and_grads(torch, llama, cfg, params, tokens, "flash",
+                                  "none")
+    torch.cuda.synchronize()
+    launches = _counts(fa)
+    err = {k: _rel_err(g, ref_grads[k]) for k, g in grads.items()}
+    return loss, ref_loss, err, launches
+
+
+def d256_phase(torch, fa, llama):
+    """The head_dim-256 training path: _llama_d256 (2.51 B parameters),
+    AdamW, remat "none".  First one step's loss and every gradient leaf
+    through the kernels against reference attention on the card
+    (D256_GRAD_TOL, BF16_LOSS_TOL); then 3 warm-up and 10 timed
+    train_step calls.  Gates: per step the CUDA-core forward and the
+    sm90_d256 backward pair once per layer, no other flash kernel; the
+    first step's loss within BF16_LOSS_TOL of reference attention's; the
+    loss finite and falling.  Prints step time, tokens/s, MFU against
+    the bf16 peak, peak memory and a profile of one step with the
+    attention kernels' share.  Returns the launches of the 13 steps."""
+    from ant_ray_tpu_torch.train import make_optimizer, train_step  # noqa: PLC0415
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg, params, tokens = _llama_d256(torch, llama)
+    batch, seq = tokens.shape[0], tokens.shape[1] - 1
+    attn = (batch, seq, seq, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    if attn != _d256_attn():
+        raise AssertionError(f"d256 attention {attn}, kernel phases checked "
+                             f"{_d256_attn()}")
+    print(f"d256 llama up in {time.perf_counter() - t0:.1f} s "
+          f"({cfg.num_params() / 1e9:.3f} B params, {cfg.dtype}, "
+          f"{cfg.n_layers} layers, {cfg.n_heads} heads of {cfg.head_dim}, "
+          f"{cfg.n_kv_heads} KV head)", flush=True)
+
+    n = cfg.n_layers
+    fwd, bwd = (fa._route(cfg.dtype, cfg.head_dim, d) for d in ("fwd", "bwd"))
+    if (fwd, bwd) != ("simt", "sm90_d256"):
+        raise AssertionError(f"head_dim 256 in bf16 routes to {fwd} and "
+                             f"{bwd}")
+    per_step = {"fwd": n, "fwd_sm90": 0, "fwd_tf32x3": 0, "dq": n, "dkv": n,
+                "sm90": 0, "tf32x3": 0, "sm90_d256": n}
+    loss, ref_loss, err, grad_launches = _d256_grad_check(
+        torch, fa, llama, cfg, params, tokens)
+    worst = max(err, key=err.get)
+    print(f"d256 gradient check (bf16, {batch} x {seq}, remat none): loss "
+          f"{loss:.6f}, reference attention {ref_loss:.6f}; max grad error "
+          f"over max |ref| per leaf {err[worst]:.3e} ({worst}; tol "
+          f"{D256_GRAD_TOL}); launches {grad_launches}", flush=True)
+    print("d256 gradient errors per leaf " + json.dumps(err), flush=True)
+    if not (abs(loss - ref_loss) <= BF16_LOSS_TOL
+            and err[worst] <= D256_GRAD_TOL and grad_launches == per_step):
+        raise AssertionError("d256 gradient check failed")
+    torch.cuda.empty_cache()
+
+    optimizer = make_optimizer(params)
+
+    def step():
+        return train_step(params, optimizer, tokens, cfg, remat="none")
+
+    losses, step_ms, launches, peak_gb = _train_steps(torch, fa, step,
+                                                      per_step)
+    ms = statistics.median(step_ms[3:])
+    tokens_per_s = batch * seq / (ms / 1e3)
+    mfu = tokens_per_s * llama.flops_per_token(cfg, seq) / PEAK_FLOPS[
+        "bfloat16"]
+    loss_err = abs(losses[0] - ref_loss)
+    print(f"train d256 llama batch {batch} x seq {seq} remat none: losses "
+          f"{[round(x, 4) for x in losses]}; first loss against reference "
+          f"attention {ref_loss:.6f}: error {loss_err:.3e} (tol "
+          f"{BF16_LOSS_TOL}); step {ms:.2f} ms (median of 10 after 3 "
+          f"warm-up; all {[round(x, 1) for x in step_ms]}), "
+          f"{tokens_per_s:.0f} tokens/s, MFU {mfu:.4f}, peak memory "
+          f"{peak_gb:.2f} GB; launches per step {per_step}", flush=True)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and loss_err <= BF16_LOSS_TOL):
+        raise AssertionError(f"d256 training: losses {losses}, reference "
+                             f"first loss {ref_loss}")
+    by_name = _profile(torch, f"train step d256 llama {batch} x {seq}", step,
+                       top=16)
+    if by_name is not None:
+        busy = sum(by_name.values())
+        attn = {name: us for name, us in by_name.items()
+                if re.search(r"flash_(fwd|bwd)", name)}
+        print(f"d256 attention kernels: {sum(attn.values()) / 1e3:.2f} ms of "
+              f"{busy / 1e3:.2f} ms busy ({sum(attn.values()) / busy:.1%}); "
+              + json.dumps({name: round(us / 1e3, 3)
+                            for name, us in attn.items()}), flush=True)
+    del params, optimizer, tokens
+    return launches
+
+
 def slice_phase(torch, fa, llama):
     """The serving slice; returns the launches of its main path and the
     8B weights, which the sessions and loop phases reuse (the engine and
@@ -1173,7 +1381,8 @@ def slice_phase(torch, fa, llama):
           f"backward kernel launches {launches['dq']} and {launches['dkv']} "
           f"(expected 0)", flush=True)
     if launches != {"fwd": expected, "fwd_sm90": expected, "fwd_tf32x3": 0,
-                    "dq": 0, "dkv": 0, "sm90": 0, "tf32x3": 0}:
+                    "dq": 0, "dkv": 0, "sm90": 0, "tf32x3": 0,
+                    "sm90_d256": 0}:
         raise AssertionError(f"serving launched {launches}, expected "
                              f"{expected} sm90 forward and no other launches")
 
@@ -1866,7 +2075,8 @@ def checkpoint_phase(torch, fa, llama):
         raise AssertionError(f"checkpoint phase failed: {per_format}, "
                              f"server ok {server_ok}")
     if launches != {"fwd": expected, "fwd_sm90": expected, "fwd_tf32x3": 0,
-                    "dq": 0, "dkv": 0, "sm90": 0, "tf32x3": 0}:
+                    "dq": 0, "dkv": 0, "sm90": 0, "tf32x3": 0,
+                    "sm90_d256": 0}:
         raise AssertionError(f"checkpoint phase launched {launches}")
     return launches
 
@@ -2082,7 +2292,8 @@ def _profile(torch, label, fn, top=6):
     """Where one call's time goes, from a torch.profiler trace: the
     device's busy share of the host wall time, and the ``top`` kernels
     that take most of it.  A trace without device events reports 'not
-    measured'."""
+    measured' and returns None; else returns the kernel time (us) by
+    name."""
     from torch.autograd import DeviceType  # noqa: PLC0415
     from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
 
@@ -2107,12 +2318,13 @@ def _profile(torch, label, fn, top=6):
     if not busy_us:
         print(f"profile {label}: wall {wall_us / 1e3:.2f} ms, device time "
               "not measured (no device events in the trace)", flush=True)
-        return
+        return None
     heaviest = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     print(f"profile {label}: wall {wall_us / 1e3:.2f} ms, device busy "
           f"{busy_us / 1e3:.2f} ms ({busy_us / wall_us:.1%}); top kernels "
           + json.dumps({name: round(us / 1e3, 3) for name, us in heaviest}),
           flush=True)
+    return by_name
 
 
 def _print_ptxas(build, lib):
@@ -2126,9 +2338,11 @@ def _print_ptxas(build, lib):
     kernel = None
     for line in log.read_text().splitlines():
         found = re.search(r"Compiling entry function .*?"
-                          r"(flash_(?:fwd|bwd)_\w+?_kernel)ILi(\d+)E", line)
+                          r"(flash_(?:fwd|bwd)_\w+?_kernel)(?:ILi(\d+)E)?",
+                          line)
         if found:
-            kernel = f"{found.group(1)}<{found.group(2)}>"
+            kernel = found.group(1) + (f"<{found.group(2)}>"
+                                       if found.group(2) else "")
         elif kernel and ("spill" in line or "registers" in line):
             print(f"ptxas {kernel}: {line.strip()}", flush=True)
             if "registers" in line:
@@ -2136,7 +2350,7 @@ def _print_ptxas(build, lib):
 
 
 def kernels_line(rows, bwd_rows, paths):
-    """The {"kernels": [...]} record of the nine kernels from the kernel
+    """The {"kernels": [...]} record of the eleven kernels from the kernel
     phases' rows and the launches of every path; raises if a kernel that
     a main path should run was not launched on one."""
     by_path = {path: _by_kernel(c) for path, c in paths.items()}
@@ -2144,14 +2358,24 @@ def kernels_line(rows, bwd_rows, paths):
 
     # Forward: S=4096, the largest prefill of the serving slice, for sm90,
     # where the CUDA-core kernel was also timed; GPT-2's fp32 shape for
-    # tf32x3, where it was too; head_dim 256 for the CUDA-core kernel,
-    # its own route.  Backward: the training slice's shape (the first
-    # backward case) for sm90, where the CUDA-core pair was also timed,
-    # and GPT-2's fp32 shape for tf32x3, where it was too.
+    # tf32x3, where it was too; Gemma-7B's attention for the CUDA-core
+    # kernel (bf16 at head_dim 256, the d256 path's route).  Backward: the
+    # training slice's shape (the first backward case) for sm90 and the
+    # CUDA-core pair, also timed there; GPT-2's fp32 shape for tf32x3,
+    # where the CUDA-core pair was too; Gemma-7B's attention for
+    # sm90_d256, where it was too.  The head_dim-256 kernels also give
+    # their times at Gemma-2B's attention and at the d256 path's own.
     main_row = next(r for r in rows if r["shape"].startswith("B=1 Sq=4096 "))
     train_row = next(r for r in rows if r["shape"].startswith("B=8 Sq=2048 "))
     simt_row = next(r for r in rows if r["route"] == "simt")
     bwd_row = bwd_rows[0]
+    gemma = {name: _shape(*attn, "bfloat16", True) for name, attn in
+             (("gemma7b", GEMMA7B_ATTN), ("gemma2b", GEMMA2B_ATTN),
+              ("d256_path", _d256_attn()))}
+    gemma_rows = {name: next(r for r in rows if r["shape"] == shape)
+                  for name, shape in gemma.items()}
+    gemma_bwd_rows = {name: next(r for r in bwd_rows if r["shape"] == shape)
+                      for name, shape in gemma.items()}
     # GPT-2's shape, the main path of the tf32x3 kernels (fp32) and of
     # the sm90 kernels at head_dim 64 without GQA (bf16).
     gpt2_shape = "B=8 Sq=1024 Skv=1024 H=12 KVH=12 D=64 {} causal"
@@ -2193,12 +2417,25 @@ def kernels_line(rows, bwd_rows, paths):
                      "share_of_fp32_fma_bound": g32["share_of_fp32_fma_bound"],
                      "simt_ms_same_inputs": g32["simt"]["ms"]}
         else:
-            at = timed = simt_row
+            # Its main shape is Gemma-7B's attention (the d256 path's
+            # route); also Gemma-2B's, the d256 path's, and B=1 S=512.
+            at = timed = gemma_rows["gemma7b"]
             err_rows = [r["simt"] for r in rows if "simt" in r] + [
                 r for r in rows if r["route"] == "simt"]
             gpt2 = ("float32", g32["simt"], g32["fp32_fma_bound_ms"])
             extra = {"s4096_ms": main_row["simt"]["ms"],
-                     "train_shape_ms": train_row["simt"]["ms"]}
+                     "train_shape_ms": train_row["simt"]["ms"],
+                     "s512_shape": simt_row["shape"],
+                     "s512_shape_ms": simt_row["ms"]}
+            for other in ("gemma2b", "d256_path"):
+                row = gemma_rows[other]
+                extra.update({
+                    f"{other}_shape": row["shape"],
+                    f"{other}_shape_ms": row["ms"],
+                    f"{other}_shape_share_of_bound": row["share_of_bound"],
+                    f"{other}_shape_bound_ms": row["bound_ms"],
+                    f"{other}_shape_plain_ms": row["plain_ms"],
+                    f"{other}_shape_library_ms": row["library_ms"]})
         dtype, gpt2_timed, gpt2_bound_ms = gpt2
         return {
             "name": name,
@@ -2225,8 +2462,27 @@ def kernels_line(rows, bwd_rows, paths):
 
     def bwd_entry(name, key, grads, route, source, line):
         g32 = gpt2_bwd_rows["float32"]
+        g7 = gemma_bwd_rows["gemma7b"]
         extra = {}
-        if route == "sm90":
+        if route == "sm90_d256":
+            # Its main shape is Gemma-7B's attention; also Gemma-2B's and
+            # the d256 path's.
+            at, timed = g7, g7["kernels"][key]
+            err_rows = [r for r in bwd_rows if r["route"] == "sm90_d256"]
+            gpt2 = None
+            extra = {"simt_pair_ms_same_inputs": g7["simt"]["dq"]["ms"]
+                     + g7["simt"]["dkv"]["ms"]}
+            for other in ("gemma2b", "d256_path"):
+                row = gemma_bwd_rows[other]
+                extra.update({
+                    f"{other}_shape": row["shape"],
+                    f"{other}_shape_ms": row["kernels"][key]["ms"],
+                    f"{other}_shape_share_of_bound":
+                        row["kernels"][key]["share_of_bound"],
+                    f"{other}_shape_bound_ms": row["bounds"][key][0],
+                    f"{other}_shape_plain_ms": row["plain_ms"],
+                    f"{other}_shape_library_ms": row["library_ms"]})
+        elif route == "sm90":
             at, timed = bwd_row, bwd_row["kernels"][key]
             err_rows = [r for r in bwd_rows if r["route"] == "sm90"]
             gpt2 = ("bfloat16", gpt2_bwd_rows["bfloat16"]["kernels"][key],
@@ -2243,12 +2499,19 @@ def kernels_line(rows, bwd_rows, paths):
                      + g32["simt"]["dkv"]["ms"]}
         else:
             at, timed = bwd_row, bwd_row["simt"][key]
-            err_rows = [bwd_row["simt"], g32["simt"]] + [
+            err_rows = [bwd_row["simt"], g32["simt"], g7["simt"]] + [
                 r for r in bwd_rows if r["route"] == "simt"]
             gpt2 = ("float32", g32["simt"][key], g32)
+            extra = {"gemma7b_shape": g7["shape"],
+                     "gemma7b_shape_ms": g7["simt"][key]["ms"]}
         bounds_key = "fma_bounds" if route == "simt" else "bounds"
         bound_ms, bound_by, _flops = at[bounds_key][key]
-        dtype, gpt2_timed, gpt2_row = gpt2
+        if gpt2 is not None:
+            dtype, gpt2_timed, gpt2_row = gpt2
+            extra.update(_gpt2_keys(dtype, gpt2_timed,
+                                    gpt2_row[bounds_key][key][0],
+                                    gpt2_row["plain_ms"],
+                                    gpt2_row["library_ms"]))
         return {
             "name": name,
             "route": "cuda",
@@ -2272,15 +2535,12 @@ def kernels_line(rows, bwd_rows, paths):
             "library": "scaled_dot_product_attention backward (fwd+bwd "
                        "minus fwd): dq, dk and dv",
             "shape": at["shape"],
-            **_gpt2_keys(dtype, gpt2_timed,
-                         gpt2_row[bounds_key][key][0], gpt2_row["plain_ms"],
-                         gpt2_row["library_ms"]),
         }
 
-    # The CUDA-core forward, dQ and dK/dV take only head_dim 256 now,
-    # which no main path uses; every other kernel must run on one.
-    off_main_paths = {"flash_attention_fwd", "flash_attention_bwd_dq",
-                      "flash_attention_bwd_dkv"}
+    # The CUDA-core dQ and dK/dV take only fp32 at head_dim 256 now,
+    # which no main path uses; every other kernel must run on one (the
+    # CUDA-core forward on the d256 path).
+    off_main_paths = {"flash_attention_bwd_dq", "flash_attention_bwd_dkv"}
     for name in next(iter(by_path.values())):
         if name not in off_main_paths and not launches(name)["launches"]:
             raise AssertionError(f"{name} was not launched on the main path")
@@ -2298,10 +2558,103 @@ def kernels_line(rows, bwd_rows, paths):
                   "flash_attention_bwd_tf32x3.cu", 196),
         bwd_entry("flash_attention_bwd_dkv_tf32x3", "dkv", ("dk", "dv"),
                   "tf32x3", "flash_attention_bwd_tf32x3.cu", 301),
+        bwd_entry("flash_attention_bwd_dq_sm90_d256", "dq", ("dq",),
+                  "sm90_d256", "flash_attention_bwd_sm90_d256.cu", 196),
+        bwd_entry("flash_attention_bwd_dkv_sm90_d256", "dkv", ("dk", "dv"),
+                  "sm90_d256", "flash_attention_bwd_sm90_d256.cu", 301),
         bwd_entry("flash_attention_bwd_dq", "dq", ("dq",), "simt",
                   "flash_attention_bwd.cu", 196),
         bwd_entry("flash_attention_bwd_dkv", "dkv", ("dk", "dv"), "simt",
                   "flash_attention_bwd.cu", 301)]}
+
+
+# Faults that --plant-d256-fault writes into a copy of
+# ops/csrc/flash_attention_bwd_sm90_d256.cu, as (this text, that text):
+# block 0 of a dK/dV cluster skips rank 1's partial (at one KV head, a
+# quarter of the query heads go missing from dK and dV); each dK/dV
+# warpgroup takes its own P^T / dS^T fragments for the other's q columns;
+# dK/dV's or dQ's causal mask also drops the diagonal.
+D256_FAULTS = {
+    "dkv_rank_dropped": ("for (int r = 1; r < splits; ++r) {",
+                         "for (int r = 2; r < splits; ++r) {"),
+    "dkv_no_trade": ("const uint4* from = w == wg ? mine : theirs;",
+                     "const uint4* from = mine;"),
+    "dkv_diagonal_masked": (
+        "if (causal && row0 + 8 * (e >> 1) > q0 + 32 * wg + col + (e & 1))",
+        "if (causal && row0 + 8 * (e >> 1) >= q0 + 32 * wg + col + (e & 1))"),
+    "dq_diagonal_masked": (
+        "if (causal && col + (e & 1) > row0 + 8 * (e >> 1)) p = 0.f;",
+        "if (causal && col + (e & 1) >= row0 + 8 * (e >> 1)) p = 0.f;"),
+}
+
+
+def plant_d256_fault(fault, target):
+    """A copy of this script and the package in ``target`` (new), without
+    built libraries, with ``D256_FAULTS[fault]`` planted."""
+    import shutil  # noqa: PLC0415
+
+    old, new = D256_FAULTS[fault]
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(target)
+    shutil.copy2(os.path.join(here, "chip_smoke.py"), target)
+    shutil.copytree(os.path.join(here, "ant_ray_tpu_torch"),
+                    os.path.join(target, "ant_ray_tpu_torch"),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    path = os.path.join(target, "ant_ray_tpu_torch", "ops", "csrc",
+                        "flash_attention_bwd_sm90_d256.cu")
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    if text.count(old) != 1:
+        raise SystemExit(f"{fault}: {old!r} is not in {path} once")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(text.replace(old, new))
+
+
+def d256_gate_readings(checkout):
+    """What CHECKOUT's bf16 head_dim-256 gates read, ungated (the
+    module docstring's --d256-gate-readings)."""
+    import math  # noqa: PLC0415
+
+    sys.path.insert(0, os.path.abspath(checkout))
+    import torch  # noqa: PLC0415
+
+    import chip_smoke as cs  # noqa: PLC0415
+    from ant_ray_tpu_torch.models import llama  # noqa: PLC0415
+    from ant_ray_tpu_torch.ops import _build  # noqa: PLC0415
+    from ant_ray_tpu_torch.ops import flash_attention as fa  # noqa: PLC0415
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()
+    cs.BWD_TOL["bfloat16"] = dict.fromkeys(cs.BWD_TOL["bfloat16"], math.inf)
+    cs.D256_GRAD_TOL = cs.BF16_LOSS_TOL = math.inf
+    rows = cs.bwd_kernel_phase(torch, fa)
+    torch.cuda.empty_cache()
+    cfg, params, tokens = cs._llama_d256(torch, llama)
+
+    def grad_check():
+        loss, ref_loss, err, launches = cs._d256_grad_check(
+            torch, fa, llama, cfg, params, tokens)
+        return {"loss_err": abs(loss - ref_loss),
+                "max_grad_err": max(err.values()), "grad_err": err,
+                "launches": launches}
+
+    out = {"checkout": os.path.abspath(checkout),
+           "backward": {r["shape"]: r["rel_err"] for r in rows
+                        if r["route"] == "sm90_d256"},
+           "grad_check": grad_check()}
+    # The custom ops look the wrappers up at call time.
+    kernels = fa.flash_attention_fwd_lse, fa.flash_attention_backward
+    try:
+        fa.flash_attention_backward = fa.flash_attention_backward_ref
+        out["plain_backward"] = grad_check()
+        fa.flash_attention_fwd_lse = fa.flash_attention_fwd_lse_ref
+        out["plain"] = grad_check()
+    finally:
+        fa.flash_attention_fwd_lse, fa.flash_attention_backward = kernels
+    return out
 
 
 def main() -> int:
@@ -2332,7 +2685,8 @@ def main() -> int:
     print(f"built {names} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     for lib in ("flash_attention_fwd_sm90", "flash_attention_bwd_sm90",
-                "flash_attention_fwd_tf32x3", "flash_attention_bwd_tf32x3"):
+                "flash_attention_fwd_tf32x3", "flash_attention_bwd_tf32x3",
+                "flash_attention_bwd_sm90_d256"):
         _print_ptxas(_build, lib)
 
     rows = kernel_phase(torch, fa)
@@ -2350,6 +2704,7 @@ def main() -> int:
     paths.update(remat_phase(torch, fa, llama))
     paths["gpt2_fp32"] = gpt2_phase(torch, fa, "float32")[0]
     paths["gpt2_bf16"] = gpt2_phase(torch, fa, "bfloat16")[0]
+    paths["d256"] = d256_phase(torch, fa, llama)
     print(json.dumps(kernels_line(rows, bwd_rows, paths)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2358,4 +2713,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--plant-d256-fault"]:
+        plant_d256_fault(*sys.argv[2:4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--d256-gate-readings"]:
+        print(json.dumps(d256_gate_readings(
+            sys.argv[2] if len(sys.argv) > 2 else
+            os.path.dirname(os.path.abspath(__file__)))), flush=True)
+        sys.exit(0)
     sys.exit(main())

@@ -1,7 +1,8 @@
 """The hand-written CUDA flash-attention kernels (the forward, and the dQ
 and dK/dV backward, each on its routes: the bf16 tensor-core kernels at
 head_dim 64 and 128, fp32 in 3xTF32 on the tensor cores at head_dim 64
-and 128, the CUDA-core kernels at head_dim 256) against their
+and 128, the bf16 tensor-core backward at head_dim 256, the CUDA-core
+kernels for the rest of head_dim 256) against their
 plain PyTorch versions, on the card; GPT-2 and the remat policies
 through the kernels; and the session slabs' round
 trip between the card and host memory, bitwise, with an install from
@@ -451,6 +452,85 @@ def test_tf32x3_backward_refuses_an_unaligned_input(cuda):
     with pytest.raises(ValueError, match="16-byte"):
         fa.flash_attention_backward(q, k, v, out, lse, do, causal=True)
     assert (fa.bwd_tf32x3_launch_count, fa.bwd_dq_launch_count) == before
+
+
+@pytest.mark.parametrize("q_len,kv_len,groups,causal", [
+    *[(q_len, q_len, groups, causal) for q_len in (192, 320)
+      for groups in (1, 2, 4, 8) for causal in (True, False)],
+    (128, 256, 2, True),    # Sq < Skv: keys 128..255 see no query
+    (256, 128, 2, True),    # Sq > Skv: queries 128.. see every key
+    (128, 256, 4, False),
+    (256, 128, 4, False),
+])
+def test_sm90_d256_backward_matches_plain_version(cuda, q_len, kv_len,
+                                                  groups, causal):
+    """The bf16 backward at head_dim 256 on its own tensor-core route:
+    every column of dq, dk and dv (each dK/dV warpgroup owns half of
+    them) against the plain version.  Lengths 192 and 320 are ragged
+    against the dQ kernel's 128-row q tiles."""
+    q, k, v = _qkv(cuda, q_len, kv_len, 8, 8 // groups, 256, torch.bfloat16)
+    do = torch.randn(q.shape, generator=cuda, device="cuda").bfloat16()
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal)
+    counters = ("bwd_sm90_d256_launch_count", "bwd_dq_launch_count",
+                "bwd_dkv_launch_count", "bwd_sm90_launch_count")
+    before = [getattr(fa, name) for name in counters]
+    got = fa.flash_attention_backward(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert [getattr(fa, name) for name in counters] == \
+        [before[0] + 1, before[1] + 1, before[2] + 1, before[3]]
+    want = fa.flash_attention_backward_ref(q, k, v, out, lse, do,
+                                           causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert torch.isfinite(g.float()).all()
+        for half in (g[..., :128], g[..., 128:]):
+            assert half.float().abs().max() > 0
+        assert _rel_err(g, w) <= BWD_REL_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("kv_heads", [1, 8])
+def test_sm90_d256_backward_is_deterministic(cuda, kv_heads):
+    """With one KV head the dK/dV kernel splits each KV tile over a
+    cluster's blocks and adds their partials in a fixed order; with eight
+    it does not split.  Either way two runs agree bit for bit."""
+    q, k, v = _qkv(cuda, 512, 512, 8, kv_heads, 256, torch.bfloat16)
+    do = torch.randn(q.shape, generator=cuda, device="cuda").bfloat16()
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=True)
+    first = fa.flash_attention_backward(q, k, v, out, lse, do, causal=True)
+    second = fa.flash_attention_backward(q, k, v, out, lse, do, causal=True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,dim,d256", [
+    (torch.bfloat16, 64, False), (torch.bfloat16, 128, False),
+    (torch.bfloat16, 256, True), (torch.float32, 64, False),
+    (torch.float32, 128, False), (torch.float32, 256, False),
+])
+def test_sm90_d256_count_rises_only_on_its_route(cuda, dtype, dim, d256):
+    q, k, v = _qkv(cuda, 128, 128, 4, 2, dim, dtype)
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd_lse(q, k, v)
+    before = (fa.bwd_sm90_d256_launch_count, fa.bwd_dq_launch_count)
+    fa.flash_attention_backward(q, k, v, out, lse, q, causal=True)
+    torch.cuda.synchronize()
+    assert fa.bwd_sm90_d256_launch_count == before[0] + int(d256)
+    assert fa.bwd_dq_launch_count == before[1] + 1
+
+
+def test_sm90_d256_backward_refuses_an_unaligned_input(cuda):
+    q, k, v = _qkv(cuda, 128, 128, 4, 2, 256, torch.bfloat16)
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd_lse(q, k, v)
+    shifted = torch.empty(q.numel() + 8, dtype=q.dtype, device="cuda")
+    do = shifted[1:q.numel() + 1].view(q.shape)       # 2 bytes in
+    do.copy_(q)
+    before = (fa.bwd_sm90_d256_launch_count, fa.bwd_dq_launch_count)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_backward(q, k, v, out, lse, do, causal=True)
+    assert (fa.bwd_sm90_d256_launch_count, fa.bwd_dq_launch_count) == before
 
 
 def test_gradients_through_flash_function_match_reference(cuda):

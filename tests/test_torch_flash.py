@@ -48,7 +48,7 @@ def _check(q, k, v, causal):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("groups", [1, 4])
-@pytest.mark.parametrize("dim", [64, 128])
+@pytest.mark.parametrize("dim", [64, 128, 256])
 def test_plain_version_matches_pallas_kernel(causal, groups, dim):
     _check(*_inputs(11, 256, 256, 4, 4 // groups, dim), causal)
 

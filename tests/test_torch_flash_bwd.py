@@ -67,7 +67,7 @@ def _both(q, k, v, do, causal, dtype=torch.float32):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("groups", [1, 2, 4])
-@pytest.mark.parametrize("dim", [64, 128])
+@pytest.mark.parametrize("dim", [64, 128, 256])
 def test_plain_backward_matches_pallas_kernels(causal, groups, dim):
     got, want = _both(*_inputs(21, 256, 256, 4, 4 // groups, dim), causal)
     for g, w in zip(got, want):

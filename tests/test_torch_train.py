@@ -36,6 +36,10 @@ GRAD_REL_TOL = 1e-4
 SMALL = dict(dim=256, n_heads=4, n_kv_heads=2, mlp_dim=256, n_layers=2,
              max_seq=256)
 
+# head_dim 256 (dim 512 over 2 heads), one KV head.
+HEAD_DIM_256 = dict(dim=512, n_heads=2, n_kv_heads=1, mlp_dim=256,
+                    n_layers=2, max_seq=256)
+
 
 def _configs(name, **changes):
     return (dataclasses.replace(jl.CONFIGS[name], **changes),
@@ -99,6 +103,15 @@ REMATS = ["none", "full", "dots", "matmuls"]
 def test_loss_and_grads_match_jax(impls, remat):
     _check_loss_and_grads("tiny", SMALL, {"tokens": _tokens(1, 2, 129)},
                           *impls, remat)
+
+
+def test_head_dim_256_loss_and_grads_match_jax():
+    """A Llama whose heads are 256 wide (Gemma-2B's head_dim, one KV
+    head): the flash kernels' plain versions at D=256 against the
+    Pallas kernels in interpret mode, through the whole model."""
+    _check_loss_and_grads("tiny", HEAD_DIM_256,
+                          {"tokens": _tokens(7, 2, 129)}, "pallas", "flash",
+                          "none")
 
 
 def test_masked_loss_and_grads_match_jax():
