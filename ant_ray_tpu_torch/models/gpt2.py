@@ -136,7 +136,9 @@ def forward(params: dict, tokens, config: Gpt2Config, *,
     backward re-runs it, the flash forward included), as the reference
     checkpoints every block: GPT-2 has no remat option there either."""
     seq = tokens.shape[1]
-    x = params["wte"][tokens] + params["wpe"][:seq]
+    # F.embedding, not indexing: on the CPU its backward sums each row's
+    # gradients in an order that does not depend on the thread count.
+    x = F.embedding(tokens, params["wte"]) + params["wpe"][:seq]
     run_block = _block
     if torch.is_grad_enabled():
         run_block = functools.partial(checkpoint, _block, use_reentrant=False)

@@ -300,7 +300,9 @@ def forward(params: dict, tokens, config: LlamaConfig, *,
                                       use_reentrant=False,
                                       context_fn=context_fn)
 
-    x = params["embed"][tokens].to(c.dtype)
+    # F.embedding, not indexing: on the CPU its backward sums each row's
+    # gradients in an order that does not depend on the thread count.
+    x = F.embedding(tokens, params["embed"]).to(c.dtype)
     ks, vs = [], []
     for layer in _layers(params):
         x, kv = run_block(layer, x, c, cos, sin, positions, attend,

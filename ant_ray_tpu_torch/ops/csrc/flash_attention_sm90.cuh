@@ -1,9 +1,9 @@
 // Building blocks of the flash-attention kernels on Hopper's tensor cores
-// (sm_90a), shared by flash_attention_fwd_sm90.cu and
-// flash_attention_bwd_sm90.cu: PTX wrappers for mbarriers, TMA and
-// warpgroup MMA (wgmma), the descriptors of 128-byte-swizzled tiles in
-// shared memory, and the 4-D TMA tensor maps of a (B, S, NH, D) bf16
-// tensor.
+// (sm_90a), shared by flash_attention_{fwd,bwd}_sm90.cu and
+// flash_attention_{fwd,bwd}_sm90_d256.cu: PTX wrappers for mbarriers,
+// TMA and warpgroup MMA (wgmma), the descriptors of 128-byte-swizzled
+// tiles in shared memory, and the 4-D TMA tensor maps of a (B, S, NH, D)
+// bf16 tensor.
 //
 // Tile layout.  A tile of R rows and D columns is stored as D/64 blocks of
 // R rows of 128 bytes, 16-byte chunk c of row r at chunk c ^ (r % 8): the
@@ -330,6 +330,42 @@ inline bool shape_ok(uintptr_t addr_bits, int dtype, int batch, int q_len,
   return dtype == 1 && (addr_bits & 15) == 0 && batch > 0 && q_len > 0 &&
          kv_len > 0 && heads > 0 && kv_heads > 0 && heads % kv_heads == 0 &&
          q_len % kLengthMultiple == 0 && kv_len % kLengthMultiple == 0;
+}
+
+// One forward launch (flash_attention_fwd_sm90.cu and
+// flash_attention_fwd_sm90_d256.cu): its pointers and sizes.
+struct FwdArgs {
+  const void *q, *k, *v;
+  void *out, *lse;
+  int batch, q_len, kv_len, heads, kv_heads;
+  float scale;
+  int causal;
+  cudaStream_t stream;
+};
+
+// shape_ok for a forward launch, over all five of its pointers.
+inline bool fwd_shape_ok(const FwdArgs& a, int dtype) {
+  const uintptr_t addr_bits =
+      reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+      reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.out) |
+      reinterpret_cast<uintptr_t>(a.lse);
+  return shape_ok(addr_bits, dtype, a.batch, a.q_len, a.kv_len, a.heads,
+                  a.kv_heads);
+}
+
+// Maps of a forward launch's q (kTileRows-row boxes), k and v
+// (kRingRows-row boxes).
+inline cudaError_t make_fwd_maps(const FwdArgs& a, int head_dim,
+                                 CUtensorMap (&maps)[3]) {
+  cudaError_t err;
+  if ((err = make_map(&maps[0], a.q, a.batch, a.q_len, a.heads, head_dim,
+                      kTileRows)) != cudaSuccess ||
+      (err = make_map(&maps[1], a.k, a.batch, a.kv_len, a.kv_heads, head_dim,
+                      kRingRows)) != cudaSuccess ||
+      (err = make_map(&maps[2], a.v, a.batch, a.kv_len, a.kv_heads, head_dim,
+                      kRingRows)) != cudaSuccess)
+    return err;
+  return cudaSuccess;
 }
 
 // One backward launch (flash_attention_bwd_sm90.cu and

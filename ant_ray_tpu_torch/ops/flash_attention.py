@@ -3,14 +3,14 @@ logsumexp, and backward as a dQ sweep and a dK/dV sweep), their ctypes
 bindings, and their plain PyTorch versions.  :func:`_route` picks the
 kernels per dtype, head_dim and direction: the bf16 tensor-core kernels
 at head_dim 64 and 128 (``csrc/flash_attention_fwd_sm90.cu``,
-``csrc/flash_attention_bwd_sm90.cu``), the bf16 tensor-core backward at
-head_dim 256 (``csrc/flash_attention_bwd_sm90_d256.cu``), fp32 on the
-tensor cores in 3xTF32 at head_dim 64 and 128
-(``csrc/flash_attention_fwd_tf32x3.cu``,
+``csrc/flash_attention_bwd_sm90.cu``), the bf16 tensor-core kernels at
+head_dim 256 (``csrc/flash_attention_fwd_sm90_d256.cu``,
+``csrc/flash_attention_bwd_sm90_d256.cu``), fp32 on the tensor cores in
+3xTF32 at head_dim 64 and 128 (``csrc/flash_attention_fwd_tf32x3.cu``,
 ``csrc/flash_attention_bwd_tf32x3.cu``, sharing
-``csrc/flash_attention_tf32x3.cuh``), and the CUDA-core kernels for the
-rest of head_dim 256: the forward in either dtype and the fp32 backward
-(``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``).
+``csrc/flash_attention_tf32x3.cuh``), and the CUDA-core kernels for fp32
+at head_dim 256 (``csrc/flash_attention_fwd.cu``,
+``csrc/flash_attention_bwd.cu``).
 
 Counterparts of ``flash_attention_fwd_lse`` and
 ``flash_attention_backward`` in ant_ray_tpu/ops/pallas/flash_attention.py,
@@ -46,6 +46,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 launch_count = 0           # forward, any route
 fwd_sm90_launch_count = 0  # forward launches of the sm90 kernel
 fwd_tf32x3_launch_count = 0  # forward launches of the tf32x3 kernel
+fwd_sm90_d256_launch_count = 0  # forward launches of the sm90_d256 kernel
 bwd_dq_launch_count = 0    # dQ, any route
 bwd_dkv_launch_count = 0   # dK/dV, any route
 bwd_sm90_launch_count = 0  # backward calls that ran the sm90 pair
@@ -59,6 +60,7 @@ _ENTRY_POINTS = {
     "flash_attention_fwd": ("flash_attention_fwd", 5),
     "flash_attention_fwd_sm90": ("flash_attention_fwd_sm90", 5),
     "flash_attention_fwd_tf32x3": ("flash_attention_fwd_tf32x3", 5),
+    "flash_attention_fwd_sm90_d256": ("flash_attention_fwd_sm90_d256", 5),
     "flash_attention_bwd_dq": ("flash_attention_bwd", 7),
     "flash_attention_bwd_dkv": ("flash_attention_bwd", 8),
     "flash_attention_bwd_dq_sm90": ("flash_attention_bwd_sm90", 7),
@@ -170,14 +172,16 @@ def _route(dtype, head_dim, direction: str) -> str:
       and a TF32 remainder, and three tensor-core products (lo.hi, hi.lo,
       hi.hi) keep ~22 mantissa bits: fp32's accuracy, which one TF32
       product (~2^-11 per product) would not keep;
-    * "sm90_d256", the bf16 tensor-core backward (wgmma + TMA) of
-      csrc/flash_attention_bwd_sm90_d256.cu, for bf16 at head_dim 256:
-      its own design, since a 64 x 256 fp32 accumulator is 128 registers
-      a thread and the D<=128 layouts need more shared memory than a
-      block has (the file's header says how it splits the work);
+    * "sm90_d256", the bf16 tensor-core kernels (wgmma + TMA) of
+      csrc/flash_attention_fwd_sm90_d256.cu and
+      csrc/flash_attention_bwd_sm90_d256.cu, for bf16 at head_dim 256,
+      both directions: their own designs, since a 64 x 256 fp32
+      accumulator is 128 registers a thread and the D<=128 layouts need
+      more shared memory than a block has (each file's header says how
+      it lays out the work);
     * "simt", the CUDA-core kernels of csrc/flash_attention_fwd.cu and
-      csrc/flash_attention_bwd.cu, for the rest of head_dim 256: the
-      forward in either dtype and the fp32 backward.
+      csrc/flash_attention_bwd.cu, for fp32 at head_dim 256, both
+      directions.
 
     This is routing, not a fallback: each route launches its kernels or
     raises."""
@@ -188,7 +192,7 @@ def _route(dtype, head_dim, direction: str) -> str:
             return "sm90"
         if dtype == torch.float32:
             return "tf32x3"
-    if dtype == torch.bfloat16 and direction == "bwd":
+    if dtype == torch.bfloat16:
         return "sm90_d256"
     return "simt"
 
@@ -249,6 +253,7 @@ def flash_attention_fwd_lse(q, k, v, *, causal: bool = True,
     when grad mode is on and an input requires grad: differentiate
     through ``attention(..., impl="flash")`` instead."""
     global launch_count, fwd_sm90_launch_count, fwd_tf32x3_launch_count
+    global fwd_sm90_d256_launch_count
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_fwd_lse_ref(q, k, v, causal=causal,
@@ -276,6 +281,8 @@ def flash_attention_fwd_lse(q, k, v, *, causal: bool = True,
         fwd_sm90_launch_count += 1
     elif route == "tf32x3":
         fwd_tf32x3_launch_count += 1
+    elif route == "sm90_d256":
+        fwd_sm90_d256_launch_count += 1
     return out, lse
 
 

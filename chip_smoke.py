@@ -12,21 +12,23 @@ final line is printed:
    limit (nvidia-smi); build every hand-written kernel from the sources
    in this checkout, timed, and print the registers and spill bytes
    ptxas reports for each tensor-core kernel (forward and backward, bf16
-   and 3xTF32, and the bf16 backward at head_dim 256).
+   and 3xTF32, and bf16 at head_dim 256).
 2. Kernels: the flash-attention forward, through flash_attention_fwd_lse
    on the route it picks (told apart by the route counters: the
    tensor-core "sm90" kernel for bf16 at head_dim 64 and 128, the
-   tensor-core "tf32x3" kernel for fp32 there, the CUDA-core "simt"
-   kernel at head_dim 256), against its plain PyTorch version at the
+   tensor-core "tf32x3" kernel for fp32 there, the tensor-core
+   "sm90_d256" kernel for bf16 at head_dim 256, the CUDA-core "simt"
+   kernel for fp32 there), against its plain PyTorch version at the
    serving path's shapes (Llama-3-8B prefill: B=1, H=32, KVH=8, D=128,
    bf16, causal), at the training slice's (B=8, S=2048, H=8, KVH=4) and
    at others: llama3-1b's heads (D=64), ragged lengths 192 and 320, fp32
    at D=64 and at D=128 with GQA, ragged, non-causal and with Sq < Skv
-   and Sq > Skv, non-causal without GQA, bf16 at D=256, GPT-2's
+   and Sq > Skv, non-causal without GQA, D=256 in bf16 and in fp32 (the
+   CUDA-core kernel's route: B=1, S=512, H=8, KVH=2), GPT-2's
    (B=8, S=1024, H=KVH=12, D=64) in fp32 and bf16, and bf16 at
    Gemma-7B's and Gemma-2B's attention (B=4, S=2048, D=256, H=KVH=16 and
    H=8 KVH=1) and the head_dim-256 path's own (phase 13: B=2, S=2048,
-   H=8, KVH=1; the CUDA-core kernel's route).  Tolerances: bf16
+   H=8, KVH=1; the sm90_d256 kernel's route).  Tolerances: bf16
    out max abs error <= 2e-2 (bf16 rounds p and out at other points in
    the tiled loop), lse <= 1e-3; fp32 both <= 1e-4.  Times by CUDA
    events, median of 10 runs: the kernel launched directly (with its
@@ -35,9 +37,10 @@ final line is printed:
    port never calls; the bound is the larger of FLOPs over the card's
    peak for the input type and bytes over 3.35 TB/s, tf32x3's at
    3xTF32's rate (494.7/3 TFLOP/s) and also at the 67 TFLOP/s of fp32
-   FMAs.  At S=4096 and at the training shape (sm90) and at GPT-2's
-   fp32 shape (tf32x3) the CUDA-core kernel is also checked and timed,
-   launched directly, for a before-and-after on one card.
+   FMAs.  At S=4096 and at the training shape (sm90), at GPT-2's fp32
+   shape (tf32x3) and at the three bf16 head_dim-256 shapes (sm90_d256)
+   the CUDA-core kernel is also checked and timed, launched directly,
+   for a before-and-after on one card.
 3. Backward kernels: dQ and dK/dV through flash_attention_backward, on
    the route it picks (tensor-core "sm90" kernels for bf16 at head_dim
    64 and 128, tensor-core "tf32x3" kernels for fp32 there, tensor-core
@@ -175,20 +178,20 @@ final line is printed:
    gradient leaf through the kernels against reference attention on the
    card (D256_GRAD_TOL per leaf, max abs error over max |ref|;
    BF16_LOSS_TOL), then 3 warm-up and 10 timed steps.  Gates: per step
-   the CUDA-core forward and the sm90_d256 dQ and dK/dV once per layer,
-   nothing else; the first step's loss within BF16_LOSS_TOL of reference
+   the sm90_d256 forward, dQ and dK/dV once per layer, nothing else;
+   the first step's loss within BF16_LOSS_TOL of reference
    attention's; the loss falling.  Prints
    step time, tokens/s, MFU, peak memory and a profile of one step with
    the attention kernels' share.
-14. One line {"kernels": [...]} with the eleven kernels (the sm90,
-   tf32x3 and CUDA-core forward; the sm90, tf32x3, sm90_d256 and
-   CUDA-core dQ and dK/dV; launches by path, the main paths being
+14. One line {"kernels": [...]} with the twelve kernels (the sm90,
+   tf32x3, sm90_d256 and CUDA-core forward; the sm90, tf32x3, sm90_d256
+   and CUDA-core dQ and dK/dV; launches by path, the main paths being
    serving, sessions, the loop, the checkpoint directory, the server,
    training, training under each remat policy, GPT-2 in fp32 and bf16
    and the head_dim-256 Llama; the older kernels' times also at GPT-2's
-   shape, the head_dim-256 ones at Gemma-7B's and Gemma-2B's attention
-   and at the head_dim-256 path's own).
-   The CUDA-core dQ and dK/dV serve only fp32 at head_dim 256, which no
+   shape, the sm90_d256 ones at Gemma-7B's and Gemma-2B's attention and
+   at the head_dim-256 path's own).
+   The three CUDA-core kernels serve only fp32 at head_dim 256, which no
    main path uses: they show 0 launches there, and every other kernel
    must show some;
    then the last line
@@ -258,16 +261,17 @@ GRAD_TOL = 1e-4
 # far below what a wrong tile, mask or layout gives (order 1).
 BF16_GRAD_TOL = 5e-2
 BF16_LOSS_TOL = 1e-2   # the loss (~5.7) on fp32 logits of bf16 layers
-# The head_dim-256 Llama's gradients (d256_phase) through the CUDA-core
-# forward and the sm90_d256 backward against bf16 reference attention
-# (softmax in fp32), per leaf, over max |ref|.  Readings
-# (--d256-gate-readings, H100 80GB HBM3 at 700 W): the kernels
-# 5.37e-2, their plain versions on the same path 5.50e-2 (backward only)
-# and 5.34e-2 (both): 18 layers carry the bf16 rounding of p and ds into
-# every leaf, where BF16_GRAD_TOL's two layers read 1.2e-2.  Faults
-# planted in the backward: dQ's diagonal masked 0.163, dK/dV's 0.489, a
-# cluster rank's partial dropped 0.702, the warpgroups' trade skipped
-# 1.32.  The limit lies between.
+# The head_dim-256 Llama's gradients (d256_phase) through the sm90_d256
+# forward and backward against bf16 reference attention (softmax in
+# fp32), per leaf, over max |ref|.  Readings (--d256-gate-readings, H100
+# 80GB HBM3 at 700 W), taken while the forward still ran on the CUDA
+# cores: the kernels 5.37e-2, their plain versions on the same path
+# 5.50e-2 (backward only) and 5.34e-2 (both): 18 layers carry the bf16
+# rounding of p and ds into every leaf, where BF16_GRAD_TOL's two layers
+# read 1.2e-2.  With both directions on the tensor cores the kernels read
+# 5.26e-2 (d256_phase, same card).  Faults planted in the backward: dQ's
+# diagonal masked 0.163, dK/dV's 0.489, a cluster rank's partial dropped
+# 0.702, the warpgroups' trade skipped 1.32.  The limit lies between.
 D256_GRAD_TOL = 0.1
 REPS = 10
 
@@ -350,10 +354,14 @@ FWD_BEFORE_AFTER = {(1, 4096, 32), (8, 2048, 8)}
 GPT2_ATTN = (8, 1024, 1024, 12, 12, 64)
 # Gemma-7B's and Gemma-2B's attention (B, Sq, Skv, H, KVH, D) at a
 # training batch of 4 x 2048: the shapes of the bf16 head_dim-256 kernels
-# (the sm90_d256 backward, the CUDA-core forward); at Gemma-7B's the
-# CUDA-core backward pair is also timed.
+# (the sm90_d256 forward and backward); there, and at the d256 path's
+# own, the CUDA-core forward is also timed, and at Gemma-7B's the
+# CUDA-core backward pair.
 GEMMA7B_ATTN = (4, 2048, 2048, 16, 16, 256)
 GEMMA2B_ATTN = (4, 2048, 2048, 8, 1, 256)
+# The shape at which the CUDA-core forward runs on its own route (fp32 at
+# head_dim 256, on no main path).
+SIMT_FWD_ATTN = (1, 512, 512, 8, 2, 256)
 # The head_dim-256 path's batch of token ids (d256_phase): 2 sequences
 # of 2048 tokens and the next one.
 D256_TOKENS = (2, 2049)
@@ -415,9 +423,10 @@ def _shares(row):
 
 def kernel_phase(torch, fa):
     """The forward kernel, through the route the wrapper picks, against
-    flash_attention_fwd_lse_ref; at FWD_BEFORE_AFTER (sm90) and at
-    GPT-2's fp32 shape (tf32x3) also the CUDA-core kernel, launched
-    directly, for a before-and-after on one card."""
+    flash_attention_fwd_lse_ref; at FWD_BEFORE_AFTER (sm90), at GPT-2's
+    fp32 shape (tf32x3) and at Gemma-7B's, Gemma-2B's and the d256 path's
+    attention (sm90_d256) also the CUDA-core kernel, launched directly,
+    for a before-and-after on one card."""
     import torch.nn.functional as F  # noqa: PLC0415
 
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -440,9 +449,10 @@ def kernel_phase(torch, fa):
         (1, 128, 256, 32, 8, 128, bf16, True),
         (1, 256, 128, 32, 8, 128, bf16, True),
         (1, 512, 512, 8, 2, 256, bf16, True),
+        (*SIMT_FWD_ATTN, fp32, True),              # head_dim 256 (simt)
         (*GPT2_ATTN, fp32, True),                  # GPT-2, fp32 (tf32x3)
         (*GPT2_ATTN, bf16, True),                  # GPT-2, bf16 (sm90)
-        (*GEMMA7B_ATTN, bf16, True),               # head_dim 256 (simt)
+        (*GEMMA7B_ATTN, bf16, True),               # head_dim 256 (sm90_d256)
         (*GEMMA2B_ATTN, bf16, True),
         (*_d256_attn(), bf16, True),               # the d256 path's
     ]
@@ -459,12 +469,14 @@ def kernel_phase(torch, fa):
         shape = _shape(batch, q_len, kv_len, heads, kv_heads, dim, name,
                        causal)
         route = fa._route(dtype, dim, "fwd")
-        before = (fa.fwd_sm90_launch_count, fa.fwd_tf32x3_launch_count)
+        before = (fa.fwd_sm90_launch_count, fa.fwd_tf32x3_launch_count,
+                  fa.fwd_sm90_d256_launch_count)
         out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal)
         torch.cuda.synchronize()
         took = ("sm90" if fa.fwd_sm90_launch_count > before[0] else
                 "tf32x3" if fa.fwd_tf32x3_launch_count > before[1] else
-                "simt")
+                "sm90_d256" if fa.fwd_sm90_d256_launch_count > before[2]
+                else "simt")
         if took != route:
             raise AssertionError(f"forward at {shape} took route {took}, "
                                  f"expected {route}")
@@ -484,9 +496,11 @@ def kernel_phase(torch, fa):
         kernel = "flash_attention_fwd" + fa._SUFFIX[route]
         ms, _, _ = _fwd_kernel_ms(torch, fa, kernel, q, k, v, causal)
         simt = None
-        gpt2 = (batch, q_len, kv_len, heads, kv_heads, dim) == GPT2_ATTN
+        attn = (batch, q_len, kv_len, heads, kv_heads, dim)
         if ((route == "sm90" and (batch, q_len, heads) in FWD_BEFORE_AFTER)
-                or (route == "tf32x3" and gpt2)):
+                or (route == "tf32x3" and attn == GPT2_ATTN)
+                or (route == "sm90_d256" and attn in (
+                    GEMMA7B_ATTN, GEMMA2B_ATTN, _d256_attn()))):
             # The CUDA-core kernel on the same inputs, launched
             # directly: the wrapper no longer routes this dtype and
             # head_dim there.
@@ -765,6 +779,7 @@ def _to_cpu(params):
 
 def _reset_counts(fa):
     fa.launch_count = fa.fwd_sm90_launch_count = fa.fwd_tf32x3_launch_count = 0
+    fa.fwd_sm90_d256_launch_count = 0
     fa.bwd_dq_launch_count = fa.bwd_dkv_launch_count = 0
     fa.bwd_sm90_launch_count = fa.bwd_tf32x3_launch_count = 0
     fa.bwd_sm90_d256_launch_count = 0
@@ -772,11 +787,12 @@ def _reset_counts(fa):
 
 def _counts(fa):
     """Launches since the last reset: the forward on any route, on the
-    sm90 route and on the tf32x3 route, dQ and dK/dV on any route, and
-    backward calls that took the sm90, the tf32x3 and the sm90_d256
+    sm90, the tf32x3 and the sm90_d256 route, dQ and dK/dV on any route,
+    and backward calls that took the sm90, the tf32x3 and the sm90_d256
     pair."""
     return {"fwd": fa.launch_count, "fwd_sm90": fa.fwd_sm90_launch_count,
             "fwd_tf32x3": fa.fwd_tf32x3_launch_count,
+            "fwd_sm90_d256": fa.fwd_sm90_d256_launch_count,
             "dq": fa.bwd_dq_launch_count, "dkv": fa.bwd_dkv_launch_count,
             "sm90": fa.bwd_sm90_launch_count,
             "tf32x3": fa.bwd_tf32x3_launch_count,
@@ -784,12 +800,14 @@ def _counts(fa):
 
 
 def _by_kernel(counts):
-    """Launches of each of the eleven kernels from a _counts() dict."""
+    """Launches of each of the twelve kernels from a _counts() dict."""
     tensor_cores = counts["sm90"] + counts["tf32x3"] + counts["sm90_d256"]
     return {"flash_attention_fwd_sm90": counts["fwd_sm90"],
             "flash_attention_fwd_tf32x3": counts["fwd_tf32x3"],
+            "flash_attention_fwd_sm90_d256": counts["fwd_sm90_d256"],
             "flash_attention_fwd": (counts["fwd"] - counts["fwd_sm90"]
-                                    - counts["fwd_tf32x3"]),
+                                    - counts["fwd_tf32x3"]
+                                    - counts["fwd_sm90_d256"]),
             "flash_attention_bwd_dq_sm90": counts["sm90"],
             "flash_attention_bwd_dkv_sm90": counts["sm90"],
             "flash_attention_bwd_dq_tf32x3": counts["tf32x3"],
@@ -838,8 +856,8 @@ def grad_check_phase(torch, fa, llama):
                       for k, g in grads.items())
         fwd = cfg.n_layers * FWD_PER_LAYER[remat]
         want = {"fwd": fwd, "fwd_sm90": 0, "fwd_tf32x3": fwd,
-                "dq": cfg.n_layers, "dkv": cfg.n_layers, "sm90": 0,
-                "tf32x3": cfg.n_layers, "sm90_d256": 0}
+                "fwd_sm90_d256": 0, "dq": cfg.n_layers, "dkv": cfg.n_layers,
+                "sm90": 0, "tf32x3": cfg.n_layers, "sm90_d256": 0}
         total = {key: total[key] + launches[key] for key in total}
         readings[remat] = {"vs_reference": err_ref, "vs_cpu": err_cpu}
         print(f"gradient check (fp32, head_dim 128, S=256, remat {remat}): "
@@ -903,8 +921,8 @@ def bf16_grad_check_phase(torch, fa, llama):
     spread = {k: _rel_err(g, fp32_grads[k]) for k, g in ref_grads.items()}
     worst = max(err, key=err.get)
     want = {"fwd": cfg.n_layers, "fwd_sm90": cfg.n_layers, "fwd_tf32x3": 0,
-            "dq": cfg.n_layers, "dkv": cfg.n_layers, "sm90": cfg.n_layers,
-            "tf32x3": 0, "sm90_d256": 0}
+            "fwd_sm90_d256": 0, "dq": cfg.n_layers, "dkv": cfg.n_layers,
+            "sm90": cfg.n_layers, "tf32x3": 0, "sm90_d256": 0}
     print(f"gradient check (bf16, head_dim 128, S=256, remat none, sm90 "
           f"backward): loss {loss:.6f}, reference {ref_loss:.6f}; max grad "
           f"error over max |ref| per leaf vs bf16 reference "
@@ -975,8 +993,9 @@ def train_phase(torch, fa, llama):
         return train_step(params, optimizer, tokens, cfg, remat=remat)
 
     per_step = {"fwd": cfg.n_layers, "fwd_sm90": cfg.n_layers,
-                "fwd_tf32x3": 0, "dq": cfg.n_layers, "dkv": cfg.n_layers,
-                "sm90": cfg.n_layers, "tf32x3": 0, "sm90_d256": 0}
+                "fwd_tf32x3": 0, "fwd_sm90_d256": 0, "dq": cfg.n_layers,
+                "dkv": cfg.n_layers, "sm90": cfg.n_layers, "tf32x3": 0,
+                "sm90_d256": 0}
     losses, step_ms, launches, peak_gb = _train_steps(torch, fa, step,
                                                       per_step)
     ms = statistics.median(step_ms[3:])
@@ -1019,8 +1038,8 @@ def remat_phase(torch, fa, llama):
 
         n = cfg.n_layers
         per_step = {"fwd": fwd * n, "fwd_sm90": fwd * n, "fwd_tf32x3": 0,
-                    "dq": n, "dkv": n, "sm90": n, "tf32x3": 0,
-                    "sm90_d256": 0}
+                    "fwd_sm90_d256": 0, "dq": n, "dkv": n, "sm90": n,
+                    "tf32x3": 0, "sm90_d256": 0}
         losses, step_ms, launches, peak_gb = _train_steps(torch, fa, step,
                                                           per_step)
         ms = statistics.median(step_ms[3:])
@@ -1169,8 +1188,10 @@ def gpt2_phase(torch, fa, dtype_name):
     n = cfg.n_layers
     fwd, bwd = (fa._route(dtype, cfg.head_dim, d) for d in ("fwd", "bwd"))
     per_step = {"fwd": 2 * n, "fwd_sm90": 2 * n * (fwd == "sm90"),
-                "fwd_tf32x3": 2 * n * (fwd == "tf32x3"), "dq": n, "dkv": n,
-                "sm90": n * (bwd == "sm90"), "tf32x3": n * (bwd == "tf32x3"),
+                "fwd_tf32x3": 2 * n * (fwd == "tf32x3"),
+                "fwd_sm90_d256": 2 * n * (fwd == "sm90_d256"), "dq": n,
+                "dkv": n, "sm90": n * (bwd == "sm90"),
+                "tf32x3": n * (bwd == "tf32x3"),
                 "sm90_d256": n * (bwd == "sm90_d256")}
     losses, step_ms, launches, peak_gb = _train_steps(torch, fa, step,
                                                       per_step)
@@ -1256,7 +1277,7 @@ def d256_phase(torch, fa, llama):
     AdamW, remat "none".  First one step's loss and every gradient leaf
     through the kernels against reference attention on the card
     (D256_GRAD_TOL, BF16_LOSS_TOL); then 3 warm-up and 10 timed
-    train_step calls.  Gates: per step the CUDA-core forward and the
+    train_step calls.  Gates: per step the sm90_d256 forward and the
     sm90_d256 backward pair once per layer, no other flash kernel; the
     first step's loss within BF16_LOSS_TOL of reference attention's; the
     loss finite and falling.  Prints step time, tokens/s, MFU against
@@ -1279,11 +1300,11 @@ def d256_phase(torch, fa, llama):
 
     n = cfg.n_layers
     fwd, bwd = (fa._route(cfg.dtype, cfg.head_dim, d) for d in ("fwd", "bwd"))
-    if (fwd, bwd) != ("simt", "sm90_d256"):
+    if (fwd, bwd) != ("sm90_d256", "sm90_d256"):
         raise AssertionError(f"head_dim 256 in bf16 routes to {fwd} and "
                              f"{bwd}")
-    per_step = {"fwd": n, "fwd_sm90": 0, "fwd_tf32x3": 0, "dq": n, "dkv": n,
-                "sm90": 0, "tf32x3": 0, "sm90_d256": n}
+    per_step = {"fwd": n, "fwd_sm90": 0, "fwd_tf32x3": 0, "fwd_sm90_d256": n,
+                "dq": n, "dkv": n, "sm90": 0, "tf32x3": 0, "sm90_d256": n}
     loss, ref_loss, err, grad_launches = _d256_grad_check(
         torch, fa, llama, cfg, params, tokens)
     worst = max(err, key=err.get)
@@ -1381,8 +1402,8 @@ def slice_phase(torch, fa, llama):
           f"backward kernel launches {launches['dq']} and {launches['dkv']} "
           f"(expected 0)", flush=True)
     if launches != {"fwd": expected, "fwd_sm90": expected, "fwd_tf32x3": 0,
-                    "dq": 0, "dkv": 0, "sm90": 0, "tf32x3": 0,
-                    "sm90_d256": 0}:
+                    "fwd_sm90_d256": 0, "dq": 0, "dkv": 0, "sm90": 0,
+                    "tf32x3": 0, "sm90_d256": 0}:
         raise AssertionError(f"serving launched {launches}, expected "
                              f"{expected} sm90 forward and no other launches")
 
@@ -2075,8 +2096,8 @@ def checkpoint_phase(torch, fa, llama):
         raise AssertionError(f"checkpoint phase failed: {per_format}, "
                              f"server ok {server_ok}")
     if launches != {"fwd": expected, "fwd_sm90": expected, "fwd_tf32x3": 0,
-                    "dq": 0, "dkv": 0, "sm90": 0, "tf32x3": 0,
-                    "sm90_d256": 0}:
+                    "fwd_sm90_d256": 0, "dq": 0, "dkv": 0, "sm90": 0,
+                    "tf32x3": 0, "sm90_d256": 0}:
         raise AssertionError(f"checkpoint phase launched {launches}")
     return launches
 
@@ -2350,7 +2371,7 @@ def _print_ptxas(build, lib):
 
 
 def kernels_line(rows, bwd_rows, paths):
-    """The {"kernels": [...]} record of the eleven kernels from the kernel
+    """The {"kernels": [...]} record of the twelve kernels from the kernel
     phases' rows and the launches of every path; raises if a kernel that
     a main path should run was not launched on one."""
     by_path = {path: _by_kernel(c) for path, c in paths.items()}
@@ -2358,16 +2379,18 @@ def kernels_line(rows, bwd_rows, paths):
 
     # Forward: S=4096, the largest prefill of the serving slice, for sm90,
     # where the CUDA-core kernel was also timed; GPT-2's fp32 shape for
-    # tf32x3, where it was too; Gemma-7B's attention for the CUDA-core
-    # kernel (bf16 at head_dim 256, the d256 path's route).  Backward: the
-    # training slice's shape (the first backward case) for sm90 and the
-    # CUDA-core pair, also timed there; GPT-2's fp32 shape for tf32x3,
-    # where the CUDA-core pair was too; Gemma-7B's attention for
-    # sm90_d256, where it was too.  The head_dim-256 kernels also give
-    # their times at Gemma-2B's attention and at the d256 path's own.
+    # tf32x3, where it was too; Gemma-7B's attention for sm90_d256, where
+    # it was too; SIMT_FWD_ATTN in fp32 for the CUDA-core kernel (its own
+    # route, on no main path).  Backward: the training slice's shape (the
+    # first backward case) for sm90 and the CUDA-core pair, also timed
+    # there; GPT-2's fp32 shape for tf32x3, where the CUDA-core pair was
+    # too; Gemma-7B's attention for sm90_d256, where it was too.  The
+    # sm90_d256 kernels also give their times at Gemma-2B's attention and
+    # at the d256 path's own.
     main_row = next(r for r in rows if r["shape"].startswith("B=1 Sq=4096 "))
     train_row = next(r for r in rows if r["shape"].startswith("B=8 Sq=2048 "))
-    simt_row = next(r for r in rows if r["route"] == "simt")
+    simt_row = next(r for r in rows if r["shape"] == _shape(
+        *SIMT_FWD_ATTN, "float32", True))
     bwd_row = bwd_rows[0]
     gemma = {name: _shape(*attn, "bfloat16", True) for name, attn in
              (("gemma7b", GEMMA7B_ATTN), ("gemma2b", GEMMA2B_ATTN),
@@ -2398,9 +2421,18 @@ def kernels_line(rows, bwd_rows, paths):
         return {"launches": sum(by_path[p][name] for p in main_paths),
                 "launches_by_path": {p: by_path[p][name] for p in by_path}}
 
+    def gemma_keys(other, row, timed, bound_ms):
+        return {f"{other}_shape": row["shape"],
+                f"{other}_shape_ms": timed["ms"],
+                f"{other}_shape_share_of_bound": timed["share_of_bound"],
+                f"{other}_shape_bound_ms": bound_ms,
+                f"{other}_shape_plain_ms": row["plain_ms"],
+                f"{other}_shape_library_ms": row["library_ms"]}
+
     def fwd_entry(name, route, source):
         g32 = gpt2_rows["float32"]
         extra = {}
+        gpt2 = None
         if route == "sm90":
             at = timed = main_row
             err_rows = [r for r in rows if r["route"] == "sm90"]
@@ -2416,27 +2448,37 @@ def kernels_line(rows, bwd_rows, paths):
             extra = {"bound_ms_fp32_fma": g32["fp32_fma_bound_ms"],
                      "share_of_fp32_fma_bound": g32["share_of_fp32_fma_bound"],
                      "simt_ms_same_inputs": g32["simt"]["ms"]}
-        else:
-            # Its main shape is Gemma-7B's attention (the d256 path's
-            # route); also Gemma-2B's, the d256 path's, and B=1 S=512.
+        elif route == "sm90_d256":
+            # Its main shape is Gemma-7B's attention; also Gemma-2B's and
+            # the d256 path's, each beside the CUDA-core kernel's time on
+            # the same inputs.
             at = timed = gemma_rows["gemma7b"]
+            err_rows = [r for r in rows if r["route"] == "sm90_d256"]
+            extra = {"simt_ms_same_inputs": at["simt"]["ms"]}
+            for other in ("gemma2b", "d256_path"):
+                row = gemma_rows[other]
+                extra.update(gemma_keys(other, row, row, row["bound_ms"]))
+                extra[f"{other}_shape_simt_ms_same_inputs"] = \
+                    row["simt"]["ms"]
+        else:
+            # Its main shape is SIMT_FWD_ATTN in fp32, the only inputs
+            # routed to it; also its times on the other kernels' inputs,
+            # launched directly (bf16 at S=4096, the training shape and
+            # the head_dim-256 shapes; GPT-2's fp32 shape).
+            at = timed = simt_row
             err_rows = [r["simt"] for r in rows if "simt" in r] + [
                 r for r in rows if r["route"] == "simt"]
             gpt2 = ("float32", g32["simt"], g32["fp32_fma_bound_ms"])
             extra = {"s4096_ms": main_row["simt"]["ms"],
-                     "train_shape_ms": train_row["simt"]["ms"],
-                     "s512_shape": simt_row["shape"],
-                     "s512_shape_ms": simt_row["ms"]}
-            for other in ("gemma2b", "d256_path"):
-                row = gemma_rows[other]
-                extra.update({
-                    f"{other}_shape": row["shape"],
-                    f"{other}_shape_ms": row["ms"],
-                    f"{other}_shape_share_of_bound": row["share_of_bound"],
-                    f"{other}_shape_bound_ms": row["bound_ms"],
-                    f"{other}_shape_plain_ms": row["plain_ms"],
-                    f"{other}_shape_library_ms": row["library_ms"]})
-        dtype, gpt2_timed, gpt2_bound_ms = gpt2
+                     "train_shape_ms": train_row["simt"]["ms"]}
+            for other, row in gemma_rows.items():
+                extra[f"{other}_shape"] = row["shape"]
+                extra[f"{other}_shape_ms"] = row["simt"]["ms"]
+        if gpt2 is not None:
+            dtype, gpt2_timed, gpt2_bound_ms = gpt2
+            extra.update(_gpt2_keys(dtype, gpt2_timed, gpt2_bound_ms,
+                                    gpt2_rows[dtype]["plain_ms"],
+                                    gpt2_rows[dtype]["library_ms"]))
         return {
             "name": name,
             "route": "cuda",
@@ -2455,9 +2497,6 @@ def kernels_line(rows, bwd_rows, paths):
             **extra,
             "library_ms": at["library_ms"],
             "shape": at["shape"],
-            **_gpt2_keys(dtype, gpt2_timed, gpt2_bound_ms,
-                         gpt2_rows[dtype]["plain_ms"],
-                         gpt2_rows[dtype]["library_ms"]),
         }
 
     def bwd_entry(name, key, grads, route, source, line):
@@ -2474,14 +2513,8 @@ def kernels_line(rows, bwd_rows, paths):
                      + g7["simt"]["dkv"]["ms"]}
             for other in ("gemma2b", "d256_path"):
                 row = gemma_bwd_rows[other]
-                extra.update({
-                    f"{other}_shape": row["shape"],
-                    f"{other}_shape_ms": row["kernels"][key]["ms"],
-                    f"{other}_shape_share_of_bound":
-                        row["kernels"][key]["share_of_bound"],
-                    f"{other}_shape_bound_ms": row["bounds"][key][0],
-                    f"{other}_shape_plain_ms": row["plain_ms"],
-                    f"{other}_shape_library_ms": row["library_ms"]})
+                extra.update(gemma_keys(other, row, row["kernels"][key],
+                                        row["bounds"][key][0]))
         elif route == "sm90":
             at, timed = bwd_row, bwd_row["kernels"][key]
             err_rows = [r for r in bwd_rows if r["route"] == "sm90"]
@@ -2537,10 +2570,10 @@ def kernels_line(rows, bwd_rows, paths):
             "shape": at["shape"],
         }
 
-    # The CUDA-core dQ and dK/dV take only fp32 at head_dim 256 now,
-    # which no main path uses; every other kernel must run on one (the
-    # CUDA-core forward on the d256 path).
-    off_main_paths = {"flash_attention_bwd_dq", "flash_attention_bwd_dkv"}
+    # The CUDA-core kernels take only fp32 at head_dim 256 now, which no
+    # main path uses; every other kernel must run on one.
+    off_main_paths = {"flash_attention_fwd", "flash_attention_bwd_dq",
+                      "flash_attention_bwd_dkv"}
     for name in next(iter(by_path.values())):
         if name not in off_main_paths and not launches(name)["launches"]:
             raise AssertionError(f"{name} was not launched on the main path")
@@ -2549,6 +2582,8 @@ def kernels_line(rows, bwd_rows, paths):
                   "flash_attention_fwd_sm90.cu"),
         fwd_entry("flash_attention_fwd_tf32x3", "tf32x3",
                   "flash_attention_fwd_tf32x3.cu"),
+        fwd_entry("flash_attention_fwd_sm90_d256", "sm90_d256",
+                  "flash_attention_fwd_sm90_d256.cu"),
         fwd_entry("flash_attention_fwd", "simt", "flash_attention_fwd.cu"),
         bwd_entry("flash_attention_bwd_dq_sm90", "dq", ("dq",), "sm90",
                   "flash_attention_bwd_sm90.cu", 196),
@@ -2686,6 +2721,7 @@ def main() -> int:
 
     for lib in ("flash_attention_fwd_sm90", "flash_attention_bwd_sm90",
                 "flash_attention_fwd_tf32x3", "flash_attention_bwd_tf32x3",
+                "flash_attention_fwd_sm90_d256",
                 "flash_attention_bwd_sm90_d256"):
         _print_ptxas(_build, lib)
 

@@ -1,8 +1,8 @@
 """The hand-written CUDA flash-attention kernels (the forward, and the dQ
 and dK/dV backward, each on its routes: the bf16 tensor-core kernels at
 head_dim 64 and 128, fp32 in 3xTF32 on the tensor cores at head_dim 64
-and 128, the bf16 tensor-core backward at head_dim 256, the CUDA-core
-kernels for the rest of head_dim 256) against their
+and 128, the bf16 tensor-core kernels at head_dim 256, the CUDA-core
+kernels for fp32 at head_dim 256) against their
 plain PyTorch versions, on the card; GPT-2 and the remat policies
 through the kernels; and the session slabs' round
 trip between the card and host memory, bitwise, with an install from
@@ -208,6 +208,72 @@ def test_sm90_forward_refuses_an_unaligned_input(cuda):
     with pytest.raises(ValueError, match="16-byte"):
         fa.flash_attention_fwd_lse(q_off, k, v)
     assert (fa.fwd_sm90_launch_count, fa.launch_count) == before
+
+
+@pytest.mark.parametrize("q_len,kv_len,heads,kv_heads,causal", [
+    (256, 256, 8, 8, True),     # H = KVH, as Gemma-7B
+    (256, 256, 8, 8, False),
+    (256, 256, 8, 2, True),     # GQA, 4 query heads a KV head
+    (256, 256, 8, 1, True),     # GQA 8:1, one KV head, as Gemma-2B
+    (256, 256, 8, 1, False),
+    (192, 192, 8, 2, True),     # ragged: the last 128-row q tile is half
+    (192, 192, 8, 1, False),
+    (320, 320, 8, 8, True),
+    (128, 256, 8, 2, True),     # Sq < Skv: query i sees keys 0..i
+    (256, 128, 8, 2, True),     # Sq > Skv: queries 128.. see every key
+    (128, 256, 8, 4, False),
+])
+def test_sm90_d256_forward_matches_plain_version(cuda, q_len, kv_len, heads,
+                                                 kv_heads, causal):
+    """The bf16 forward at head_dim 256 on its own tensor-core route (B=2):
+    both 128-column halves of out (each an accumulator of its own) and
+    lse against the plain version; its counter moves, and no other
+    forward route's (the CUDA-core kernel's launches are the rest of
+    launch_count)."""
+    q, k, v = _qkv(cuda, q_len, kv_len, heads, kv_heads, 256,
+                   torch.bfloat16)
+    counters = ("fwd_sm90_d256_launch_count", "launch_count",
+                "fwd_sm90_launch_count", "fwd_tf32x3_launch_count")
+    before = [getattr(fa, name) for name in counters]
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert [getattr(fa, name) for name in counters] == \
+        [before[0] + 1, before[1] + 1, before[2], before[3]]
+    want_out, want_lse = fa.flash_attention_fwd_lse_ref(q, k, v,
+                                                        causal=causal)
+    tol_out, tol_lse = TOL[torch.bfloat16]
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert lse.shape == want_lse.shape
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    for half in (out[..., :128], out[..., 128:]):
+        assert half.float().abs().max() > 0
+    assert (out.float() - want_out.float()).abs().max().item() <= tol_out
+    assert (lse - want_lse).abs().max().item() <= tol_lse
+
+
+@pytest.mark.parametrize("dtype,dim,d256", [
+    (torch.bfloat16, 64, False), (torch.bfloat16, 128, False),
+    (torch.bfloat16, 256, True), (torch.float32, 64, False),
+    (torch.float32, 128, False), (torch.float32, 256, False),
+])
+def test_fwd_sm90_d256_count_rises_only_on_its_route(cuda, dtype, dim, d256):
+    q, k, v = _qkv(cuda, 128, 128, 4, 2, dim, dtype)
+    before = (fa.fwd_sm90_d256_launch_count, fa.launch_count)
+    fa.flash_attention_fwd_lse(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.fwd_sm90_d256_launch_count == before[0] + int(d256)
+    assert fa.launch_count == before[1] + 1
+
+
+def test_sm90_d256_forward_refuses_an_unaligned_input(cuda):
+    q, k, v = _qkv(cuda, 128, 128, 4, 2, 256, torch.bfloat16)
+    shifted = torch.empty(v.numel() + 8, dtype=v.dtype, device="cuda")
+    v_off = shifted[1:v.numel() + 1].view(v.shape)    # 2 bytes in
+    v_off.copy_(v)
+    before = (fa.fwd_sm90_d256_launch_count, fa.launch_count)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_fwd_lse(q, k, v_off)
+    assert (fa.fwd_sm90_d256_launch_count, fa.launch_count) == before
 
 
 @pytest.mark.parametrize("dim", [64, 128])

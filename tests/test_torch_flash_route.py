@@ -7,11 +7,12 @@ of ``csrc/flash_attention_fwd_sm90.cu`` and
 ``csrc/flash_attention_bwd_sm90.cu`` in both directions; fp32 at head_dim
 64 and 128 to the 3xTF32 tensor-core kernels of
 ``csrc/flash_attention_fwd_tf32x3.cu`` and
-``csrc/flash_attention_bwd_tf32x3.cu`` in both directions; the bf16
-backward at head_dim 256 to the tensor-core kernels of
-``csrc/flash_attention_bwd_sm90_d256.cu``; the rest of head_dim 256 (the
-forward in either dtype, the fp32 backward) to the CUDA-core kernels of
-``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``.
+``csrc/flash_attention_bwd_tf32x3.cu`` in both directions; bf16 at
+head_dim 256 to the tensor-core kernels of
+``csrc/flash_attention_fwd_sm90_d256.cu`` and
+``csrc/flash_attention_bwd_sm90_d256.cu`` in both directions; fp32 at
+head_dim 256 to the CUDA-core kernels of ``csrc/flash_attention_fwd.cu``
+and ``csrc/flash_attention_bwd.cu``.
 Shapes no kernel takes raise before any launch (tested on the meta
 device, which reaches the kernel checks without a card), and CPU tensors
 run the plain version and launch nothing.
@@ -29,7 +30,8 @@ DTYPES = (torch.float32, torch.bfloat16)
 COUNTERS = ("launch_count", "fwd_sm90_launch_count",
             "fwd_tf32x3_launch_count", "bwd_dq_launch_count",
             "bwd_dkv_launch_count", "bwd_sm90_launch_count",
-            "bwd_tf32x3_launch_count", "bwd_sm90_d256_launch_count")
+            "bwd_tf32x3_launch_count", "bwd_sm90_d256_launch_count",
+            "fwd_sm90_d256_launch_count")
 
 
 def _counts():
@@ -37,11 +39,11 @@ def _counts():
 
 
 def _want_route(dtype, head_dim, direction):
+    """The same rule in both directions (``direction`` is checked by
+    ``_route`` alone)."""
     if head_dim in (64, 128):
         return "sm90" if dtype == torch.bfloat16 else "tf32x3"
-    if dtype == torch.bfloat16 and direction == "bwd":
-        return "sm90_d256"
-    return "simt"
+    return "sm90_d256" if dtype == torch.bfloat16 else "simt"
 
 
 @pytest.mark.parametrize("head_dim", fa.HEAD_DIMS)
@@ -60,9 +62,10 @@ def test_bwd_route_by_dtype_and_head_dim(dtype, head_dim):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_fwd_route_by_dtype_and_head_dim(dtype, head_dim):
     """The forward: tf32x3 for fp32 at 64 and 128, sm90 for bf16 there,
-    the CUDA cores at 256 in either dtype."""
+    sm90_d256 for bf16 at 256, the CUDA cores for fp32 at 256."""
     want = {(torch.float32, 64): "tf32x3", (torch.float32, 128): "tf32x3",
-            (torch.bfloat16, 64): "sm90", (torch.bfloat16, 128): "sm90"}
+            (torch.bfloat16, 64): "sm90", (torch.bfloat16, 128): "sm90",
+            (torch.bfloat16, 256): "sm90_d256"}
     assert fa._route(dtype, head_dim, "fwd") == want.get((dtype, head_dim),
                                                          "simt")
 
@@ -96,18 +99,18 @@ def test_both_wrappers_launch_the_entry_points_of_one_route(
                         f"flash_attention_bwd_dkv{suffix[bwd]}"]
     assert _counts() == (1, int(fwd == "sm90"), int(fwd == "tf32x3"), 1, 1,
                          int(bwd == "sm90"), int(bwd == "tf32x3"),
-                         int(bwd == "sm90_d256"))
+                         int(bwd == "sm90_d256"), int(fwd == "sm90_d256"))
 
 
 @pytest.mark.parametrize("kernel,suffix", [
     *[(kernel, suffix) for suffix in ("", "_sm90", "_tf32x3")
       for kernel in ("fwd", "bwd_dq", "bwd_dkv")],
     ("bwd_dq", "_sm90_d256"), ("bwd_dkv", "_sm90_d256"),
+    ("fwd", "_sm90_d256"),
 ])
 def test_every_route_names_an_entry_point_with_a_source(kernel, suffix):
     """Each route's entry points, for each direction it serves, exist with
-    their pointer counts in a source that defines them (the sm90_d256
-    route serves only the backward)."""
+    their pointer counts in a source that defines them."""
     name = f"flash_attention_{kernel}{suffix}"
     lib, n_ptr = fa._ENTRY_POINTS[name]
     assert f"int {name}(" in (_build.CSRC / f"{lib}.cu").read_text()
@@ -146,6 +149,7 @@ def test_backward_wrapper_raises_on_what_no_kernel_takes(q_len, dim, dtype,
     (128, 128, torch.bfloat16, "device"),
     (128, 64, torch.bfloat16, "device"),
     (128, 256, torch.float32, "device"),
+    (128, 256, torch.bfloat16, "device"),
 ])
 def test_forward_wrapper_raises_on_what_no_kernel_takes(q_len, dim, dtype,
                                                         match):
@@ -180,7 +184,26 @@ def test_the_bf16_d256_backward_checks_alignment(monkeypatch):
     assert events == [("aligned", 9),
                       ("launch", "flash_attention_bwd_dq_sm90_d256"),
                       ("launch", "flash_attention_bwd_dkv_sm90_d256")]
-    assert _counts()[3:] == (1, 1, 0, 0, 1)
+    assert _counts()[3:] == (1, 1, 0, 0, 1, 0)
+
+
+def test_the_bf16_d256_forward_checks_alignment(monkeypatch):
+    """The bf16 forward at head_dim 256 copies 16 bytes at a time (TMA)
+    too: its route checks the alignment of q, k, v, out and lse before
+    the launch, and counts the launch on its own counter."""
+    events = []
+    monkeypatch.setattr(fa, "_check_kernel_inputs", lambda q, k: None)
+    monkeypatch.setattr(fa, "_check_aligned",
+                        lambda *ts: events.append(("aligned", len(ts))))
+    monkeypatch.setattr(fa, "_launch",
+                        lambda name, *args: events.append(("launch", name)))
+    for counter in COUNTERS:
+        monkeypatch.setattr(fa, counter, 0)
+    q, k, v, _, _, _ = _meta_inputs(128, 4, 2, 256, torch.bfloat16)
+    fa.flash_attention_fwd_lse(q, k, v, causal=True)
+    assert events == [("aligned", 5),
+                      ("launch", "flash_attention_fwd_sm90_d256")]
+    assert _counts() == (1, 0, 0, 0, 0, 0, 0, 0, 1)
 
 
 @pytest.mark.parametrize("head_dim", fa.HEAD_DIMS)
