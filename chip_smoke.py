@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (ant_ray_tpu_torch) on one NVIDIA
 GPU: the quickest proof that the port still builds, serves and trains
-there.
+there, and that its runtime and object plane carry tensors of the card.
 
     python3 chip_smoke.py
 
@@ -27,7 +27,7 @@ final line is printed:
    CUDA-core kernel's route: B=1, S=512, H=8, KVH=2), GPT-2's
    (B=8, S=1024, H=KVH=12, D=64) in fp32 and bf16, and bf16 at
    Gemma-7B's and Gemma-2B's attention (B=4, S=2048, D=256, H=KVH=16 and
-   H=8 KVH=1) and the head_dim-256 path's own (phase 13: B=2, S=2048,
+   H=8 KVH=1) and the head_dim-256 path's own (phase 15: B=2, S=2048,
    H=8, KVH=1; the sm90_d256 kernel's route).  Tolerances: bf16
    out max abs error <= 2e-2 (bf16 rounds p and out at other points in
    the tiled loop), lse <= 1e-3; fp32 both <= 1e-4.  Times by CUDA
@@ -51,7 +51,7 @@ final line is printed:
    128-row tiles), Sq != Skv, fp32 at D=64 and D=128 with GQA, ragged
    and with more keys, D=256 in fp32 and bf16, GPT-2's in fp32 and
    bf16, and Gemma-7B's and Gemma-2B's attention and the head_dim-256
-   path's (phase 13: B=2, S=2048, H=8, KVH=1) in bf16 (BWD_TOL: max
+   path's (phase 15: B=2, S=2048, H=8, KVH=1) in bf16 (BWD_TOL: max
    abs error over max |ref| per tensor).  Each line gives per kernel
    its route, time, achieved TFLOP/s and share of its bound (tf32x3's
    at 3xTF32's rate, 494.7/3 TFLOP/s, and also at the 67 TFLOP/s of
@@ -110,8 +110,42 @@ final line is printed:
    must finish within 120 s without error and stream exactly its final
    tokens; a second turn, then evict_session and end_session through the
    loop.  Prints TTFT per request and loop.stats(); no flash launch.
+8. The runtime in local mode (ant_ray_tpu_torch.init(local_mode=True))
+   on the same weights: an actor holding LLMEngine("llama3-8b", slots=2,
+   max_seq=4096) answers greedy prompts of 20 and 1500 random token ids
+   (32 new tokens each) after a warm-up round, each beside the same
+   engine called directly; a task returns a CUDA tensor, put/get carry
+   one, wait splits the actor's refs; then 2000 no-op actor calls and
+   tasks in turns with the same method and function called directly.
+   Gates: the actor's tokens equal the direct engine's token for token;
+   every tensor on the card and bitwise equal; in the counted round the
+   sm90 forward launched n_layers times for each prefill of a bucket of
+   128 or more, directly and through the actor, and nothing else.
+   Prints one "runtime" JSON line with the wall of each call beside the
+   direct call's and, under "overhead", the runtime's own cost per call
+   (medians, microseconds).  These launches stay out of the kernels line
+   (phase 16), whose paths and counts are those of the phases it names.
+9. The object plane on the card: one slot's KV slab of that direct
+   engine (cache["k"][:, 0] and cache["v"][:, 0], 32 x 4096 x 8 x 128
+   bf16 each, two non-contiguous views, 0.537 GB) goes through
+   serialize -> ObjectStore.create_buffer -> write_into(view_unsealed)
+   -> seal_buffer on the native arena in a directory of /dev/shm, and
+   back through locate -> ArenaClient.view -> from_payload(pin_owner=)
+   -> deserialize onto the card, once and then five times; then a mixed dict (a bf16
+   non-contiguous view, fp32, int64, bool, a 0-dim tensor, a numpy
+   array and an ObjectRef).  Gates: the native module builds and the
+   store is on its arena (no fallback to files), /dev/shm and the store
+   hold the slab (else it raises with the sizes; the payload is never
+   shrunk), every round trip bitwise on the card, the ref recorded in
+   contained_refs, no pin left.  Prints one "objects" JSON line: the
+   card, /dev/shm's size, the store's capacity, the native build time,
+   put and get ms of the first round trip, and ms and GB/s as the median
+   of the five after it (put split into serialize, which holds the
+   device-to-host copy, and the copy into the arena), beside a direct
+   .cpu() and .to("cuda") of the same bytes, also past a first one.
+   The directory is removed at the end, at exit and on SIGTERM.
    The 8B weights are freed after this phase.
-8. Serving from a checkpoint directory: llama-400m at its published
+10. Serving from a checkpoint directory: llama-400m at its published
    widths and depth (bf16, seed 0) written to a temporary directory of
    this checkout in the HF layout twice, as model.safetensors (a writer
    here: the format's header and raw buffers) and as pytorch_model.bin
@@ -125,7 +159,7 @@ final line is printed:
    write and load seconds and GB/s (host clock; the write ends in fsync,
    the load is the engine's construction), then the launches and peak
    memory.
-9. LLMServer on Llama-3-8B (random weights from seed 0, slots=8,
+11. LLMServer on Llama-3-8B (random weights from seed 0, slots=8,
    max_seq=4096, the reference's serving defaults: chunks of 64,
    kv_offload="local").  Four client threads send four completions of
    100 to 1500 token ids (one opening a session), two chats, two streams
@@ -139,7 +173,7 @@ final line is printed:
    its first token; no flash launch.  Prints TTFT per request
    (handle.ttft_s() through the server's loop), the wall time,
    load_signals, device_memory_stats() and peak memory.
-10. The training slice: llama-400m at its published widths and all 24
+12. The training slice: llama-400m at its published widths and all 24
    layers, bf16, random weights from seed 0, one fixed batch of 8 x 2049
    token ids, AdamW (make_optimizer), remat "none": 3 warm-up and 10
    timed train_step calls.  The launch counts are reset just before and
@@ -147,7 +181,7 @@ final line is printed:
    once per layer, all on the sm90 route.  Prints the step time,
    tokens/s, MFU against the bf16 peak, peak memory and a torch.profiler
    line of one step.
-11. Remat: the training slice again, from the same weights, under
+13. Remat: the training slice again, from the same weights, under
    each remat policy ("none", "full", "dots", "matmuls"), 3 warm-up and
    10 timed steps each.  Gates: the forward kernel launched twice per
    layer and step under "full" and "dots" and once under "none" and
@@ -157,7 +191,7 @@ final line is printed:
    Prints per policy the step time, tokens/s, MFU and peak memory, a
    profile, and the step on 1 x 128 tokens, where the host sets the
    time.
-12. GPT-2: `gpt2` (124 M) at its published widths and depth, in its
+14. GPT-2: `gpt2` (124 M) at its published widths and depth, in its
    published fp32 (the 3xTF32 forward and backward) and in a
    bf16 copy (the sm90 kernels at head_dim 64, plain multi-head
    attention), random weights
@@ -170,7 +204,7 @@ final line is printed:
    GPT2_LOGIT_TOL of reference attention's and the greedy next tokens
    equal but for ties.  Prints step time, tokens/s, MFU against the
    peak of the dtype the step computes in, and peak memory.
-13. Head_dim 256: a Llama at Gemma-2B's widths (hidden 2048, 8 heads
+15. Head_dim 256: a Llama at Gemma-2B's widths (hidden 2048, 8 heads
    of 256, 1 KV head, MLP 16384, vocab 256000, tied embeddings, 18
    layers; 2.51 B parameters; SwiGLU and no embedding scale, so not
    Gemma), bf16, random weights from seed 0, a fixed batch of 2 x 2049
@@ -183,7 +217,7 @@ final line is printed:
    attention's; the loss falling.  Prints
    step time, tokens/s, MFU, peak memory and a profile of one step with
    the attention kernels' share.
-14. One line {"kernels": [...]} with the twelve kernels (the sm90,
+16. One line {"kernels": [...]} with the twelve kernels (the sm90,
    tf32x3, sm90_d256 and CUDA-core forward; the sm90, tf32x3, sm90_d256
    and CUDA-core dQ and dK/dV; launches by path, the main paths being
    serving, sessions, the loop, the checkpoint directory, the server,
@@ -216,11 +250,15 @@ one JSON line.  The second copies this script and the package into DIR
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import importlib.util
+import itertools
 import json
 import os
 import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -1937,6 +1975,331 @@ def loop_phase(torch, fa, llama, params):
     return launches
 
 
+# Runtime phase: Llama-3-8B behind a local-mode actor.
+RUNTIME_PROMPTS = (20, 1500)    # prompt tokens
+RUNTIME_TOKENS = 32             # new tokens per prompt
+RUNTIME_NOOP_CALLS = 2000       # calls of each kind in the overhead probe
+
+
+class _Echo:
+    def ping(self, x):
+        return x
+
+
+def _echo(x):
+    return x
+
+
+def runtime_overhead(art, calls=RUNTIME_NOOP_CALLS):
+    """The runtime's own cost per call in local mode: a no-op actor
+    method and a no-op task through ``.remote()`` + ``get``, beside the
+    same method and function called directly, in turns, one call at a
+    time; medians in microseconds on the host's clock."""
+    actor, task, plain = art.remote(_Echo).remote(), art.remote(_echo), _Echo()
+    kinds = {"actor_call": lambda i: art.get(actor.ping.remote(i)),
+             "direct_method": plain.ping,
+             "task": lambda i: art.get(task.remote(i)),
+             "direct_fn": _echo}
+    times = {k: [] for k in kinds}
+    for i in range(calls):
+        for kind, fn in kinds.items():
+            t0 = time.perf_counter_ns()
+            out = fn(i)
+            times[kind].append(time.perf_counter_ns() - t0)
+            if out != i:
+                raise AssertionError(f"{kind} returned {out!r} for {i}")
+    us = {f"{k}_us": statistics.median(v) / 1e3 for k, v in times.items()}
+    us["actor_overhead_us"] = us["actor_call_us"] - us["direct_method_us"]
+    us["task_overhead_us"] = us["task_us"] - us["direct_fn_us"]
+    return {"calls": calls, **us}
+
+
+def runtime_phase(torch, fa, llama, params):
+    """The runtime in local mode on the card: an actor holding an
+    LLMEngine("llama3-8b") on the given weights answers two greedy
+    prompts, whose tokens must equal the same engine's called directly
+    (after a direct warm-up round); a task returns a CUDA tensor,
+    put/get carry one, wait splits the actor's refs, and no-op calls
+    measure the runtime's own cost per call.  Returns the engine, whose
+    cache the objects phase ships."""
+    import ant_ray_tpu_torch as art  # noqa: PLC0415
+    from ant_ray_tpu_torch.llm import LLMEngine, SamplingParams  # noqa: PLC0415
+    from ant_ray_tpu_torch.llm.engine import _bucket  # noqa: PLC0415
+
+    cfg = llama.CONFIGS["llama3-8b"]
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in RUNTIME_PROMPTS]
+    greedy = SamplingParams(max_tokens=RUNTIME_TOKENS)
+
+    @art.remote
+    class EngineActor:
+        def __init__(self, engine):
+            self.engine = engine
+
+        def generate(self, prompt):
+            return self.engine.generate([prompt], greedy)[0].token_ids
+
+    @art.remote
+    def random_tensor(seed, n):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return torch.randn((n, n), generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    direct = LLMEngine("llama3-8b", params, slots=2, max_seq=4096, seed=0)
+    ctx = art.init(local_mode=True)
+    try:
+        # Local mode hands the actor its argument as it is: the actor
+        # holds this very engine, so the gate compares the runtime's
+        # call path with the direct one on the same weights and cache.
+        actor, actor_s = timed(lambda: EngineActor.remote(direct))
+        calls, refs = [], []
+        # Round 0 warms the engine up (a bucket's first prefill in a
+        # process loads its kernels); round 1 is the one counted.
+        for round_, order in ((0, ("direct",)), (1, ("actor", "direct"))):
+            if round_:
+                _reset_counts(fa)
+            for n, prompt in zip(RUNTIME_PROMPTS, prompts):
+                walls, tokens = {}, {}
+                for who in order:
+                    if who == "direct":
+                        got, walls[who] = timed(lambda: direct.generate(
+                            [prompt], greedy)[0].token_ids)
+                    else:
+                        (ref, got), walls[who] = timed(
+                            lambda: (lambda r: (r, art.get(r)))(
+                                actor.generate.remote(prompt)))
+                        refs.append(ref)
+                    tokens[who] = got
+                if round_:
+                    calls.append({"prompt": n, "bucket": _bucket(n, 4096),
+                                  "tokens": len(tokens["direct"]),
+                                  "equal": tokens["actor"] == tokens["direct"],
+                                  "direct_s": round(walls["direct"], 4),
+                                  "actor_s": round(walls["actor"], 4)})
+        launches = _counts(fa)
+        (ready, not_ready), wait_s = timed(
+            lambda: art.wait(refs, num_returns=len(refs), timeout=60))
+        task_out, task_s = timed(lambda: art.get(random_tensor.remote(7, 1024)))
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        task_want = torch.randn((1024, 1024), generator=gen, device="cuda",
+                                dtype=torch.bfloat16)
+        x = torch.randn((4096, 4096), device="cuda", dtype=torch.bfloat16)
+        x_out, put_get_s = timed(lambda: art.get(art.put(x)))
+        tensors_ok = all(t.device.type == "cuda" and torch.equal(t, w)
+                         for t, w in ((task_out, task_want), (x_out, x)))
+        overhead = runtime_overhead(art)
+    finally:
+        art.shutdown()
+    kernel_prefills = sum(_bucket(n, 4096) >= 128 for n in RUNTIME_PROMPTS)
+    expected = 2 * cfg.n_layers * kernel_prefills    # round 1's two calls
+    print("runtime " + json.dumps({
+        "mode": ctx.mode, "model": "llama3-8b", "actor_init_s":
+        round(actor_s, 6), "calls": calls, "overhead": overhead, "wait": {
+            "ready": len(ready), "not_ready": len(not_ready),
+            "s": round(wait_s, 6)},
+        "task_cuda_tensor_s": round(task_s, 6),
+        "put_get_cuda_tensor_s": round(put_get_s, 6),
+        "tensors_on_cuda_bitwise": tensors_ok, "launches": launches,
+        "expected_sm90_fwd": expected}), flush=True)
+    if not all(c["equal"] and c["tokens"] == RUNTIME_TOKENS for c in calls):
+        raise AssertionError("the actor's tokens differ from the engine's")
+    if (len(ready), len(not_ready)) != (len(refs), 0) or not tensors_ok:
+        raise AssertionError("wait, a task's tensor or put/get failed")
+    if launches != {"fwd": expected, "fwd_sm90": expected, "fwd_tf32x3": 0,
+                    "fwd_sm90_d256": 0, "dq": 0, "dkv": 0, "sm90": 0,
+                    "tf32x3": 0, "sm90_d256": 0}:
+        raise AssertionError(f"the runtime path launched {launches}, "
+                             f"expected {expected} sm90 forward launches")
+    return direct
+
+
+def _exit_on_sigterm(signum, frame):
+    raise SystemExit(128 + signum)
+
+
+class _ArenaPin:
+    """A read pin on a stored object, held for as long as something
+    references the buffers deserialized from it (the pin owner of
+    ``SerializedObject.from_payload``).  The store keeps the token, not
+    this object, so dropping the last buffer drops the pin."""
+
+    _tokens = itertools.count()
+
+    def __init__(self, store, oid):
+        self.store, self.oid = store, oid
+        self.token = next(self._tokens)
+        store.pin(oid, self.token)
+
+    def __del__(self):
+        self.store.unpin(self.oid, self.token)
+
+
+OBJECT_REPS = 5
+
+
+def objects_phase(torch, engine, card, slot=0):
+    """The object plane on the card: one slot's KV slab of Llama-3-8B (two
+    non-contiguous bf16 views, 0.537 GB) and a mixed dict go through
+    serialize -> the native arena on the node's tmpfs -> deserialize,
+    back onto the card, bitwise; put and get timed beside plain copies
+    of the same bytes."""
+    from ant_ray_tpu_torch._private import native, object_store  # noqa: PLC0415
+    from ant_ray_tpu_torch._private import serialization as ser  # noqa: PLC0415
+    from ant_ray_tpu_torch._private.ids import ObjectID  # noqa: PLC0415
+    from ant_ray_tpu_torch.object_ref import ObjectRef  # noqa: PLC0415
+
+    fresh = not os.path.exists(native.library_path())
+    t0 = time.perf_counter()
+    module = native.load_native()
+    build_s = time.perf_counter() - t0
+    if module is None:
+        raise AssertionError("the native arena module did not build or load "
+                             "(see the warning above); no fallback to files")
+    slab = {"k": engine.cache["k"][:, slot], "v": engine.cache["v"][:, slot]}
+    nbytes = sum(t.numel() * t.element_size() for t in slab.values())
+    if any(t.is_contiguous() for t in slab.values()):
+        raise AssertionError("the slab views should be non-contiguous")
+    shm = os.statvfs("/dev/shm")
+    shm_free = shm.f_bavail * shm.f_frsize
+    capacity = object_store.default_store_capacity()
+    need = nbytes + (64 << 20)
+    if shm_free < need or capacity < need:
+        raise AssertionError(f"the tmpfs cannot hold the slab: /dev/shm has "
+                             f"{shm_free} bytes free, the store's capacity "
+                             f"is {capacity}, the slab needs {need}")
+    directory = tempfile.mkdtemp(prefix="art_torch_objects_", dir="/dev/shm")
+    # /dev/shm outlives this process: the directory goes at the end of the
+    # phase (finally below), at exit, and on SIGTERM, the signal a time
+    # limit sends, which unwinds through that finally.
+    atexit.register(shutil.rmtree, directory, True)
+    prior_sigterm = signal.signal(signal.SIGTERM, _exit_on_sigterm)
+    store = object_store.ObjectStore(directory, capacity)
+    client = object_store.ArenaClient()
+
+    def put(value):
+        oid = ObjectID.from_random()
+        t0 = time.perf_counter()
+        obj = ser.serialize(value)
+        t1 = time.perf_counter()
+        store.create_buffer(oid, obj.payload_nbytes())
+        obj.write_into(store.view_unsealed(oid))
+        store.seal_buffer(oid)
+        t2 = time.perf_counter()
+        return oid, obj, (t1 - t0, t2 - t1)
+
+    def get(oid):
+        info = store.locate(oid)
+        view = client.view(info["path"], info["offset"], info["size"])
+        value = ser.deserialize(ser.SerializedObject.from_payload(
+            view, pin_owner=_ArenaPin(store, oid)))
+        torch.cuda.synchronize()
+        return value
+
+    def bitwise(a, b):
+        return (isinstance(a, torch.Tensor) and a.device.type == "cuda"
+                and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a, b))
+
+    try:
+        if not store.uses_arena:
+            raise AssertionError("the object store is not on the native arena")
+        puts, gets, parts, equal, pins = [], [], [], [], []
+        # Round trip 0 is the first touch of the arena's pages and of the
+        # host buffers; it is reported alone, and the medians are over
+        # the OBJECT_REPS warm ones after it.
+        for _ in range(1 + OBJECT_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            oid, obj, split = put(slab)
+            puts.append(time.perf_counter() - t0)
+            parts.append(split)
+            del obj
+            t0 = time.perf_counter()
+            out = get(oid)
+            gets.append(time.perf_counter() - t0)
+            equal.append(all(bitwise(out[n], slab[n]) for n in slab))
+            del out
+            pins.append(sum(s["pins"] for s in store.object_stats()))
+            store.delete(oid)
+        direct_d2h, direct_h2d = [], []
+        for _ in range(1 + OBJECT_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            host = {n: t.cpu() for n, t in slab.items()}
+            direct_d2h.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            back = {n: t.to("cuda") for n, t in host.items()}
+            torch.cuda.synchronize()
+            direct_h2d.append(time.perf_counter() - t0)
+            del host, back
+
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        ref = ObjectRef(ObjectID.from_random(), _skip_refcount=True)
+        fp32 = torch.randn((256, 384), generator=gen, device="cuda")
+        mixed = {"bf16_view": engine.cache["k"][:, slot, :16, 0],
+                 "fp32": fp32,
+                 "int64": torch.arange(-500, 500, device="cuda"),
+                 "bool": fp32 > 0,
+                 "scalar": torch.tensor(3.25, device="cuda"),
+                 "numpy": np.random.default_rng(13).standard_normal(1000),
+                 "ref": ref}
+        oid, obj, _ = put(mixed)
+        refs_recorded = obj.contained_refs == [ref]
+        out = get(oid)
+        mixed_ok = (
+            all(bitwise(out[n], mixed[n]) for n in
+                ("bf16_view", "fp32", "int64", "bool", "scalar"))
+            and np.array_equal(out["numpy"], mixed["numpy"])
+            and out["ref"] == ref and refs_recorded)
+        mixed_bytes = obj.payload_nbytes()
+        del obj, out
+        store.delete(oid)
+    finally:
+        store.destroy()
+        shutil.rmtree(directory, ignore_errors=True)
+        signal.signal(signal.SIGTERM, prior_sigterm)
+
+    def warm(xs):    # the median past round trip 0
+        return statistics.median(list(xs)[1:])
+
+    def rate(seconds):
+        return round(nbytes / seconds / 1e9, 3)
+
+    put_s, get_s = warm(puts), warm(gets)
+    d2h_s, h2d_s = warm(direct_d2h), warm(direct_h2d)
+    print("objects " + json.dumps({
+        "card": card, "slab": "llama3-8b cache k,v [:, slot] "
+        f"{list(slab['k'].shape)} bf16 x2", "slab_bytes": nbytes,
+        "dev_shm_bytes": shm.f_blocks * shm.f_frsize,
+        "dev_shm_free_bytes": shm_free, "store_capacity_bytes": capacity,
+        "uses_arena": True, "native_build_s": round(build_s, 3),
+        "native_built_fresh": fresh,
+        "first_put_ms": round(puts[0] * 1e3, 2),
+        "first_get_ms": round(gets[0] * 1e3, 2),
+        "put_ms": round(put_s * 1e3, 2), "put_GBps": rate(put_s),
+        "put_serialize_ms": round(warm(p[0] for p in parts) * 1e3, 2),
+        "put_arena_copy_ms": round(warm(p[1] for p in parts) * 1e3, 2),
+        "get_ms": round(get_s * 1e3, 2), "get_GBps": rate(get_s),
+        "direct_cpu_ms": round(d2h_s * 1e3, 2), "direct_cpu_GBps":
+        rate(d2h_s), "direct_to_cuda_ms": round(h2d_s * 1e3, 2),
+        "direct_to_cuda_GBps": rate(h2d_s), "reps": OBJECT_REPS,
+        "puts_ms": [round(x * 1e3, 2) for x in puts],
+        "gets_ms": [round(x * 1e3, 2) for x in gets],
+        "slab_bitwise": equal, "pins_after_get": pins,
+        "mixed_bytes": mixed_bytes, "mixed_equal": mixed_ok}), flush=True)
+    if not (all(equal) and mixed_ok and not any(pins)):
+        raise AssertionError("the object plane did not round-trip bitwise "
+                             "or left a pin behind")
+
+
 def _write_safetensors(torch, path, state):
     """A bf16 state dict as one safetensors file: an 8-byte little-endian
     header length, a JSON header of each tensor's dtype, shape and byte
@@ -2713,7 +3076,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
-    print(smi.strip().splitlines()[0], flush=True)
+    card = smi.strip().splitlines()[0]
+    print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
     names = _build.build_all()
@@ -2733,7 +3097,9 @@ def main() -> int:
     paths["serve"], params = slice_phase(torch, fa, llama)
     paths["sessions"] = sessions_phase(torch, fa, llama, params)
     paths["loop"] = loop_phase(torch, fa, llama, params)
-    del params
+    engine = runtime_phase(torch, fa, llama, params)
+    objects_phase(torch, engine, card)
+    del engine, params
     paths["checkpoint"] = checkpoint_phase(torch, fa, llama)
     paths["server"] = server_phase(torch, fa, llama)
     paths["train"] = train_phase(torch, fa, llama)

@@ -6,7 +6,10 @@ kernels for fp32 at head_dim 256) against their
 plain PyTorch versions, on the card; GPT-2 and the remat policies
 through the kernels; and the session slabs' round
 trip between the card and host memory, bitwise, with an install from
-pinned memory that does not wait for the card.
+pinned memory that does not wait for the card; CUDA tensors of every
+dtype through the object plane (serialize, the native arena,
+deserialize), bitwise, and a local-mode actor serving an engine on the
+card.
 These tests need a CUDA device and ``nvcc``: they skip on a machine
 without a card.  This file imports neither JAX nor the
 JAX package, so it also runs where JAX is not installed:
@@ -808,3 +811,111 @@ def test_step_profiler_gives_mfu_against_the_cards_peak(cuda):
         assert 0 < summary["mfu_mean"] < 1
     else:
         assert "mfu_mean" not in summary
+
+
+# ------------------------------------------------ runtime and object plane
+
+OBJECT_DTYPES = [torch.float32, torch.float64, torch.float16, torch.bfloat16,
+                 torch.float8_e4m3fn, torch.int8, torch.uint8, torch.int16,
+                 torch.int32, torch.int64, torch.bool, torch.complex64]
+
+
+def _card_tensor(gen, dtype, shape):
+    if dtype == torch.bool:
+        return torch.rand(shape, generator=gen, device="cuda") > 0.5
+    if dtype.is_complex:
+        return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+    if dtype.is_floating_point:
+        return (torch.randn(shape, generator=gen, device="cuda") * 4).to(dtype)
+    low = 0 if dtype == torch.uint8 else -100
+    return torch.randint(low, 100, shape, generator=gen,
+                         device="cuda").to(dtype)
+
+
+def _through_the_arena(value, tmp_path):
+    """serialize -> an arena write grant -> seal -> locate -> a pinned
+    view -> deserialize, as chip_smoke.py's objects phase does."""
+    from ant_ray_tpu_torch._private import object_store
+    from ant_ray_tpu_torch._private import serialization as ser
+    from ant_ray_tpu_torch._private.ids import ObjectID
+
+    store = object_store.ObjectStore(str(tmp_path / "store"), 64 << 20)
+    try:
+        assert store.uses_arena
+        oid = ObjectID.from_random()
+        obj = ser.serialize(value)
+        store.create_buffer(oid, obj.payload_nbytes())
+        obj.write_into(store.view_unsealed(oid))
+        store.seal_buffer(oid)
+        info = store.locate(oid)
+        view = object_store.ArenaClient().view(info["path"], info["offset"],
+                                               info["size"])
+        store.pin(oid, token=1)
+        out = ser.deserialize(ser.SerializedObject.from_payload(
+            view, pin_owner=object()))
+        store.unpin(oid, token=1)
+        return out, obj.contained_refs
+    finally:
+        store.destroy()
+
+
+@pytest.mark.parametrize("dtype", OBJECT_DTYPES, ids=str)
+def test_cuda_tensor_through_the_arena_is_bitwise(cuda, dtype, tmp_path):
+    t = _card_tensor(cuda, dtype, (33, 70))
+    view = t[:, 3::2]                      # non-contiguous, offset
+    out, _ = _through_the_arena({"t": t, "view": view}, tmp_path)
+    for name, want in (("t", t), ("view", view)):
+        got = out[name]
+        assert got.device.type == "cuda" and got.dtype == dtype, name
+        assert got.shape == want.shape and got.is_contiguous(), name
+        assert torch.equal(got.view(torch.uint8),
+                           want.contiguous().view(torch.uint8)), name
+
+
+def test_mixed_object_with_a_ref_through_the_arena(cuda, tmp_path):
+    import numpy as np
+
+    from ant_ray_tpu_torch._private.ids import ObjectID
+    from ant_ray_tpu_torch.object_ref import ObjectRef
+
+    ref = ObjectRef(ObjectID.from_random(), _skip_refcount=True)
+    cache = _card_tensor(cuda, torch.bfloat16, (2, 4, 64, 2, 16))
+    value = {"slab": cache[:, 1], "scalar": torch.tensor(2.5, device="cuda"),
+             "ints": torch.arange(10, device="cuda"),
+             "numpy": np.arange(100.0), "ref": ref}
+    out, refs = _through_the_arena(value, tmp_path)
+    assert refs == [ref] and out["ref"] == ref
+    assert torch.equal(out["slab"], cache[:, 1]) and out["slab"].is_cuda
+    assert out["scalar"].shape == () and out["scalar"].item() == 2.5
+    assert torch.equal(out["ints"], torch.arange(10, device="cuda"))
+    assert (out["numpy"] == np.arange(100.0)).all()
+
+
+def test_local_mode_actor_serves_an_engine_on_the_card(cuda):
+    import ant_ray_tpu_torch as art
+    from ant_ray_tpu_torch.llm import LLMEngine, SamplingParams
+
+    greedy = SamplingParams(max_tokens=8)
+    prompts = [[1, 2, 3, 4, 5], list(range(10, 60))]
+
+    @art.remote
+    class Server:
+        def __init__(self):
+            self.engine = LLMEngine("tiny", slots=2, seed=0, device="cuda")
+
+        def generate(self, prompt):
+            return self.engine.generate([prompt], greedy)[0].token_ids
+
+    direct = LLMEngine("tiny", slots=2, seed=0, device="cuda")
+    art.init(local_mode=True)
+    try:
+        server = Server.remote()
+        refs = [server.generate.remote(p) for p in prompts]
+        ready, not_ready = art.wait(refs, num_returns=2, timeout=60)
+        assert (len(ready), not_ready) == (2, [])
+        assert art.get(refs) == [direct.generate([p], greedy)[0].token_ids
+                                 for p in prompts]
+        x = torch.randn(64, device="cuda")
+        assert art.get(art.put(x)) is x
+    finally:
+        art.shutdown()

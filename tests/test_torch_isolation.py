@@ -41,7 +41,21 @@ def test_importing_every_module_loads_neither_jax_nor_the_jax_package():
             "ant_ray_tpu_torch.llm.chat", "ant_ray_tpu_torch.serve.api",
             "ant_ray_tpu_torch.models.checkpoint",
             "ant_ray_tpu_torch.models.gpt2",
-            "ant_ray_tpu_torch.observability.device_stats"} <= set(modules)
+            "ant_ray_tpu_torch.observability.device_stats",
+            "ant_ray_tpu_torch._lint.lockcheck",
+            "ant_ray_tpu_torch.exceptions",
+            "ant_ray_tpu_torch._private.ids",
+            "ant_ray_tpu_torch._private.specs",
+            "ant_ray_tpu_torch._private.config",
+            "ant_ray_tpu_torch._private.task_options",
+            "ant_ray_tpu_torch._private.native",
+            "ant_ray_tpu_torch._private.object_store",
+            "ant_ray_tpu_torch._private.serialization",
+            "ant_ray_tpu_torch.object_ref",
+            "ant_ray_tpu_torch._private.worker",
+            "ant_ray_tpu_torch.remote_function",
+            "ant_ray_tpu_torch.actor",
+            "ant_ray_tpu_torch.api"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
@@ -90,3 +104,52 @@ def test_engine_without_device_raises_instead_of_running_on_cpu():
         llama.init_params(llama.CONFIGS["tiny"])
     with pytest.raises(RuntimeError):
         llama.init_kv_cache(llama.CONFIGS["tiny"], 1)
+
+
+def test_serializing_a_plain_value_does_not_import_torch():
+    """The serialize-side tensor probe looks only at modules already
+    loaded: a process that moves plain values never pays torch's import
+    (nor does ``import ant_ray_tpu_torch`` itself)."""
+    code = (
+        "import sys\n"
+        "import ant_ray_tpu_torch\n"
+        "from ant_ray_tpu_torch._private import serialization as s\n"
+        "import numpy as np\n"
+        "value = {'a': [1, 'x'], 'b': np.arange(100), 'c': b'y' * 70000}\n"
+        "out = s.deserialize(s.SerializedObject.from_payload(\n"
+        "    s.serialize(value).to_payload()))\n"
+        "assert out['a'] == [1, 'x'] and out['c'] == value['c']\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('torch', 'jax')))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+class _CudaTagged:
+    """Pickles exactly as a float32 CUDA tensor of shape (4,) would."""
+
+    def __reduce__(self):
+        import pickle
+
+        import numpy as np
+
+        from ant_ray_tpu_torch._private import serialization
+
+        raw = np.arange(4, dtype=np.float32).view(np.uint8)
+        return (serialization._rebuild_tensor,
+                (pickle.PickleBuffer(raw), "float32", (4,), "cuda"))
+
+
+def test_cuda_tagged_payload_raises_without_a_card():
+    import torch
+
+    from ant_ray_tpu_torch._private import serialization as s
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the tensor lands on it")
+    payload = s.serialize({"t": _CudaTagged()}).to_payload()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        s.deserialize(s.SerializedObject.from_payload(payload))
