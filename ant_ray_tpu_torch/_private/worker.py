@@ -7,10 +7,8 @@ singleton (ref: python/ray/_private/worker.py) and delegates to a pluggable
 
 * ``LocalModeRuntime`` — single-process synchronous execution for unit
   testing without daemons (ref: core_worker.cc:3256 ExecuteTaskLocalMode).
-* ``ClusterRuntime`` (the JAX package's ``_private/core.py``) — the
-  multiprocess path: GCS head + node daemons + worker processes.  Not
-  ported yet (ROADMAP queue A item 6.1b), so the port's only runtime is
-  the local one and nothing initializes a runtime implicitly.
+* ``ClusterRuntime`` (``ant_ray_tpu_torch/_private/core.py``) — the
+  real multiprocess path: GCS head + node daemons + worker processes.
 """
 
 from __future__ import annotations
@@ -289,12 +287,14 @@ class Worker:
         return self.runtime is not None
 
     def _check_connected(self):
-        # The JAX package auto-inits a cluster here; the port has no
-        # cluster mode yet, so the caller must init(local_mode=True).
+        if self.runtime is None:
+            from ant_ray_tpu_torch._private import auto_init  # noqa: PLC0415
+
+            auto_init.auto_init()
         if self.runtime is None:
             raise RuntimeError(
-                "ant_ray_tpu_torch.init(local_mode=True) must be called "
-                "before using the API")
+                "ant_ray_tpu_torch.init() must be called before using the "
+                "API")
 
     def submit_task(self, remote_function, args, kwargs, options):
         self._check_connected()

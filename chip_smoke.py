@@ -124,7 +124,7 @@ final line is printed:
    Prints one "runtime" JSON line with the wall of each call beside the
    direct call's and, under "overhead", the runtime's own cost per call
    (medians, microseconds).  These launches stay out of the kernels line
-   (phase 16), whose paths and counts are those of the phases it names.
+   (phase 17), whose paths and counts are those of the phases it names.
 9. The object plane on the card: one slot's KV slab of that direct
    engine (cache["k"][:, 0] and cache["v"][:, 0], 32 x 4096 x 8 x 128
    bf16 each, two non-contiguous views, 0.537 GB) goes through
@@ -144,8 +144,37 @@ final line is printed:
    device-to-host copy, and the copy into the arena), beside a direct
    .cpu() and .to("cuda") of the same bytes, also past a first one.
    The directory is removed at the end, at exit and on SIGTERM.
-   The 8B weights are freed after this phase.
-10. Serving from a checkpoint directory: llama-400m at its published
+   The 8B weights are freed after the next phase.
+10. The runtime's processes on the card (ant_ray_tpu_torch.init(
+   num_cpus=4): a GCS, a node daemon and worker processes, all of the
+   port).  A num_gpus=1 actor builds LLMEngine("llama3-8b", slots=2,
+   max_seq=4096, seed=0) in its own worker process and answers the
+   runtime phase's prompts after a warm-up round, each beside the direct
+   engine of phase 8; a second num_gpus=1 actor waits while the first
+   lives and runs after its kill; a num_gpus=1 task returns a CUDA
+   tensor; phase 9's slab goes through put, a task in a worker (which
+   gets it onto its card, checks it and returns it) and get, once and
+   then five times; 2000 no-op actor calls and tasks in turns with
+   direct calls, over hot frames (hotframe.py); then shutdown().
+   Gates: the node advertises GPU 1 (from the detector); the worker's weights' checksums (embedding,
+   layer 0's wq, head) equal this process's; its engine on cuda; tokens
+   equal the direct engine's; the worker counts n_layers sm90 forward
+   launches for the 1500-token prefill and none for the 20-token one;
+   the second actor not ready after 2 s; the card's free memory (this
+   process's mem_get_info, its own cache emptied first) back within 1
+   GB of its reading before the first actor, within 30 s of the kill; the tensor and every slab
+   round trip bitwise on the card; every no-op call but the first on
+   each connection sent as a hot frame; after shutdown no process of the
+   session alive within 10 s, the session directory and the arena
+   removed.  On a failed gate it prints the tail of every log of the
+   session first.  Prints one "cluster" JSON line: the actor's start,
+   each call's wall beside the direct one, nvidia-smi's memory per
+   process while the engine lives and after the kill, the slab's put,
+   round trip and get (ms and GB/s; the first alone, then the median of
+   five), /dev/shm's size, the node store's capacity, and the runtime's
+   cost per no-op call beside local mode's, with the hot-frame counts
+   of those calls.  Its launches are the kernels line's "cluster" path.
+11. Serving from a checkpoint directory: llama-400m at its published
    widths and depth (bf16, seed 0) written to a temporary directory of
    this checkout in the HF layout twice, as model.safetensors (a writer
    here: the format's header and raw buffers) and as pytorch_model.bin
@@ -159,7 +188,7 @@ final line is printed:
    write and load seconds and GB/s (host clock; the write ends in fsync,
    the load is the engine's construction), then the launches and peak
    memory.
-11. LLMServer on Llama-3-8B (random weights from seed 0, slots=8,
+12. LLMServer on Llama-3-8B (random weights from seed 0, slots=8,
    max_seq=4096, the reference's serving defaults: chunks of 64,
    kv_offload="local").  Four client threads send four completions of
    100 to 1500 token ids (one opening a session), two chats, two streams
@@ -173,7 +202,7 @@ final line is printed:
    its first token; no flash launch.  Prints TTFT per request
    (handle.ttft_s() through the server's loop), the wall time,
    load_signals, device_memory_stats() and peak memory.
-12. The training slice: llama-400m at its published widths and all 24
+13. The training slice: llama-400m at its published widths and all 24
    layers, bf16, random weights from seed 0, one fixed batch of 8 x 2049
    token ids, AdamW (make_optimizer), remat "none": 3 warm-up and 10
    timed train_step calls.  The launch counts are reset just before and
@@ -181,7 +210,7 @@ final line is printed:
    once per layer, all on the sm90 route.  Prints the step time,
    tokens/s, MFU against the bf16 peak, peak memory and a torch.profiler
    line of one step.
-13. Remat: the training slice again, from the same weights, under
+14. Remat: the training slice again, from the same weights, under
    each remat policy ("none", "full", "dots", "matmuls"), 3 warm-up and
    10 timed steps each.  Gates: the forward kernel launched twice per
    layer and step under "full" and "dots" and once under "none" and
@@ -191,7 +220,7 @@ final line is printed:
    Prints per policy the step time, tokens/s, MFU and peak memory, a
    profile, and the step on 1 x 128 tokens, where the host sets the
    time.
-14. GPT-2: `gpt2` (124 M) at its published widths and depth, in its
+15. GPT-2: `gpt2` (124 M) at its published widths and depth, in its
    published fp32 (the 3xTF32 forward and backward) and in a
    bf16 copy (the sm90 kernels at head_dim 64, plain multi-head
    attention), random weights
@@ -204,7 +233,7 @@ final line is printed:
    GPT2_LOGIT_TOL of reference attention's and the greedy next tokens
    equal but for ties.  Prints step time, tokens/s, MFU against the
    peak of the dtype the step computes in, and peak memory.
-15. Head_dim 256: a Llama at Gemma-2B's widths (hidden 2048, 8 heads
+16. Head_dim 256: a Llama at Gemma-2B's widths (hidden 2048, 8 heads
    of 256, 1 KV head, MLP 16384, vocab 256000, tied embeddings, 18
    layers; 2.51 B parameters; SwiGLU and no embedding scale, so not
    Gemma), bf16, random weights from seed 0, a fixed batch of 2 x 2049
@@ -217,10 +246,11 @@ final line is printed:
    attention's; the loss falling.  Prints
    step time, tokens/s, MFU, peak memory and a profile of one step with
    the attention kernels' share.
-16. One line {"kernels": [...]} with the twelve kernels (the sm90,
+17. One line {"kernels": [...]} with the twelve kernels (the sm90,
    tf32x3, sm90_d256 and CUDA-core forward; the sm90, tf32x3, sm90_d256
    and CUDA-core dQ and dK/dV; launches by path, the main paths being
-   serving, sessions, the loop, the checkpoint directory, the server,
+   serving, sessions, the loop, the cluster's worker, the checkpoint
+   directory, the server,
    training, training under each remat policy, GPT-2 in fp32 and bf16
    and the head_dim-256 Llama; the older kernels' times also at GPT-2's
    shape, the sm90_d256 ones at Gemma-7B's and Gemma-2B's attention and
@@ -2121,6 +2151,339 @@ def runtime_phase(torch, fa, llama, params):
     return direct
 
 
+# Cluster phase: the runtime's processes on the card.
+CLUSTER_SLAB_REPS = 5           # warm round trips of the slab after the first
+CLUSTER_FREE_SLACK = 1 << 30    # card memory a killed actor may leave behind
+CLUSTER_FREE_WAIT_S = 30.0      # ... within this long
+CLUSTER_EXIT_WAIT_S = 10.0      # every process of the session gone within
+
+
+def _leaf_checksums(torch, params):
+    """Checksums of three leaves of a Llama's weights (the embedding,
+    layer 0's wq, the head): sums of their bits as int64, on the card."""
+    head = params.get("lm_head", params["embed"])
+    return [int(t.contiguous().view(torch.int16).to(torch.int64).sum())
+            for t in (params["embed"], params["layers"]["wq"][0], head)]
+
+
+def _slab_checksum(torch, slab):
+    return [int(t.contiguous().view(torch.int16).to(torch.int64).sum())
+            for t in (slab["k"], slab["v"])]
+
+
+def _pid_alive(pid):
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def _child_pids(pid):
+    out = []
+    for entry in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                if int(f.read().rsplit(")", 1)[1].split()[1]) == pid:
+                    out.append(int(entry))
+        except (OSError, IndexError, ValueError):
+            continue
+    return out
+
+
+def _print_worker_logs(session_dir, tail=4000):
+    logs = os.path.join(session_dir, "logs")
+    for name in sorted(os.listdir(logs)) if os.path.isdir(logs) else ():
+        with open(os.path.join(logs, name), "rb") as f:
+            f.seek(0, os.SEEK_END)
+            f.seek(max(0, f.tell() - tail))
+            text = f.read().decode(errors="replace")
+        print(f"--- {name} (last {tail} bytes) ---\n{text}", flush=True)
+
+
+def cluster_phase(torch, fa, llama, params, engine, card):
+    """The runtime's processes on the card (``init(num_cpus=4)``: a GCS,
+    a node daemon and worker processes).  A ``num_gpus=1`` actor builds
+    Llama-3-8B (seed 0, as ``params``) in its worker and answers the
+    runtime phase's prompts beside ``engine`` (on ``params``) called
+    here; a second ``num_gpus=1`` actor waits for the card until the
+    first is killed, whose memory must come back; a task returns a CUDA
+    tensor, and one slot's KV slab of ``engine`` goes to a worker and
+    back; no-op calls measure the runtime's cost per call; shutdown
+    must leave no process, session directory or arena behind.  Returns
+    the launches the actor counted in its process."""
+    import ant_ray_tpu_torch as art  # noqa: PLC0415
+    from ant_ray_tpu_torch._private.worker import global_worker  # noqa: PLC0415
+    from ant_ray_tpu_torch.llm import SamplingParams  # noqa: PLC0415
+    from ant_ray_tpu_torch.llm.engine import _bucket  # noqa: PLC0415
+
+    cfg = llama.CONFIGS["llama3-8b"]
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in RUNTIME_PROMPTS]
+    greedy = SamplingParams(max_tokens=RUNTIME_TOKENS)
+
+    @art.remote(num_gpus=1)
+    class EngineWorker:
+        def __init__(self):
+            from ant_ray_tpu_torch.llm import LLMEngine  # noqa: PLC0415
+
+            self.engine = LLMEngine("llama3-8b", slots=2, max_seq=4096,
+                                    seed=0)
+            torch.cuda.synchronize()
+
+        def checksums(self):
+            return _leaf_checksums(torch, self.engine.params)
+
+        def devices(self):
+            leaves = [*self.engine.params.values(),
+                      *self.engine.cache.values()]
+            flat = [t for leaf in leaves for t in (
+                leaf.values() if isinstance(leaf, dict) else [leaf])]
+            return sorted({t.device.type for t in flat})
+
+        def generate(self, prompt):
+            return self.engine.generate([prompt], greedy)[0].token_ids
+
+        def counted(self, prompt):
+            """Tokens and the launches of this process's kernels for
+            one call."""
+            from ant_ray_tpu_torch.ops import flash_attention  # noqa: PLC0415
+
+            _reset_counts(flash_attention)
+            tokens = self.generate(prompt)
+            torch.cuda.synchronize()
+            return tokens, _counts(flash_attention)
+
+    @art.remote(num_gpus=1)
+    class Waiter:
+        def ping(self):
+            return "ran"
+
+    @art.remote(num_gpus=1)
+    def random_tensor(seed, n):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return torch.randn((n, n), generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    @art.remote(num_gpus=1)
+    def echo_slab(slab):
+        ok = all(t.device.type == "cuda" for t in slab.values())
+        return slab, _slab_checksum(torch, slab), ok
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def card_free():
+        """The card's free bytes, with this process's cached blocks given
+        back first, so that only what processes hold is counted."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.mem_get_info()[0]
+
+    def smi_apps():
+        return subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip().splitlines()
+
+    out = {"card": card, "model": "llama3-8b"}
+    shm = os.statvfs("/dev/shm")
+    out["dev_shm_bytes"] = shm.f_blocks * shm.f_frsize
+    t0 = time.perf_counter()
+    ctx = art.init(num_cpus=4)
+    out["init_s"] = round(time.perf_counter() - t0, 3)
+    runtime = global_worker.runtime
+    session_dir, store_dir = runtime.session_dir, runtime.store_dir
+    daemons = [p.pid for p in runtime._owned_processes]
+    workers = set()
+    try:
+        out["mode"] = ctx.mode
+        out["resources"] = art.cluster_resources()
+        out["store_capacity_bytes"] = runtime._node.call(
+            "GetStoreStats", {}, timeout=30)["capacity"]
+        print("cluster up " + json.dumps(out), flush=True)
+        if out["resources"].get("GPU") != 1.0:
+            raise AssertionError(f"the detector found no card: "
+                                 f"{out['resources']}")
+
+        # Step 2: the engine in a worker process.
+        free_before = card_free()
+        t0 = time.perf_counter()
+        actor = EngineWorker.remote()
+        sums = art.get(actor.checksums.remote(), timeout=900)
+        out["actor_start_s"] = round(time.perf_counter() - t0, 3)
+        want_sums = _leaf_checksums(torch, params)
+        out["weights_checksums_equal"] = sums == want_sums
+        if sums != want_sums:
+            raise AssertionError(f"the worker's weights differ: {sums} "
+                                 f"against {want_sums}")
+        out["actor_devices"] = art.get(actor.devices.remote())
+        if out["actor_devices"] != ["cuda"]:
+            raise AssertionError(f"the worker's engine is on "
+                                 f"{out['actor_devices']}")
+        for prompt in prompts:          # round 0: warm-up
+            art.get(actor.generate.remote(prompt))
+        calls, launches = [], {}
+        for n, prompt in zip(RUNTIME_PROMPTS, prompts):
+            direct, direct_s = timed(lambda: engine.generate(
+                [prompt], greedy)[0].token_ids)
+            (tokens, counted), actor_s = timed(
+                lambda: art.get(actor.counted.remote(prompt)))
+            calls.append({"prompt": n, "bucket": _bucket(n, 4096),
+                          "tokens": len(tokens), "equal": tokens == direct,
+                          "direct_s": round(direct_s, 4),
+                          "actor_s": round(actor_s, 4),
+                          "worker_launches": counted})
+            launches = {k: launches.get(k, 0) + v for k, v in counted.items()}
+        out["calls"] = calls
+        workers.update(c for d in daemons for c in _child_pids(d))
+        if not all(c["equal"] and c["tokens"] == RUNTIME_TOKENS
+                   for c in calls):
+            raise AssertionError("the worker's tokens differ from the "
+                                 "engine's")
+        for c in calls:
+            want = cfg.n_layers if c["bucket"] >= 128 else 0
+            if c["worker_launches"] != {
+                    "fwd": want, "fwd_sm90": want, "fwd_tf32x3": 0,
+                    "fwd_sm90_d256": 0, "dq": 0, "dkv": 0, "sm90": 0,
+                    "tf32x3": 0, "sm90_d256": 0}:
+                raise AssertionError(
+                    f"the worker launched {c['worker_launches']} for the "
+                    f"{c['prompt']}-token prompt, expected {want} sm90 "
+                    "forward launches")
+
+        # Step 3: the card is taken; a second card actor waits.
+        out["compute_apps_with_engine"] = smi_apps()
+        waiter = Waiter.remote()
+        pending = waiter.ping.remote()
+        ready, _ = art.wait([pending], timeout=2.0)
+        out["second_actor_pending"] = not ready
+        if ready:
+            raise AssertionError("a second num_gpus=1 actor ran while the "
+                                 "card was taken")
+        art.kill(actor)
+        t0 = time.perf_counter()
+        out["second_actor_after_kill"] = art.get(pending, timeout=120)
+        out["second_actor_wait_s"] = round(time.perf_counter() - t0, 3)
+        deadline = time.monotonic() + CLUSTER_FREE_WAIT_S
+        while True:
+            free_after = card_free()
+            if free_after >= free_before - CLUSTER_FREE_SLACK or \
+                    time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        out["free_before_bytes"], out["free_after_kill_bytes"] = \
+            free_before, free_after
+        out["memory_back_s"] = round(time.perf_counter() - t0, 3)
+        out["compute_apps_after_kill"] = smi_apps()
+        if free_after < free_before - CLUSTER_FREE_SLACK:
+            raise AssertionError(
+                f"the card's free memory did not come back: {free_after} "
+                f"bytes after the kill, {free_before} before the actor")
+        art.kill(waiter)
+
+        # Step 4: a task returns a CUDA tensor.
+        task_out, out["task_cuda_tensor_s"] = timed(
+            lambda: art.get(random_tensor.remote(7, 1024), timeout=300))
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        task_want = torch.randn((1024, 1024), generator=gen, device="cuda",
+                                dtype=torch.bfloat16)
+        out["task_tensor_bitwise"] = (task_out.device.type == "cuda"
+                                      and torch.equal(task_out, task_want))
+        if not out["task_tensor_bitwise"]:
+            raise AssertionError("the task's CUDA tensor differs")
+
+        # Step 5: one slot's KV slab to a worker and back.
+        slab = {"k": engine.cache["k"][:, 0], "v": engine.cache["v"][:, 0]}
+        nbytes = sum(t.numel() * t.element_size() for t in slab.values())
+        capacity = out["store_capacity_bytes"]
+        shm_free = os.statvfs("/dev/shm").f_bavail * shm.f_frsize
+        if 3 * nbytes > min(capacity, shm_free):
+            raise AssertionError(
+                f"the node store cannot hold the slab three times: capacity "
+                f"{capacity}, /dev/shm free {shm_free}, slab {nbytes}")
+        want_sum = _slab_checksum(torch, slab)
+        puts, trips, gets, equal = [], [], [], []
+        for _ in range(1 + CLUSTER_SLAB_REPS):
+            ref, put_s = timed(lambda: art.put(slab))
+            t0 = time.perf_counter()
+            back_ref = echo_slab.remote(ref)
+            art.wait([back_ref], timeout=300)
+            trip_s = time.perf_counter() - t0
+            (back, sums, on_card), get_s = timed(lambda: art.get(back_ref))
+            puts.append(put_s)
+            trips.append(trip_s)
+            gets.append(get_s)
+            equal.append(on_card and sums == want_sum and all(
+                back[n].device.type == "cuda" and torch.equal(back[n], slab[n])
+                for n in slab))
+            del ref, back_ref, back
+        workers.update(c for d in daemons for c in _child_pids(d))
+
+        def warm(xs):
+            return statistics.median(xs[1:])
+
+        def rate(seconds):
+            return round(nbytes / seconds / 1e9, 3)
+
+        out["slab"] = {
+            "bytes": nbytes, "bitwise": equal,
+            "first_put_ms": round(puts[0] * 1e3, 2),
+            "first_round_trip_ms": round(trips[0] * 1e3, 2),
+            "first_get_ms": round(gets[0] * 1e3, 2),
+            "put_ms": round(warm(puts) * 1e3, 2), "put_GBps":
+            rate(warm(puts)), "round_trip_ms": round(warm(trips) * 1e3, 2),
+            "round_trip_GBps": rate(warm(trips)),
+            "get_ms": round(warm(gets) * 1e3, 2), "get_GBps":
+            rate(warm(gets)), "reps": CLUSTER_SLAB_REPS}
+        if not all(equal):
+            raise AssertionError("the slab did not come back bitwise")
+
+        # Step 6: the runtime's own cost per call, and how many of its
+        # calls went over hot frames (hotframe.py's counters).
+        from ant_ray_tpu_torch._private import hotframe  # noqa: PLC0415
+
+        before = dict(hotframe.counters)
+        out["overhead"] = runtime_overhead(art)
+        hot = out["overhead"]["hotframe"] = {
+            k: v - before[k] for k, v in hotframe.counters.items()}
+        # Only a call made before its connection's HELLO-ack (the first
+        # to the new actor's worker and to the task's) goes pickled.
+        if (hot["calls_encoded"] < 2 * RUNTIME_NOOP_CALLS - 2
+                or hot["fallback_ineligible"] or hot["fallback_cache_full"]):
+            raise AssertionError(f"no-op calls off the hot wire: {hot}")
+        out["local_mode_overhead_us"] = {"actor": 6.58, "task": 5.76}
+        workers.update(c for d in daemons for c in _child_pids(d))
+    except BaseException:
+        _print_worker_logs(session_dir)
+        print("cluster (failed) " + json.dumps(out, default=str), flush=True)
+        art.shutdown()
+        raise
+    # Step 7: shutdown leaves nothing behind.
+    t0 = time.perf_counter()
+    art.shutdown()
+    pids = daemons + sorted(workers)
+    deadline = time.monotonic() + CLUSTER_EXIT_WAIT_S
+    while any(_pid_alive(p) for p in pids) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    out["shutdown_s"] = round(time.perf_counter() - t0, 3)
+    out["processes"] = len(pids)
+    out["left_alive"] = [p for p in pids if _pid_alive(p)]
+    out["session_dir_left"] = os.path.exists(session_dir)
+    out["arena_left"] = os.path.exists(store_dir)
+    out["launches"] = launches
+    print("cluster " + json.dumps(out), flush=True)
+    if out["left_alive"] or out["session_dir_left"] or out["arena_left"]:
+        raise AssertionError("shutdown left a process, the session "
+                             "directory or the arena behind")
+    return launches
+
+
 def _exit_on_sigterm(signum, frame):
     raise SystemExit(128 + signum)
 
@@ -3099,6 +3462,7 @@ def main() -> int:
     paths["loop"] = loop_phase(torch, fa, llama, params)
     engine = runtime_phase(torch, fa, llama, params)
     objects_phase(torch, engine, card)
+    paths["cluster"] = cluster_phase(torch, fa, llama, params, engine, card)
     del engine, params
     paths["checkpoint"] = checkpoint_phase(torch, fa, llama)
     paths["server"] = server_phase(torch, fa, llama)

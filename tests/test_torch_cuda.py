@@ -9,7 +9,10 @@ trip between the card and host memory, bitwise, with an install from
 pinned memory that does not wait for the card; CUDA tensors of every
 dtype through the object plane (serialize, the native arena,
 deserialize), bitwise, and a local-mode actor serving an engine on the
-card.
+card; in cluster mode, a node that advertises the card, a num_gpus=1
+actor serving an engine from its own worker process, a task returning a
+CUDA tensor of each dtype bitwise, and the card's memory coming back
+after a kill.
 These tests need a CUDA device and ``nvcc``: they skip on a machine
 without a card.  This file imports neither JAX nor the
 JAX package, so it also runs where JAX is not installed:
@@ -919,3 +922,109 @@ def test_local_mode_actor_serves_an_engine_on_the_card(cuda):
         assert art.get(art.put(x)) is x
     finally:
         art.shutdown()
+
+
+@pytest.fixture
+def card_cluster(cuda):
+    """A cluster of the port on this machine: its node advertises the
+    cards the detector finds."""
+    import ant_ray_tpu_torch as art
+
+    art.init(num_cpus=2)
+    try:
+        yield art
+    finally:
+        art.shutdown()
+
+
+def test_cluster_detects_the_card(card_cluster):
+    from ant_ray_tpu_torch._private.accelerators import gpu
+
+    assert gpu.num_gpus() == torch.cuda.device_count() >= 1
+    assert card_cluster.cluster_resources()["GPU"] == float(
+        torch.cuda.device_count())
+
+
+def test_worker_actor_serves_an_engine_on_the_card(card_cluster):
+    """A ``num_gpus=1`` actor builds the engine in its own process, on
+    the card, and answers as an engine built here does."""
+    from ant_ray_tpu_torch.llm import LLMEngine, SamplingParams
+
+    art = card_cluster
+    greedy = SamplingParams(max_tokens=8)
+    prompts = [[1, 2, 3, 4, 5], list(range(10, 60))]
+
+    @art.remote(num_gpus=1)
+    class Server:
+        def __init__(self):
+            import os
+
+            self.pid = os.getpid()
+            self.engine = LLMEngine("tiny", slots=2, seed=0, device="cuda")
+
+        def where(self):
+            return self.pid, str(next(iter(
+                self.engine.params.values())).device)
+
+        def generate(self, prompt):
+            return self.engine.generate([prompt], greedy)[0].token_ids
+
+    import os
+
+    direct = LLMEngine("tiny", slots=2, seed=0, device="cuda")
+    server = Server.remote()
+    pid, device = art.get(server.where.remote(), timeout=300)
+    assert pid != os.getpid() and device.startswith("cuda")
+    assert art.get([server.generate.remote(p) for p in prompts]) == \
+        [direct.generate([p], greedy)[0].token_ids for p in prompts]
+    art.kill(server)
+
+
+@pytest.mark.parametrize("dtype", OBJECT_DTYPES, ids=str)
+def test_task_returns_a_cuda_tensor_bitwise(card_cluster, dtype):
+    """A task in a worker process makes a tensor of each dtype on its
+    card; the driver gets it on its card, bit for bit."""
+    art = card_cluster
+
+    @art.remote(num_gpus=1)
+    def make(dtype, shape):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        t = torch.randn(shape, generator=gen, device="cuda")
+        return (t * 100).to(dtype)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    want = (torch.randn((33, 70), generator=gen, device="cuda") * 100
+            ).to(dtype)
+    got = art.get(make.remote(dtype, (33, 70)), timeout=300)
+    assert got.device.type == "cuda" and got.dtype == dtype
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+def test_card_memory_comes_back_after_kill(card_cluster):
+    """Killing an actor that holds card memory gives it back: the free
+    memory the driver reads returns within 256 MiB of what it was."""
+    import time
+
+    art = card_cluster
+    torch.cuda.synchronize()
+    free_before, _total = torch.cuda.mem_get_info()
+
+    @art.remote(num_gpus=1)
+    class Hog:
+        def __init__(self):
+            self.block = torch.empty(1 << 30, dtype=torch.uint8,
+                                     device="cuda")
+
+        def held(self):
+            return self.block.numel()
+
+    hog = Hog.remote()
+    assert art.get(hog.held.remote(), timeout=300) == 1 << 30
+    assert torch.cuda.mem_get_info()[0] < free_before - (1 << 30)
+    art.kill(hog)
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline:
+        if torch.cuda.mem_get_info()[0] >= free_before - (256 << 20):
+            break
+        time.sleep(0.2)
+    assert torch.cuda.mem_get_info()[0] >= free_before - (256 << 20)

@@ -1,7 +1,10 @@
 """The port stands alone: no module of ``ant_ray_tpu_torch``, and not
 ``chip_smoke.py``, imports JAX or the JAX package (nor ``safetensors``,
 which the card's machine lacks: the port reads the format itself), and
-nothing runs on the CPU unless asked to."""
+nothing runs on the CPU unless asked to.  Its cluster's processes are
+its own: the GCS, the node daemon and the workers run the port's
+modules, the daemons never load torch, and ``shutdown()`` leaves none
+of them behind."""
 
 import ast
 import os
@@ -55,7 +58,26 @@ def test_importing_every_module_loads_neither_jax_nor_the_jax_package():
             "ant_ray_tpu_torch._private.worker",
             "ant_ray_tpu_torch.remote_function",
             "ant_ray_tpu_torch.actor",
-            "ant_ray_tpu_torch.api"} <= set(modules)
+            "ant_ray_tpu_torch.api",
+            "ant_ray_tpu_torch.util.scheduling_strategies",
+            "ant_ray_tpu_torch._private.hotframe",
+            "ant_ray_tpu_torch._private.wire_schema",
+            "ant_ray_tpu_torch._private.protocol",
+            "ant_ray_tpu_torch._private.memory_store",
+            "ant_ray_tpu_torch.observability.tracing_plane",
+            "ant_ray_tpu_torch._private.task_events",
+            "ant_ray_tpu_torch._private.task_state",
+            "ant_ray_tpu_torch._private.store_client",
+            "ant_ray_tpu_torch._private.gcs_client",
+            "ant_ray_tpu_torch._private.gcs",
+            "ant_ray_tpu_torch._private.transfer",
+            "ant_ray_tpu_torch._private.accelerators.gpu",
+            "ant_ray_tpu_torch._private.node_daemon",
+            "ant_ray_tpu_torch._private.core",
+            "ant_ray_tpu_torch._private.worker_main",
+            "ant_ray_tpu_torch._private.services",
+            "ant_ray_tpu_torch._private.auto_init",
+            "ant_ray_tpu_torch.cluster_utils"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
@@ -153,3 +175,164 @@ def test_cuda_tagged_payload_raises_without_a_card():
     payload = s.serialize({"t": _CudaTagged()}).to_payload()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         s.deserialize(s.SerializedObject.from_payload(payload))
+
+
+def _children(pid: int) -> list[int]:
+    out = []
+    for entry in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue
+        if ppid == pid:
+            out.append(int(entry))
+    return out
+
+
+def _cmdline(pid: int) -> str:
+    with open(f"/proc/{pid}/cmdline", "rb") as f:
+        return f.read().replace(b"\0", b" ").decode()
+
+
+def _maps(pid: int) -> str:
+    with open(f"/proc/{pid}/maps") as f:
+        return f.read()
+
+
+def _alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def test_cluster_processes_are_the_ports_and_shutdown_leaves_none():
+    """Every process of a port cluster runs ``ant_ray_tpu_torch`` (a
+    missed rename in a ``-m`` string would quietly run the JAX package's
+    daemons); the GCS and the node daemon never map libtorch, even after
+    a worker returned a tensor through them; a task's worker has neither
+    jax nor the JAX package loaded; ``shutdown()`` leaves no process and
+    removes the session directory."""
+    import time
+
+    import torch
+
+    from ant_ray_tpu_torch._private.worker import global_worker
+
+    ant_ray_tpu_torch.init(num_cpus=2)
+    try:
+        runtime = global_worker.runtime
+        session_dir = runtime.session_dir
+
+        @ant_ray_tpu_torch.remote
+        def probe():
+            import sys
+
+            return sorted(m for m in sys.modules
+                          if m.split(".")[0] in ("jax", "ant_ray_tpu"))
+
+        @ant_ray_tpu_torch.remote
+        def tensor():
+            import torch
+
+            return torch.arange(6, dtype=torch.bfloat16)
+
+        assert ant_ray_tpu_torch.get([probe.remote() for _ in range(2)]) \
+            == [[], []]
+        assert torch.equal(ant_ray_tpu_torch.get(tensor.remote()),
+                           torch.arange(6, dtype=torch.bfloat16))
+        daemons = [p.pid for p in runtime._owned_processes]
+        workers = [c for d in daemons for c in _children(d)]
+        assert len(daemons) == 2 and workers
+        commands = {pid: _cmdline(pid) for pid in daemons + workers}
+        modules = sorted(cmd.split(" -m ", 1)[1].split()[0]
+                         for cmd in commands.values())
+        assert {m for m in modules if not m.endswith("worker_main")} == {
+            "ant_ray_tpu_torch._private.gcs",
+            "ant_ray_tpu_torch._private.node_daemon"}
+        assert all(m.startswith("ant_ray_tpu_torch._private.")
+                   for m in modules), modules
+        assert not any("ant_ray_tpu._private" in c
+                       for c in commands.values())
+        for pid in daemons:
+            assert "libtorch" not in _maps(pid), commands[pid]
+    finally:
+        ant_ray_tpu_torch.shutdown()
+    deadline = time.monotonic() + 10
+    while time.monotonic() < deadline and any(
+            _alive(p) for p in daemons + workers):
+        time.sleep(0.1)
+    assert [p for p in daemons + workers if _alive(p)] == []
+    assert not os.path.exists(session_dir)
+
+
+def test_gpu_detector_imports_no_torch():
+    """The daemons detect the cards without torch and without a CUDA
+    context: the detector reads files and runs nvidia-smi only."""
+    code = (
+        "import sys\n"
+        "from ant_ray_tpu_torch._private.accelerators import gpu\n"
+        "from ant_ray_tpu_torch._private import services\n"
+        "n = gpu.num_gpus()\n"
+        "res = services.default_resources(2, None, None)\n"
+        "assert res.get('GPU', 0.0) == float(n), (res, n)\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('torch', 'jax')))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("mask,physical,visible", [
+    ("", 2, 0), ("0", 2, 1), ("1,0", 2, 2), ("0,5,1", 2, 1),
+    ("GPU-abc,0", 1, 1), ("-1", 4, 0)])
+def test_gpu_detector_honours_cuda_visible_devices(mask, physical, visible,
+                                                   monkeypatch):
+    from ant_ray_tpu_torch._private.accelerators import gpu
+
+    monkeypatch.setattr(gpu, "_physical_count", lambda: physical)
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", mask)
+    assert gpu.num_gpus() == visible
+    monkeypatch.delenv("CUDA_VISIBLE_DEVICES")
+    assert gpu.num_gpus() == physical
+    assert gpu.node_labels() == {}
+
+
+@pytest.mark.parametrize("runs,want,calls", [
+    (["ok"], 2, 1),                        # the first run answers
+    (["fail", "timeout", "ok"], 2, 3),     # failed runs are retried
+    (["fail", "fail", "fail"], 0, 3),      # three failures read as none
+    (["missing"], 0, 1),                   # no nvidia-smi: not retried
+])
+def test_gpu_detector_retries_a_failed_nvidia_smi(runs, want, calls,
+                                                  monkeypatch):
+    import subprocess
+
+    from ant_ray_tpu_torch._private.accelerators import gpu
+
+    monkeypatch.setattr(gpu, "_PROC_GPUS", "/nonexistent/nvidia/gpus")
+    monkeypatch.setattr(gpu, "_SMI_RETRY_S", 0.0)
+    monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
+    seen = []
+
+    def run(cmd, **_kwargs):
+        outcome = runs[len(seen)]
+        seen.append(cmd)
+        if outcome == "missing":
+            raise FileNotFoundError("nvidia-smi")
+        if outcome == "timeout":
+            raise subprocess.TimeoutExpired(cmd, 10.0)
+        return subprocess.CompletedProcess(
+            cmd, 0 if outcome == "ok" else 9,
+            stdout="GPU 0: H100 (UUID: GPU-a)\nGPU 1: H100 (UUID: GPU-b)\n",
+            stderr="" if outcome == "ok" else "Unknown Error")
+
+    monkeypatch.setattr(gpu.subprocess, "run", run)
+    assert gpu.num_gpus() == want
+    assert len(seen) == calls
+    assert all(cmd == ["nvidia-smi", "-L"] for cmd in seen)
+

@@ -9,6 +9,7 @@ two packages must then be equal: values, exception types and messages,
 and random actor ids are masked; a task error's traceback is compared by
 its last line (the frames name each package's files)."""
 
+import os
 import re
 
 import numpy as np
@@ -305,23 +306,92 @@ def test_mixed_tensor_numpy_serialization():
     np.testing.assert_array_equal(tout[1], np.arange(1000))
 
 
-@pytest.mark.parametrize("address", [None, "127.0.0.1:6379",
-                                     "art://127.0.0.1:10001"])
+def _gpu_entry() -> dict:
+    """The ``GPU`` entry the port's detector adds on a host with cards
+    (none where there is no card)."""
+    from ant_ray_tpu_torch._private.accelerators import gpu
+
+    n = gpu.num_gpus()
+    return {"GPU": float(n)} if n else {}
+
+
+@pytest.mark.parametrize("address", ["art://127.0.0.1:10001"])
 def test_init_without_local_mode_raises_not_implemented(address):
-    with pytest.raises(NotImplementedError, match="6.1b"):
+    """The client (``art://``, connecting from outside the cluster) is
+    the one address form the port does not have: it names its item."""
+    with pytest.raises(NotImplementedError, match="client.*6.6"):
         tart.init(address)
     assert not tart.is_initialized()
 
 
-def test_api_before_init_raises_instead_of_starting_a_cluster():
+def test_init_starts_a_fresh_cluster():
+    """``init()`` with no address starts a GCS and a node daemon of the
+    port, runs a task in a worker process, and ``shutdown()`` removes
+    the session directory."""
+    ctx = tart.init(num_cpus=1)
+    try:
+        assert ctx.mode == "cluster"
+        assert tart.cluster_resources() == {"CPU": 1.0, **_gpu_entry()}
+
+        @tart.remote
+        def pid():
+            return os.getpid()
+
+        assert tart.get(pid.remote()) != os.getpid()
+        from ant_ray_tpu_torch._private.worker import global_worker
+
+        session_dir = global_worker.runtime.session_dir
+        assert os.path.basename(session_dir).startswith(
+            "art_torch_session_")
+        assert os.path.isdir(session_dir)
+    finally:
+        tart.shutdown()
+    assert not os.path.exists(session_dir)
+
+
+def test_init_with_address_connects():
+    """``address="host:port"`` joins a running cluster as a driver: its
+    tasks run there, and ``shutdown()`` leaves that cluster running."""
+    from ant_ray_tpu_torch.cluster_utils import Cluster
+
+    cluster = Cluster(head_node_args={"num_cpus": 1})
+    try:
+        tart.init(address=cluster.address)
+        try:
+            @tart.remote
+            def double(x):
+                return 2 * x
+
+            assert tart.get(double.remote(21)) == 42
+            assert len(tart.nodes()) == 1
+        finally:
+            tart.shutdown()
+        tart.init(address=cluster.address)
+        try:
+            assert tart.cluster_resources() == {"CPU": 1.0, **_gpu_entry()}
+        finally:
+            tart.shutdown()
+    finally:
+        cluster.shutdown()
+
+
+def test_api_before_init_starts_a_cluster():
+    """The first API call before ``init`` starts a cluster, as in the
+    JAX package (``ART_ADDRESS`` would name one to join instead)."""
     @tart.remote
     def f():
         return 1
 
     assert not tart.is_initialized()
-    for call in (f.remote, lambda: tart.put(1), tart.cluster_resources):
-        with pytest.raises(RuntimeError, match="local_mode=True"):
-            call()
+    try:
+        assert tart.get(f.remote()) == 1
+        assert tart.is_initialized()
+        from ant_ray_tpu_torch._private.worker import (CLUSTER_MODE,
+                                                       global_worker)
+
+        assert global_worker.mode == CLUSTER_MODE
+    finally:
+        tart.shutdown()
     assert not tart.is_initialized()
 
 
@@ -349,22 +419,59 @@ def test_system_config_applies_until_the_next_init(monkeypatch):
     assert Config().apply_env_overrides().max_spill_bytes == 1234
 
 
-@pytest.mark.parametrize("flag", ["no_such_flag", "max_inline_object_size",
-                                  "lockcheck"])
-def test_system_config_rejects_flags_the_port_does_not_read(flag):
-    """A flag of the JAX package's cluster fails loudly, naming 6.1b,
-    instead of being set and never read."""
-    with pytest.raises(ValueError, match="Unknown config flag.*6.1b"):
+@pytest.mark.parametrize("flag,item", [
+    ("no_such_flag", "a flag of neither package"),
+    ("include_dashboard", "item 6.6, the dashboard"),
+    ("lockcheck", "item 6.6, lockcheck"),
+    ("cpu_profile_hz", "item 6.5, the CPU profiler"),
+    ("enable_cgroups", "item 6.6, cgroups"),
+    ("enable_insight", "item 6.6, flow insight"),
+    ("gcs_ha_lease_ttl_s", "item 6.6, GCS HA")])
+def test_system_config_rejects_flags_the_port_does_not_read(flag, item):
+    """A flag whose reader is not ported fails loudly, naming the
+    ROADMAP item that brings it, instead of being set and never read."""
+    with pytest.raises(ValueError, match=f"Unknown config flag: {flag} "
+                                         f".*{item}"):
         tart.init(local_mode=True, _system_config={flag: 1})
     assert not tart.is_initialized()
 
 
+def test_system_config_carries_every_flag_a_ported_module_reads():
+    """The cluster's flags come with their readers: each flag of the
+    JAX package's table is either carried, with the same default, or
+    named in the table of unported flags."""
+    import dataclasses
+
+    from ant_ray_tpu._private.config import Config as JConfig
+    from ant_ray_tpu_torch._private.config import UNPORTED_FLAGS, Config
+
+    jax_flags = {f.name: f.default for f in dataclasses.fields(JConfig)}
+    port_flags = {f.name: f.default for f in dataclasses.fields(Config)}
+    assert set(port_flags) | set(UNPORTED_FLAGS) == set(jax_flags)
+    assert not set(port_flags) & set(UNPORTED_FLAGS)
+    assert all(port_flags[k] == jax_flags[k] for k in port_flags)
+    assert {"max_inline_object_size", "hot_wire_enabled",
+            "object_transfer_chunk_size", "heartbeat_period_s"} <= \
+        set(port_flags)
+    tart.init(local_mode=True,
+              _system_config={"max_inline_object_size": 4096})
+    try:
+        from ant_ray_tpu_torch._private.config import global_config
+
+        assert global_config().max_inline_object_size == 4096
+    finally:
+        tart.shutdown()
+
+
 @pytest.mark.parametrize("kwargs", [
-    {"num_cpus": 2}, {"num_tpus": 1}, {"resources": {"GPU": 1}},
-    {"object_store_memory": 1 << 30}, {"namespace": "ns"}])
-def test_init_with_cluster_only_arguments_raises_not_implemented(kwargs):
-    with pytest.raises(NotImplementedError,
-                       match=f"{next(iter(kwargs))}=.*6.1b"):
+    {"num_cpus": 2}, {"num_gpus": 1}, {"num_tpus": 1},
+    {"resources": {"GPU": 1}}, {"object_store_memory": 1 << 30},
+    {"namespace": "ns"}])
+def test_init_local_mode_with_cluster_only_arguments_raises(kwargs):
+    """Local mode starts no cluster, so an argument that sizes or names
+    one has nothing to act on: it fails instead of being dropped."""
+    with pytest.raises(ValueError,
+                       match=f"{next(iter(kwargs))}=.*local mode"):
         tart.init(local_mode=True, **kwargs)
     assert not tart.is_initialized()
 

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""chip_smoke.py's runtime and objects phases alone, on one NVIDIA GPU:
+"""chip_smoke.py's runtime, objects and cluster phases alone, on one
+NVIDIA GPU:
 
     python3 tools/runtime_phases.py [CHECKOUT]
 
@@ -7,11 +8,16 @@ Builds CHECKOUT's kernels (default: this checkout), makes Llama-3-8B's
 weights at its published widths (random, seed 0) through its
 ``LLMEngine``, and runs its chip_smoke.py ``runtime_phase`` (an actor
 holding an 8B engine in local mode, tokens against the same engine
-called directly, and the runtime's own cost per no-op call) and ``objects_phase`` (a 0.537 GB KV slab and a mixed
-dict through the object store's native arena and back onto the card),
-gates included.  Prints the card's nvidia-smi line and the phases'
-``runtime`` and ``objects`` JSON lines; exits non-zero if a gate fails.
-A minute on an H100, against chip_smoke's three to four.
+called directly, and the runtime's own cost per no-op call),
+``objects_phase`` (a 0.537 GB KV slab and a mixed dict through the
+object store's native arena and back onto the card) and
+``cluster_phase`` (a GCS, a node daemon and worker processes: an actor
+building the 8B engine in its own process on the card, a second card
+actor waiting for it, a CUDA tensor and the slab across processes,
+no-op calls, and a shutdown that leaves nothing behind), gates
+included.  Prints the card's nvidia-smi line and the phases' ``runtime``,
+``objects`` and ``cluster`` JSON lines; exits non-zero if a gate fails
+(the cluster phase prints its workers' logs first).
 
 To compare two commits' object plane, unpack one with ``git archive
 <commit> | tar -x -C <dir>`` and run the script on both in turns (A, B,
@@ -54,6 +60,7 @@ def main() -> int:
     params = LLMEngine("llama3-8b", slots=1, max_seq=4096, seed=0).params
     engine = chip_smoke.runtime_phase(torch, fa, llama, params)
     chip_smoke.objects_phase(torch, engine, card)
+    chip_smoke.cluster_phase(torch, fa, llama, params, engine, card)
     return 0
 
 
