@@ -1,9 +1,11 @@
 // Building blocks of the fp32 flash-attention kernels on Hopper's tensor
 // cores in 3xTF32 (flash_attention_fwd_tf32x3.cu, the forward, and
-// flash_attention_bwd_tf32x3.cu, dQ and dK/dV): cp.async copies into
-// padded shared-memory tiles, the 3xTF32 product on mma.sync.m16n8k8,
-// and its fragment loads.  One definition for every such kernel, so that
-// a change here (one TF32 product instead of three, say) reaches all.
+// flash_attention_bwd_tf32x3.cu, dQ and dK/dV, at head_dim 64 and 128;
+// flash_attention_bwd_tf32x3_d256.cu, dQ and dK/dV at 256): cp.async
+// copies into padded shared-memory tiles, the 3xTF32 product on
+// mma.sync.m16n8k8, and its fragment loads.  One definition for every
+// such kernel, so that a change here (one TF32 product instead of three,
+// say) reaches all.
 //
 // 3xTF32.  The tensor cores take TF32 (a 10-bit mantissa) at 495
 // TFLOP/s.  Each fp32 operand x splits into hi = tf32(x) and
@@ -55,30 +57,36 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // rows x D fp32 of a (.., row_stride)-strided tensor into a tile of rows
-// padded to D + kPad floats, 16 bytes a copy.
-template <int ROWS, int D>
+// padded to D + kPad floats, 16 bytes a copy, by a block of THREADS.
+template <int ROWS, int D, int THREADS = kThreads>
 __device__ __forceinline__ void copy_tile(float* dst, const float* src,
                                           size_t row_stride) {
   constexpr int kChunks = D / 4;
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
+  for (int i = threadIdx.x; i < ROWS * kChunks; i += THREADS) {
     const int r = i / kChunks, c = i % kChunks;
     cp_async16(dst + r * (D + kPad) + 4 * c, src + r * row_stride + 4 * c);
   }
 }
 
-// n contiguous floats (n a multiple of 4).
+// n contiguous floats (n a multiple of 4), by a block of THREADS.
+template <int THREADS = kThreads>
 __device__ __forceinline__ void copy_row(float* dst, const float* src,
                                          int n) {
-  for (int i = threadIdx.x; i < n / 4; i += kThreads)
+  for (int i = threadIdx.x; i < n / 4; i += THREADS)
     cp_async16(dst + 4 * i, src + 4 * i);
 }
 
 // ------------------------------------------------------------- 3xTF32
 
+// fp32 to TF32 (10 mantissa bits), rounded to nearest with ties away
+// from zero, on the integer pipe: half a TF32 ulp added to the bits, the
+// 13 low ones cleared.  For every finite x these are the bits of
+// cvt.rna.tf32.f32, whose conversion unit gives 16 results a clock an SM,
+// which a kernel splitting about one value per product waits on.  A NaN
+// may come out a number here (the addition can carry its payload into
+// the sign bit or out of the word); split keeps it in lo.
 __device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
 // x = hi + lo (+ what tf32(x - hi) rounds away, < 2^-22 |x|).
@@ -87,13 +95,25 @@ struct Split {
   uint32_t hi[N], lo[N];
 };
 
+// lo rounds x - hi as to_tf32 does, its bits first clamped at
+// 0x7fffefff as a signed integer, which leaves every finite value (and
+// -Inf) as it is.  When x is NaN or Inf, x - hi is the card's canonical
+// NaN, 0x7fffffff, and the clamp keeps the addition from carrying it
+// into the sign bit: lo stays a NaN (0x7fffe000), so the NaN reaches
+// every product of x, whatever hi became.  The split's integer
+// operations set the time of a kernel that splits about one value per
+// product: testing hi and lo for NaN instead (three integer operations
+// more a rounding) made the fp32 head_dim-256 backward 1.45x as slow on
+// an H100.
 template <int N>
 __device__ __forceinline__ Split<N> split(const float (&x)[N]) {
   Split<N> s;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     s.hi[i] = to_tf32(x[i]);
-    s.lo[i] = to_tf32(x[i] - __uint_as_float(s.hi[i]));
+    const int rest = __float_as_int(x[i] - __uint_as_float(s.hi[i]));
+    s.lo[i] = (static_cast<uint32_t>(min(rest, 0x7fffefff)) + 0x1000u) &
+              0xffffe000u;
   }
   return s;
 }

@@ -8,9 +8,12 @@ head_dim 256 (``csrc/flash_attention_fwd_sm90_d256.cu``,
 ``csrc/flash_attention_bwd_sm90_d256.cu``), fp32 on the tensor cores in
 3xTF32 at head_dim 64 and 128 (``csrc/flash_attention_fwd_tf32x3.cu``,
 ``csrc/flash_attention_bwd_tf32x3.cu``, sharing
-``csrc/flash_attention_tf32x3.cuh``), and the CUDA-core kernels for fp32
-at head_dim 256 (``csrc/flash_attention_fwd.cu``,
-``csrc/flash_attention_bwd.cu``).
+``csrc/flash_attention_tf32x3.cuh``), the fp32 backward in 3xTF32 at
+head_dim 256 (``csrc/flash_attention_bwd_tf32x3_d256.cu``), and the
+CUDA-core forward for fp32 at head_dim 256
+(``csrc/flash_attention_fwd.cu``).  The CUDA-core backward pair
+(``csrc/flash_attention_bwd.cu``) is on no route; chip_smoke.py times it
+beside its successor.
 
 Counterparts of ``flash_attention_fwd_lse`` and
 ``flash_attention_backward`` in ant_ray_tpu/ops/pallas/flash_attention.py,
@@ -52,6 +55,7 @@ bwd_dkv_launch_count = 0   # dK/dV, any route
 bwd_sm90_launch_count = 0  # backward calls that ran the sm90 pair
 bwd_tf32x3_launch_count = 0  # backward calls that ran the tf32x3 pair
 bwd_sm90_d256_launch_count = 0  # backward calls that ran the sm90_d256 pair
+bwd_tf32x3_d256_launch_count = 0  # ... that ran the tf32x3_d256 pair
 
 # C entry point -> (library, number of pointer arguments).  Every entry
 # point then takes batch, q_len, kv_len, heads, kv_heads, head_dim and
@@ -70,6 +74,10 @@ _ENTRY_POINTS = {
     "flash_attention_bwd_dq_sm90_d256": ("flash_attention_bwd_sm90_d256", 7),
     "flash_attention_bwd_dkv_sm90_d256": ("flash_attention_bwd_sm90_d256",
                                           8),
+    "flash_attention_bwd_dq_tf32x3_d256": ("flash_attention_bwd_tf32x3_d256",
+                                           7),
+    "flash_attention_bwd_dkv_tf32x3_d256": (
+        "flash_attention_bwd_tf32x3_d256", 8),
 }
 _fns: dict = {}
 
@@ -149,8 +157,9 @@ def _check_kernel_inputs(q, k):
 
 
 def _check_aligned(*tensors):
-    """The tensor-core kernels (sm90, sm90_d256, tf32x3) copy 16 bytes at
-    a time: every base address must lie on a 16-byte boundary."""
+    """The tensor-core kernels (sm90, sm90_d256, tf32x3, tf32x3_d256) copy
+    16 bytes at a time: every base address must lie on a 16-byte
+    boundary."""
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError(f"tensor-core kernels want 16-byte aligned "
@@ -179,9 +188,14 @@ def _route(dtype, head_dim, direction: str) -> str:
       accumulator is 128 registers a thread and the D<=128 layouts need
       more shared memory than a block has (each file's header says how
       it lays out the work);
-    * "simt", the CUDA-core kernels of csrc/flash_attention_fwd.cu and
-      csrc/flash_attention_bwd.cu, for fp32 at head_dim 256, both
-      directions.
+    * "tf32x3_d256", the fp32 tensor-core kernels (mma.sync, 3xTF32) of
+      csrc/flash_attention_bwd_tf32x3_d256.cu, for fp32 at head_dim 256,
+      the backward: its own design (32-row tiles; eight warps, each
+      owning a quarter of the output's columns and summing a quarter of
+      the inputs' columns into partial scores, which the four warps of a
+      row slice add in a fixed order; the file's header says why);
+    * "simt", the CUDA-core kernel of csrc/flash_attention_fwd.cu, for
+      fp32 at head_dim 256, the forward.
 
     This is routing, not a fallback: each route launches its kernels or
     raises."""
@@ -194,12 +208,12 @@ def _route(dtype, head_dim, direction: str) -> str:
             return "tf32x3"
     if dtype == torch.bfloat16:
         return "sm90_d256"
-    return "simt"
+    return "tf32x3_d256" if direction == "bwd" else "simt"
 
 
 # Entry-point name suffix per route.
 _SUFFIX = {"sm90": "_sm90", "simt": "", "tf32x3": "_tf32x3",
-           "sm90_d256": "_sm90_d256"}
+           "sm90_d256": "_sm90_d256", "tf32x3_d256": "_tf32x3_d256"}
 
 
 def _scores(q, k, causal, scale):
@@ -360,6 +374,7 @@ def flash_attention_backward(q, k, v, out, lse, do, *, causal: bool,
     :func:`flash_attention_backward_ref`."""
     global bwd_dq_launch_count, bwd_dkv_launch_count, bwd_sm90_launch_count
     global bwd_tf32x3_launch_count, bwd_sm90_d256_launch_count
+    global bwd_tf32x3_d256_launch_count
     _check(q, k, v)
     _check_residuals(q, out, lse, do)
     if q.device.type == "cpu":
@@ -372,8 +387,8 @@ def flash_attention_backward(q, k, v, out, lse, do, *, causal: bool,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     route = _route(q.dtype, q.shape[3], "bwd")
     suffix = _SUFFIX[route]
-    if route != "simt":
-        _check_aligned(q, k, v, do, lse, delta, dq, dk, dv)
+    # Every backward route runs on the tensor cores, 16 bytes a copy.
+    _check_aligned(q, k, v, do, lse, delta, dq, dk, dv)
     _launch("flash_attention_bwd_dq" + suffix,
             (q, k, v, do, lse, delta, dq), q, k, scale, causal)
     bwd_dq_launch_count += 1
@@ -386,6 +401,8 @@ def flash_attention_backward(q, k, v, out, lse, do, *, causal: bool,
         bwd_tf32x3_launch_count += 1
     elif route == "sm90_d256":
         bwd_sm90_d256_launch_count += 1
+    elif route == "tf32x3_d256":
+        bwd_tf32x3_d256_launch_count += 1
     return dq, dk, dv
 
 

@@ -12,7 +12,7 @@ final line is printed:
    limit (nvidia-smi); build every hand-written kernel from the sources
    in this checkout, timed, and print the registers and spill bytes
    ptxas reports for each tensor-core kernel (forward and backward, bf16
-   and 3xTF32, and bf16 at head_dim 256).
+   and 3xTF32, bf16 at head_dim 256, and the 3xTF32 backward at 256).
 2. Kernels: the flash-attention forward, through flash_attention_fwd_lse
    on the route it picks (told apart by the route counters: the
    tensor-core "sm90" kernel for bf16 at head_dim 64 and 128, the
@@ -27,8 +27,9 @@ final line is printed:
    CUDA-core kernel's route: B=1, S=512, H=8, KVH=2), GPT-2's
    (B=8, S=1024, H=KVH=12, D=64) in fp32 and bf16, and bf16 at
    Gemma-7B's and Gemma-2B's attention (B=4, S=2048, D=256, H=KVH=16 and
-   H=8 KVH=1) and the head_dim-256 path's own (phase 15: B=2, S=2048,
-   H=8, KVH=1; the sm90_d256 kernel's route).  Tolerances: bf16
+   H=8 KVH=1) and the head_dim-256 path's own (phase 16: B=2, S=2048,
+   H=8, KVH=1; the sm90_d256 kernel's route), and that shape in fp32
+   (phase 17's, the CUDA-core kernel's route).  Tolerances: bf16
    out max abs error <= 2e-2 (bf16 rounds p and out at other points in
    the tiled loop), lse <= 1e-3; fp32 both <= 1e-4.  Times by CUDA
    events, median of 10 runs: the kernel launched directly (with its
@@ -44,25 +45,28 @@ final line is printed:
 3. Backward kernels: dQ and dK/dV through flash_attention_backward, on
    the route it picks (tensor-core "sm90" kernels for bf16 at head_dim
    64 and 128, tensor-core "tf32x3" kernels for fp32 there, tensor-core
-   "sm90_d256" kernels for bf16 at head_dim 256, CUDA-core "simt"
-   kernels for fp32 at head_dim 256), against
+   "sm90_d256" kernels for bf16 at head_dim 256, tensor-core
+   "tf32x3_d256" kernels for fp32 there), against
    flash_attention_backward_ref at the training slice's shape and
-   seventeen others: llama3-1b's heads (D=64), length 192 (ragged on
+   eighteen others: llama3-1b's heads (D=64), length 192 (ragged on
    128-row tiles), Sq != Skv, fp32 at D=64 and D=128 with GQA, ragged
    and with more keys, D=256 in fp32 and bf16, GPT-2's in fp32 and
-   bf16, and Gemma-7B's and Gemma-2B's attention and the head_dim-256
-   path's (phase 15: B=2, S=2048, H=8, KVH=1) in bf16 (BWD_TOL: max
-   abs error over max |ref| per tensor).  Each line gives per kernel
+   bf16, Gemma-7B's and Gemma-2B's attention and the head_dim-256
+   path's (phase 16: B=2, S=2048, H=8, KVH=1) in bf16, and that path's
+   in fp32 (phase 17) (BWD_TOL: max abs error over max |ref| per
+   tensor).  Each line gives per kernel
    its route, time, achieved TFLOP/s and share of its bound (tf32x3's
-   at 3xTF32's rate, 494.7/3 TFLOP/s, and also at the 67 TFLOP/s of
-   fp32 FMAs); then the whole backward, its plain version, and as a
-   yardstick SDPA's backward (fwd+bwd through autograd minus fwd).  The
-   bound counts 6*D (dQ), 8*D (dK/dV) and 10*D (the whole backward)
-   FLOPs per (q, k) pair against the bytes each must move.  At the
-   training shape (sm90), at GPT-2's fp32 shape (tf32x3) and at
-   Gemma-7B's attention (sm90_d256) the CUDA-core pair is also checked
-   and timed, launched directly, for a before-and-after on one card; at
-   GPT-2's fp32 shape a profile names SDPA's kernels.
+   and tf32x3_d256's at 3xTF32's rate, 494.7/3 TFLOP/s, and also at the
+   67 TFLOP/s of fp32 FMAs); then the whole backward, its plain version,
+   and as a yardstick SDPA's backward (fwd+bwd through autograd minus
+   fwd).  The bound counts 6*D (dQ), 8*D (dK/dV) and 10*D (the whole
+   backward) FLOPs per (q, k) pair against the bytes each must move.
+   At the training shape (sm90), at GPT-2's fp32 shape (tf32x3), at
+   Gemma-7B's attention (sm90_d256) and at both fp32 head_dim-256
+   shapes (tf32x3_d256) the CUDA-core pair, on no route now, is also
+   checked and timed, launched directly, for a before-and-after on one
+   card; at GPT-2's fp32 shape and the fp32 d256 path's a profile names
+   SDPA's kernels.
 4. Correctness of the model path on a small fp32 model with head_dim
    128: logits through the flash kernel against the plain reference
    attention on the card, and against the same model on the CPU; then
@@ -124,7 +128,7 @@ final line is printed:
    Prints one "runtime" JSON line with the wall of each call beside the
    direct call's and, under "overhead", the runtime's own cost per call
    (medians, microseconds).  These launches stay out of the kernels line
-   (phase 17), whose paths and counts are those of the phases it names.
+   (phase 18), whose paths and counts are those of the phases it names.
 9. The object plane on the card: one slot's KV slab of that direct
    engine (cache["k"][:, 0] and cache["v"][:, 0], 32 x 4096 x 8 x 128
    bf16 each, two non-contiguous views, 0.537 GB) goes through
@@ -246,27 +250,41 @@ final line is printed:
    attention's; the loss falling.  Prints
    step time, tokens/s, MFU, peak memory and a profile of one step with
    the attention kernels' share.
-17. One line {"kernels": [...]} with the twelve kernels (the sm90,
-   tf32x3, sm90_d256 and CUDA-core forward; the sm90, tf32x3, sm90_d256
-   and CUDA-core dQ and dK/dV; launches by path, the main paths being
-   serving, sessions, the loop, the cluster's worker, the checkpoint
-   directory, the server,
-   training, training under each remat policy, GPT-2 in fp32 and bf16
-   and the head_dim-256 Llama; the older kernels' times also at GPT-2's
+17. Head_dim 256 in fp32: the same Llama at Gemma-2B's widths and all
+   18 layers in fp32 (TF32 off), remat D256_FP32_REMAT ("full": AdamW's
+   state alone is 20 GB), the same weights' seed and batch.  First one
+   step's loss and every gradient leaf through the kernels against fp32
+   reference attention on the card (D256_FP32_GRAD_TOL per leaf,
+   D256_FP32_LOSS_TOL), then D256_FP32_STEPS (2 warm-up, 5 timed)
+   train_step calls.  Gates: per step the tf32x3_d256 dQ and dK/dV
+   once per layer (18 pairs) and no other backward kernel, the
+   CUDA-core forward once per layer and recompute (36), nothing else;
+   the loss falling.  Prints step time, tokens/s, MFU against fp32's 67
+   TFLOP/s, peak memory and a profile of one step with the attention
+   kernels' card time, the backward pair's apart.
+18. One line {"kernels": [...]} with the fourteen kernels (the sm90,
+   tf32x3, sm90_d256 and CUDA-core forward; the sm90, tf32x3,
+   sm90_d256, tf32x3_d256 and CUDA-core dQ and dK/dV; launches by path,
+   the main paths being serving, sessions, the loop, the cluster's
+   worker, the checkpoint directory, the server, training, training
+   under each remat policy, GPT-2 in fp32 and bf16 and the head_dim-256
+   Llama in bf16 and fp32; the older kernels' times also at GPT-2's
    shape, the sm90_d256 ones at Gemma-7B's and Gemma-2B's attention and
-   at the head_dim-256 path's own).
-   The three CUDA-core kernels serve only fp32 at head_dim 256, which no
-   main path uses: they show 0 launches there, and every other kernel
-   must show some;
+   at the head_dim-256 path's own, the tf32x3_d256 ones at the fp32
+   path's and at FP32_D256_ATTN).  The CUDA-core dQ and dK/dV kernels
+   are on no route: they show 0 launches, and every other kernel must
+   show some on a main path;
    then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 comparisons are
 made in full fp32.
 
-Two more modes give the readings behind D256_GRAD_TOL (one GPU):
+Three more modes give the readings behind D256_GRAD_TOL and
+D256_FP32_GRAD_TOL (one GPU):
 
     python3 chip_smoke.py --d256-gate-readings [CHECKOUT]
+    python3 chip_smoke.py --d256-fp32-gate-readings [CHECKOUT]
     python3 chip_smoke.py --plant-d256-fault FAULT DIR
 
 The first runs CHECKOUT's (default: this directory's) backward kernel
@@ -274,8 +292,14 @@ phase and its head_dim-256 gradient check with BWD_TOL["bfloat16"],
 D256_GRAD_TOL and BF16_LOSS_TOL at infinity (launch and route gates
 stay), then the gradient check twice more with the kernels' plain
 versions patched in (the backward, then both directions), and prints
-one JSON line.  The second copies this script and the package into DIR
-(new) with one of D256_FAULTS planted in the sm90_d256 backward.
+one JSON line.  The second does the same for fp32 (the backward's
+errors at FP32_D256_ATTN and the fp32 path's attention, then the fp32
+gradient check under D256_FP32_REMAT).  The third copies this script
+and the package into DIR (new) with one of D256_FAULTS planted in the
+sm90_d256 or the tf32x3_d256 backward, the tf32x3 header or the
+CUDA-core forward.  tools/kernel_ab.py times the kernels of several
+checkouts in turns, tools/d256_fp32_remat.py the fp32 d256 Llama under
+remat "none" and "full".
 """
 
 from __future__ import annotations
@@ -341,6 +365,32 @@ BF16_LOSS_TOL = 1e-2   # the loss (~5.7) on fp32 logits of bf16 layers
 # diagonal masked 0.163, dK/dV's 0.489, a cluster rank's partial dropped
 # 0.702, the warpgroups' trade skipped 1.32.  The limit lies between.
 D256_GRAD_TOL = 0.1
+# The fp32 head_dim-256 path (d256_fp32_phase): remat "full" (AdamW's
+# state alone is 20 GB at 2.51 B fp32 parameters; the peaks of both
+# policies, tools/d256_fp32_remat.py, are in PERF.md), 2 warm-up and 5
+# timed steps.
+D256_FP32_REMAT = "full"
+D256_FP32_STEPS = (2, 5)
+# Its gradients through the CUDA-core forward and the tf32x3_d256
+# backward against fp32 reference attention, per leaf, over max |ref|.
+# Readings (--d256-fp32-gate-readings, H100 80GB HBM3 at 700 W): the
+# kernels 8.97e-5 (embed; every other leaf <= 4.29e-5), their plain
+# versions on the same path 1.92e-5 (backward only) and 1.93e-5 (both):
+# eighteen layers carry the pair's 3xTF32 rounding (~2^-22 a product)
+# into every leaf.  Faults planted in the pair (--plant-d256-fault): one
+# TF32 product instead of three 4.88e-4, dQ's diagonal masked 0.151,
+# dK/dV's 0.454, a cluster rank's partial dropped 0.724, a quarter of
+# the partial scores dropped 0.613.  The limit lies between the sound
+# reading and the one-product fault, ~2x from each.
+D256_FP32_GRAD_TOL = 2e-4
+# Its first loss (~12.9, where an fp32 ulp is 2^-20) against reference
+# attention's.  Readings (--d256-fp32-gate-readings, H100 80GB HBM3 at
+# 700 W): one ulp through the kernels, sound and under every backward
+# fault (the loss is the forward's alone), 0 through their plain
+# versions.  The limit is four ulps; the forward's causal mask letting
+# each row see one key ahead (fp32_fwd_one_ahead) reads far above it
+# (PERF.md).
+D256_FP32_LOSS_TOL = 4 * 2.0 ** -20
 REPS = 10
 
 
@@ -427,9 +477,10 @@ GPT2_ATTN = (8, 1024, 1024, 12, 12, 64)
 # CUDA-core backward pair.
 GEMMA7B_ATTN = (4, 2048, 2048, 16, 16, 256)
 GEMMA2B_ATTN = (4, 2048, 2048, 8, 1, 256)
-# The shape at which the CUDA-core forward runs on its own route (fp32 at
-# head_dim 256, on no main path).
-SIMT_FWD_ATTN = (1, 512, 512, 8, 2, 256)
+# fp32 at head_dim 256 (B, Sq, Skv, H, KVH, D), PERF.md's rows 1b-3b:
+# the CUDA-core forward's route and the tf32x3_d256 backward's, both also
+# timed at the fp32 d256 path's own attention.
+FP32_D256_ATTN = (1, 512, 512, 8, 2, 256)
 # The head_dim-256 path's batch of token ids (d256_phase): 2 sequences
 # of 2048 tokens and the next one.
 D256_TOKENS = (2, 2049)
@@ -517,7 +568,8 @@ def kernel_phase(torch, fa):
         (1, 128, 256, 32, 8, 128, bf16, True),
         (1, 256, 128, 32, 8, 128, bf16, True),
         (1, 512, 512, 8, 2, 256, bf16, True),
-        (*SIMT_FWD_ATTN, fp32, True),              # head_dim 256 (simt)
+        (*FP32_D256_ATTN, fp32, True),             # head_dim 256 (simt)
+        (*_d256_attn(), fp32, True),               # the d256 fp32 path's
         (*GPT2_ATTN, fp32, True),                  # GPT-2, fp32 (tf32x3)
         (*GPT2_ATTN, bf16, True),                  # GPT-2, bf16 (sm90)
         (*GEMMA7B_ATTN, bf16, True),               # head_dim 256 (sm90_d256)
@@ -657,9 +709,9 @@ def _kernel_stats(ms, bound):
 def bwd_kernel_phase(torch, fa):
     """The dQ and dK/dV kernels, through the route the wrapper picks,
     against flash_attention_backward_ref; at the training shape (sm90),
-    at GPT-2's fp32 shape (tf32x3) and at Gemma-7B's attention
-    (sm90_d256) also the CUDA-core pair, launched directly, for a
-    before-and-after on one card."""
+    at GPT-2's fp32 shape (tf32x3), at Gemma-7B's attention (sm90_d256)
+    and at both fp32 head_dim-256 shapes (tf32x3_d256) also the CUDA-core
+    pair, launched directly, for a before-and-after on one card."""
     import torch.nn.functional as F  # noqa: PLC0415
 
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -675,13 +727,14 @@ def bwd_kernel_phase(torch, fa):
         (1, 128, 256, 32, 8, 64, fp32, True),      # fp32, Sq < Skv
         (1, 1024, 1024, 32, 32, 128, bf16, False),
         (1, 128, 256, 32, 8, 128, bf16, True),
-        (1, 512, 512, 8, 2, 256, fp32, True),
+        (*FP32_D256_ATTN, fp32, True),             # head_dim 256 (tf32x3_d256)
         (1, 512, 512, 8, 2, 256, bf16, True),
         (*GPT2_ATTN, fp32, True),                  # GPT-2, fp32 (tf32x3)
         (*GPT2_ATTN, bf16, True),                  # GPT-2, bf16 (sm90)
         (*GEMMA7B_ATTN, bf16, True),               # head_dim 256 (sm90_d256)
         (*GEMMA2B_ATTN, bf16, True),
         (*_d256_attn(), bf16, True),               # the d256 path's
+        (*_d256_attn(), fp32, True),               # the d256 fp32 path's
     ]
     gen = torch.Generator(device="cuda").manual_seed(2)
     results = []
@@ -700,14 +753,16 @@ def bwd_kernel_phase(torch, fa):
         with torch.no_grad():
             out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal)
         before = (fa.bwd_sm90_launch_count, fa.bwd_tf32x3_launch_count,
-                  fa.bwd_sm90_d256_launch_count)
+                  fa.bwd_sm90_d256_launch_count,
+                  fa.bwd_tf32x3_d256_launch_count)
         got = fa.flash_attention_backward(q, k, v, out, lse, do,
                                           causal=causal)
         torch.cuda.synchronize()
         took = ("sm90" if fa.bwd_sm90_launch_count > before[0] else
                 "tf32x3" if fa.bwd_tf32x3_launch_count > before[1] else
                 "sm90_d256" if fa.bwd_sm90_d256_launch_count > before[2]
-                else "simt")
+                else "tf32x3_d256"
+                if fa.bwd_tf32x3_d256_launch_count > before[3] else "none")
         if took != route:
             raise AssertionError(f"backward at {shape} took route {took}, "
                                  f"expected {route}")
@@ -721,17 +776,19 @@ def bwd_kernel_phase(torch, fa):
         # the sm90 kernels' (bf16 tensor cores).
         fma_bounds = _bwd_bounds(batch, q_len, kv_len, heads, kv_heads, dim,
                                  name, causal)
-        # tf32x3 does fp32-accurate products on the tensor cores, whose
-        # ceiling for them is 3xTF32's rate; its bound is taken there.
+        # tf32x3 and tf32x3_d256 do fp32-accurate products on the tensor
+        # cores, whose ceiling for them is 3xTF32's rate; their bound is
+        # taken there.
+        three_tf32 = route in ("tf32x3", "tf32x3_d256")
         bounds = (_bwd_bounds(batch, q_len, kv_len, heads, kv_heads, dim,
                               name, causal, TF32X3_FLOPS)
-                  if route == "tf32x3" else fma_bounds)
+                  if three_tf32 else fma_bounds)
         delta = fa._delta(out, do).contiguous()
         dq_ms, dkv_ms, _ = _kernel_times(torch, fa, fa._SUFFIX[route], q, k,
                                          v, do, lse, delta, causal)
         kernels = {key: {"route": route, **_kernel_stats(ms, bounds[key])}
                    for key, ms in (("dq", dq_ms), ("dkv", dkv_ms))}
-        if route == "tf32x3":
+        if three_tf32:
             for key, row in kernels.items():
                 row["fp32_fma_bound_ms"] = fma_bounds[key][0]
                 row["share_of_fp32_fma_bound"] = (fma_bounds[key][0]
@@ -740,9 +797,10 @@ def bwd_kernel_phase(torch, fa):
         attn = (batch, q_len, kv_len, heads, kv_heads, dim)
         gpt2 = attn == GPT2_ATTN
         if ((route == "sm90" and not results) or (route == "tf32x3" and gpt2)
-                or (route == "sm90_d256" and attn == GEMMA7B_ATTN)):
+                or (route == "sm90_d256" and attn == GEMMA7B_ATTN)
+                or route == "tf32x3_d256"):
             # PR 2's CUDA-core pair on the same inputs, launched directly:
-            # the wrapper no longer routes this dtype and head_dim there.
+            # the wrapper routes no dtype and head_dim there any more.
             s_dq_ms, s_dkv_ms, s_got = _kernel_times(
                 torch, fa, "", q, k, v, do, lse, delta, causal)
             s_abs, s_rel = _bwd_errors(s_got, want, name, shape,
@@ -774,7 +832,8 @@ def bwd_kernel_phase(torch, fa):
 
         sdpa_fwd_ms = _median_ms(torch, sdpa)
         sdpa_both_ms = _median_ms(torch, sdpa_both)
-        if route == "tf32x3" and gpt2:
+        if (route == "tf32x3" and gpt2) or (route == "tf32x3_d256"
+                                            and attn == _d256_attn()):
             # Which kernels SDPA runs for fp32 (their names say which
             # backend, and so whether the tensor cores do its products).
             _profile(torch, f"SDPA forward and backward at {shape}",
@@ -850,26 +909,28 @@ def _reset_counts(fa):
     fa.fwd_sm90_d256_launch_count = 0
     fa.bwd_dq_launch_count = fa.bwd_dkv_launch_count = 0
     fa.bwd_sm90_launch_count = fa.bwd_tf32x3_launch_count = 0
-    fa.bwd_sm90_d256_launch_count = 0
+    fa.bwd_sm90_d256_launch_count = fa.bwd_tf32x3_d256_launch_count = 0
 
 
 def _counts(fa):
     """Launches since the last reset: the forward on any route, on the
     sm90, the tf32x3 and the sm90_d256 route, dQ and dK/dV on any route,
-    and backward calls that took the sm90, the tf32x3 and the sm90_d256
-    pair."""
+    and backward calls that took the sm90, the tf32x3, the sm90_d256 and
+    the tf32x3_d256 pair."""
     return {"fwd": fa.launch_count, "fwd_sm90": fa.fwd_sm90_launch_count,
             "fwd_tf32x3": fa.fwd_tf32x3_launch_count,
             "fwd_sm90_d256": fa.fwd_sm90_d256_launch_count,
             "dq": fa.bwd_dq_launch_count, "dkv": fa.bwd_dkv_launch_count,
             "sm90": fa.bwd_sm90_launch_count,
             "tf32x3": fa.bwd_tf32x3_launch_count,
-            "sm90_d256": fa.bwd_sm90_d256_launch_count}
+            "sm90_d256": fa.bwd_sm90_d256_launch_count,
+            "tf32x3_d256": fa.bwd_tf32x3_d256_launch_count}
 
 
 def _by_kernel(counts):
-    """Launches of each of the twelve kernels from a _counts() dict."""
-    tensor_cores = counts["sm90"] + counts["tf32x3"] + counts["sm90_d256"]
+    """Launches of each of the fourteen kernels from a _counts() dict."""
+    tensor_cores = (counts["sm90"] + counts["tf32x3"] + counts["sm90_d256"]
+                    + counts["tf32x3_d256"])
     return {"flash_attention_fwd_sm90": counts["fwd_sm90"],
             "flash_attention_fwd_tf32x3": counts["fwd_tf32x3"],
             "flash_attention_fwd_sm90_d256": counts["fwd_sm90_d256"],
@@ -882,6 +943,8 @@ def _by_kernel(counts):
             "flash_attention_bwd_dkv_tf32x3": counts["tf32x3"],
             "flash_attention_bwd_dq_sm90_d256": counts["sm90_d256"],
             "flash_attention_bwd_dkv_sm90_d256": counts["sm90_d256"],
+            "flash_attention_bwd_dq_tf32x3_d256": counts["tf32x3_d256"],
+            "flash_attention_bwd_dkv_tf32x3_d256": counts["tf32x3_d256"],
             "flash_attention_bwd_dq": counts["dq"] - tensor_cores,
             "flash_attention_bwd_dkv": counts["dkv"] - tensor_cores}
 
@@ -925,7 +988,8 @@ def grad_check_phase(torch, fa, llama):
         fwd = cfg.n_layers * FWD_PER_LAYER[remat]
         want = {"fwd": fwd, "fwd_sm90": 0, "fwd_tf32x3": fwd,
                 "fwd_sm90_d256": 0, "dq": cfg.n_layers, "dkv": cfg.n_layers,
-                "sm90": 0, "tf32x3": cfg.n_layers, "sm90_d256": 0}
+                "sm90": 0, "tf32x3": cfg.n_layers, "sm90_d256": 0,
+                "tf32x3_d256": 0}
         total = {key: total[key] + launches[key] for key in total}
         readings[remat] = {"vs_reference": err_ref, "vs_cpu": err_cpu}
         print(f"gradient check (fp32, head_dim 128, S=256, remat {remat}): "
@@ -990,7 +1054,8 @@ def bf16_grad_check_phase(torch, fa, llama):
     worst = max(err, key=err.get)
     want = {"fwd": cfg.n_layers, "fwd_sm90": cfg.n_layers, "fwd_tf32x3": 0,
             "fwd_sm90_d256": 0, "dq": cfg.n_layers, "dkv": cfg.n_layers,
-            "sm90": cfg.n_layers, "tf32x3": 0, "sm90_d256": 0}
+            "sm90": cfg.n_layers, "tf32x3": 0, "sm90_d256": 0,
+            "tf32x3_d256": 0}
     print(f"gradient check (bf16, head_dim 128, S=256, remat none, sm90 "
           f"backward): loss {loss:.6f}, reference {ref_loss:.6f}; max grad "
           f"error over max |ref| per leaf vs bf16 reference "
@@ -1063,7 +1128,7 @@ def train_phase(torch, fa, llama):
     per_step = {"fwd": cfg.n_layers, "fwd_sm90": cfg.n_layers,
                 "fwd_tf32x3": 0, "fwd_sm90_d256": 0, "dq": cfg.n_layers,
                 "dkv": cfg.n_layers, "sm90": cfg.n_layers, "tf32x3": 0,
-                "sm90_d256": 0}
+                "sm90_d256": 0, "tf32x3_d256": 0}
     losses, step_ms, launches, peak_gb = _train_steps(torch, fa, step,
                                                       per_step)
     ms = statistics.median(step_ms[3:])
@@ -1107,7 +1172,8 @@ def remat_phase(torch, fa, llama):
         n = cfg.n_layers
         per_step = {"fwd": fwd * n, "fwd_sm90": fwd * n, "fwd_tf32x3": 0,
                     "fwd_sm90_d256": 0, "dq": n, "dkv": n, "sm90": n,
-                    "tf32x3": 0, "sm90_d256": 0}
+                    "tf32x3": 0, "sm90_d256": 0,
+                    "tf32x3_d256": 0}
         losses, step_ms, launches, peak_gb = _train_steps(torch, fa, step,
                                                           per_step)
         ms = statistics.median(step_ms[3:])
@@ -1260,7 +1326,8 @@ def gpt2_phase(torch, fa, dtype_name):
                 "fwd_sm90_d256": 2 * n * (fwd == "sm90_d256"), "dq": n,
                 "dkv": n, "sm90": n * (bwd == "sm90"),
                 "tf32x3": n * (bwd == "tf32x3"),
-                "sm90_d256": n * (bwd == "sm90_d256")}
+                "sm90_d256": n * (bwd == "sm90_d256"),
+                "tf32x3_d256": n * (bwd == "tf32x3_d256")}
     losses, step_ms, launches, peak_gb = _train_steps(torch, fa, step,
                                                       per_step)
     ms = statistics.median(step_ms[3:])
@@ -1312,10 +1379,12 @@ def gpt2_phase(torch, fa, dtype_name):
                       "grad_err": grad_err}
 
 
-def _llama_d256(torch, llama):
-    """_d256_config's Llama, weights from seed 0, and one fixed batch of
-    D256_TOKENS token ids."""
+def _llama_d256(torch, llama, dtype=None):
+    """_d256_config's Llama (in ``dtype`` if given), weights from seed 0,
+    and one fixed batch of D256_TOKENS token ids."""
     cfg = _d256_config()
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
     params = llama.init_params(
         cfg, generator=torch.Generator(device="cuda").manual_seed(0),
         device="cuda")
@@ -1324,16 +1393,16 @@ def _llama_d256(torch, llama):
     return cfg, params, tokens
 
 
-def _d256_grad_check(torch, fa, llama, cfg, params, tokens):
+def _d256_grad_check(torch, fa, llama, cfg, params, tokens, remat="none"):
     """One step's loss and every gradient leaf of the head_dim-256 Llama
-    through the kernels (remat "none") against reference attention on
+    through the kernels (under ``remat``) against reference attention on
     the card.  Returns the loss, the reference's, the per-leaf max abs
     error over max |ref| and the launches of the kernels' step."""
     ref_loss, ref_grads = _loss_and_grads(torch, llama, cfg, params, tokens,
-                                          "reference", "none")
+                                          "reference", remat)
     _reset_counts(fa)
     loss, grads = _loss_and_grads(torch, llama, cfg, params, tokens, "flash",
-                                  "none")
+                                  remat)
     torch.cuda.synchronize()
     launches = _counts(fa)
     err = {k: _rel_err(g, ref_grads[k]) for k, g in grads.items()}
@@ -1372,7 +1441,8 @@ def d256_phase(torch, fa, llama):
         raise AssertionError(f"head_dim 256 in bf16 routes to {fwd} and "
                              f"{bwd}")
     per_step = {"fwd": n, "fwd_sm90": 0, "fwd_tf32x3": 0, "fwd_sm90_d256": n,
-                "dq": n, "dkv": n, "sm90": 0, "tf32x3": 0, "sm90_d256": n}
+                "dq": n, "dkv": n, "sm90": 0, "tf32x3": 0, "sm90_d256": n,
+                "tf32x3_d256": 0}
     loss, ref_loss, err, grad_launches = _d256_grad_check(
         torch, fa, llama, cfg, params, tokens)
     worst = max(err, key=err.get)
@@ -1417,6 +1487,94 @@ def d256_phase(torch, fa, llama):
                 if re.search(r"flash_(fwd|bwd)", name)}
         print(f"d256 attention kernels: {sum(attn.values()) / 1e3:.2f} ms of "
               f"{busy / 1e3:.2f} ms busy ({sum(attn.values()) / busy:.1%}); "
+              + json.dumps({name: round(us / 1e3, 3)
+                            for name, us in attn.items()}), flush=True)
+    del params, optimizer, tokens
+    return launches
+
+
+def d256_fp32_phase(torch, fa, llama):
+    """The fp32 head_dim-256 training path: _llama_d256 in fp32 (2.51 B
+    parameters), AdamW, remat D256_FP32_REMAT.  First one step's loss and
+    every gradient leaf through the kernels against reference attention
+    on the card (D256_FP32_GRAD_TOL, D256_FP32_LOSS_TOL); then
+    D256_FP32_STEPS warm-up and timed train_step calls.  Gates: per step
+    the tf32x3_d256 backward pair once per layer and the CUDA-core
+    forward once per layer and recompute, no other flash kernel; the
+    loss finite and falling.  Prints step time, tokens/s, MFU against
+    fp32's 67 TFLOP/s (TF32 off, so the model's GEMMs run in fp32), peak
+    memory and a profile of one step with the attention kernels' card
+    time.  Returns the launches of the training steps."""
+    from ant_ray_tpu_torch.train import make_optimizer, train_step  # noqa: PLC0415
+
+    torch.cuda.empty_cache()
+    remat = D256_FP32_REMAT
+    t0 = time.perf_counter()
+    cfg, params, tokens = _llama_d256(torch, llama, torch.float32)
+    batch, seq = tokens.shape[0], tokens.shape[1] - 1
+    print(f"d256 fp32 llama up in {time.perf_counter() - t0:.1f} s "
+          f"({cfg.num_params() / 1e9:.3f} B params, {cfg.dtype}, "
+          f"{cfg.n_layers} layers, {cfg.n_heads} heads of {cfg.head_dim}, "
+          f"{cfg.n_kv_heads} KV head, remat {remat})", flush=True)
+
+    n = cfg.n_layers
+    fwd, bwd = (fa._route(cfg.dtype, cfg.head_dim, d) for d in ("fwd", "bwd"))
+    if (fwd, bwd) != ("simt", "tf32x3_d256"):
+        raise AssertionError(f"head_dim 256 in fp32 routes to {fwd} and "
+                             f"{bwd}")
+    per_step = {"fwd": FWD_PER_LAYER[remat] * n, "fwd_sm90": 0,
+                "fwd_tf32x3": 0, "fwd_sm90_d256": 0, "dq": n, "dkv": n,
+                "sm90": 0, "tf32x3": 0, "sm90_d256": 0, "tf32x3_d256": n}
+    loss, ref_loss, err, grad_launches = _d256_grad_check(
+        torch, fa, llama, cfg, params, tokens, remat)
+    worst = max(err, key=err.get)
+    loss_err = abs(loss - ref_loss)
+    print(f"d256 fp32 gradient check ({batch} x {seq}, remat {remat}): loss "
+          f"{loss:.6f}, reference attention {ref_loss:.6f}: error "
+          f"{loss_err:.3e} (tol {D256_FP32_LOSS_TOL}); max grad error over "
+          f"max |ref| per leaf {err[worst]:.3e} ({worst}; tol "
+          f"{D256_FP32_GRAD_TOL}); launches {grad_launches}", flush=True)
+    print("d256 fp32 gradient errors per leaf " + json.dumps(err),
+          flush=True)
+    if not (loss_err <= D256_FP32_LOSS_TOL
+            and err[worst] <= D256_FP32_GRAD_TOL
+            and grad_launches == per_step):
+        raise AssertionError("d256 fp32 gradient check failed")
+    torch.cuda.empty_cache()
+
+    optimizer = make_optimizer(params)
+
+    def step():
+        return train_step(params, optimizer, tokens, cfg, remat=remat)
+
+    warm, timed = D256_FP32_STEPS
+    losses, step_ms, launches, peak_gb = _train_steps(
+        torch, fa, step, per_step, n_steps=warm + timed)
+    ms = statistics.median(step_ms[warm:])
+    tokens_per_s = batch * seq / (ms / 1e3)
+    mfu = tokens_per_s * llama.flops_per_token(cfg, seq) / PEAK_FLOPS[
+        "float32"]
+    print(f"train d256 fp32 llama batch {batch} x seq {seq} remat {remat}: "
+          f"losses {[round(x, 4) for x in losses]}; step {ms:.2f} ms "
+          f"(median of {timed} after {warm} warm-up; all "
+          f"{[round(x, 1) for x in step_ms]}), {tokens_per_s:.0f} tokens/s, "
+          f"MFU {mfu:.4f} against {PEAK_FLOPS['float32'] / 1e12:.0f} "
+          f"TFLOP/s ({PEAK_NAME['float32']}), peak memory {peak_gb:.2f} GB; "
+          f"launches per step {per_step}", flush=True)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"d256 fp32 training: losses {losses}")
+    by_name = _profile(torch, f"train step d256 fp32 llama {batch} x {seq}",
+                       step, top=16)
+    if by_name is not None:
+        busy = sum(by_name.values())
+        attn = {name: us for name, us in by_name.items()
+                if re.search(r"flash_(fwd|bwd)", name)}
+        bwd_us = sum(us for name, us in attn.items()
+                     if re.search(r"flash_bwd_d(q|kv)_tf32x3_d256", name))
+        print(f"d256 fp32 attention kernels: {sum(attn.values()) / 1e3:.2f} "
+              f"ms of {busy / 1e3:.2f} ms busy "
+              f"({sum(attn.values()) / busy:.1%}), the backward pair "
+              f"{bwd_us / 1e3:.2f} ms; "
               + json.dumps({name: round(us / 1e3, 3)
                             for name, us in attn.items()}), flush=True)
     del params, optimizer, tokens
@@ -1471,7 +1629,8 @@ def slice_phase(torch, fa, llama):
           f"(expected 0)", flush=True)
     if launches != {"fwd": expected, "fwd_sm90": expected, "fwd_tf32x3": 0,
                     "fwd_sm90_d256": 0, "dq": 0, "dkv": 0, "sm90": 0,
-                    "tf32x3": 0, "sm90_d256": 0}:
+                    "tf32x3": 0, "sm90_d256": 0,
+                    "tf32x3_d256": 0}:
         raise AssertionError(f"serving launched {launches}, expected "
                              f"{expected} sm90 forward and no other launches")
 
@@ -2145,7 +2304,8 @@ def runtime_phase(torch, fa, llama, params):
         raise AssertionError("wait, a task's tensor or put/get failed")
     if launches != {"fwd": expected, "fwd_sm90": expected, "fwd_tf32x3": 0,
                     "fwd_sm90_d256": 0, "dq": 0, "dkv": 0, "sm90": 0,
-                    "tf32x3": 0, "sm90_d256": 0}:
+                    "tf32x3": 0, "sm90_d256": 0,
+                    "tf32x3_d256": 0}:
         raise AssertionError(f"the runtime path launched {launches}, "
                              f"expected {expected} sm90 forward launches")
     return direct
@@ -2351,7 +2511,8 @@ def cluster_phase(torch, fa, llama, params, engine, card):
             if c["worker_launches"] != {
                     "fwd": want, "fwd_sm90": want, "fwd_tf32x3": 0,
                     "fwd_sm90_d256": 0, "dq": 0, "dkv": 0, "sm90": 0,
-                    "tf32x3": 0, "sm90_d256": 0}:
+                    "tf32x3": 0, "sm90_d256": 0,
+                    "tf32x3_d256": 0}:
                 raise AssertionError(
                     f"the worker launched {c['worker_launches']} for the "
                     f"{c['prompt']}-token prompt, expected {want} sm90 "
@@ -2823,7 +2984,8 @@ def checkpoint_phase(torch, fa, llama):
                              f"server ok {server_ok}")
     if launches != {"fwd": expected, "fwd_sm90": expected, "fwd_tf32x3": 0,
                     "fwd_sm90_d256": 0, "dq": 0, "dkv": 0, "sm90": 0,
-                    "tf32x3": 0, "sm90_d256": 0}:
+                    "tf32x3": 0, "sm90_d256": 0,
+                    "tf32x3_d256": 0}:
         raise AssertionError(f"checkpoint phase launched {launches}")
     return launches
 
@@ -3097,27 +3259,35 @@ def _print_ptxas(build, lib):
 
 
 def kernels_line(rows, bwd_rows, paths):
-    """The {"kernels": [...]} record of the twelve kernels from the kernel
-    phases' rows and the launches of every path; raises if a kernel that
-    a main path should run was not launched on one."""
+    """The {"kernels": [...]} record of the fourteen kernels from the
+    kernel phases' rows and the launches of every path; raises if a
+    kernel that a main path should run was not launched on one."""
     by_path = {path: _by_kernel(c) for path, c in paths.items()}
     main_paths = [p for p in paths if not p.startswith("grad_check")]
 
     # Forward: S=4096, the largest prefill of the serving slice, for sm90,
     # where the CUDA-core kernel was also timed; GPT-2's fp32 shape for
     # tf32x3, where it was too; Gemma-7B's attention for sm90_d256, where
-    # it was too; SIMT_FWD_ATTN in fp32 for the CUDA-core kernel (its own
-    # route, on no main path).  Backward: the training slice's shape (the
-    # first backward case) for sm90 and the CUDA-core pair, also timed
-    # there; GPT-2's fp32 shape for tf32x3, where the CUDA-core pair was
-    # too; Gemma-7B's attention for sm90_d256, where it was too.  The
+    # it was too; FP32_D256_ATTN in fp32 for the CUDA-core kernel (its own
+    # route; also timed at the d256 fp32 path's attention, its main
+    # path).  Backward: the training slice's shape (the first backward
+    # case) for sm90; GPT-2's fp32 shape for tf32x3, where the CUDA-core
+    # pair was also timed; Gemma-7B's attention for sm90_d256, where it
+    # was too; the d256 fp32 path's attention for tf32x3_d256, where it
+    # was too, as at FP32_D256_ATTN, the CUDA-core pair's main shape.  The
     # sm90_d256 kernels also give their times at Gemma-2B's attention and
     # at the d256 path's own.
     main_row = next(r for r in rows if r["shape"].startswith("B=1 Sq=4096 "))
     train_row = next(r for r in rows if r["shape"].startswith("B=8 Sq=2048 "))
     simt_row = next(r for r in rows if r["shape"] == _shape(
-        *SIMT_FWD_ATTN, "float32", True))
+        *FP32_D256_ATTN, "float32", True))
     bwd_row = bwd_rows[0]
+    # fp32 at head_dim 256: rows 1b-3b's shape and the d256 fp32 path's.
+    fp32_d256 = {name: next(r for r in bwd_rows if r["shape"] == _shape(
+        *attn, "float32", True)) for name, attn in (
+            ("s512", FP32_D256_ATTN), ("d256_fp32_path", _d256_attn()))}
+    fp32_d256_fwd = next(r for r in rows if r["shape"] == _shape(
+        *_d256_attn(), "float32", True))
     gemma = {name: _shape(*attn, "bfloat16", True) for name, attn in
              (("gemma7b", GEMMA7B_ATTN), ("gemma2b", GEMMA2B_ATTN),
               ("d256_path", _d256_attn()))}
@@ -3187,10 +3357,11 @@ def kernels_line(rows, bwd_rows, paths):
                 extra[f"{other}_shape_simt_ms_same_inputs"] = \
                     row["simt"]["ms"]
         else:
-            # Its main shape is SIMT_FWD_ATTN in fp32, the only inputs
-            # routed to it; also its times on the other kernels' inputs,
-            # launched directly (bf16 at S=4096, the training shape and
-            # the head_dim-256 shapes; GPT-2's fp32 shape).
+            # Its main shape is FP32_D256_ATTN in fp32, routed to it, as
+            # is the d256 fp32 path's; also its times on the other
+            # kernels' inputs, launched directly (bf16 at S=4096, the
+            # training shape and the head_dim-256 shapes; GPT-2's fp32
+            # shape).
             at = timed = simt_row
             err_rows = [r["simt"] for r in rows if "simt" in r] + [
                 r for r in rows if r["route"] == "simt"]
@@ -3200,6 +3371,9 @@ def kernels_line(rows, bwd_rows, paths):
             for other, row in gemma_rows.items():
                 extra[f"{other}_shape"] = row["shape"]
                 extra[f"{other}_shape_ms"] = row["simt"]["ms"]
+            extra.update(gemma_keys("d256_fp32_path", fp32_d256_fwd,
+                                    fp32_d256_fwd,
+                                    fp32_d256_fwd["bound_ms"]))
         if gpt2 is not None:
             dtype, gpt2_timed, gpt2_bound_ms = gpt2
             extra.update(_gpt2_keys(dtype, gpt2_timed, gpt2_bound_ms,
@@ -3229,7 +3403,24 @@ def kernels_line(rows, bwd_rows, paths):
         g32 = gpt2_bwd_rows["float32"]
         g7 = gemma_bwd_rows["gemma7b"]
         extra = {}
-        if route == "sm90_d256":
+        if route == "tf32x3_d256":
+            # Its main shape is the d256 fp32 path's attention; also rows
+            # 2b-3b's, each beside the CUDA-core pair on the same inputs.
+            at = fp32_d256["d256_fp32_path"]
+            timed = at["kernels"][key]
+            err_rows = [r for r in bwd_rows if r["route"] == "tf32x3_d256"]
+            gpt2 = None
+            extra = {"bound_ms_fp32_fma": timed["fp32_fma_bound_ms"],
+                     "share_of_fp32_fma_bound":
+                         timed["share_of_fp32_fma_bound"],
+                     "simt_ms_same_inputs": at["simt"][key]["ms"],
+                     "simt_pair_ms_same_inputs": at["simt"]["dq"]["ms"]
+                     + at["simt"]["dkv"]["ms"]}
+            row = fp32_d256["s512"]
+            extra.update(gemma_keys("s512", row, row["kernels"][key],
+                                    row["bounds"][key][0]))
+            extra["s512_shape_simt_ms_same_inputs"] = row["simt"][key]["ms"]
+        elif route == "sm90_d256":
             # Its main shape is Gemma-7B's attention; also Gemma-2B's and
             # the d256 path's.
             at, timed = g7, g7["kernels"][key]
@@ -3257,12 +3448,19 @@ def kernels_line(rows, bwd_rows, paths):
                      "simt_pair_ms_same_inputs": g32["simt"]["dq"]["ms"]
                      + g32["simt"]["dkv"]["ms"]}
         else:
-            at, timed = bwd_row, bwd_row["simt"][key]
-            err_rows = [bwd_row["simt"], g32["simt"], g7["simt"]] + [
-                r for r in bwd_rows if r["route"] == "simt"]
+            # On no route: timed, launched directly, where its successors
+            # run, its main shape rows 2b-3b's (fp32, head_dim 256).
+            at = fp32_d256["s512"]
+            timed = at["simt"][key]
+            err_rows = [r["simt"] for r in bwd_rows if "simt" in r]
             gpt2 = ("float32", g32["simt"][key], g32)
+            path = fp32_d256["d256_fp32_path"]
             extra = {"gemma7b_shape": g7["shape"],
-                     "gemma7b_shape_ms": g7["simt"][key]["ms"]}
+                     "gemma7b_shape_ms": g7["simt"][key]["ms"],
+                     "train_shape": bwd_row["shape"],
+                     "train_shape_ms": bwd_row["simt"][key]["ms"],
+                     "d256_fp32_path_shape": path["shape"],
+                     "d256_fp32_path_shape_ms": path["simt"][key]["ms"]}
         bounds_key = "fma_bounds" if route == "simt" else "bounds"
         bound_ms, bound_by, _flops = at[bounds_key][key]
         if gpt2 is not None:
@@ -3296,10 +3494,9 @@ def kernels_line(rows, bwd_rows, paths):
             "shape": at["shape"],
         }
 
-    # The CUDA-core kernels take only fp32 at head_dim 256 now, which no
-    # main path uses; every other kernel must run on one.
-    off_main_paths = {"flash_attention_fwd", "flash_attention_bwd_dq",
-                      "flash_attention_bwd_dkv"}
+    # The CUDA-core dQ and dK/dV kernels are on no route (timed beside
+    # their successors only); every other kernel must run on a main path.
+    off_main_paths = {"flash_attention_bwd_dq", "flash_attention_bwd_dkv"}
     for name in next(iter(by_path.values())):
         if name not in off_main_paths and not launches(name)["launches"]:
             raise AssertionError(f"{name} was not launched on the main path")
@@ -3323,46 +3520,82 @@ def kernels_line(rows, bwd_rows, paths):
                   "sm90_d256", "flash_attention_bwd_sm90_d256.cu", 196),
         bwd_entry("flash_attention_bwd_dkv_sm90_d256", "dkv", ("dk", "dv"),
                   "sm90_d256", "flash_attention_bwd_sm90_d256.cu", 301),
+        bwd_entry("flash_attention_bwd_dq_tf32x3_d256", "dq", ("dq",),
+                  "tf32x3_d256", "flash_attention_bwd_tf32x3_d256.cu", 196),
+        bwd_entry("flash_attention_bwd_dkv_tf32x3_d256", "dkv",
+                  ("dk", "dv"), "tf32x3_d256",
+                  "flash_attention_bwd_tf32x3_d256.cu", 301),
         bwd_entry("flash_attention_bwd_dq", "dq", ("dq",), "simt",
                   "flash_attention_bwd.cu", 196),
         bwd_entry("flash_attention_bwd_dkv", "dkv", ("dk", "dv"), "simt",
                   "flash_attention_bwd.cu", 301)]}
 
 
-# Faults that --plant-d256-fault writes into a copy of
-# ops/csrc/flash_attention_bwd_sm90_d256.cu, as (this text, that text):
-# block 0 of a dK/dV cluster skips rank 1's partial (at one KV head, a
-# quarter of the query heads go missing from dK and dV); each dK/dV
-# warpgroup takes its own P^T / dS^T fragments for the other's q columns;
-# dK/dV's or dQ's causal mask also drops the diagonal.
+# Faults that --plant-d256-fault writes into a copy of a source of
+# ops/csrc/, as (file, this text, that text).  In
+# flash_attention_bwd_sm90_d256.cu (bf16): block 0 of a dK/dV cluster
+# skips rank 1's partial (at one KV head, a quarter of the query heads go
+# missing from dK and dV); each dK/dV warpgroup takes its own P^T / dS^T
+# fragments for the other's q columns; dK/dV's or dQ's causal mask also
+# drops the diagonal.  In the fp32 pair, flash_attention_bwd_tf32x3_d256.cu:
+# a dK/dV rank dropped and a diagonal masked as above, the row slices'
+# sums of partial scores missing their last quarter (both kernels), and,
+# in flash_attention_tf32x3.cuh, the split dropping the lo parts: one TF32
+# product instead of three (in every tf32x3 kernel; of the d256 fp32
+# path's kernels, only in this pair).  In the CUDA-core forward
+# (flash_attention_fwd.cu, the d256 fp32 path's), the causal mask letting
+# each row see one key ahead.
+_SM90_D256 = "flash_attention_bwd_sm90_d256.cu"
+_TF32X3_D256 = "flash_attention_bwd_tf32x3_d256.cu"
 D256_FAULTS = {
-    "dkv_rank_dropped": ("for (int r = 1; r < splits; ++r) {",
+    "dkv_rank_dropped": (_SM90_D256, "for (int r = 1; r < splits; ++r) {",
                          "for (int r = 2; r < splits; ++r) {"),
-    "dkv_no_trade": ("const uint4* from = w == wg ? mine : theirs;",
+    "dkv_no_trade": (_SM90_D256,
+                     "const uint4* from = w == wg ? mine : theirs;",
                      "const uint4* from = mine;"),
     "dkv_diagonal_masked": (
+        _SM90_D256,
         "if (causal && row0 + 8 * (e >> 1) > q0 + 32 * wg + col + (e & 1))",
         "if (causal && row0 + 8 * (e >> 1) >= q0 + 32 * wg + col + (e & 1))"),
     "dq_diagonal_masked": (
+        _SM90_D256,
         "if (causal && col + (e & 1) > row0 + 8 * (e >> 1)) p = 0.f;",
         "if (causal && col + (e & 1) >= row0 + 8 * (e >> 1)) p = 0.f;"),
+    "fp32_dkv_rank_dropped": (
+        _TF32X3_D256, "for (int from = 1; from < splits; ++from) {",
+        "for (int from = 2; from < splits; ++from) {"),
+    "fp32_quarter_dropped": (
+        _TF32X3_D256, "for (int quarter = 0; quarter < 4; ++quarter) {",
+        "for (int quarter = 0; quarter < 3; ++quarter) {"),
+    "fp32_dkv_diagonal_masked": (
+        _TF32X3_D256, "if (causal && k_pos0 + 8 * (e >> 1) > q0 + qc)",
+        "if (causal && k_pos0 + 8 * (e >> 1) >= q0 + qc)"),
+    "fp32_dq_diagonal_masked": (
+        _TF32X3_D256,
+        "if (causal && k0 + 8 * n + 2 * t + (e & 1) > q_pos0 + 8 * rr)",
+        "if (causal && k0 + 8 * n + 2 * t + (e & 1) >= q_pos0 + 8 * rr)"),
+    "fp32_one_tf32_product": (
+        "flash_attention_tf32x3.cuh",
+        "const int rest = __float_as_int(x[i] - __uint_as_float(s.hi[i]));",
+        "const int rest = 0;"),
+    "fp32_fwd_one_ahead": (
+        "flash_attention_fwd.cu",
+        "if (causal && k0 + tx + 16 * j > q_pos) x = kNegInf;",
+        "if (causal && k0 + tx + 16 * j > q_pos + 1) x = kNegInf;"),
 }
 
 
 def plant_d256_fault(fault, target):
     """A copy of this script and the package in ``target`` (new), without
     built libraries, with ``D256_FAULTS[fault]`` planted."""
-    import shutil  # noqa: PLC0415
-
-    old, new = D256_FAULTS[fault]
+    source, old, new = D256_FAULTS[fault]
     here = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(target)
     shutil.copy2(os.path.join(here, "chip_smoke.py"), target)
     shutil.copytree(os.path.join(here, "ant_ray_tpu_torch"),
                     os.path.join(target, "ant_ray_tpu_torch"),
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    path = os.path.join(target, "ant_ray_tpu_torch", "ops", "csrc",
-                        "flash_attention_bwd_sm90_d256.cu")
+    path = os.path.join(target, "ant_ray_tpu_torch", "ops", "csrc", source)
     with open(path, encoding="utf-8") as f:
         text = f.read()
     if text.count(old) != 1:
@@ -3371,9 +3604,10 @@ def plant_d256_fault(fault, target):
         f.write(text.replace(old, new))
 
 
-def d256_gate_readings(checkout):
-    """What CHECKOUT's bf16 head_dim-256 gates read, ungated (the
-    module docstring's --d256-gate-readings)."""
+def d256_gate_readings(checkout, dtype_name="bfloat16"):
+    """What CHECKOUT's head_dim-256 gates in ``dtype_name`` read, ungated
+    (the module docstring's --d256-gate-readings and
+    --d256-fp32-gate-readings)."""
     import math  # noqa: PLC0415
 
     sys.path.insert(0, os.path.abspath(checkout))
@@ -3389,23 +3623,32 @@ def d256_gate_readings(checkout):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _build.build_all()
-    cs.BWD_TOL["bfloat16"] = dict.fromkeys(cs.BWD_TOL["bfloat16"], math.inf)
-    cs.D256_GRAD_TOL = cs.BF16_LOSS_TOL = math.inf
-    rows = cs.bwd_kernel_phase(torch, fa)
+    dtype = getattr(torch, dtype_name)
+    if dtype_name == "bfloat16":
+        cs.BWD_TOL["bfloat16"] = dict.fromkeys(cs.BWD_TOL["bfloat16"],
+                                               math.inf)
+        cs.D256_GRAD_TOL = cs.BF16_LOSS_TOL = math.inf
+        backward = {r["shape"]: r["rel_err"]
+                    for r in cs.bwd_kernel_phase(torch, fa)
+                    if r["route"] == "sm90_d256"}
+        remat = "none"
+    else:
+        backward = {cs._shape(*attn, dtype_name, True): cs._bwd_rel_errs(
+            torch, fa, attn, dtype) for attn in (cs.FP32_D256_ATTN,
+                                                 cs._d256_attn())}
+        remat = cs.D256_FP32_REMAT
     torch.cuda.empty_cache()
-    cfg, params, tokens = cs._llama_d256(torch, llama)
+    cfg, params, tokens = cs._llama_d256(torch, llama, dtype)
 
     def grad_check():
         loss, ref_loss, err, launches = cs._d256_grad_check(
-            torch, fa, llama, cfg, params, tokens)
+            torch, fa, llama, cfg, params, tokens, remat)
         return {"loss_err": abs(loss - ref_loss),
                 "max_grad_err": max(err.values()), "grad_err": err,
                 "launches": launches}
 
-    out = {"checkout": os.path.abspath(checkout),
-           "backward": {r["shape"]: r["rel_err"] for r in rows
-                        if r["route"] == "sm90_d256"},
-           "grad_check": grad_check()}
+    out = {"checkout": os.path.abspath(checkout), "dtype": dtype_name,
+           "remat": remat, "backward": backward, "grad_check": grad_check()}
     # The custom ops look the wrappers up at call time.
     kernels = fa.flash_attention_fwd_lse, fa.flash_attention_backward
     try:
@@ -3416,6 +3659,27 @@ def d256_gate_readings(checkout):
     finally:
         fa.flash_attention_fwd_lse, fa.flash_attention_backward = kernels
     return out
+
+
+def _bwd_rel_errs(torch, fa, attn, dtype):
+    """Max abs error over max |ref| of dq, dk and dv through
+    flash_attention_backward against its plain version, causal, at
+    ``attn`` (B, Sq, Skv, H, KVH, D) in ``dtype``."""
+    batch, q_len, kv_len, heads, kv_heads, dim = attn
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q, do = rand(batch, q_len, heads, dim), rand(batch, q_len, heads, dim)
+    k, v = (rand(batch, kv_len, kv_heads, dim) for _ in range(2))
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=True)
+    got = fa.flash_attention_backward(q, k, v, out, lse, do, causal=True)
+    want = fa.flash_attention_backward_ref(q, k, v, out, lse, do,
+                                           causal=True)
+    return {key: _rel_err(g, w) for key, g, w in zip(("dq", "dk", "dv"),
+                                                      got, want)}
 
 
 def main() -> int:
@@ -3449,7 +3713,8 @@ def main() -> int:
     for lib in ("flash_attention_fwd_sm90", "flash_attention_bwd_sm90",
                 "flash_attention_fwd_tf32x3", "flash_attention_bwd_tf32x3",
                 "flash_attention_fwd_sm90_d256",
-                "flash_attention_bwd_sm90_d256"):
+                "flash_attention_bwd_sm90_d256",
+                "flash_attention_bwd_tf32x3_d256"):
         _print_ptxas(_build, lib)
 
     rows = kernel_phase(torch, fa)
@@ -3471,6 +3736,7 @@ def main() -> int:
     paths["gpt2_fp32"] = gpt2_phase(torch, fa, "float32")[0]
     paths["gpt2_bf16"] = gpt2_phase(torch, fa, "bfloat16")[0]
     paths["d256"] = d256_phase(torch, fa, llama)
+    paths["d256_fp32"] = d256_fp32_phase(torch, fa, llama)
     print(json.dumps(kernels_line(rows, bwd_rows, paths)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3482,9 +3748,12 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--plant-d256-fault"]:
         plant_d256_fault(*sys.argv[2:4])
         sys.exit(0)
-    if sys.argv[1:2] == ["--d256-gate-readings"]:
+    readings_of = {"--d256-gate-readings": "bfloat16",
+                   "--d256-fp32-gate-readings": "float32"}
+    if sys.argv[1:2] and sys.argv[1] in readings_of:
         print(json.dumps(d256_gate_readings(
             sys.argv[2] if len(sys.argv) > 2 else
-            os.path.dirname(os.path.abspath(__file__)))), flush=True)
+            os.path.dirname(os.path.abspath(__file__)),
+            readings_of[sys.argv[1]])), flush=True)
         sys.exit(0)
     sys.exit(main())

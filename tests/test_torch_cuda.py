@@ -2,7 +2,8 @@
 and dK/dV backward, each on its routes: the bf16 tensor-core kernels at
 head_dim 64 and 128, fp32 in 3xTF32 on the tensor cores at head_dim 64
 and 128, the bf16 tensor-core kernels at head_dim 256, the CUDA-core
-kernels for fp32 at head_dim 256) against their
+forward and the 3xTF32 tensor-core backward for fp32 at head_dim 256)
+against their
 plain PyTorch versions, on the card; GPT-2 and the remat policies
 through the kernels; and the session slabs' round
 trip between the card and host memory, bitwise, with an install from
@@ -603,6 +604,134 @@ def test_sm90_d256_backward_refuses_an_unaligned_input(cuda):
     with pytest.raises(ValueError, match="16-byte"):
         fa.flash_attention_backward(q, k, v, out, lse, do, causal=True)
     assert (fa.bwd_sm90_d256_launch_count, fa.bwd_dq_launch_count) == before
+
+
+@pytest.mark.parametrize("q_len,kv_len,groups,causal", [
+    *[(q_len, q_len, groups, causal) for q_len in (192, 320)
+      for groups in (1, 2, 4, 8) for causal in (True, False)],
+    (128, 256, 2, True),    # Sq < Skv: keys 128..255 see no query
+    (256, 128, 2, True),    # Sq > Skv: queries 128.. see every key
+    (128, 256, 4, False),
+    (256, 128, 4, False),
+])
+def test_tf32x3_d256_backward_matches_plain_version(cuda, q_len, kv_len,
+                                                   groups, causal):
+    """The fp32 backward at head_dim 256 on its own tensor-core route
+    (3xTF32) holds fp32's 1e-4: every column quarter of dq, dk and dv
+    (each warp owns one) against the plain version.  At one and two KV
+    heads the dK/dV kernel splits KV tiles over a cluster's blocks."""
+    q, k, v = _qkv(cuda, q_len, kv_len, 8, 8 // groups, 256, torch.float32)
+    do = torch.randn(q.shape, generator=cuda, device="cuda")
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal)
+    counters = ("bwd_tf32x3_d256_launch_count", "bwd_dq_launch_count",
+                "bwd_dkv_launch_count", "bwd_tf32x3_launch_count")
+    before = [getattr(fa, name) for name in counters]
+    got = fa.flash_attention_backward(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert [getattr(fa, name) for name in counters] == \
+        [before[0] + 1, before[1] + 1, before[2] + 1, before[3]]
+    want = fa.flash_attention_backward_ref(q, k, v, out, lse, do,
+                                           causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert torch.isfinite(g).all()
+        for quarter in g.split(64, dim=-1):
+            assert quarter.abs().max() > 0
+        assert _rel_err(g, w) <= BWD_REL_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("kv_heads", [1, 8])
+def test_tf32x3_d256_backward_is_deterministic(cuda, kv_heads):
+    """With one KV head the dK/dV kernel splits each KV tile over a
+    cluster's blocks and adds their partials in a fixed order; with eight
+    it does not split.  Either way two runs agree bit for bit."""
+    q, k, v = _qkv(cuda, 512, 512, 8, kv_heads, 256, torch.float32)
+    do = torch.randn(q.shape, generator=cuda, device="cuda")
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=True)
+    first = fa.flash_attention_backward(q, k, v, out, lse, do, causal=True)
+    second = fa.flash_attention_backward(q, k, v, out, lse, do, causal=True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,dim,d256", [
+    (torch.bfloat16, 64, False), (torch.bfloat16, 128, False),
+    (torch.bfloat16, 256, False), (torch.float32, 64, False),
+    (torch.float32, 128, False), (torch.float32, 256, True),
+])
+def test_tf32x3_d256_count_rises_only_on_its_route(cuda, dtype, dim, d256):
+    q, k, v = _qkv(cuda, 128, 128, 4, 2, dim, dtype)
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd_lse(q, k, v)
+    before = (fa.bwd_tf32x3_d256_launch_count, fa.bwd_dq_launch_count)
+    fa.flash_attention_backward(q, k, v, out, lse, q, causal=True)
+    torch.cuda.synchronize()
+    assert fa.bwd_tf32x3_d256_launch_count == before[0] + int(d256)
+    assert fa.bwd_dq_launch_count == before[1] + 1
+
+
+def test_tf32x3_d256_backward_refuses_an_unaligned_input(cuda):
+    q, k, v = _qkv(cuda, 128, 128, 4, 2, 256, torch.float32)
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd_lse(q, k, v)
+    shifted = torch.empty(q.numel() + 4, device="cuda")
+    do = shifted[1:q.numel() + 1].view(q.shape)     # 4 bytes in
+    do.copy_(q)
+    before = (fa.bwd_tf32x3_d256_launch_count, fa.bwd_dq_launch_count)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_backward(q, k, v, out, lse, do, causal=True)
+    assert (fa.bwd_tf32x3_d256_launch_count, fa.bwd_dq_launch_count) == \
+        before
+
+
+def _card_nan(kind):
+    """A NaN made on the card: 0 * inf (CUDA's canonical NaN), the same
+    with its sign bit set, or the NaN whose payload is its lowest bit."""
+    bits = (torch.zeros((), device="cuda") * torch.inf).view(torch.int32)
+    if kind == "negative":
+        bits = bits | torch.full((), -2 ** 31, dtype=torch.int32,
+                                 device="cuda")
+    elif kind == "low_payload":
+        bits = (bits & 0x7f800000) | 1
+    nan = bits.view(torch.float32)
+    assert nan.isnan()
+    return nan
+
+
+@pytest.mark.parametrize("kind", ["0*inf", "negative", "low_payload"])
+@pytest.mark.parametrize("where", ["do", "k"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dim", [64, 128, 256])
+def test_fp32_backward_keeps_a_nan_where_the_plain_version_has_it(
+        cuda, dim, causal, where, kind):
+    """A NaN made on the card in dO (at the last query, which sees every
+    key) or in k (at the first key, which every query sees) reaches dq,
+    dk and dv where the plain version puts it: the 3xTF32 split of the
+    tf32x3 and tf32x3_d256 kernels passes non-finite values unchanged.
+    Elsewhere the kernels hold fp32's 1e-4."""
+    q, k, v = _qkv(cuda, 192, 192, 8, 2, dim, torch.float32)
+    do = torch.randn(q.shape, generator=cuda, device="cuda")
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal)
+    if where == "do":
+        do[1, -1, 3, 5] = _card_nan(kind)
+    else:
+        k[1, 0, 1, 5] = _card_nan(kind)
+    route = "tf32x3_d256" if dim == 256 else "tf32x3"
+    counter = f"bwd_{route}_launch_count"
+    before = getattr(fa, counter)
+    got = fa.flash_attention_backward(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert getattr(fa, counter) == before + 1
+    want = fa.flash_attention_backward_ref(q, k, v, out, lse, do,
+                                           causal=causal)
+    for g, w in zip(got, want):
+        assert w.isnan().any()
+        assert torch.equal(g.isnan(), w.isnan())
+        assert _rel_err(g.nan_to_num(), w.nan_to_num()) <= \
+            BWD_REL_TOL[torch.float32]
 
 
 def test_gradients_through_flash_function_match_reference(cuda):

@@ -74,6 +74,16 @@ def test_plain_backward_matches_pallas_kernels(causal, groups, dim):
         np.testing.assert_allclose(g, w, **TOL)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_backward_matches_pallas_kernels_in_groups_of_eight(causal):
+    """The fp32 head_dim-256 training path's heads: 8 query heads of 256
+    on one KV head, so the dK/dV sweep sums eight heads into each KV
+    row."""
+    got, want = _both(*_inputs(24, 256, 256, 8, 1, 256), causal)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, **TOL)
+
+
 def test_plain_backward_causal_alignment_is_top_left():
     """Sq=128 against Skv=256: keys 128..255 are seen by no query, so
     their dk and dv are zero."""

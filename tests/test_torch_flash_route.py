@@ -11,8 +11,9 @@ of ``csrc/flash_attention_fwd_sm90.cu`` and
 head_dim 256 to the tensor-core kernels of
 ``csrc/flash_attention_fwd_sm90_d256.cu`` and
 ``csrc/flash_attention_bwd_sm90_d256.cu`` in both directions; fp32 at
-head_dim 256 to the CUDA-core kernels of ``csrc/flash_attention_fwd.cu``
-and ``csrc/flash_attention_bwd.cu``.
+head_dim 256 to the CUDA-core forward of ``csrc/flash_attention_fwd.cu``
+and the 3xTF32 tensor-core backward of
+``csrc/flash_attention_bwd_tf32x3_d256.cu``.
 Shapes no kernel takes raise before any launch (tested on the meta
 device, which reaches the kernel checks without a card), and CPU tensors
 run the plain version and launch nothing.
@@ -31,7 +32,7 @@ COUNTERS = ("launch_count", "fwd_sm90_launch_count",
             "fwd_tf32x3_launch_count", "bwd_dq_launch_count",
             "bwd_dkv_launch_count", "bwd_sm90_launch_count",
             "bwd_tf32x3_launch_count", "bwd_sm90_d256_launch_count",
-            "fwd_sm90_d256_launch_count")
+            "fwd_sm90_d256_launch_count", "bwd_tf32x3_d256_launch_count")
 
 
 def _counts():
@@ -39,35 +40,38 @@ def _counts():
 
 
 def _want_route(dtype, head_dim, direction):
-    """The same rule in both directions (``direction`` is checked by
-    ``_route`` alone)."""
+    """The same rule in both directions but for fp32 at head_dim 256,
+    whose backward alone runs on the tensor cores."""
     if head_dim in (64, 128):
         return "sm90" if dtype == torch.bfloat16 else "tf32x3"
-    return "sm90_d256" if dtype == torch.bfloat16 else "simt"
+    if dtype == torch.bfloat16:
+        return "sm90_d256"
+    return "tf32x3_d256" if direction == "bwd" else "simt"
 
 
 @pytest.mark.parametrize("head_dim", fa.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_bwd_route_by_dtype_and_head_dim(dtype, head_dim):
     """The backward: tf32x3 for fp32 at 64 and 128, sm90 for bf16 there,
-    sm90_d256 for bf16 at 256, the CUDA cores for fp32 at 256."""
+    sm90_d256 for bf16 at 256, tf32x3_d256 for fp32 at 256."""
     want = {(torch.float32, 64): "tf32x3", (torch.float32, 128): "tf32x3",
             (torch.bfloat16, 64): "sm90", (torch.bfloat16, 128): "sm90",
-            (torch.bfloat16, 256): "sm90_d256"}
-    assert fa._route(dtype, head_dim, "bwd") == want.get((dtype, head_dim),
-                                                         "simt")
+            (torch.bfloat16, 256): "sm90_d256",
+            (torch.float32, 256): "tf32x3_d256"}
+    assert fa._route(dtype, head_dim, "bwd") == want[(dtype, head_dim)]
 
 
 @pytest.mark.parametrize("head_dim", fa.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_fwd_route_by_dtype_and_head_dim(dtype, head_dim):
     """The forward: tf32x3 for fp32 at 64 and 128, sm90 for bf16 there,
-    sm90_d256 for bf16 at 256, the CUDA cores for fp32 at 256."""
+    sm90_d256 for bf16 at 256, the CUDA cores for fp32 at 256 (its
+    backward goes to tf32x3_d256)."""
     want = {(torch.float32, 64): "tf32x3", (torch.float32, 128): "tf32x3",
             (torch.bfloat16, 64): "sm90", (torch.bfloat16, 128): "sm90",
-            (torch.bfloat16, 256): "sm90_d256"}
-    assert fa._route(dtype, head_dim, "fwd") == want.get((dtype, head_dim),
-                                                         "simt")
+            (torch.bfloat16, 256): "sm90_d256",
+            (torch.float32, 256): "simt"}
+    assert fa._route(dtype, head_dim, "fwd") == want[(dtype, head_dim)]
 
 
 def test_route_refuses_an_unknown_direction():
@@ -93,13 +97,14 @@ def test_both_wrappers_launch_the_entry_points_of_one_route(
     fa.flash_attention_backward(q, k, v, out, lse, do, causal=True)
     fwd, bwd = (_want_route(dtype, head_dim, d) for d in ("fwd", "bwd"))
     suffix = {"sm90": "_sm90", "tf32x3": "_tf32x3", "simt": "",
-              "sm90_d256": "_sm90_d256"}
+              "sm90_d256": "_sm90_d256", "tf32x3_d256": "_tf32x3_d256"}
     assert launched == [f"flash_attention_fwd{suffix[fwd]}",
                         f"flash_attention_bwd_dq{suffix[bwd]}",
                         f"flash_attention_bwd_dkv{suffix[bwd]}"]
     assert _counts() == (1, int(fwd == "sm90"), int(fwd == "tf32x3"), 1, 1,
                          int(bwd == "sm90"), int(bwd == "tf32x3"),
-                         int(bwd == "sm90_d256"), int(fwd == "sm90_d256"))
+                         int(bwd == "sm90_d256"), int(fwd == "sm90_d256"),
+                         int(bwd == "tf32x3_d256"))
 
 
 @pytest.mark.parametrize("kernel,suffix", [
@@ -107,6 +112,7 @@ def test_both_wrappers_launch_the_entry_points_of_one_route(
       for kernel in ("fwd", "bwd_dq", "bwd_dkv")],
     ("bwd_dq", "_sm90_d256"), ("bwd_dkv", "_sm90_d256"),
     ("fwd", "_sm90_d256"),
+    ("bwd_dq", "_tf32x3_d256"), ("bwd_dkv", "_tf32x3_d256"),
 ])
 def test_every_route_names_an_entry_point_with_a_source(kernel, suffix):
     """Each route's entry points, for each direction it serves, exist with
@@ -184,7 +190,7 @@ def test_the_bf16_d256_backward_checks_alignment(monkeypatch):
     assert events == [("aligned", 9),
                       ("launch", "flash_attention_bwd_dq_sm90_d256"),
                       ("launch", "flash_attention_bwd_dkv_sm90_d256")]
-    assert _counts()[3:] == (1, 1, 0, 0, 1, 0)
+    assert _counts()[3:] == (1, 1, 0, 0, 1, 0, 0)
 
 
 def test_the_bf16_d256_forward_checks_alignment(monkeypatch):
@@ -203,15 +209,15 @@ def test_the_bf16_d256_forward_checks_alignment(monkeypatch):
     fa.flash_attention_fwd_lse(q, k, v, causal=True)
     assert events == [("aligned", 5),
                       ("launch", "flash_attention_fwd_sm90_d256")]
-    assert _counts() == (1, 0, 0, 0, 0, 0, 0, 0, 1)
+    assert _counts() == (1, 0, 0, 0, 0, 0, 0, 0, 1, 0)
 
 
 @pytest.mark.parametrize("head_dim", fa.HEAD_DIMS)
 def test_the_fp32_backward_checks_alignment_on_the_tf32x3_route(
         monkeypatch, head_dim):
-    """The 3xTF32 kernels copy 16 bytes at a time too: their route checks
-    every tensor's alignment before the launches; the CUDA-core pair
-    (head_dim 256) needs no such check."""
+    """The 3xTF32 kernels copy 16 bytes at a time too: their routes
+    (tf32x3, and tf32x3_d256 at head_dim 256) check every tensor's
+    alignment before the launches."""
     events = []
     monkeypatch.setattr(fa, "_check_kernel_inputs", lambda q, k: None)
     monkeypatch.setattr(fa, "_check_aligned",
@@ -222,11 +228,33 @@ def test_the_fp32_backward_checks_alignment_on_the_tf32x3_route(
         monkeypatch.setattr(fa, counter, 0)
     q, k, v, out, lse, do = _meta_inputs(128, 4, 2, head_dim, torch.float32)
     fa.flash_attention_backward(q, k, v, out, lse, do, causal=True)
-    suffix = "" if head_dim == 256 else "_tf32x3"
-    launches = [("launch", f"flash_attention_bwd_dq{suffix}"),
-                ("launch", f"flash_attention_bwd_dkv{suffix}")]
-    assert events == (launches if head_dim == 256
-                      else [("aligned", 9)] + launches)
+    suffix = "_tf32x3_d256" if head_dim == 256 else "_tf32x3"
+    assert events == [("aligned", 9),
+                      ("launch", f"flash_attention_bwd_dq{suffix}"),
+                      ("launch", f"flash_attention_bwd_dkv{suffix}")]
+
+
+def test_the_fp32_d256_backward_launches_its_pair_and_counts_it(
+        monkeypatch):
+    """fp32 at head_dim 256: the backward checks every tensor's alignment,
+    launches the tf32x3_d256 dQ kernel and then its dK/dV kernel, and
+    raises its own counter and the per-kernel ones, no other route's."""
+    events = []
+    monkeypatch.setattr(fa, "_check_kernel_inputs", lambda q, k: None)
+    monkeypatch.setattr(fa, "_check_aligned",
+                        lambda *ts: events.append(("aligned", len(ts))))
+    monkeypatch.setattr(fa, "_launch",
+                        lambda name, *args: events.append(("launch", name)))
+    for counter in COUNTERS:
+        monkeypatch.setattr(fa, counter, 0)
+    q, k, v, out, lse, do = _meta_inputs(128, 8, 1, 256, torch.float32)
+    fa.flash_attention_backward(q, k, v, out, lse, do, causal=True)
+    assert events == [("aligned", 9),
+                      ("launch", "flash_attention_bwd_dq_tf32x3_d256"),
+                      ("launch", "flash_attention_bwd_dkv_tf32x3_d256")]
+    assert dict(zip(COUNTERS, _counts())) == {
+        **dict.fromkeys(COUNTERS, 0), "bwd_dq_launch_count": 1,
+        "bwd_dkv_launch_count": 1, "bwd_tf32x3_d256_launch_count": 1}
 
 
 @pytest.mark.parametrize("head_dim", fa.HEAD_DIMS)

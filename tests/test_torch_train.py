@@ -40,6 +40,11 @@ SMALL = dict(dim=256, n_heads=4, n_kv_heads=2, mlp_dim=256, n_layers=2,
 HEAD_DIM_256 = dict(dim=512, n_heads=2, n_kv_heads=1, mlp_dim=256,
                     n_layers=2, max_seq=256)
 
+# The fp32 head_dim-256 training path's head layout (Gemma-2B's: 8 heads
+# of 256 on one KV head, so dim 2048), with a small MLP and two layers.
+D256_PATH_HEADS = dict(dim=2048, n_heads=8, n_kv_heads=1, mlp_dim=256,
+                       n_layers=2, max_seq=256)
+
 
 def _configs(name, **changes):
     return (dataclasses.replace(jl.CONFIGS[name], **changes),
@@ -111,6 +116,16 @@ def test_head_dim_256_loss_and_grads_match_jax():
     Pallas kernels in interpret mode, through the whole model."""
     _check_loss_and_grads("tiny", HEAD_DIM_256,
                           {"tokens": _tokens(7, 2, 129)}, "pallas", "flash",
+                          "none")
+
+
+def test_head_dim_256_path_layout_loss_and_grads_match_jax():
+    """The fp32 head_dim-256 path's heads (8 of 256 sharing one KV head,
+    as chip_smoke's d256 fp32 phase has them): the flash kernels' plain
+    versions against the Pallas kernels in interpret mode, GQA groups of
+    eight, sequence 128, fp32."""
+    _check_loss_and_grads("tiny", D256_PATH_HEADS,
+                          {"tokens": _tokens(9, 2, 129)}, "pallas", "flash",
                           "none")
 
 
