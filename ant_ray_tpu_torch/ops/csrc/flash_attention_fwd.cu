@@ -34,12 +34,11 @@
 //
 // Takes fp32 and bf16, D in {64, 128, 256}, Sq and Skv multiples of 64;
 // the Python wrapper rejects anything else before launching.  `_route`
-// sends it fp32 at head_dim 256 only: the tensor-core kernels take the
-// rest (flash_attention_fwd_sm90.cu in bf16 and
-// flash_attention_fwd_tf32x3.cu in fp32 at D 64 and 128,
-// flash_attention_fwd_sm90_d256.cu in bf16 at D 256), and chip_smoke.py
-// launches this one there directly, to time it beside them on the same
-// inputs.
+// sends it nothing: the tensor-core kernels take every input
+// (flash_attention_fwd_sm90.cu in bf16 and flash_attention_fwd_tf32x3.cu
+// in fp32 at D 64 and 128, flash_attention_fwd_sm90_d256.cu in bf16 and
+// flash_attention_fwd_tf32x3_d256.cu in fp32 at D 256), and chip_smoke.py
+// launches this one directly, to time it beside them on the same inputs.
 
 #include <cstddef>
 

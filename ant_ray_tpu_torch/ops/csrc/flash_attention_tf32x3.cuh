@@ -1,9 +1,10 @@
 // Building blocks of the fp32 flash-attention kernels on Hopper's tensor
 // cores in 3xTF32 (flash_attention_fwd_tf32x3.cu, the forward, and
 // flash_attention_bwd_tf32x3.cu, dQ and dK/dV, at head_dim 64 and 128;
-// flash_attention_bwd_tf32x3_d256.cu, dQ and dK/dV at 256): cp.async
-// copies into padded shared-memory tiles, the 3xTF32 product on
-// mma.sync.m16n8k8, and its fragment loads.  One definition for every
+// flash_attention_fwd_tf32x3_d256.cu and
+// flash_attention_bwd_tf32x3_d256.cu at 256): cp.async copies into
+// padded shared-memory tiles, the 3xTF32 product on mma.sync.m16n8k8,
+// and its fragment loads.  One definition for every
 // such kernel, so that a change here (one TF32 product instead of three,
 // say) reaches all.
 //

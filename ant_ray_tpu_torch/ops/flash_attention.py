@@ -8,12 +8,11 @@ head_dim 256 (``csrc/flash_attention_fwd_sm90_d256.cu``,
 ``csrc/flash_attention_bwd_sm90_d256.cu``), fp32 on the tensor cores in
 3xTF32 at head_dim 64 and 128 (``csrc/flash_attention_fwd_tf32x3.cu``,
 ``csrc/flash_attention_bwd_tf32x3.cu``, sharing
-``csrc/flash_attention_tf32x3.cuh``), the fp32 backward in 3xTF32 at
-head_dim 256 (``csrc/flash_attention_bwd_tf32x3_d256.cu``), and the
-CUDA-core forward for fp32 at head_dim 256
-(``csrc/flash_attention_fwd.cu``).  The CUDA-core backward pair
-(``csrc/flash_attention_bwd.cu``) is on no route; chip_smoke.py times it
-beside its successor.
+``csrc/flash_attention_tf32x3.cuh``), and fp32 in 3xTF32 at head_dim 256
+(``csrc/flash_attention_fwd_tf32x3_d256.cu``,
+``csrc/flash_attention_bwd_tf32x3_d256.cu``).  The CUDA-core kernels
+(``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``)
+are on no route; chip_smoke.py times them beside their successors.
 
 Counterparts of ``flash_attention_fwd_lse`` and
 ``flash_attention_backward`` in ant_ray_tpu/ops/pallas/flash_attention.py,
@@ -50,6 +49,7 @@ launch_count = 0           # forward, any route
 fwd_sm90_launch_count = 0  # forward launches of the sm90 kernel
 fwd_tf32x3_launch_count = 0  # forward launches of the tf32x3 kernel
 fwd_sm90_d256_launch_count = 0  # forward launches of the sm90_d256 kernel
+fwd_tf32x3_d256_launch_count = 0  # ... of the tf32x3_d256 kernel
 bwd_dq_launch_count = 0    # dQ, any route
 bwd_dkv_launch_count = 0   # dK/dV, any route
 bwd_sm90_launch_count = 0  # backward calls that ran the sm90 pair
@@ -65,6 +65,8 @@ _ENTRY_POINTS = {
     "flash_attention_fwd_sm90": ("flash_attention_fwd_sm90", 5),
     "flash_attention_fwd_tf32x3": ("flash_attention_fwd_tf32x3", 5),
     "flash_attention_fwd_sm90_d256": ("flash_attention_fwd_sm90_d256", 5),
+    "flash_attention_fwd_tf32x3_d256": ("flash_attention_fwd_tf32x3_d256",
+                                        5),
     "flash_attention_bwd_dq": ("flash_attention_bwd", 7),
     "flash_attention_bwd_dkv": ("flash_attention_bwd", 8),
     "flash_attention_bwd_dq_sm90": ("flash_attention_bwd_sm90", 7),
@@ -189,16 +191,16 @@ def _route(dtype, head_dim, direction: str) -> str:
       more shared memory than a block has (each file's header says how
       it lays out the work);
     * "tf32x3_d256", the fp32 tensor-core kernels (mma.sync, 3xTF32) of
+      csrc/flash_attention_fwd_tf32x3_d256.cu and
       csrc/flash_attention_bwd_tf32x3_d256.cu, for fp32 at head_dim 256,
-      the backward: its own design (32-row tiles; eight warps, each
-      owning a quarter of the output's columns and summing a quarter of
-      the inputs' columns into partial scores, which the four warps of a
-      row slice add in a fixed order; the file's header says why);
-    * "simt", the CUDA-core kernel of csrc/flash_attention_fwd.cu, for
-      fp32 at head_dim 256, the forward.
+      both directions: their own design (eight warps, each owning a
+      quarter of the output's columns and summing a quarter of the
+      inputs' columns into partial scores, which the four warps of a row
+      slice add in a fixed order; each file's header says why).
 
-    This is routing, not a fallback: each route launches its kernels or
-    raises."""
+    The CUDA-core kernels (csrc/flash_attention_fwd.cu,
+    csrc/flash_attention_bwd.cu) are on no route.  This is routing, not
+    a fallback: each route launches its kernels or raises."""
     if direction not in ("fwd", "bwd"):
         raise ValueError(f"direction is 'fwd' or 'bwd', not {direction!r}")
     if head_dim in SM90_HEAD_DIMS:
@@ -208,12 +210,12 @@ def _route(dtype, head_dim, direction: str) -> str:
             return "tf32x3"
     if dtype == torch.bfloat16:
         return "sm90_d256"
-    return "tf32x3_d256" if direction == "bwd" else "simt"
+    return "tf32x3_d256"
 
 
 # Entry-point name suffix per route.
-_SUFFIX = {"sm90": "_sm90", "simt": "", "tf32x3": "_tf32x3",
-           "sm90_d256": "_sm90_d256", "tf32x3_d256": "_tf32x3_d256"}
+_SUFFIX = {"sm90": "_sm90", "tf32x3": "_tf32x3", "sm90_d256": "_sm90_d256",
+           "tf32x3_d256": "_tf32x3_d256"}
 
 
 def _scores(q, k, causal, scale):
@@ -267,7 +269,7 @@ def flash_attention_fwd_lse(q, k, v, *, causal: bool = True,
     when grad mode is on and an input requires grad: differentiate
     through ``attention(..., impl="flash")`` instead."""
     global launch_count, fwd_sm90_launch_count, fwd_tf32x3_launch_count
-    global fwd_sm90_d256_launch_count
+    global fwd_sm90_d256_launch_count, fwd_tf32x3_d256_launch_count
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_fwd_lse_ref(q, k, v, causal=causal,
@@ -286,8 +288,8 @@ def flash_attention_fwd_lse(q, k, v, *, causal: bool = True,
     lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]),
                       dtype=torch.float32, device=q.device)
     route = _route(q.dtype, q.shape[3], "fwd")
-    if route != "simt":
-        _check_aligned(q, k, v, out, lse)
+    # Every forward route runs on the tensor cores, 16 bytes a copy.
+    _check_aligned(q, k, v, out, lse)
     _launch("flash_attention_fwd" + _SUFFIX[route], (q, k, v, out, lse), q,
             k, scale, causal)
     launch_count += 1
@@ -297,6 +299,8 @@ def flash_attention_fwd_lse(q, k, v, *, causal: bool = True,
         fwd_tf32x3_launch_count += 1
     elif route == "sm90_d256":
         fwd_sm90_d256_launch_count += 1
+    elif route == "tf32x3_d256":
+        fwd_tf32x3_d256_launch_count += 1
     return out, lse
 
 

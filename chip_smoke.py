@@ -12,36 +12,39 @@ final line is printed:
    limit (nvidia-smi); build every hand-written kernel from the sources
    in this checkout, timed, and print the registers and spill bytes
    ptxas reports for each tensor-core kernel (forward and backward, bf16
-   and 3xTF32, bf16 at head_dim 256, and the 3xTF32 backward at 256).
+   and 3xTF32, at head_dim 64/128 and at 256); the 3xTF32 forward at 256
+   must spill nothing.
 2. Kernels: the flash-attention forward, through flash_attention_fwd_lse
    on the route it picks (told apart by the route counters: the
    tensor-core "sm90" kernel for bf16 at head_dim 64 and 128, the
    tensor-core "tf32x3" kernel for fp32 there, the tensor-core
-   "sm90_d256" kernel for bf16 at head_dim 256, the CUDA-core "simt"
-   kernel for fp32 there), against its plain PyTorch version at the
-   serving path's shapes (Llama-3-8B prefill: B=1, H=32, KVH=8, D=128,
-   bf16, causal), at the training slice's (B=8, S=2048, H=8, KVH=4) and
-   at others: llama3-1b's heads (D=64), ragged lengths 192 and 320, fp32
-   at D=64 and at D=128 with GQA, ragged, non-causal and with Sq < Skv
-   and Sq > Skv, non-causal without GQA, D=256 in bf16 and in fp32 (the
-   CUDA-core kernel's route: B=1, S=512, H=8, KVH=2), GPT-2's
+   "sm90_d256" kernel for bf16 at head_dim 256, the tensor-core
+   "tf32x3_d256" kernel for fp32 there), against its plain PyTorch
+   version at the serving path's shapes (Llama-3-8B prefill: B=1, H=32,
+   KVH=8, D=128, bf16, causal), at the training slice's (B=8, S=2048,
+   H=8, KVH=4) and at others: llama3-1b's heads (D=64), ragged lengths
+   192 and 320, fp32 at D=64 and at D=128 with GQA, ragged, non-causal
+   and with Sq < Skv and Sq > Skv, non-causal without GQA, D=256 in bf16
+   and in fp32 (B=1, S=512, H=8, KVH=2), GPT-2's
    (B=8, S=1024, H=KVH=12, D=64) in fp32 and bf16, and bf16 at
    Gemma-7B's and Gemma-2B's attention (B=4, S=2048, D=256, H=KVH=16 and
    H=8 KVH=1) and the head_dim-256 path's own (phase 16: B=2, S=2048,
    H=8, KVH=1; the sm90_d256 kernel's route), and that shape in fp32
-   (phase 17's, the CUDA-core kernel's route).  Tolerances: bf16
+   (phase 17's, the tf32x3_d256 kernel's route).  Tolerances: bf16
    out max abs error <= 2e-2 (bf16 rounds p and out at other points in
    the tiled loop), lse <= 1e-3; fp32 both <= 1e-4.  Times by CUDA
    events, median of 10 runs: the kernel launched directly (with its
    achieved TFLOP/s and share of its bound), the wrapper, the plain
    version, and torch's scaled_dot_product_attention as a yardstick the
    port never calls; the bound is the larger of FLOPs over the card's
-   peak for the input type and bytes over 3.35 TB/s, tf32x3's at
-   3xTF32's rate (494.7/3 TFLOP/s) and also at the 67 TFLOP/s of fp32
-   FMAs.  At S=4096 and at the training shape (sm90), at GPT-2's fp32
-   shape (tf32x3) and at the three bf16 head_dim-256 shapes (sm90_d256)
-   the CUDA-core kernel is also checked and timed, launched directly,
-   for a before-and-after on one card.
+   peak for the input type and bytes over 3.35 TB/s, tf32x3's and
+   tf32x3_d256's at 3xTF32's rate (494.7/3 TFLOP/s) and also at the 67
+   TFLOP/s of fp32 FMAs.  At S=4096 and at the training shape (sm90), at
+   GPT-2's fp32 shape (tf32x3), at the three bf16 head_dim-256 shapes
+   (sm90_d256) and at both fp32 head_dim-256 shapes (tf32x3_d256) the
+   CUDA-core kernel, on no route now, is also checked and timed,
+   launched directly, for a before-and-after on one card; at the fp32
+   d256 path's a profile names SDPA's fp32 forward kernels.
 3. Backward kernels: dQ and dK/dV through flash_attention_backward, on
    the route it picks (tensor-core "sm90" kernels for bf16 at head_dim
    64 and 128, tensor-core "tf32x3" kernels for fp32 there, tensor-core
@@ -84,7 +87,7 @@ final line is printed:
    seeded sampled prompt of 300, 32 new tokens each.  The launch counts
    are reset just before and read just after: the sm90 forward must run
    n_layers times for every prefill with a bucket of 128 or more, with
-   no CUDA-core forward and no backward launch.
+   no other forward and no backward launch.
    The 8B logits through the kernel are checked against blockwise
    attention, then prefill time per bucket, decode tokens/s and peak
    memory are printed, and a torch.profiler trace of a short and a long
@@ -258,12 +261,12 @@ final line is printed:
    D256_FP32_LOSS_TOL), then D256_FP32_STEPS (2 warm-up, 5 timed)
    train_step calls.  Gates: per step the tf32x3_d256 dQ and dK/dV
    once per layer (18 pairs) and no other backward kernel, the
-   CUDA-core forward once per layer and recompute (36), nothing else;
+   tf32x3_d256 forward once per layer and recompute (36), nothing else;
    the loss falling.  Prints step time, tokens/s, MFU against fp32's 67
    TFLOP/s, peak memory and a profile of one step with the attention
-   kernels' card time, the backward pair's apart.
-18. One line {"kernels": [...]} with the fourteen kernels (the sm90,
-   tf32x3, sm90_d256 and CUDA-core forward; the sm90, tf32x3,
+   kernels' card time, the forward's and the backward pair's apart.
+18. One line {"kernels": [...]} with the fifteen kernels (the sm90,
+   tf32x3, sm90_d256, tf32x3_d256 and CUDA-core forward; the sm90, tf32x3,
    sm90_d256, tf32x3_d256 and CUDA-core dQ and dK/dV; launches by path,
    the main paths being serving, sessions, the loop, the cluster's
    worker, the checkpoint directory, the server, training, training
@@ -271,9 +274,9 @@ final line is printed:
    Llama in bf16 and fp32; the older kernels' times also at GPT-2's
    shape, the sm90_d256 ones at Gemma-7B's and Gemma-2B's attention and
    at the head_dim-256 path's own, the tf32x3_d256 ones at the fp32
-   path's and at FP32_D256_ATTN).  The CUDA-core dQ and dK/dV kernels
-   are on no route: they show 0 launches, and every other kernel must
-   show some on a main path;
+   path's and at FP32_D256_ATTN).  The CUDA-core forward, dQ and dK/dV
+   kernels are on no route: they show 0 launches, and every other kernel
+   must show some on a main path;
    then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -292,14 +295,14 @@ phase and its head_dim-256 gradient check with BWD_TOL["bfloat16"],
 D256_GRAD_TOL and BF16_LOSS_TOL at infinity (launch and route gates
 stay), then the gradient check twice more with the kernels' plain
 versions patched in (the backward, then both directions), and prints
-one JSON line.  The second does the same for fp32 (the backward's
-errors at FP32_D256_ATTN and the fp32 path's attention, then the fp32
-gradient check under D256_FP32_REMAT).  The third copies this script
-and the package into DIR (new) with one of D256_FAULTS planted in the
-sm90_d256 or the tf32x3_d256 backward, the tf32x3 header or the
-CUDA-core forward.  tools/kernel_ab.py times the kernels of several
-checkouts in turns, tools/d256_fp32_remat.py the fp32 d256 Llama under
-remat "none" and "full".
+one JSON line.  The second does the same for fp32 (the forward's and
+the backward's errors at FP32_D256_ATTN and the fp32 path's attention,
+then the fp32 gradient check under D256_FP32_REMAT).  The third copies
+this script and the package into DIR (new) with one of D256_FAULTS
+planted in the sm90_d256 backward, the tf32x3_d256 forward or
+backward, or the tf32x3 header.  tools/kernel_ab.py times the kernels
+of several checkouts in turns, tools/d256_fp32_remat.py the fp32 d256
+Llama under remat "none" and "full".
 """
 
 from __future__ import annotations
@@ -330,7 +333,9 @@ PEAK_BYTES = 3.35e12
 # Forward: max abs error of out and of lse.  fp32 readings
 # (tools/fp32_gate_readings.py, H100 80GB HBM3 at 700 W): the 3xTF32
 # forward up to 6.1e-6 (out) and 4.8e-6 (lse); the same kernel with one
-# TF32 product 3.9e-4 to 1.8e-3 and 2.4e-4 to 1.1e-3, refused.
+# TF32 product 3.9e-4 to 1.8e-3 and 2.4e-4 to 1.1e-3, refused.  The
+# tf32x3_d256 forward (--d256-fp32-gate-readings, same card) up to 4.0e-6
+# and 1.9e-6.
 TOL = {"bfloat16": (2e-2, 1e-3), "float32": (1e-4, 1e-4)}
 # Backward: max abs error over max |ref|, per tensor (dq, dk, dv).  bf16:
 # both sides round p and ds to bf16 at the same points but sum in another
@@ -371,25 +376,27 @@ D256_GRAD_TOL = 0.1
 # timed steps.
 D256_FP32_REMAT = "full"
 D256_FP32_STEPS = (2, 5)
-# Its gradients through the CUDA-core forward and the tf32x3_d256
-# backward against fp32 reference attention, per leaf, over max |ref|.
-# Readings (--d256-fp32-gate-readings, H100 80GB HBM3 at 700 W): the
-# kernels 8.97e-5 (embed; every other leaf <= 4.29e-5), their plain
-# versions on the same path 1.92e-5 (backward only) and 1.93e-5 (both):
-# eighteen layers carry the pair's 3xTF32 rounding (~2^-22 a product)
-# into every leaf.  Faults planted in the pair (--plant-d256-fault): one
-# TF32 product instead of three 4.88e-4, dQ's diagonal masked 0.151,
-# dK/dV's 0.454, a cluster rank's partial dropped 0.724, a quarter of
-# the partial scores dropped 0.613.  The limit lies between the sound
-# reading and the one-product fault, ~2x from each.
+# Its gradients through the tf32x3_d256 forward and backward against fp32
+# reference attention, per leaf, over max |ref|.  Readings
+# (--d256-fp32-gate-readings, H100 80GB HBM3 at 700 W): the kernels
+# 8.95e-5 (embed), the forward kernel with the plain backward 4.98e-5,
+# both plain versions 1.93e-5: eighteen layers carry the 3xTF32 rounding
+# (~2^-22 a product) into every leaf.  Faults planted
+# (--plant-d256-fault) in the forward: its causal mask one key ahead
+# 0.790, a quarter of the partial scores dropped 1.47; in the backward
+# pair (read with the CUDA-core forward): one TF32 product instead of
+# three 4.88e-4, dQ's diagonal masked 0.151, dK/dV's 0.454, a cluster
+# rank's partial dropped 0.724, a quarter of the partial scores dropped
+# 0.613.  The limit lies between the sound reading and the one-product
+# fault, ~2x from each.
 D256_FP32_GRAD_TOL = 2e-4
 # Its first loss (~12.9, where an fp32 ulp is 2^-20) against reference
 # attention's.  Readings (--d256-fp32-gate-readings, H100 80GB HBM3 at
-# 700 W): one ulp through the kernels, sound and under every backward
-# fault (the loss is the forward's alone), 0 through their plain
-# versions.  The limit is four ulps; the forward's causal mask letting
-# each row see one key ahead (fp32_fwd_one_ahead) reads far above it
-# (PERF.md).
+# 700 W): one ulp through the kernels (9.54e-7), 0 through their plain
+# versions; the backward's faults leave it as it is (the loss is the
+# forward's alone).  The limit is four ulps; the forward's faults read
+# far above it: its causal mask one key ahead 7.22e-4, a quarter of the
+# partial scores dropped 1.45e-2.
 D256_FP32_LOSS_TOL = 4 * 2.0 ** -20
 REPS = 10
 
@@ -462,9 +469,10 @@ def _shape(batch, q_len, kv_len, heads, kv_heads, dim, dtype_name, causal):
             f"D={dim} {dtype_name} {'causal' if causal else 'full'}")
 
 
-# Forward shapes at which the CUDA-core kernel (flash_attention_fwd.cu)
-# is also launched and timed beside the sm90 one, as (batch, q_len,
-# heads): the serving slice's largest prefill and the training slice.
+# Forward shapes at which the CUDA-core kernel (flash_attention_fwd.cu,
+# on no route) is also launched and timed beside the sm90 one, as
+# (batch, q_len, heads): the serving slice's largest prefill and the
+# training slice.
 FWD_BEFORE_AFTER = {(1, 4096, 32), (8, 2048, 8)}
 # GPT-2's attention (B, Sq, Skv, H, KVH, D): the main path of the fp32
 # forward and backward on the tf32x3 route and of the bf16 ones at
@@ -478,8 +486,9 @@ GPT2_ATTN = (8, 1024, 1024, 12, 12, 64)
 GEMMA7B_ATTN = (4, 2048, 2048, 16, 16, 256)
 GEMMA2B_ATTN = (4, 2048, 2048, 8, 1, 256)
 # fp32 at head_dim 256 (B, Sq, Skv, H, KVH, D), PERF.md's rows 1b-3b:
-# the CUDA-core forward's route and the tf32x3_d256 backward's, both also
-# timed at the fp32 d256 path's own attention.
+# the tf32x3_d256 forward's and backward's route, with the CUDA-core
+# kernels timed beside them; both also timed at the fp32 d256 path's own
+# attention.
 FP32_D256_ATTN = (1, 512, 512, 8, 2, 256)
 # The head_dim-256 path's batch of token ids (d256_phase): 2 sequences
 # of 2048 tokens and the next one.
@@ -543,9 +552,10 @@ def _shares(row):
 def kernel_phase(torch, fa):
     """The forward kernel, through the route the wrapper picks, against
     flash_attention_fwd_lse_ref; at FWD_BEFORE_AFTER (sm90), at GPT-2's
-    fp32 shape (tf32x3) and at Gemma-7B's, Gemma-2B's and the d256 path's
-    attention (sm90_d256) also the CUDA-core kernel, launched directly,
-    for a before-and-after on one card."""
+    fp32 shape (tf32x3), at Gemma-7B's, Gemma-2B's and the d256 path's
+    attention (sm90_d256) and at both fp32 head_dim-256 shapes
+    (tf32x3_d256) also the CUDA-core kernel, launched directly, for a
+    before-and-after on one card."""
     import torch.nn.functional as F  # noqa: PLC0415
 
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -568,7 +578,7 @@ def kernel_phase(torch, fa):
         (1, 128, 256, 32, 8, 128, bf16, True),
         (1, 256, 128, 32, 8, 128, bf16, True),
         (1, 512, 512, 8, 2, 256, bf16, True),
-        (*FP32_D256_ATTN, fp32, True),             # head_dim 256 (simt)
+        (*FP32_D256_ATTN, fp32, True),             # head_dim 256 (tf32x3_d256)
         (*_d256_attn(), fp32, True),               # the d256 fp32 path's
         (*GPT2_ATTN, fp32, True),                  # GPT-2, fp32 (tf32x3)
         (*GPT2_ATTN, bf16, True),                  # GPT-2, bf16 (sm90)
@@ -590,13 +600,15 @@ def kernel_phase(torch, fa):
                        causal)
         route = fa._route(dtype, dim, "fwd")
         before = (fa.fwd_sm90_launch_count, fa.fwd_tf32x3_launch_count,
-                  fa.fwd_sm90_d256_launch_count)
+                  fa.fwd_sm90_d256_launch_count,
+                  fa.fwd_tf32x3_d256_launch_count)
         out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal)
         torch.cuda.synchronize()
         took = ("sm90" if fa.fwd_sm90_launch_count > before[0] else
                 "tf32x3" if fa.fwd_tf32x3_launch_count > before[1] else
                 "sm90_d256" if fa.fwd_sm90_d256_launch_count > before[2]
-                else "simt")
+                else "tf32x3_d256"
+                if fa.fwd_tf32x3_d256_launch_count > before[3] else "none")
         if took != route:
             raise AssertionError(f"forward at {shape} took route {took}, "
                                  f"expected {route}")
@@ -605,14 +617,15 @@ def kernel_phase(torch, fa):
         err_out, err_lse = _fwd_errors(out, lse, ref_out, ref_lse, name,
                                        shape, f"{route} forward kernel")
         # At the dtype's peak: the CUDA-core kernel's ceiling (fp32 FMAs)
-        # and the sm90 kernel's (bf16 tensor cores).  tf32x3 does
-        # fp32-accurate products on the tensor cores, whose ceiling for
-        # them is 3xTF32's rate; its bound is taken there.
+        # and the sm90 kernels' (bf16 tensor cores).  tf32x3 and
+        # tf32x3_d256 do fp32-accurate products on the tensor cores, whose
+        # ceiling for them is 3xTF32's rate; their bound is taken there.
+        three_tf32 = route in ("tf32x3", "tf32x3_d256")
         fma_bound = _bound(batch, q_len, kv_len, heads, kv_heads, dim, name,
                            causal)
         bound = (_bound(batch, q_len, kv_len, heads, kv_heads, dim, name,
                         causal, TF32X3_FLOPS)
-                 if route == "tf32x3" else fma_bound)
+                 if three_tf32 else fma_bound)
         kernel = "flash_attention_fwd" + fa._SUFFIX[route]
         ms, _, _ = _fwd_kernel_ms(torch, fa, kernel, q, k, v, causal)
         simt = None
@@ -620,7 +633,8 @@ def kernel_phase(torch, fa):
         if ((route == "sm90" and (batch, q_len, heads) in FWD_BEFORE_AFTER)
                 or (route == "tf32x3" and attn == GPT2_ATTN)
                 or (route == "sm90_d256" and attn in (
-                    GEMMA7B_ATTN, GEMMA2B_ATTN, _d256_attn()))):
+                    GEMMA7B_ATTN, GEMMA2B_ATTN, _d256_attn()))
+                or route == "tf32x3_d256"):
             # The CUDA-core kernel on the same inputs, launched
             # directly: the wrapper no longer routes this dtype and
             # head_dim there.
@@ -630,7 +644,8 @@ def kernel_phase(torch, fa):
                 s_out, s_lse, ref_out, ref_lse, name, shape,
                 "CUDA-core forward kernel")
             simt = {"route": "simt", "max_abs_err": s_err_out,
-                    "lse_err": s_err_lse, **_kernel_stats(s_ms, fma_bound)}
+                    "lse_err": s_err_lse, **_kernel_stats(s_ms, fma_bound),
+                    "bound_ms": fma_bound[0], "bound_by": fma_bound[1]}
             del s_out, s_lse
         del ref_out, ref_lse
         wrapper_ms = _median_ms(torch, lambda: fa.flash_attention_fwd_lse(
@@ -643,12 +658,19 @@ def kernel_phase(torch, fa):
         vt = v.repeat_interleave(groups, dim=2).transpose(1, 2).contiguous()
         library_ms = _median_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal))
+        if route == "tf32x3_d256" and attn == _d256_attn():
+            # Which kernels SDPA runs for this fp32 forward (their names
+            # say which backend, and so whether the tensor cores do its
+            # products).
+            _profile(torch, f"SDPA forward at {shape}",
+                     lambda: F.scaled_dot_product_attention(
+                         qt, kt, vt, is_causal=causal), top=8)
         row = {"shape": shape, "route": route, "max_abs_err": err_out,
                "lse_err": err_lse, **_kernel_stats(ms, bound),
                "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound[0],
                "bound_by": bound[1]}
-        if route == "tf32x3":
+        if three_tf32:
             row["fp32_fma_bound_ms"] = fma_bound[0]
             row["share_of_fp32_fma_bound"] = fma_bound[0] / ms
         if simt is not None:
@@ -906,7 +928,7 @@ def _to_cpu(params):
 
 def _reset_counts(fa):
     fa.launch_count = fa.fwd_sm90_launch_count = fa.fwd_tf32x3_launch_count = 0
-    fa.fwd_sm90_d256_launch_count = 0
+    fa.fwd_sm90_d256_launch_count = fa.fwd_tf32x3_d256_launch_count = 0
     fa.bwd_dq_launch_count = fa.bwd_dkv_launch_count = 0
     fa.bwd_sm90_launch_count = fa.bwd_tf32x3_launch_count = 0
     fa.bwd_sm90_d256_launch_count = fa.bwd_tf32x3_d256_launch_count = 0
@@ -914,12 +936,14 @@ def _reset_counts(fa):
 
 def _counts(fa):
     """Launches since the last reset: the forward on any route, on the
-    sm90, the tf32x3 and the sm90_d256 route, dQ and dK/dV on any route,
+    sm90, the tf32x3, the sm90_d256 and the tf32x3_d256 route, dQ and
+    dK/dV on any route,
     and backward calls that took the sm90, the tf32x3, the sm90_d256 and
     the tf32x3_d256 pair."""
     return {"fwd": fa.launch_count, "fwd_sm90": fa.fwd_sm90_launch_count,
             "fwd_tf32x3": fa.fwd_tf32x3_launch_count,
             "fwd_sm90_d256": fa.fwd_sm90_d256_launch_count,
+            "fwd_tf32x3_d256": fa.fwd_tf32x3_d256_launch_count,
             "dq": fa.bwd_dq_launch_count, "dkv": fa.bwd_dkv_launch_count,
             "sm90": fa.bwd_sm90_launch_count,
             "tf32x3": fa.bwd_tf32x3_launch_count,
@@ -928,15 +952,17 @@ def _counts(fa):
 
 
 def _by_kernel(counts):
-    """Launches of each of the fourteen kernels from a _counts() dict."""
+    """Launches of each of the fifteen kernels from a _counts() dict."""
     tensor_cores = (counts["sm90"] + counts["tf32x3"] + counts["sm90_d256"]
                     + counts["tf32x3_d256"])
     return {"flash_attention_fwd_sm90": counts["fwd_sm90"],
             "flash_attention_fwd_tf32x3": counts["fwd_tf32x3"],
             "flash_attention_fwd_sm90_d256": counts["fwd_sm90_d256"],
+            "flash_attention_fwd_tf32x3_d256": counts["fwd_tf32x3_d256"],
             "flash_attention_fwd": (counts["fwd"] - counts["fwd_sm90"]
                                     - counts["fwd_tf32x3"]
-                                    - counts["fwd_sm90_d256"]),
+                                    - counts["fwd_sm90_d256"]
+                                    - counts["fwd_tf32x3_d256"]),
             "flash_attention_bwd_dq_sm90": counts["sm90"],
             "flash_attention_bwd_dkv_sm90": counts["sm90"],
             "flash_attention_bwd_dq_tf32x3": counts["tf32x3"],
@@ -989,7 +1015,7 @@ def grad_check_phase(torch, fa, llama):
         want = {"fwd": fwd, "fwd_sm90": 0, "fwd_tf32x3": fwd,
                 "fwd_sm90_d256": 0, "dq": cfg.n_layers, "dkv": cfg.n_layers,
                 "sm90": 0, "tf32x3": cfg.n_layers, "sm90_d256": 0,
-                "tf32x3_d256": 0}
+                "tf32x3_d256": 0, "fwd_tf32x3_d256": 0}
         total = {key: total[key] + launches[key] for key in total}
         readings[remat] = {"vs_reference": err_ref, "vs_cpu": err_cpu}
         print(f"gradient check (fp32, head_dim 128, S=256, remat {remat}): "
@@ -1055,7 +1081,7 @@ def bf16_grad_check_phase(torch, fa, llama):
     want = {"fwd": cfg.n_layers, "fwd_sm90": cfg.n_layers, "fwd_tf32x3": 0,
             "fwd_sm90_d256": 0, "dq": cfg.n_layers, "dkv": cfg.n_layers,
             "sm90": cfg.n_layers, "tf32x3": 0, "sm90_d256": 0,
-            "tf32x3_d256": 0}
+            "tf32x3_d256": 0, "fwd_tf32x3_d256": 0}
     print(f"gradient check (bf16, head_dim 128, S=256, remat none, sm90 "
           f"backward): loss {loss:.6f}, reference {ref_loss:.6f}; max grad "
           f"error over max |ref| per leaf vs bf16 reference "
@@ -1128,7 +1154,7 @@ def train_phase(torch, fa, llama):
     per_step = {"fwd": cfg.n_layers, "fwd_sm90": cfg.n_layers,
                 "fwd_tf32x3": 0, "fwd_sm90_d256": 0, "dq": cfg.n_layers,
                 "dkv": cfg.n_layers, "sm90": cfg.n_layers, "tf32x3": 0,
-                "sm90_d256": 0, "tf32x3_d256": 0}
+                "sm90_d256": 0, "tf32x3_d256": 0, "fwd_tf32x3_d256": 0}
     losses, step_ms, launches, peak_gb = _train_steps(torch, fa, step,
                                                       per_step)
     ms = statistics.median(step_ms[3:])
@@ -1173,7 +1199,7 @@ def remat_phase(torch, fa, llama):
         per_step = {"fwd": fwd * n, "fwd_sm90": fwd * n, "fwd_tf32x3": 0,
                     "fwd_sm90_d256": 0, "dq": n, "dkv": n, "sm90": n,
                     "tf32x3": 0, "sm90_d256": 0,
-                    "tf32x3_d256": 0}
+                    "tf32x3_d256": 0, "fwd_tf32x3_d256": 0}
         losses, step_ms, launches, peak_gb = _train_steps(torch, fa, step,
                                                           per_step)
         ms = statistics.median(step_ms[3:])
@@ -1327,7 +1353,8 @@ def gpt2_phase(torch, fa, dtype_name):
                 "dkv": n, "sm90": n * (bwd == "sm90"),
                 "tf32x3": n * (bwd == "tf32x3"),
                 "sm90_d256": n * (bwd == "sm90_d256"),
-                "tf32x3_d256": n * (bwd == "tf32x3_d256")}
+                "tf32x3_d256": n * (bwd == "tf32x3_d256"),
+                "fwd_tf32x3_d256": 2 * n * (fwd == "tf32x3_d256")}
     losses, step_ms, launches, peak_gb = _train_steps(torch, fa, step,
                                                       per_step)
     ms = statistics.median(step_ms[3:])
@@ -1442,7 +1469,7 @@ def d256_phase(torch, fa, llama):
                              f"{bwd}")
     per_step = {"fwd": n, "fwd_sm90": 0, "fwd_tf32x3": 0, "fwd_sm90_d256": n,
                 "dq": n, "dkv": n, "sm90": 0, "tf32x3": 0, "sm90_d256": n,
-                "tf32x3_d256": 0}
+                "tf32x3_d256": 0, "fwd_tf32x3_d256": 0}
     loss, ref_loss, err, grad_launches = _d256_grad_check(
         torch, fa, llama, cfg, params, tokens)
     worst = max(err, key=err.get)
@@ -1499,12 +1526,13 @@ def d256_fp32_phase(torch, fa, llama):
     every gradient leaf through the kernels against reference attention
     on the card (D256_FP32_GRAD_TOL, D256_FP32_LOSS_TOL); then
     D256_FP32_STEPS warm-up and timed train_step calls.  Gates: per step
-    the tf32x3_d256 backward pair once per layer and the CUDA-core
+    the tf32x3_d256 backward pair once per layer and the tf32x3_d256
     forward once per layer and recompute, no other flash kernel; the
     loss finite and falling.  Prints step time, tokens/s, MFU against
     fp32's 67 TFLOP/s (TF32 off, so the model's GEMMs run in fp32), peak
     memory and a profile of one step with the attention kernels' card
-    time.  Returns the launches of the training steps."""
+    time, the forward's and the backward pair's apart.  Returns the
+    launches of the training steps."""
     from ant_ray_tpu_torch.train import make_optimizer, train_step  # noqa: PLC0415
 
     torch.cuda.empty_cache()
@@ -1519,12 +1547,13 @@ def d256_fp32_phase(torch, fa, llama):
 
     n = cfg.n_layers
     fwd, bwd = (fa._route(cfg.dtype, cfg.head_dim, d) for d in ("fwd", "bwd"))
-    if (fwd, bwd) != ("simt", "tf32x3_d256"):
+    if (fwd, bwd) != ("tf32x3_d256", "tf32x3_d256"):
         raise AssertionError(f"head_dim 256 in fp32 routes to {fwd} and "
                              f"{bwd}")
     per_step = {"fwd": FWD_PER_LAYER[remat] * n, "fwd_sm90": 0,
                 "fwd_tf32x3": 0, "fwd_sm90_d256": 0, "dq": n, "dkv": n,
-                "sm90": 0, "tf32x3": 0, "sm90_d256": 0, "tf32x3_d256": n}
+                "sm90": 0, "tf32x3": 0, "sm90_d256": 0, "tf32x3_d256": n,
+                "fwd_tf32x3_d256": FWD_PER_LAYER[remat] * n}
     loss, ref_loss, err, grad_launches = _d256_grad_check(
         torch, fa, llama, cfg, params, tokens, remat)
     worst = max(err, key=err.get)
@@ -1569,11 +1598,14 @@ def d256_fp32_phase(torch, fa, llama):
         busy = sum(by_name.values())
         attn = {name: us for name, us in by_name.items()
                 if re.search(r"flash_(fwd|bwd)", name)}
+        fwd_us = sum(us for name, us in attn.items()
+                     if re.search(r"flash_fwd_tf32x3_d256", name))
         bwd_us = sum(us for name, us in attn.items()
                      if re.search(r"flash_bwd_d(q|kv)_tf32x3_d256", name))
         print(f"d256 fp32 attention kernels: {sum(attn.values()) / 1e3:.2f} "
               f"ms of {busy / 1e3:.2f} ms busy "
-              f"({sum(attn.values()) / busy:.1%}), the backward pair "
+              f"({sum(attn.values()) / busy:.1%}), the forward "
+              f"{fwd_us / 1e3:.2f} ms, the backward pair "
               f"{bwd_us / 1e3:.2f} ms; "
               + json.dumps({name: round(us / 1e3, 3)
                             for name, us in attn.items()}), flush=True)
@@ -1630,7 +1662,7 @@ def slice_phase(torch, fa, llama):
     if launches != {"fwd": expected, "fwd_sm90": expected, "fwd_tf32x3": 0,
                     "fwd_sm90_d256": 0, "dq": 0, "dkv": 0, "sm90": 0,
                     "tf32x3": 0, "sm90_d256": 0,
-                    "tf32x3_d256": 0}:
+                    "tf32x3_d256": 0, "fwd_tf32x3_d256": 0}:
         raise AssertionError(f"serving launched {launches}, expected "
                              f"{expected} sm90 forward and no other launches")
 
@@ -2305,7 +2337,7 @@ def runtime_phase(torch, fa, llama, params):
     if launches != {"fwd": expected, "fwd_sm90": expected, "fwd_tf32x3": 0,
                     "fwd_sm90_d256": 0, "dq": 0, "dkv": 0, "sm90": 0,
                     "tf32x3": 0, "sm90_d256": 0,
-                    "tf32x3_d256": 0}:
+                    "tf32x3_d256": 0, "fwd_tf32x3_d256": 0}:
         raise AssertionError(f"the runtime path launched {launches}, "
                              f"expected {expected} sm90 forward launches")
     return direct
@@ -2512,7 +2544,7 @@ def cluster_phase(torch, fa, llama, params, engine, card):
                     "fwd": want, "fwd_sm90": want, "fwd_tf32x3": 0,
                     "fwd_sm90_d256": 0, "dq": 0, "dkv": 0, "sm90": 0,
                     "tf32x3": 0, "sm90_d256": 0,
-                    "tf32x3_d256": 0}:
+                    "tf32x3_d256": 0, "fwd_tf32x3_d256": 0}:
                 raise AssertionError(
                     f"the worker launched {c['worker_launches']} for the "
                     f"{c['prompt']}-token prompt, expected {want} sm90 "
@@ -2985,7 +3017,7 @@ def checkpoint_phase(torch, fa, llama):
     if launches != {"fwd": expected, "fwd_sm90": expected, "fwd_tf32x3": 0,
                     "fwd_sm90_d256": 0, "dq": 0, "dkv": 0, "sm90": 0,
                     "tf32x3": 0, "sm90_d256": 0,
-                    "tf32x3_d256": 0}:
+                    "tf32x3_d256": 0, "fwd_tf32x3_d256": 0}:
         raise AssertionError(f"checkpoint phase launched {launches}")
     return launches
 
@@ -3238,13 +3270,14 @@ def _profile(torch, label, fn, top=6):
 
 def _print_ptxas(build, lib):
     """Registers and spills of each kernel of ``csrc/<lib>.cu``, from the
-    build's -Xptxas=-v log."""
+    build's -Xptxas=-v log; returns the spill bytes (stores and loads)
+    of each kernel it names."""
     log = build._library_path(lib).with_suffix(".log")
     if not log.exists():
         print(f"ptxas {lib}: no build log (library built elsewhere)",
               flush=True)
-        return
-    kernel = None
+        return {}
+    kernel, spills = None, {}
     for line in log.read_text().splitlines():
         found = re.search(r"Compiling entry function .*?"
                           r"(flash_(?:fwd|bwd)_\w+?_kernel)(?:ILi(\d+)E)?",
@@ -3254,12 +3287,16 @@ def _print_ptxas(build, lib):
                                        if found.group(2) else "")
         elif kernel and ("spill" in line or "registers" in line):
             print(f"ptxas {kernel}: {line.strip()}", flush=True)
+            spilled = re.findall(r"(\d+) bytes spill", line)
+            if spilled:
+                spills[kernel] = sum(int(n) for n in spilled)
             if "registers" in line:
                 kernel = None
+    return spills
 
 
 def kernels_line(rows, bwd_rows, paths):
-    """The {"kernels": [...]} record of the fourteen kernels from the
+    """The {"kernels": [...]} record of the fifteen kernels from the
     kernel phases' rows and the launches of every path; raises if a
     kernel that a main path should run was not launched on one."""
     by_path = {path: _by_kernel(c) for path, c in paths.items()}
@@ -3268,18 +3305,19 @@ def kernels_line(rows, bwd_rows, paths):
     # Forward: S=4096, the largest prefill of the serving slice, for sm90,
     # where the CUDA-core kernel was also timed; GPT-2's fp32 shape for
     # tf32x3, where it was too; Gemma-7B's attention for sm90_d256, where
-    # it was too; FP32_D256_ATTN in fp32 for the CUDA-core kernel (its own
-    # route; also timed at the d256 fp32 path's attention, its main
-    # path).  Backward: the training slice's shape (the first backward
-    # case) for sm90; GPT-2's fp32 shape for tf32x3, where the CUDA-core
-    # pair was also timed; Gemma-7B's attention for sm90_d256, where it
+    # it was too; the d256 fp32 path's attention for tf32x3_d256, where it
+    # was too, as at FP32_D256_ATTN, the CUDA-core kernel's main shape
+    # (it is on no route).  Backward: the training slice's shape (the
+    # first backward case) for sm90; GPT-2's fp32 shape for tf32x3, where
+    # the CUDA-core pair was also timed; Gemma-7B's attention for
+    # sm90_d256, where it
     # was too; the d256 fp32 path's attention for tf32x3_d256, where it
     # was too, as at FP32_D256_ATTN, the CUDA-core pair's main shape.  The
     # sm90_d256 kernels also give their times at Gemma-2B's attention and
     # at the d256 path's own.
     main_row = next(r for r in rows if r["shape"].startswith("B=1 Sq=4096 "))
     train_row = next(r for r in rows if r["shape"].startswith("B=8 Sq=2048 "))
-    simt_row = next(r for r in rows if r["shape"] == _shape(
+    s512_fwd = next(r for r in rows if r["shape"] == _shape(
         *FP32_D256_ATTN, "float32", True))
     bwd_row = bwd_rows[0]
     # fp32 at head_dim 256: rows 1b-3b's shape and the d256 fp32 path's.
@@ -3356,24 +3394,37 @@ def kernels_line(rows, bwd_rows, paths):
                 extra.update(gemma_keys(other, row, row, row["bound_ms"]))
                 extra[f"{other}_shape_simt_ms_same_inputs"] = \
                     row["simt"]["ms"]
+        elif route == "tf32x3_d256":
+            # Its main shape is the d256 fp32 path's attention; also
+            # FP32_D256_ATTN, each beside the CUDA-core kernel's time on
+            # the same inputs.
+            at = timed = fp32_d256_fwd
+            err_rows = [r for r in rows if r["route"] == "tf32x3_d256"]
+            extra = {"bound_ms_fp32_fma": at["fp32_fma_bound_ms"],
+                     "share_of_fp32_fma_bound": at["share_of_fp32_fma_bound"],
+                     "simt_ms_same_inputs": at["simt"]["ms"]}
+            extra.update(gemma_keys("s512", s512_fwd, s512_fwd,
+                                    s512_fwd["bound_ms"]))
+            extra["s512_shape_share_of_fp32_fma_bound"] = \
+                s512_fwd["share_of_fp32_fma_bound"]
+            extra["s512_shape_simt_ms_same_inputs"] = s512_fwd["simt"]["ms"]
         else:
-            # Its main shape is FP32_D256_ATTN in fp32, routed to it, as
-            # is the d256 fp32 path's; also its times on the other
-            # kernels' inputs, launched directly (bf16 at S=4096, the
-            # training shape and the head_dim-256 shapes; GPT-2's fp32
-            # shape).
-            at = timed = simt_row
-            err_rows = [r["simt"] for r in rows if "simt" in r] + [
-                r for r in rows if r["route"] == "simt"]
+            # On no route: timed, launched directly, where its successors
+            # run; its main shape is FP32_D256_ATTN in fp32, its bound the
+            # fp32 FMAs'; also its times on the other kernels' inputs (bf16
+            # at S=4096, the training shape and the head_dim-256 shapes;
+            # GPT-2's and the d256 fp32 path's fp32 shapes).
+            at, timed = s512_fwd, s512_fwd["simt"]
+            err_rows = [r["simt"] for r in rows if "simt" in r]
             gpt2 = ("float32", g32["simt"], g32["fp32_fma_bound_ms"])
             extra = {"s4096_ms": main_row["simt"]["ms"],
                      "train_shape_ms": train_row["simt"]["ms"]}
             for other, row in gemma_rows.items():
                 extra[f"{other}_shape"] = row["shape"]
                 extra[f"{other}_shape_ms"] = row["simt"]["ms"]
-            extra.update(gemma_keys("d256_fp32_path", fp32_d256_fwd,
-                                    fp32_d256_fwd,
-                                    fp32_d256_fwd["bound_ms"]))
+            path = fp32_d256_fwd["simt"]
+            extra.update(gemma_keys("d256_fp32_path", fp32_d256_fwd, path,
+                                    path["bound_ms"]))
         if gpt2 is not None:
             dtype, gpt2_timed, gpt2_bound_ms = gpt2
             extra.update(_gpt2_keys(dtype, gpt2_timed, gpt2_bound_ms,
@@ -3392,8 +3443,8 @@ def kernels_line(rows, bwd_rows, paths):
             "tflops": timed["tflops"],
             "share_of_bound": timed["share_of_bound"],
             "plain_ms": at["plain_ms"],
-            "bound_ms": at["bound_ms"],
-            "bound_by": at["bound_by"],
+            "bound_ms": timed.get("bound_ms", at["bound_ms"]),
+            "bound_by": timed.get("bound_by", at["bound_by"]),
             **extra,
             "library_ms": at["library_ms"],
             "shape": at["shape"],
@@ -3494,9 +3545,11 @@ def kernels_line(rows, bwd_rows, paths):
             "shape": at["shape"],
         }
 
-    # The CUDA-core dQ and dK/dV kernels are on no route (timed beside
-    # their successors only); every other kernel must run on a main path.
-    off_main_paths = {"flash_attention_bwd_dq", "flash_attention_bwd_dkv"}
+    # The CUDA-core forward, dQ and dK/dV kernels are on no route (timed
+    # beside their successors only); every other kernel must run on a
+    # main path.
+    off_main_paths = {"flash_attention_fwd", "flash_attention_bwd_dq",
+                      "flash_attention_bwd_dkv"}
     for name in next(iter(by_path.values())):
         if name not in off_main_paths and not launches(name)["launches"]:
             raise AssertionError(f"{name} was not launched on the main path")
@@ -3507,6 +3560,8 @@ def kernels_line(rows, bwd_rows, paths):
                   "flash_attention_fwd_tf32x3.cu"),
         fwd_entry("flash_attention_fwd_sm90_d256", "sm90_d256",
                   "flash_attention_fwd_sm90_d256.cu"),
+        fwd_entry("flash_attention_fwd_tf32x3_d256", "tf32x3_d256",
+                  "flash_attention_fwd_tf32x3_d256.cu"),
         fwd_entry("flash_attention_fwd", "simt", "flash_attention_fwd.cu"),
         bwd_entry("flash_attention_bwd_dq_sm90", "dq", ("dq",), "sm90",
                   "flash_attention_bwd_sm90.cu", 196),
@@ -3541,12 +3596,14 @@ def kernels_line(rows, bwd_rows, paths):
 # a dK/dV rank dropped and a diagonal masked as above, the row slices'
 # sums of partial scores missing their last quarter (both kernels), and,
 # in flash_attention_tf32x3.cuh, the split dropping the lo parts: one TF32
-# product instead of three (in every tf32x3 kernel; of the d256 fp32
-# path's kernels, only in this pair).  In the CUDA-core forward
-# (flash_attention_fwd.cu, the d256 fp32 path's), the causal mask letting
-# each row see one key ahead.
+# product instead of three (in every tf32x3 kernel, the d256 fp32 path's
+# forward and backward among them).  In the fp32 forward at head_dim 256
+# (flash_attention_fwd_tf32x3_d256.cu, the d256 fp32 path's), the causal
+# mask letting each row see one key ahead, and the row slices' sums of
+# partial scores missing their last quarter.
 _SM90_D256 = "flash_attention_bwd_sm90_d256.cu"
 _TF32X3_D256 = "flash_attention_bwd_tf32x3_d256.cu"
+_FWD_TF32X3_D256 = "flash_attention_fwd_tf32x3_d256.cu"
 D256_FAULTS = {
     "dkv_rank_dropped": (_SM90_D256, "for (int r = 1; r < splits; ++r) {",
                          "for (int r = 2; r < splits; ++r) {"),
@@ -3579,9 +3636,12 @@ D256_FAULTS = {
         "const int rest = __float_as_int(x[i] - __uint_as_float(s.hi[i]));",
         "const int rest = 0;"),
     "fp32_fwd_one_ahead": (
-        "flash_attention_fwd.cu",
-        "if (causal && k0 + tx + 16 * j > q_pos) x = kNegInf;",
-        "if (causal && k0 + tx + 16 * j > q_pos + 1) x = kNegInf;"),
+        _FWD_TF32X3_D256,
+        "if (causal && k0 + 8 * n + 2 * t + (e & 1) > q_pos0 + 8 * j)",
+        "if (causal && k0 + 8 * n + 2 * t + (e & 1) > q_pos0 + 8 * j + 1)"),
+    "fp32_fwd_quarter_dropped": (
+        _FWD_TF32X3_D256, "for (int quarter = 0; quarter < 4; ++quarter) {",
+        "for (int quarter = 0; quarter < 3; ++quarter) {"),
 }
 
 
@@ -3628,12 +3688,12 @@ def d256_gate_readings(checkout, dtype_name="bfloat16"):
         cs.BWD_TOL["bfloat16"] = dict.fromkeys(cs.BWD_TOL["bfloat16"],
                                                math.inf)
         cs.D256_GRAD_TOL = cs.BF16_LOSS_TOL = math.inf
-        backward = {r["shape"]: r["rel_err"]
-                    for r in cs.bwd_kernel_phase(torch, fa)
-                    if r["route"] == "sm90_d256"}
+        kernels = {r["shape"]: r["rel_err"]
+                   for r in cs.bwd_kernel_phase(torch, fa)
+                   if r["route"] == "sm90_d256"}
         remat = "none"
     else:
-        backward = {cs._shape(*attn, dtype_name, True): cs._bwd_rel_errs(
+        kernels = {cs._shape(*attn, dtype_name, True): cs._fp32_d256_errs(
             torch, fa, attn, dtype) for attn in (cs.FP32_D256_ATTN,
                                                  cs._d256_attn())}
         remat = cs.D256_FP32_REMAT
@@ -3648,7 +3708,7 @@ def d256_gate_readings(checkout, dtype_name="bfloat16"):
                 "launches": launches}
 
     out = {"checkout": os.path.abspath(checkout), "dtype": dtype_name,
-           "remat": remat, "backward": backward, "grad_check": grad_check()}
+           "remat": remat, "kernels": kernels, "grad_check": grad_check()}
     # The custom ops look the wrappers up at call time.
     kernels = fa.flash_attention_fwd_lse, fa.flash_attention_backward
     try:
@@ -3661,9 +3721,10 @@ def d256_gate_readings(checkout, dtype_name="bfloat16"):
     return out
 
 
-def _bwd_rel_errs(torch, fa, attn, dtype):
-    """Max abs error over max |ref| of dq, dk and dv through
-    flash_attention_backward against its plain version, causal, at
+def _fp32_d256_errs(torch, fa, attn, dtype):
+    """Max abs error of out and lse through flash_attention_fwd_lse, and
+    max abs error over max |ref| of dq, dk and dv through
+    flash_attention_backward, each against its plain version, causal, at
     ``attn`` (B, Sq, Skv, H, KVH, D) in ``dtype``."""
     batch, q_len, kv_len, heads, kv_heads, dim = attn
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -3675,11 +3736,15 @@ def _bwd_rel_errs(torch, fa, attn, dtype):
     k, v = (rand(batch, kv_len, kv_heads, dim) for _ in range(2))
     with torch.no_grad():
         out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=True)
+        ref_out, ref_lse = fa.flash_attention_fwd_lse_ref(q, k, v,
+                                                          causal=True)
+    errs = {"out": (out - ref_out).abs().max().item(),
+            "lse": (lse - ref_lse).abs().max().item()}
     got = fa.flash_attention_backward(q, k, v, out, lse, do, causal=True)
     want = fa.flash_attention_backward_ref(q, k, v, out, lse, do,
                                            causal=True)
-    return {key: _rel_err(g, w) for key, g, w in zip(("dq", "dk", "dv"),
-                                                      got, want)}
+    return {**errs, **{key: _rel_err(g, w) for key, g, w in zip(
+        ("dq", "dk", "dv"), got, want)}}
 
 
 def main() -> int:
@@ -3714,8 +3779,11 @@ def main() -> int:
                 "flash_attention_fwd_tf32x3", "flash_attention_bwd_tf32x3",
                 "flash_attention_fwd_sm90_d256",
                 "flash_attention_bwd_sm90_d256",
+                "flash_attention_fwd_tf32x3_d256",
                 "flash_attention_bwd_tf32x3_d256"):
-        _print_ptxas(_build, lib)
+        spills = _print_ptxas(_build, lib)
+        if lib == "flash_attention_fwd_tf32x3_d256" and any(spills.values()):
+            raise AssertionError(f"{lib} spills: {spills}")
 
     rows = kernel_phase(torch, fa)
     bwd_rows = bwd_kernel_phase(torch, fa)

@@ -1,10 +1,9 @@
 """The hand-written CUDA flash-attention kernels (the forward, and the dQ
 and dK/dV backward, each on its routes: the bf16 tensor-core kernels at
 head_dim 64 and 128, fp32 in 3xTF32 on the tensor cores at head_dim 64
-and 128, the bf16 tensor-core kernels at head_dim 256, the CUDA-core
-forward and the 3xTF32 tensor-core backward for fp32 at head_dim 256)
-against their
-plain PyTorch versions, on the card; GPT-2 and the remat policies
+and 128, the bf16 tensor-core kernels at head_dim 256, and the 3xTF32
+tensor-core kernels for fp32 at head_dim 256) against their plain
+PyTorch versions, on the card; GPT-2 and the remat policies
 through the kernels; and the session slabs' round
 trip between the card and host memory, bitwise, with an install from
 pinned memory that does not wait for the card; CUDA tensors of every
@@ -235,8 +234,7 @@ def test_sm90_d256_forward_matches_plain_version(cuda, q_len, kv_len, heads,
     """The bf16 forward at head_dim 256 on its own tensor-core route (B=2):
     both 128-column halves of out (each an accumulator of its own) and
     lse against the plain version; its counter moves, and no other
-    forward route's (the CUDA-core kernel's launches are the rest of
-    launch_count)."""
+    forward route's."""
     q, k, v = _qkv(cuda, q_len, kv_len, heads, kv_heads, 256,
                    torch.bfloat16)
     counters = ("fwd_sm90_d256_launch_count", "launch_count",
@@ -281,6 +279,76 @@ def test_sm90_d256_forward_refuses_an_unaligned_input(cuda):
     with pytest.raises(ValueError, match="16-byte"):
         fa.flash_attention_fwd_lse(q, k, v_off)
     assert (fa.fwd_sm90_d256_launch_count, fa.launch_count) == before
+
+
+@pytest.mark.parametrize("q_len,kv_len,heads,kv_heads,causal", [
+    (256, 256, 8, 8, True),     # H = KVH
+    (256, 256, 8, 8, False),
+    (256, 256, 8, 2, True),     # GQA, 4 query heads a KV head
+    (256, 256, 8, 1, True),     # GQA 8:1, one KV head, as Gemma-2B
+    (256, 256, 8, 1, False),
+    (192, 192, 8, 2, True),     # ragged: six 32-row q tiles
+    (192, 192, 8, 1, False),
+    (128, 256, 8, 2, True),     # Sq < Skv: query i sees keys 0..i
+    (256, 128, 8, 2, True),     # Sq > Skv: queries 128.. see every key
+    (128, 256, 8, 4, False),
+    # 64-row q tiles: grids of at least two waves of 132 SMs.
+    (1152, 1152, 8, 1, True),
+    (1152, 1152, 8, 1, False),
+    (1152, 2048, 8, 2, True),
+    (2048, 1152, 8, 2, True),
+])
+def test_tf32x3_d256_forward_matches_plain_version(cuda, q_len, kv_len,
+                                                  heads, kv_heads, causal):
+    """The fp32 forward at head_dim 256 on its own tensor-core route
+    (3xTF32, B=2) holds fp32's 1e-4 on out and lse: every column quarter
+    of out (each warp owns one) against the plain version; its counter
+    moves, and no other forward route's."""
+    q, k, v = _qkv(cuda, q_len, kv_len, heads, kv_heads, 256, torch.float32)
+    counters = ("fwd_tf32x3_d256_launch_count", "launch_count",
+                "fwd_sm90_launch_count", "fwd_tf32x3_launch_count",
+                "fwd_sm90_d256_launch_count")
+    before = [getattr(fa, name) for name in counters]
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert [getattr(fa, name) for name in counters] == \
+        [before[0] + 1, before[1] + 1, *before[2:]]
+    want_out, want_lse = fa.flash_attention_fwd_lse_ref(q, k, v,
+                                                        causal=causal)
+    tol_out, tol_lse = TOL[torch.float32]
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    assert lse.shape == want_lse.shape
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    for quarter in out.split(64, dim=-1):
+        assert quarter.abs().max() > 0
+    assert (out - want_out).abs().max().item() <= tol_out
+    assert (lse - want_lse).abs().max().item() <= tol_lse
+
+
+@pytest.mark.parametrize("dtype,dim,d256", [
+    (torch.float32, 64, False), (torch.float32, 128, False),
+    (torch.float32, 256, True), (torch.bfloat16, 64, False),
+    (torch.bfloat16, 128, False), (torch.bfloat16, 256, False),
+])
+def test_fwd_tf32x3_d256_count_rises_only_on_its_route(cuda, dtype, dim,
+                                                       d256):
+    q, k, v = _qkv(cuda, 128, 128, 4, 2, dim, dtype)
+    before = (fa.fwd_tf32x3_d256_launch_count, fa.launch_count)
+    fa.flash_attention_fwd_lse(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.fwd_tf32x3_d256_launch_count == before[0] + int(d256)
+    assert fa.launch_count == before[1] + 1
+
+
+def test_tf32x3_d256_forward_refuses_an_unaligned_input(cuda):
+    q, k, v = _qkv(cuda, 128, 128, 4, 2, 256, torch.float32)
+    shifted = torch.empty(q.numel() + 4, device="cuda")
+    q_off = shifted[1:q.numel() + 1].view(q.shape)     # 4 bytes in
+    q_off.copy_(q)
+    before = (fa.fwd_tf32x3_d256_launch_count, fa.launch_count)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_fwd_lse(q_off, k, v)
+    assert (fa.fwd_tf32x3_d256_launch_count, fa.launch_count) == before
 
 
 @pytest.mark.parametrize("dim", [64, 128])
@@ -732,6 +800,38 @@ def test_fp32_backward_keeps_a_nan_where_the_plain_version_has_it(
         assert torch.equal(g.isnan(), w.isnan())
         assert _rel_err(g.nan_to_num(), w.nan_to_num()) <= \
             BWD_REL_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("kind", ["0*inf", "negative", "low_payload"])
+@pytest.mark.parametrize("where", ["q", "k"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dim", [64, 128, 256])
+def test_fp32_forward_keeps_a_nan_where_the_plain_version_has_it(
+        cuda, dim, causal, where, kind):
+    """A NaN made on the card in q (at the last query) or in k (at the
+    first key, which every query sees) reaches out and lse where the
+    plain version puts it: the 3xTF32 split of the tf32x3 and
+    tf32x3_d256 forwards passes non-finite values on.  Elsewhere the
+    kernels hold fp32's 1e-4."""
+    q, k, v = _qkv(cuda, 192, 192, 8, 2, dim, torch.float32)
+    if where == "q":
+        q[1, -1, 3, 5] = _card_nan(kind)
+    else:
+        k[1, 0, 1, 5] = _card_nan(kind)
+    route = "tf32x3_d256" if dim == 256 else "tf32x3"
+    counter = f"fwd_{route}_launch_count"
+    before = getattr(fa, counter)
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert getattr(fa, counter) == before + 1
+    want_out, want_lse = fa.flash_attention_fwd_lse_ref(q, k, v,
+                                                        causal=causal)
+    for got, want, tol in zip((out, lse), (want_out, want_lse),
+                              TOL[torch.float32]):
+        assert want.isnan().any()
+        assert torch.equal(got.isnan(), want.isnan())
+        assert (got.nan_to_num() - want.nan_to_num()).abs().max().item() \
+            <= tol
 
 
 def test_gradients_through_flash_function_match_reference(cuda):

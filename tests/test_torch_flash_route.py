@@ -11,9 +11,11 @@ of ``csrc/flash_attention_fwd_sm90.cu`` and
 head_dim 256 to the tensor-core kernels of
 ``csrc/flash_attention_fwd_sm90_d256.cu`` and
 ``csrc/flash_attention_bwd_sm90_d256.cu`` in both directions; fp32 at
-head_dim 256 to the CUDA-core forward of ``csrc/flash_attention_fwd.cu``
-and the 3xTF32 tensor-core backward of
-``csrc/flash_attention_bwd_tf32x3_d256.cu``.
+head_dim 256 to the 3xTF32 tensor-core kernels of
+``csrc/flash_attention_fwd_tf32x3_d256.cu`` and
+``csrc/flash_attention_bwd_tf32x3_d256.cu`` in both directions.  The
+CUDA-core kernels (``csrc/flash_attention_fwd.cu``,
+``csrc/flash_attention_bwd.cu``) are on no route.
 Shapes no kernel takes raise before any launch (tested on the meta
 device, which reaches the kernel checks without a card), and CPU tensors
 run the plain version and launch nothing.
@@ -32,21 +34,20 @@ COUNTERS = ("launch_count", "fwd_sm90_launch_count",
             "fwd_tf32x3_launch_count", "bwd_dq_launch_count",
             "bwd_dkv_launch_count", "bwd_sm90_launch_count",
             "bwd_tf32x3_launch_count", "bwd_sm90_d256_launch_count",
-            "fwd_sm90_d256_launch_count", "bwd_tf32x3_d256_launch_count")
+            "fwd_sm90_d256_launch_count", "bwd_tf32x3_d256_launch_count",
+            "fwd_tf32x3_d256_launch_count")
 
 
 def _counts():
     return tuple(getattr(fa, name) for name in COUNTERS)
 
 
-def _want_route(dtype, head_dim, direction):
-    """The same rule in both directions but for fp32 at head_dim 256,
-    whose backward alone runs on the tensor cores."""
+def _want_route(dtype, head_dim):
+    """The same rule in both directions: every route runs on the tensor
+    cores."""
     if head_dim in (64, 128):
         return "sm90" if dtype == torch.bfloat16 else "tf32x3"
-    if dtype == torch.bfloat16:
-        return "sm90_d256"
-    return "tf32x3_d256" if direction == "bwd" else "simt"
+    return "sm90_d256" if dtype == torch.bfloat16 else "tf32x3_d256"
 
 
 @pytest.mark.parametrize("head_dim", fa.HEAD_DIMS)
@@ -65,12 +66,12 @@ def test_bwd_route_by_dtype_and_head_dim(dtype, head_dim):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_fwd_route_by_dtype_and_head_dim(dtype, head_dim):
     """The forward: tf32x3 for fp32 at 64 and 128, sm90 for bf16 there,
-    sm90_d256 for bf16 at 256, the CUDA cores for fp32 at 256 (its
-    backward goes to tf32x3_d256)."""
+    sm90_d256 for bf16 at 256, tf32x3_d256 for fp32 at 256, as the
+    backward."""
     want = {(torch.float32, 64): "tf32x3", (torch.float32, 128): "tf32x3",
             (torch.bfloat16, 64): "sm90", (torch.bfloat16, 128): "sm90",
             (torch.bfloat16, 256): "sm90_d256",
-            (torch.float32, 256): "simt"}
+            (torch.float32, 256): "tf32x3_d256"}
     assert fa._route(dtype, head_dim, "fwd") == want[(dtype, head_dim)]
 
 
@@ -95,16 +96,40 @@ def test_both_wrappers_launch_the_entry_points_of_one_route(
     q, k, v, _, _, do = _meta_inputs(128, 4, 2, head_dim, dtype)
     out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=True)
     fa.flash_attention_backward(q, k, v, out, lse, do, causal=True)
-    fwd, bwd = (_want_route(dtype, head_dim, d) for d in ("fwd", "bwd"))
-    suffix = {"sm90": "_sm90", "tf32x3": "_tf32x3", "simt": "",
+    route = _want_route(dtype, head_dim)
+    suffix = {"sm90": "_sm90", "tf32x3": "_tf32x3",
               "sm90_d256": "_sm90_d256", "tf32x3_d256": "_tf32x3_d256"}
-    assert launched == [f"flash_attention_fwd{suffix[fwd]}",
-                        f"flash_attention_bwd_dq{suffix[bwd]}",
-                        f"flash_attention_bwd_dkv{suffix[bwd]}"]
-    assert _counts() == (1, int(fwd == "sm90"), int(fwd == "tf32x3"), 1, 1,
-                         int(bwd == "sm90"), int(bwd == "tf32x3"),
-                         int(bwd == "sm90_d256"), int(fwd == "sm90_d256"),
-                         int(bwd == "tf32x3_d256"))
+    assert launched == [f"flash_attention_fwd{suffix[route]}",
+                        f"flash_attention_bwd_dq{suffix[route]}",
+                        f"flash_attention_bwd_dkv{suffix[route]}"]
+    assert _counts() == (1, int(route == "sm90"), int(route == "tf32x3"), 1,
+                         1, int(route == "sm90"), int(route == "tf32x3"),
+                         int(route == "sm90_d256"), int(route == "sm90_d256"),
+                         int(route == "tf32x3_d256"),
+                         int(route == "tf32x3_d256"))
+
+
+@pytest.mark.parametrize("head_dim", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_no_route_reaches_the_cuda_core_kernels(monkeypatch, dtype,
+                                                head_dim):
+    """The CUDA-core forward (``flash_attention_fwd``) and backward pair
+    (``flash_attention_bwd_dq`` / ``_dkv``) are on no route: neither
+    wrapper launches them for any dtype and head_dim, causal or not."""
+    launched = []
+    monkeypatch.setattr(fa, "_check_kernel_inputs", lambda q, k: None)
+    monkeypatch.setattr(fa, "_launch",
+                        lambda name, *args: launched.append(name))
+    q, k, v, _, _, do = _meta_inputs(128, 4, 2, head_dim, dtype)
+    for causal in (True, False):
+        out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal)
+        fa.flash_attention_backward(q, k, v, out, lse, do, causal=causal)
+    assert len(launched) == 6
+    cuda_cores = {"flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv"}
+    assert not cuda_cores & set(launched)
+    assert all(name.endswith(fa._SUFFIX[_want_route(dtype, head_dim)])
+               for name in launched)
 
 
 @pytest.mark.parametrize("kernel,suffix", [
@@ -112,6 +137,7 @@ def test_both_wrappers_launch_the_entry_points_of_one_route(
       for kernel in ("fwd", "bwd_dq", "bwd_dkv")],
     ("bwd_dq", "_sm90_d256"), ("bwd_dkv", "_sm90_d256"),
     ("fwd", "_sm90_d256"),
+    ("fwd", "_tf32x3_d256"),
     ("bwd_dq", "_tf32x3_d256"), ("bwd_dkv", "_tf32x3_d256"),
 ])
 def test_every_route_names_an_entry_point_with_a_source(kernel, suffix):
@@ -190,7 +216,7 @@ def test_the_bf16_d256_backward_checks_alignment(monkeypatch):
     assert events == [("aligned", 9),
                       ("launch", "flash_attention_bwd_dq_sm90_d256"),
                       ("launch", "flash_attention_bwd_dkv_sm90_d256")]
-    assert _counts()[3:] == (1, 1, 0, 0, 1, 0, 0)
+    assert _counts()[3:] == (1, 1, 0, 0, 1, 0, 0, 0)
 
 
 def test_the_bf16_d256_forward_checks_alignment(monkeypatch):
@@ -209,7 +235,7 @@ def test_the_bf16_d256_forward_checks_alignment(monkeypatch):
     fa.flash_attention_fwd_lse(q, k, v, causal=True)
     assert events == [("aligned", 5),
                       ("launch", "flash_attention_fwd_sm90_d256")]
-    assert _counts() == (1, 0, 0, 0, 0, 0, 0, 0, 1, 0)
+    assert _counts() == (1, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0)
 
 
 @pytest.mark.parametrize("head_dim", fa.HEAD_DIMS)
@@ -260,9 +286,10 @@ def test_the_fp32_d256_backward_launches_its_pair_and_counts_it(
 @pytest.mark.parametrize("head_dim", fa.HEAD_DIMS)
 def test_the_fp32_forward_checks_alignment_on_the_tf32x3_route(
         monkeypatch, head_dim):
-    """The 3xTF32 forward copies 16 bytes at a time too: its route checks
-    the alignment of q, k, v, out and lse before the launch; the
-    CUDA-core kernel (head_dim 256) needs no such check."""
+    """The 3xTF32 forward copies 16 bytes at a time too: its routes
+    (tf32x3, and tf32x3_d256 at head_dim 256) check the alignment of q,
+    k, v, out and lse before the launch, and count it on their own
+    counters."""
     events = []
     monkeypatch.setattr(fa, "_check_kernel_inputs", lambda q, k: None)
     monkeypatch.setattr(fa, "_check_aligned",
@@ -273,12 +300,13 @@ def test_the_fp32_forward_checks_alignment_on_the_tf32x3_route(
         monkeypatch.setattr(fa, counter, 0)
     q, k, v, _, _, _ = _meta_inputs(128, 4, 2, head_dim, torch.float32)
     fa.flash_attention_fwd_lse(q, k, v, causal=True)
-    if head_dim == 256:
-        assert events == [("launch", "flash_attention_fwd")]
-    else:
-        assert events == [("aligned", 5),
-                          ("launch", "flash_attention_fwd_tf32x3")]
-    assert _counts()[:3] == (1, 0, int(head_dim != 256))
+    suffix = "_tf32x3_d256" if head_dim == 256 else "_tf32x3"
+    assert events == [("aligned", 5),
+                      ("launch", f"flash_attention_fwd{suffix}")]
+    assert dict(zip(COUNTERS, _counts())) == {
+        **dict.fromkeys(COUNTERS, 0), "launch_count": 1,
+        "fwd_tf32x3_launch_count": int(head_dim != 256),
+        "fwd_tf32x3_d256_launch_count": int(head_dim == 256)}
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -10,8 +10,8 @@ archive <commit> | tar -x -C <dir>``.  For each CHECKOUT in the order
 given and then in reverse (A, B, B, A), one process builds that
 checkout's kernels from its own sources and runs its chip_smoke.py
 kernel phases, ``kernel_phase`` and ``bwd_kernel_phase``, gates as they
-stand.  It prints one JSON line per fp32 row (the tf32x3, tf32x3_d256
-and CUDA-core routes): the forward's ms and max abs error of out, or
+stand.  It prints one JSON line per fp32 row (the tf32x3 and
+tf32x3_d256 routes): the forward's ms and max abs error of out, or
 the dQ and dK/dV kernels' ms and errors over max |ref|, with the
 CUDA-core kernels' ms where the phase timed them on the same inputs.
 """
