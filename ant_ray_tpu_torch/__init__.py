@@ -10,9 +10,9 @@ Every entry point runs on the current CUDA device unless the caller
 passes ``device="cpu"``; without a GPU and without that, it raises.
 
 The runtime's API (``init(local_mode=True)``, ``remote``, ``get``,
-``put``, ``wait``, actors) is exported here as in the JAX package, and
-loaded on first use, so ``import ant_ray_tpu_torch`` imports neither
-torch nor the runtime.
+``put``, ``wait``, actors, ``timeline``) is exported here as in the JAX
+package, and loaded on first use, so ``import ant_ray_tpu_torch``
+imports neither torch nor the runtime.
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ _EXPORTS = {
     "put": "ant_ray_tpu_torch.api",
     "remote": "ant_ray_tpu_torch.api",
     "shutdown": "ant_ray_tpu_torch.api",
+    "timeline": "ant_ray_tpu_torch.api",
     "wait": "ant_ray_tpu_torch.api",
     "ObjectRef": "ant_ray_tpu_torch.object_ref",
     "RemoteFunction": "ant_ray_tpu_torch.remote_function",

@@ -37,7 +37,7 @@ def _env_override(name: str, default: Any) -> Any:
 UNPORTED_FLAGS = {
     **dict.fromkeys(("include_dashboard", "enable_node_agent"),
                     "6.6, the dashboard and the node agent"),
-    "device_stats_interval_s": "6.2, the node agent's device gauges",
+    "device_stats_interval_s": "6.6, the node agent's device gauges",
     "enable_insight": "6.6, flow insight",
     "export_task_events": "6.6, export events",
     **dict.fromkeys(("enable_cgroups", "cgroup_root",

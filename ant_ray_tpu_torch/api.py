@@ -269,3 +269,14 @@ def available_resources() -> dict:
 def nodes() -> list[dict]:
     global_worker._check_connected()
     return global_worker.runtime.nodes()
+
+
+def timeline(filename: str | None = None):
+    """Chrome trace of the cluster's task schedule, with the sampled
+    request spans and published step records as rows of their own (ref:
+    ray.timeline).  With ``filename`` writes the JSON and returns the
+    path; without, returns the event list."""
+    global_worker._check_connected()
+    from ant_ray_tpu_torch.util.timeline import timeline as _timeline  # noqa: PLC0415
+
+    return _timeline(filename)

@@ -25,14 +25,19 @@
   without the host waiting.  Round trips are bitwise exact.
 * **EngineLoop**: a background thread that owns the engine and steps
   it; requests are submitted from any thread and stream their tokens.
+  Every ``metrics_interval_s`` it publishes its load signals as gauges
+  tagged ``deployment`` (util/metrics.py; dropped outside a cluster).
+* **Tracing**: a request's ``trace_ctx`` (observability/tracing_plane.py)
+  rides its sequence; a landed restore records an ``llm:restore`` span
+  under it (attributes ``session`` and ``bytes``), and a failed one an
+  error span.  Unsampled contexts record nothing.
 
 The reference's jitted device calls are plain calls here; everything
 that writes the cache runs under ``torch.inference_mode()``.
 
-Not in this port yet: the tracing plane (``trace_ctx``, ``llm:restore``
-spans), the object-plane offload stores, publishing the loop's gauges and
-tensor parallelism (``tensor_parallel_size`` / ``mesh``).  Passing any of
-them raises ``NotImplementedError``.
+Not in this port yet: the object-plane offload stores and tensor
+parallelism (``tensor_parallel_size`` / ``mesh``).  Passing either raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from ant_ray_tpu_torch.llm.sampling import SamplingParams
 from ant_ray_tpu_torch.llm.tokenizer import get_tokenizer
 from ant_ray_tpu_torch.models import checkpoint as ckpt
 from ant_ray_tpu_torch.models import llama
+from ant_ray_tpu_torch.observability import tracing_plane
 
 logger = logging.getLogger(__name__)
 
@@ -85,6 +91,7 @@ class _Seq:
     kv_len: int = 0               # slab tokens written for this slot
     last_tok: int | None = None   # device-fed token (resume after restore)
     on_event: Any = None          # callable(dict) | None — streaming sink
+    trace_ctx: Any = None         # TraceContext for llm:restore spans
 
 
 @dataclass(eq=False)
@@ -234,8 +241,7 @@ class LLMEngine:
         KV slab survives the request (multi-turn reuse; continuations
         require chunked mode) and may be offloaded/restored.
         ``on_event`` streams per-token dicts to the caller (EngineLoop's
-        sink).  ``trace_ctx`` must be None: the tracing plane is not
-        ported.
+        sink); ``trace_ctx`` attributes `llm:restore` spans.
 
         Each request draws its random numbers from its own
         ``torch.Generator``, seeded with ``sampling.seed`` or, without
@@ -245,8 +251,6 @@ class LLMEngine:
         from ``jax.random``'s, so only greedy output can match the
         reference token for token.  The generator rides the request, so
         an eviction mid-generation does not change its stream."""
-        if trace_ctx is not None:
-            raise _not_in_port("the tracing plane (trace_ctx)")
         if (admit and self._max_waiting is not None
                 and not self._free_slots
                 and len(self._waiting) >= self._max_waiting
@@ -275,7 +279,8 @@ class LLMEngine:
         seed = (sampling.seed if sampling.seed is not None
                 else zlib.crc32(f"{self._seed}:{rid}".encode()))
         gen = torch.Generator().manual_seed(seed)
-        seq = _Seq(rid, token_ids, sampling, gen, on_event=on_event)
+        seq = _Seq(rid, token_ids, sampling, gen, on_event=on_event,
+                   trace_ctx=trace_ctx)
         if session_id is not None:
             sess = self._sessions.get(session_id)
             if sess is None or sess.state == "failed":
@@ -653,7 +658,7 @@ class LLMEngine:
             return
         sess.state = "restoring"
         ticket = {"done": False, "result": None, "error": None,
-                  "t0": time.monotonic()}
+                  "t0": time.monotonic(), "wall0": time.time()}
         self._restoring[sess.session_id] = ticket
         store, handle = self._store(), sess.handle
         pin = self.device.type == "cuda"
@@ -693,7 +698,7 @@ class LLMEngine:
                 continue
             if ticket["error"] is not None:
                 del self._restoring[sid]
-                self._fail_session(sess, ticket["error"])
+                self._fail_session(sess, ticket["error"], ticket)
                 continue
             if not self._free_slots and not self._evict_for_pressure():
                 continue                     # retry next step
@@ -702,8 +707,11 @@ class LLMEngine:
             k, v, ln = ticket["result"]
             with _timer(prof, "restore_install"):
                 self.cache = llama.install_slot(self.cache, k, v, ln, slot)
+            dur = time.monotonic() - ticket["t0"]
             self.stats["restores"] += 1
-            self.stats["restore_wait_s"] += time.monotonic() - ticket["t0"]
+            self.stats["restore_wait_s"] += dur
+            self._record_restore_span(sess, ticket, dur,
+                                      k.nbytes + v.nbytes)
             sess.slot = slot
             sess.state = "resident"
             sess.kv_len = int(ln)
@@ -719,10 +727,27 @@ class LLMEngine:
                 self._begin_ingest(sess.pending.pop(0), slot,
                                    sess.kv_len, prof)
 
-    def _fail_session(self, sess: _Session, exc):
+    def _record_restore_span(self, sess: _Session, ticket: dict,
+                             dur: float, nbytes: int):
+        """Attribute the restore to the request that paid for it
+        (`llm:restore`), on whichever seq carries a trace context."""
+        seq = sess.paused or (sess.pending[0] if sess.pending else None)
+        ctx = seq.trace_ctx if seq is not None else None
+        if ctx is None:
+            return
+        try:
+            tracing_plane.record_span(
+                ctx, "llm:restore", ts=ticket["wall0"], dur_s=dur,
+                attrs={"session": sess.session_id, "bytes": nbytes})
+        except Exception:  # noqa: BLE001 — tracing is best-effort
+            pass
+
+    def _fail_session(self, sess: _Session, exc, ticket: dict):
         """A restore failed (e.g. the slab is gone from the store): fail
         THIS session's requests typed and reset the session record;
-        every other slot keeps decoding — the loop never wedges."""
+        every other slot keeps decoding — the loop never wedges.  The
+        first failed request's trace gets an error `llm:restore` span
+        (force-sampled, so an unsampled request's failure is kept)."""
         self.stats["restore_failures"] += 1
         err = KVRestoreError(
             f"session {sess.session_id!r}: KV restore failed: {exc!r}",
@@ -733,6 +758,16 @@ class LLMEngine:
         sess.state = "failed"
         sess.handle = None
         sess.kv_len = 0
+        seq0 = seqs[0] if seqs else None
+        if seq0 is not None and seq0.trace_ctx is not None:
+            try:
+                tracing_plane.record_span(
+                    seq0.trace_ctx, "llm:restore", ts=ticket["wall0"],
+                    dur_s=time.monotonic() - ticket["t0"], error=True,
+                    attrs={"session": sess.session_id,
+                           "error": repr(exc)})
+            except Exception:  # noqa: BLE001 — tracing is best-effort
+                pass
         for seq in seqs:
             self._fail_seq(seq, err)
 
@@ -943,20 +978,23 @@ class EngineLoop:
     sinks, so concurrent requests share steps instead of serializing
     whole generations.
 
-    :meth:`stats` / :meth:`load_signals` give the serve-autoscaling load
-    signals under the reference's gauge names (``art_llm_tokens_per_s``,
-    ``art_llm_queue_depth``, ``art_llm_resident_sessions``); publishing
-    them as gauges waits for the runtime (ROADMAP.md)."""
+    The loop also publishes the serve-autoscaling load gauges
+    (``art_llm_tokens_per_s``, ``art_llm_queue_depth``,
+    ``art_llm_resident_sessions``, tagged ``deployment``) every
+    ``metrics_interval_s``, and exposes them via :meth:`load_signals`
+    for controller polling."""
 
     METRIC_NAMES = ("art_llm_tokens_per_s", "art_llm_queue_depth",
                     "art_llm_resident_sessions")
 
     def __init__(self, engine: LLMEngine, *,
                  max_waiting: int | None = None,
+                 deployment: str = "llm",
                  metrics_interval_s: float = 2.0):
         self._engine = engine
         self._max_waiting = (max_waiting if max_waiting is not None
                              else engine._max_waiting)
+        self._deployment = deployment
         self._metrics_interval = metrics_interval_s
         self._inbox: list = []
         self._lock = threading.Lock()
@@ -965,6 +1003,7 @@ class EngineLoop:
         self._tokens_per_s = 0.0
         self._last_tick = time.monotonic()
         self._last_tokens = 0
+        self._gauges = None
         self._snapshot = self._loop_snapshot(engine)
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="llm-engine-loop")
@@ -981,9 +1020,8 @@ class EngineLoop:
         Sheds typed BackPressureError when the engine is KV-full (no
         free slot, nothing evictable) and the waiting line is at
         ``max_waiting`` — with the retry hint derived from the measured
-        chunk-drain rate.  ``trace_ctx`` must be None (not ported)."""
-        if trace_ctx is not None:
-            raise _not_in_port("the tracing plane (trace_ctx)")
+        chunk-drain rate.  ``trace_ctx`` rides the request into the
+        engine (its `llm:restore` spans)."""
         eng = self._engine
         if self._max_waiting is not None:
             with self._lock:
@@ -1008,7 +1046,8 @@ class EngineLoop:
         rid = request_id or f"req-{next(eng._req_counter)}"
         handle = _LoopHandle(rid)
         with self._lock:
-            self._inbox.append((prompt, sampling, rid, session_id, handle))
+            self._inbox.append((prompt, sampling, rid, session_id,
+                                trace_ctx, handle))
         self._wake.set()
         return handle
 
@@ -1026,7 +1065,7 @@ class EngineLoop:
                 done.set()
 
         with self._lock:
-            self._inbox.append((_OP, op, None, None, None))
+            self._inbox.append((_OP, op, None, None, None, None))
         self._wake.set()
         done.wait(timeout)
         return res.get("val")
@@ -1082,14 +1121,15 @@ class EngineLoop:
     def _drain_inbox(self, eng):
         with self._lock:
             items, self._inbox = self._inbox, []
-        for prompt, sampling, rid, session_id, handle in items:
+        for prompt, sampling, rid, session_id, trace_ctx, handle in items:
             if prompt is _OP:
                 sampling(eng)             # an injected loop-thread op
                 continue
             try:
                 eng.add_request(prompt, sampling, rid, admit=False,
                                 session_id=session_id,
-                                on_event=handle._on_event)
+                                on_event=handle._on_event,
+                                trace_ctx=trace_ctx)
             except Exception as exc:  # noqa: BLE001 — typed to caller
                 handle._fail(exc)
 
@@ -1117,3 +1157,15 @@ class EngineLoop:
         self._tokens_per_s = (tokens - self._last_tokens) / dt
         self._last_tokens = tokens
         self._last_tick = now
+        try:
+            if self._gauges is None:
+                from ant_ray_tpu_torch.util.metrics import Gauge  # noqa: PLC0415
+
+                self._gauges = {
+                    name: Gauge(name, tag_keys=("deployment",))
+                    for name in self.METRIC_NAMES}
+            tags = {"deployment": self._deployment}
+            for name, value in self.stats().items():
+                self._gauges[name].set(value, tags)
+        except Exception:  # noqa: BLE001 — metrics are best-effort
+            pass

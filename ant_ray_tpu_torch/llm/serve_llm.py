@@ -19,10 +19,16 @@ Session affinity: a request carrying ``session_id`` keeps its KV slab
 across turns (idle slabs offload to the host store and restore
 transparently).
 
+Tracing: under a trace context (observability/tracing_plane.py), a
+completion or a chat runs inside an ``llm:generate`` span and a stream
+inside ``llm:stream``; each submission runs inside ``llm:admission``, and
+the context rides the request into the engine (its ``llm:restore``
+spans).  Without a context these spans are no-ops.
+
 Not in the port yet (ROADMAP.md): Serve deployments
-(``build_llm_deployment``), the ``llm:*`` spans of the tracing plane and
-the object-plane KV store (``kv_offload="object"``); ``"auto"`` picks
-the host store, the reference's choice outside a cluster.
+(``build_llm_deployment``) and the object-plane KV store
+(``kv_offload="object"``); ``"auto"`` picks the host store, the
+reference's choice outside a cluster.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from ant_ray_tpu_torch.llm.engine import EngineLoop, LLMEngine, _not_in_port
 from ant_ray_tpu_torch.llm.kv_offload import LocalKvStore
 from ant_ray_tpu_torch.llm.sampling import SamplingParams
 from ant_ray_tpu_torch.llm.tokenizer import get_tokenizer
+from ant_ray_tpu_torch.observability import tracing_plane
 from ant_ray_tpu_torch.serve.api import get_request_deadline
 
 
@@ -100,6 +107,15 @@ class LLMServer:
         path = request.get("__route_path__", "")
         return "messages" in request or path.endswith("/chat/completions")
 
+    def _submit(self, prompt, sampling, session_id=None):
+        """Admission (typed shed inside the `llm:admission` span) +
+        enqueue to the engine loop."""
+        ctx = tracing_plane.current()
+        with tracing_plane.span("llm:admission"):
+            return self._loop.submit(prompt, sampling,
+                                     session_id=session_id,
+                                     trace_ctx=ctx)
+
     def _wait(self, handle, where: str):
         timeout = self._deadline_timeout()
         try:
@@ -125,9 +141,13 @@ class LLMServer:
         sampling = self._sampling(request)
         session_id = request.get("session_id")
         self._check_deadline("generation")
-        handles = [self._loop.submit(p, sampling, session_id=session_id)
-                   for p in batch]
-        outs = [self._wait(h, "generation") for h in handles]
+        with tracing_plane.span(
+                "llm:generate",
+                {"prompts": len(batch),
+                 "max_tokens": sampling.max_tokens}):
+            handles = [self._submit(p, sampling, session_id=session_id)
+                       for p in batch]
+            outs = [self._wait(h, "generation") for h in handles]
         return {
             "object": "text_completion",
             "choices": [
@@ -143,9 +163,12 @@ class LLMServer:
                                 request.get("messages", []))
         sampling = self._sampling(request)
         self._check_deadline("generation")
-        handle = self._loop.submit(token_ids, sampling,
-                                   session_id=request.get("session_id"))
-        out = self._wait(handle, "generation")
+        with tracing_plane.span(
+                "llm:generate",
+                {"max_tokens": sampling.max_tokens, "chat": True}):
+            handle = self._submit(token_ids, sampling,
+                                  session_id=request.get("session_id"))
+            out = self._wait(handle, "generation")
         return {
             "object": "chat.completion",
             "choices": [{
@@ -188,10 +211,13 @@ class LLMServer:
                 and not isinstance(prompts[0], int) else prompts
         sampling = self._sampling(request)
         self._check_deadline("streaming generation")
-        handle = self._loop.submit(prompt, sampling,
-                                   session_id=request.get("session_id"))
-        yield from (self._chat_chunks(handle) if chat
-                    else self._chunks(handle))
+        with tracing_plane.span(
+                "llm:stream",
+                {"max_tokens": sampling.max_tokens, "chat": chat}):
+            handle = self._submit(prompt, sampling,
+                                  session_id=request.get("session_id"))
+            yield from (self._chat_chunks(handle) if chat
+                        else self._chunks(handle))
 
     def _events(self, handle):
         """Handle events → the engine-stream delta shape."""

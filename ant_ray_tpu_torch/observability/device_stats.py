@@ -8,9 +8,11 @@ last ``reset_peak_memory_stats``) and ``bytes_limit`` (the card's total
 memory).  Without a card there is one ``cpu`` entry whose ``bytes_*``
 fields are ``None``, the reference's contract on a CPU backend.
 
-The reference's ``device_stats_gauges`` (the entries as Prometheus gauge
-series) comes with gauge publishing, which waits for the runtime
-(ROADMAP.md).
+:func:`device_stats_gauges` turns the entries into gauge series in the
+``MetricRecord`` wire format, as the reference does.  The reference's node
+agent publishes them on an interval (``device_stats_interval_s``); the
+port has no node agent yet (ROADMAP.md queue A item 6.6), so a caller
+publishes them itself, e.g. through ``util/metrics.py`` ``Gauge``.
 """
 
 from __future__ import annotations
@@ -49,3 +51,30 @@ def device_memory_stats(devices=None) -> list[dict]:
         out.append(entry)
     return out
 
+
+
+def device_stats_gauges(stats: list[dict] | None = None) -> list[dict]:
+    """Prometheus-shaped gauge series (the node-metrics wire format:
+    name/type/value/tags/description), tagged ``device`` and
+    ``platform``.  Devices without memory stats (the CPU) contribute
+    nothing."""
+    if stats is None:
+        stats = device_memory_stats()
+    series = []
+    for entry in stats:
+        tags = {"device": str(entry.get("device", entry.get("index"))),
+                "platform": entry.get("platform", "unknown")}
+        for field, name, desc in (
+                ("bytes_in_use", "art_device_hbm_bytes_in_use",
+                 "device memory currently allocated"),
+                ("peak_bytes_in_use", "art_device_hbm_peak_bytes",
+                 "high-water device memory"),
+                ("bytes_limit", "art_device_hbm_bytes_limit",
+                 "device memory capacity")):
+            value = entry.get(field)
+            if value is None:
+                continue
+            series.append({"name": name, "type": "gauge",
+                           "value": float(value), "tags": dict(tags),
+                           "description": desc})
+    return series

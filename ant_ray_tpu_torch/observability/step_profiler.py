@@ -14,7 +14,14 @@ Cost model: the step path is two ``perf_counter`` reads, a wall-clock
 read, and a raw ``(step, ts, total, phases)`` tuple appended to a
 bounded deque — records materialize into :class:`StepRecord` objects and
 the MFU / compute-remainder math runs only when something *reads* them
-(``last``, ``summary()``).
+(``last``, ``summary()``, a batch flush).
+
+Publishing: with ``publish=True`` (the default) finished steps gather in
+a pending batch; every ``publish_batch`` steps, and on :meth:`flush` or
+:meth:`close`, the batch goes to the GCS step-events table
+(``StepEventsAdd``) as :meth:`StepRecord.as_dict` rows, which
+``util/timeline.py`` renders as per-rank device rows.  Best-effort, as
+in the reference: outside a cluster the batch is dropped.
 
 MFU needs the card's peak: without ``peak_flops`` the profiler looks up
 the current CUDA device's name in :data:`PEAK_BF16_FLOPS` (the reference
@@ -22,7 +29,8 @@ reads a TPU table); on the CPU or an unlisted card MFU stays None, as in
 the reference off a TPU.
 
 Not in the port yet (ROADMAP.md): the attached stats streams of a device
-feed and of collective fusion, and publishing records to the runtime.
+feed and of collective fusion (queue A items 6.5 and 7), and the train
+session's rank (records carry rank 0).
 """
 
 from __future__ import annotations
@@ -48,11 +56,25 @@ class StepRecord:
     total_s: float
     phases: dict                     # phase -> seconds (attributed)
     mfu: float | None = None
+    rank: int = 0
 
     def fraction(self, phase: str) -> float:
         if self.total_s <= 0:
             return 0.0
         return min(1.0, self.phases.get(phase, 0.0) / self.total_s)
+
+    def as_dict(self) -> dict:
+        return {"step": self.step, "ts": self.start_ts,
+                "total_s": self.total_s, "phases": dict(self.phases),
+                "mfu": self.mfu, "rank": self.rank}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "StepRecord":
+        return cls(step=int(d.get("step", 0)),
+                   start_ts=float(d.get("ts", 0.0)),
+                   total_s=float(d.get("total_s", 0.0)),
+                   phases=dict(d.get("phases") or {}),
+                   mfu=d.get("mfu"), rank=int(d.get("rank", 0)))
 
 
 class _PhaseTimer:
@@ -94,17 +116,22 @@ class StepProfiler:
     which one JAX process drives together).
     """
 
-    __slots__ = ("_flops_per_step", "_peak_flops", "records",
-                 "_step_index", "_cur_phases", "_t0", "_wall0", "_timers")
+    __slots__ = ("_flops_per_step", "_peak_flops", "records", "_publish",
+                 "_publish_batch", "_pending", "_step_index",
+                 "_cur_phases", "_t0", "_wall0", "_timers")
 
     def __init__(self, *, flops_per_step: float | None = None,
-                 peak_flops: float | None = None, history: int = 256):
+                 peak_flops: float | None = None, history: int = 256,
+                 publish: bool = True, publish_batch: int = 64):
         self._flops_per_step = flops_per_step
         self._peak_flops = (peak_flops if peak_flops is not None
                             else self._detect_peak_flops())
         # raw (step, wall_ts, total_s, phases) tuples — materialized
         # into StepRecords only on read, keeping the step path cheap
         self.records: Any = deque(maxlen=max(1, history))
+        self._publish = publish
+        self._publish_batch = max(1, publish_batch)
+        self._pending: list[tuple] = []
         self._step_index = 0
         self._cur_phases: dict[str, float] = {}
         self._t0 = 0.0
@@ -131,9 +158,14 @@ class StepProfiler:
 
     def __exit__(self, exc_type, exc, tb):
         total = time.perf_counter() - self._t0
-        self.records.append((self._step_index, self._wall0, total,
-                             self._cur_phases))
+        rec = (self._step_index, self._wall0, total, self._cur_phases)
         self._step_index += 1
+        self.records.append(rec)
+        if self._publish:
+            pending = self._pending
+            pending.append(rec)
+            if len(pending) >= self._publish_batch:
+                self.flush()
         return False
 
     def phase(self, name: str) -> _PhaseTimer:
@@ -146,7 +178,7 @@ class StepProfiler:
 
     # -------------------------------------------------- materialization
 
-    def _materialize(self, raw: tuple) -> StepRecord:
+    def _raw_to_dict(self, raw: tuple) -> dict:
         step, wall0, total, phases = raw
         phases = dict(phases)
         if "compute" not in phases:
@@ -155,7 +187,34 @@ class StepProfiler:
         mfu = None
         if self._flops_per_step and self._peak_flops and total > 0:
             mfu = self._flops_per_step / (total * self._peak_flops)
-        return StepRecord(step, wall0, total, phases, mfu)
+        return {"step": step, "ts": wall0, "total_s": total,
+                "phases": phases, "mfu": mfu, "rank": 0}
+
+    def _materialize(self, raw: tuple) -> StepRecord:
+        return StepRecord.from_dict(self._raw_to_dict(raw))
+
+    # ------------------------------------------------------- publishing
+
+    def flush(self) -> None:
+        """Batch-publish pending records to the GCS step-events table.
+        Best-effort: outside a cluster the batch is dropped (the
+        profiler stays a cheap local instrument, metrics-style)."""
+        if not self._pending:
+            return
+        batch, self._pending = self._pending, []
+        try:
+            from ant_ray_tpu_torch._private.worker import global_worker  # noqa: PLC0415
+
+            if not global_worker.connected:
+                return
+            runtime = global_worker.runtime
+            if getattr(runtime, "_gcs", None) is None:
+                return              # local mode
+            runtime._send_oneway(
+                runtime.gcs_address, "StepEventsAdd",
+                {"records": [self._raw_to_dict(r) for r in batch]})
+        except Exception:  # noqa: BLE001 — observability is best-effort
+            pass
 
     # --------------------------------------------------------- analysis
 
@@ -193,3 +252,6 @@ class StepProfiler:
         if mfus:
             out["mfu_mean"] = sum(mfus) / len(mfus)
         return out
+
+    def close(self) -> None:
+        self.flush()

@@ -450,6 +450,8 @@ _RPC_BOUNDARIES = [0.0002, 0.0005, 0.001, 0.002, 0.005, 0.01, 0.025,
                    0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0]
 
 _metric_recorder = None
+_rpc_hist = None
+_rpc_hist_lock = threading.Lock()
 
 
 def set_metric_recorder(fn) -> None:
@@ -461,41 +463,56 @@ def set_metric_recorder(fn) -> None:
     _metric_recorder = fn
 
 
+def _rpc_histogram():
+    global _rpc_hist
+    if _rpc_hist is None:
+        with _rpc_hist_lock:
+            if _rpc_hist is None:
+                from ant_ray_tpu_torch.util.metrics import Histogram  # noqa: PLC0415
+
+                _rpc_hist = Histogram(
+                    "art_rpc_latency_s",
+                    "Per-stage RPC latency (client: serialize/wire; "
+                    "server: queue/execute); exemplars carry trace ids",
+                    boundaries=_RPC_BOUNDARIES,
+                    tag_keys=("method", "stage"))
+    return _rpc_hist
+
+
 def record_rpc(method: str, stages: dict, trace_id: str = "") -> None:
     """Observe ``art_rpc_latency_s{method,stage}`` for one sampled RPC.
     Emitted only for sampled requests — the sampling rate bounds the
     metric traffic, and every observation carries the trace id as an
     OpenMetrics exemplar so a slow bucket links to a concrete trace.
 
-    Every process ships raw ``MetricRecord`` payloads to the GCS, which
-    folds them into the histogram: the node daemon through its installed
-    sender, drivers and workers through their runtime's oneway channel.
-    (The JAX package aggregates in-process with ``util/metrics.py``
-    ``Histogram`` first; that module is ROADMAP queue A item 6.2.)"""
+    Drivers and workers observe through ``util/metrics.py``
+    ``Histogram``, which sends through their runtime's oneway channel;
+    the node daemon, which has no runtime, ships the same payloads
+    through the sender it installed with :func:`set_metric_recorder`."""
     try:
-        send = _metric_recorder
-        if send is None:
-            runtime = _runtime()
-            if runtime is None:
-                return
-
-            def send(payload, runtime=runtime):
-                runtime._send_oneway(runtime.gcs_address, "MetricRecord",
-                                     payload)
-
+        recorder_fn = _metric_recorder
+        if recorder_fn is not None:
+            # Runtime-less process (node daemon): ship raw MetricRecord
+            # payloads through the installed sender.
+            for stage, seconds in stages.items():
+                payload = {
+                    "name": "art_rpc_latency_s", "type": "histogram",
+                    "value": float(seconds),
+                    "tags": {"method": method, "stage": stage},
+                    "description": "Per-stage RPC latency",
+                    "boundaries": _RPC_BOUNDARIES,
+                }
+                if trace_id:
+                    payload["exemplar"] = {
+                        "labels": {"trace_id": trace_id},
+                        "value": float(seconds), "ts": time.time()}
+                recorder_fn(payload)
+            return
+        hist = _rpc_histogram()
+        exemplar = {"trace_id": trace_id} if trace_id else None
         for stage, seconds in stages.items():
-            payload = {
-                "name": "art_rpc_latency_s", "type": "histogram",
-                "value": float(seconds),
-                "tags": {"method": method, "stage": stage},
-                "description": "Per-stage RPC latency",
-                "boundaries": _RPC_BOUNDARIES,
-            }
-            if trace_id:
-                payload["exemplar"] = {
-                    "labels": {"trace_id": trace_id},
-                    "value": float(seconds), "ts": time.time()}
-            send(payload)
+            hist.observe(seconds, {"method": method, "stage": stage},
+                         exemplar=exemplar)
     except Exception:  # noqa: BLE001 — observability must never fail a call
         pass
 

@@ -28,9 +28,9 @@ final line is printed:
    and in fp32 (B=1, S=512, H=8, KVH=2), GPT-2's
    (B=8, S=1024, H=KVH=12, D=64) in fp32 and bf16, and bf16 at
    Gemma-7B's and Gemma-2B's attention (B=4, S=2048, D=256, H=KVH=16 and
-   H=8 KVH=1) and the head_dim-256 path's own (phase 16: B=2, S=2048,
+   H=8 KVH=1) and the head_dim-256 path's own (phase 17: B=2, S=2048,
    H=8, KVH=1; the sm90_d256 kernel's route), and that shape in fp32
-   (phase 17's, the tf32x3_d256 kernel's route).  Tolerances: bf16
+   (phase 18's, the tf32x3_d256 kernel's route).  Tolerances: bf16
    out max abs error <= 2e-2 (bf16 rounds p and out at other points in
    the tiled loop), lse <= 1e-3; fp32 both <= 1e-4.  Times by CUDA
    events, median of 10 runs: the kernel launched directly (with its
@@ -55,8 +55,8 @@ final line is printed:
    128-row tiles), Sq != Skv, fp32 at D=64 and D=128 with GQA, ragged
    and with more keys, D=256 in fp32 and bf16, GPT-2's in fp32 and
    bf16, Gemma-7B's and Gemma-2B's attention and the head_dim-256
-   path's (phase 16: B=2, S=2048, H=8, KVH=1) in bf16, and that path's
-   in fp32 (phase 17) (BWD_TOL: max abs error over max |ref| per
+   path's (phase 17: B=2, S=2048, H=8, KVH=1) in bf16, and that path's
+   in fp32 (phase 18) (BWD_TOL: max abs error over max |ref| per
    tensor).  Each line gives per kernel
    its route, time, achieved TFLOP/s and share of its bound (tf32x3's
    and tf32x3_d256's at 3xTF32's rate, 494.7/3 TFLOP/s, and also at the
@@ -131,7 +131,7 @@ final line is printed:
    Prints one "runtime" JSON line with the wall of each call beside the
    direct call's and, under "overhead", the runtime's own cost per call
    (medians, microseconds).  These launches stay out of the kernels line
-   (phase 18), whose paths and counts are those of the phases it names.
+   (phase 19), whose paths and counts are those of the phases it names.
 9. The object plane on the card: one slot's KV slab of that direct
    engine (cache["k"][:, 0] and cache["v"][:, 0], 32 x 4096 x 8 x 128
    bf16 each, two non-contiguous views, 0.537 GB) goes through
@@ -181,7 +181,37 @@ final line is printed:
    five), /dev/shm's size, the node store's capacity, and the runtime's
    cost per no-op call beside local mode's, with the hot-frame counts
    of those calls.  Its launches are the kernels line's "cluster" path.
-11. Serving from a checkpoint directory: llama-400m at its published
+11. Tracing and metrics through a cluster on the card
+   (``init(num_cpus=2)``): a num_gpus=1 actor builds two LLMServers on
+   Llama-3-8B (random weights from seed 0, slots=2, max_seq=4096,
+   kv_offload="local"), one with bucketed prefill, one with the
+   reference's chunks of 64.  Under one sampled trace context (the
+   global trace_sample_rate left at its default; every other call of
+   the phase under an unsampled one) the driver sends a completion of
+   1500 token ids, a session's two turns with its slab evicted to the
+   host store between them, and a stream, and records the request's
+   root span.  Gates: the traced completion's tokens equal an untraced
+   one's on the same actor; the worker launched the sm90 forward
+   n_layers times for each bucketed prefill of 128 tokens or more and
+   nothing else; the spans in the GCS and util.tracing.live_spans() are
+   one trace with one root and no orphan, holding the driver's call
+   spans, the worker's execution spans, llm:admission inside
+   llm:generate, llm:stream and one llm:restore under the second turn
+   whose bytes equal the evicted slab's, and task_spans() derives no
+   span for a traced task; art.timeline(path) writes JSON with task
+   slices for the actor calls and one request row per span; MetricsGet
+   holds art_rpc_latency_s series (PushTask's client and worker stages)
+   whose bucket counts sum to their count and whose exemplar names the
+   trace, and the three art_llm_* gauges tagged deployment="llm";
+   device_stats_gauges() here gives three series of cuda:0 whose limit
+   is the card's total memory; shutdown leaves no process, session
+   directory or arena.  Prints a "trace split" line (not gated): the
+   medians, in µs, of 200 sampled no-op actor calls' stages (client
+   serialize, wire, worker queue, execute) from their spans, beside the
+   median wall of those calls and of 200 unsampled ones, in turns, with
+   the card's name and power limit; then one "tracing" JSON line.  Its
+   launches are the kernels line's "tracing" path.
+12. Serving from a checkpoint directory: llama-400m at its published
    widths and depth (bf16, seed 0) written to a temporary directory of
    this checkout in the HF layout twice, as model.safetensors (a writer
    here: the format's header and raw buffers) and as pytorch_model.bin
@@ -195,7 +225,7 @@ final line is printed:
    write and load seconds and GB/s (host clock; the write ends in fsync,
    the load is the engine's construction), then the launches and peak
    memory.
-12. LLMServer on Llama-3-8B (random weights from seed 0, slots=8,
+13. LLMServer on Llama-3-8B (random weights from seed 0, slots=8,
    max_seq=4096, the reference's serving defaults: chunks of 64,
    kv_offload="local").  Four client threads send four completions of
    100 to 1500 token ids (one opening a session), two chats, two streams
@@ -209,7 +239,7 @@ final line is printed:
    its first token; no flash launch.  Prints TTFT per request
    (handle.ttft_s() through the server's loop), the wall time,
    load_signals, device_memory_stats() and peak memory.
-13. The training slice: llama-400m at its published widths and all 24
+14. The training slice: llama-400m at its published widths and all 24
    layers, bf16, random weights from seed 0, one fixed batch of 8 x 2049
    token ids, AdamW (make_optimizer), remat "none": 3 warm-up and 10
    timed train_step calls.  The launch counts are reset just before and
@@ -217,7 +247,7 @@ final line is printed:
    once per layer, all on the sm90 route.  Prints the step time,
    tokens/s, MFU against the bf16 peak, peak memory and a torch.profiler
    line of one step.
-14. Remat: the training slice again, from the same weights, under
+15. Remat: the training slice again, from the same weights, under
    each remat policy ("none", "full", "dots", "matmuls"), 3 warm-up and
    10 timed steps each.  Gates: the forward kernel launched twice per
    layer and step under "full" and "dots" and once under "none" and
@@ -227,7 +257,7 @@ final line is printed:
    Prints per policy the step time, tokens/s, MFU and peak memory, a
    profile, and the step on 1 x 128 tokens, where the host sets the
    time.
-15. GPT-2: `gpt2` (124 M) at its published widths and depth, in its
+16. GPT-2: `gpt2` (124 M) at its published widths and depth, in its
    published fp32 (the 3xTF32 forward and backward) and in a
    bf16 copy (the sm90 kernels at head_dim 64, plain multi-head
    attention), random weights
@@ -240,7 +270,7 @@ final line is printed:
    GPT2_LOGIT_TOL of reference attention's and the greedy next tokens
    equal but for ties.  Prints step time, tokens/s, MFU against the
    peak of the dtype the step computes in, and peak memory.
-16. Head_dim 256: a Llama at Gemma-2B's widths (hidden 2048, 8 heads
+17. Head_dim 256: a Llama at Gemma-2B's widths (hidden 2048, 8 heads
    of 256, 1 KV head, MLP 16384, vocab 256000, tied embeddings, 18
    layers; 2.51 B parameters; SwiGLU and no embedding scale, so not
    Gemma), bf16, random weights from seed 0, a fixed batch of 2 x 2049
@@ -253,7 +283,7 @@ final line is printed:
    attention's; the loss falling.  Prints
    step time, tokens/s, MFU, peak memory and a profile of one step with
    the attention kernels' share.
-17. Head_dim 256 in fp32: the same Llama at Gemma-2B's widths and all
+18. Head_dim 256 in fp32: the same Llama at Gemma-2B's widths and all
    18 layers in fp32 (TF32 off), remat D256_FP32_REMAT ("full": AdamW's
    state alone is 20 GB), the same weights' seed and batch.  First one
    step's loss and every gradient leaf through the kernels against fp32
@@ -265,13 +295,13 @@ final line is printed:
    the loss falling.  Prints step time, tokens/s, MFU against fp32's 67
    TFLOP/s, peak memory and a profile of one step with the attention
    kernels' card time, the forward's and the backward pair's apart.
-18. One line {"kernels": [...]} with the fifteen kernels (the sm90,
+19. One line {"kernels": [...]} with the fifteen kernels (the sm90,
    tf32x3, sm90_d256, tf32x3_d256 and CUDA-core forward; the sm90, tf32x3,
    sm90_d256, tf32x3_d256 and CUDA-core dQ and dK/dV; launches by path,
    the main paths being serving, sessions, the loop, the cluster's
-   worker, the checkpoint directory, the server, training, training
-   under each remat policy, GPT-2 in fp32 and bf16 and the head_dim-256
-   Llama in bf16 and fp32; the older kernels' times also at GPT-2's
+   worker, the traced cluster's worker, the checkpoint directory, the
+   server, training, training under each remat policy, GPT-2 in fp32
+   and bf16 and the head_dim-256 Llama in bf16 and fp32; the older kernels' times also at GPT-2's
    shape, the sm90_d256 ones at Gemma-7B's and Gemma-2B's attention and
    at the head_dim-256 path's own, the tf32x3_d256 ones at the fp32
    path's and at FP32_D256_ATTN).  The CUDA-core forward, dQ and dK/dV
@@ -2677,6 +2707,371 @@ def cluster_phase(torch, fa, llama, params, engine, card):
     return launches
 
 
+TRACE_SERVER = dict(slots=2, max_seq=4096, seed=0, kv_offload="local")
+TRACE_PROMPTS = {"completion": 1500, "turn1": 300, "turn2": 50,
+                 "stream": 100}  # prompt tokens of the traced requests
+TRACE_TOKENS = 16               # new tokens per traced request
+TRACE_SPLIT_CALLS = 200         # no-op actor calls, sampled and unsampled
+TRACE_WAIT_S = 60.0             # for spans and series to reach the GCS
+# The spans the traced requests must leave, each named as recorded.
+TRACE_SPAN_NAMES = ("smoke:request", "call:TracedServer.complete",
+                    "run:TracedServer.complete", "run:TracedServer.turn",
+                    "run:TracedServer.stream", "llm:generate",
+                    "llm:admission", "llm:stream", "llm:restore")
+
+
+def _poll(fn, what, timeout=TRACE_WAIT_S):
+    """fn() until it returns something true; raises after ``timeout``."""
+    deadline = time.monotonic() + timeout
+    while True:
+        value = fn()
+        if value:
+            return value
+        if time.monotonic() > deadline:
+            raise AssertionError(f"never saw {what} within {timeout} s")
+        time.sleep(0.2)
+
+
+def _trace_gates(spans, ctx, restore_bytes):
+    """Gates on one request trace's spans (dicts as the GCS holds them):
+    one trace id, one root (the driver's request span), no orphan parent,
+    every name of TRACE_SPAN_NAMES, llm:admission inside llm:generate
+    under one execution span, and llm:restore under the second turn's
+    execution with the session's slab bytes.  Returns a summary."""
+    from ant_ray_tpu_torch.observability import tracing_plane  # noqa: PLC0415
+
+    trace_ids = {s["trace_id"] for s in spans}
+    if trace_ids != {ctx.trace_id}:
+        raise AssertionError(f"spans of {len(trace_ids)} traces: "
+                             f"{sorted(trace_ids)}")
+    by_id = {s["span_id"]: s for s in spans}
+    roots = [s for s in spans if s.get("parent_id") not in by_id]
+    if [(s["name"], s["span_id"], s.get("parent_id")) for s in roots] != [
+            ("smoke:request", ctx.span_id, "")]:
+        raise AssertionError(
+            "the trace has orphans or more than one root: " + json.dumps(
+                [(s["name"], s.get("parent_id")) for s in roots]))
+    names = sorted({s["name"] for s in spans})
+    missing = sorted(set(TRACE_SPAN_NAMES) - set(names))
+    if missing:
+        raise AssertionError(f"spans missing from the trace: {missing}; "
+                             f"present: {names}")
+
+    def parent_name(s):
+        return by_id[s["parent_id"]]["name"] if s["parent_id"] in by_id \
+            else ""
+
+    gen = next(s for s in spans if s["name"] == "llm:generate"
+               and parent_name(s) == "run:TracedServer.complete")
+    adm = [s for s in spans if s["name"] == "llm:admission"
+           and s["parent_id"] == gen["parent_id"]]
+    if len(adm) != 1 or not (gen["ts"] <= adm[0]["ts"] and adm[0]["ts"]
+                             + adm[0]["dur_s"] <= gen["ts"] + gen["dur_s"]):
+        raise AssertionError(
+            f"llm:admission not inside llm:generate: {gen}, {adm}")
+    streams = [s for s in spans if s["name"] == "llm:stream"]
+    if [parent_name(s) for s in streams] != ["run:TracedServer.stream"]:
+        raise AssertionError(f"llm:stream spans: {streams}")
+    restores = [s for s in spans if s["name"] == "llm:restore"]
+    if len(restores) != 1 or restores[0].get("error") or \
+            parent_name(restores[0]) != "run:TracedServer.turn" or \
+            restores[0]["attrs"] != {"session": "s",
+                                     "bytes": restore_bytes}:
+        raise AssertionError(f"llm:restore spans {restores}, expected one "
+                             f"of {restore_bytes} bytes under the turn")
+    tree = tracing_plane.span_tree(spans)
+    return {"spans": len(spans), "names": names, "roots": len(tree),
+            "restore_bytes": restore_bytes,
+            "restore_ms": round(restores[0]["dur_s"] * 1e3, 3)}
+
+
+def _split_us(spans, wall_sampled, wall_unsampled):
+    """Medians (µs) of a sampled no-op call's stages: client serialize
+    (the call span's queue stage: submit to frame write), the worker's
+    queue (arrival to executor pickup) and execute, and wire (the rest
+    of the call span's wire stage: both frames' transport and the
+    reply's decode), beside the wall time of sampled and unsampled
+    calls."""
+    runs = {s["parent_id"]: s for s in spans if s["name"].startswith("run:")}
+    rows = []
+    for call in (s for s in spans if s["name"].startswith("call:")):
+        run = runs.get(call["span_id"])
+        if run is None:
+            continue
+        queue, execute = run["stages"]["queue"], run["stages"]["execute"]
+        rows.append({"serialize": call["stages"]["queue"],
+                     "wire": call["stages"]["wire"] - queue - execute,
+                     "queue": queue, "execute": execute,
+                     "call_span": call["dur_s"]})
+    if len(rows) != len(wall_sampled):
+        raise AssertionError(f"{len(rows)} call/run span pairs for "
+                             f"{len(wall_sampled)} sampled calls")
+    out = {"calls": len(rows)}
+    for key in ("serialize", "wire", "queue", "execute", "call_span"):
+        out[f"{key}_us"] = statistics.median(r[key] for r in rows) * 1e6
+    out["sampled_wall_us"] = statistics.median(wall_sampled) * 1e6
+    out["unsampled_wall_us"] = statistics.median(wall_unsampled) * 1e6
+    return out
+
+
+def tracing_phase(torch, llama, card):
+    """Tracing and metrics through a cluster on the card
+    (``init(num_cpus=2)``): a ``num_gpus=1`` actor holds two LLMServers
+    on Llama-3-8B (random weights from seed 0), one with bucketed
+    prefill for completions and streams, whose prefills of 128 tokens
+    and more run the sm90 flash forward, and one with the reference's
+    serving default (chunks of 64), whose sessions continue.  Under one
+    sampled trace context the driver sends a 1500-token completion, a
+    session's two turns with the slab evicted to the host store between
+    them, and a stream.  Gates: the traced completion's tokens equal an
+    untraced one's; the worker launched the sm90 forward n_layers times
+    per bucketed prefill and nothing else; the trace (_trace_gates);
+    ``art.timeline`` JSON with task slices for the actor calls and the
+    trace's request rows; ``MetricsGet`` with ``art_rpc_latency_s``
+    series whose buckets sum to their count and whose exemplar names the
+    trace, and the loop's gauges tagged ``deployment="llm"``;
+    ``device_stats_gauges()`` here with the card's total memory; then a
+    trace split of no-op calls (printed, not gated) and shutdown leaving
+    nothing behind.  Returns the worker's launches."""
+    import ant_ray_tpu_torch as art  # noqa: PLC0415
+    from ant_ray_tpu_torch._private.worker import global_worker  # noqa: PLC0415
+    from ant_ray_tpu_torch.llm.engine import _bucket  # noqa: PLC0415
+    from ant_ray_tpu_torch.observability import (  # noqa: PLC0415
+        device_stats_gauges, tracing_plane)
+    from ant_ray_tpu_torch.util import timeline as tl_util  # noqa: PLC0415
+    from ant_ray_tpu_torch.util import tracing as tr_util  # noqa: PLC0415
+
+    cfg = llama.CONFIGS["llama3-8b"]
+    rng = np.random.default_rng(16)
+    prompts = {k: rng.integers(0, cfg.vocab_size, n).tolist()
+               for k, n in TRACE_PROMPTS.items()}
+
+    @art.remote(num_gpus=1)
+    class TracedServer:
+        def __init__(self):
+            from ant_ray_tpu_torch.llm import LLMServer  # noqa: PLC0415
+            from ant_ray_tpu_torch.ops import flash_attention  # noqa: PLC0415
+
+            self.fa = flash_attention
+            self.server = LLMServer("llama3-8b", prefill_chunk_tokens=None,
+                                    **TRACE_SERVER)
+            self.sessions = LLMServer("llama3-8b", **TRACE_SERVER)
+            torch.cuda.synchronize()
+            _reset_counts(flash_attention)
+
+        def complete(self, request):
+            return self.server(request)["choices"][0]["token_ids"]
+
+        def turn(self, request):
+            return self.sessions(request)["choices"][0]["token_ids"]
+
+        def evict(self, session_id):
+            return self.sessions._loop.evict_session(session_id)
+
+        def offload_bytes(self):
+            return self.sessions.engine.stats["offload_bytes"]
+
+        def stream(self, request):
+            return [c["choices"][0].get("token_id")
+                    for c in self.server.stream(request)]
+
+        def counts(self):
+            torch.cuda.synchronize()
+            return _counts(self.fa)
+
+    def request(kind, **kw):
+        return {"prompt": prompts[kind], "max_tokens": TRACE_TOKENS, **kw}
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        value = fn()
+        return value, round(time.perf_counter() - t0, 4)
+
+    out = {"card": card, "model": "llama3-8b"}
+    # Spans recorded before the cluster (none are sampled by the earlier
+    # phases, but a 1-in-100 head-sampled call may be) are dropped here.
+    tracing_plane.flush()
+    art.init(num_cpus=2)
+    runtime = global_worker.runtime
+    session_dir, store_dir = runtime.session_dir, runtime.store_dir
+    daemons = [p.pid for p in runtime._owned_processes]
+    workers = set()
+    # Every call outside the traced request runs under an unsampled
+    # context: a call without one is head-sampled (trace_sample_rate).
+    untraced = tracing_plane.mint(sampled=False)
+    trace = tracing_plane.mint(sampled=True)
+    out["trace_id"] = trace.trace_id
+    scope = tracing_plane.set_current(untraced)
+    try:
+        if art.cluster_resources().get("GPU") != 1.0:
+            raise AssertionError("the detector found no card")
+        t0 = time.perf_counter()
+        actor = TracedServer.remote()
+        untraced_tokens = art.get(actor.complete.remote(
+            request("completion")), timeout=900)
+        out["actor_start_and_first_completion_s"] = round(
+            time.perf_counter() - t0, 3)
+        walls = {}
+        wall0 = time.time()
+        t0 = time.perf_counter()
+        with tracing_plane.use(trace):
+            tokens, walls["completion"] = timed(lambda: art.get(
+                actor.complete.remote(request("completion")), timeout=300))
+            _, walls["turn1"] = timed(lambda: art.get(actor.turn.remote(
+                request("turn1", session_id="s")), timeout=300))
+            before = art.get(actor.offload_bytes.remote())
+            if not art.get(actor.evict.remote("s")):
+                raise AssertionError("the session's slab was not evicted")
+            slab_bytes = art.get(actor.offload_bytes.remote()) - before
+            _, walls["turn2"] = timed(lambda: art.get(actor.turn.remote(
+                request("turn2", session_id="s")), timeout=300))
+            streamed, walls["stream"] = timed(lambda: art.get(
+                actor.stream.remote(request("stream")), timeout=300))
+        tracing_plane.record_span(
+            trace, "smoke:request", ts=wall0,
+            dur_s=time.perf_counter() - t0, span_id=trace.span_id,
+            parent_id="", service="driver")
+        out["wall_s"] = walls
+        workers.update(c for d in daemons for c in _child_pids(d))
+
+        # Tracing changes no result; the kernel ran in the worker.
+        out["tokens_equal"] = tokens == untraced_tokens
+        if not out["tokens_equal"] or len(tokens) != TRACE_TOKENS:
+            raise AssertionError("the traced completion's tokens differ "
+                                 "from the untraced one's")
+        if len(streamed) != TRACE_TOKENS + 1 or streamed[-1] is not None:
+            raise AssertionError(f"the stream gave {streamed}")
+        launches = art.get(actor.counts.remote())
+        prefills = [TRACE_PROMPTS["completion"]] * 2 + [
+            TRACE_PROMPTS["stream"]]
+        want = cfg.n_layers * sum(_bucket(n, TRACE_SERVER["max_seq"]) >= 128
+                                  for n in prefills)
+        out["launches"] = launches
+        if launches != {**dict.fromkeys(launches, 0), "fwd": want,
+                        "fwd_sm90": want}:
+            raise AssertionError(f"the worker launched {launches}, expected "
+                                 f"{want} sm90 forward launches")
+
+        # One unbroken trace, in the GCS and through util.tracing.  The
+        # processes publish their spans at least once a second: after
+        # the names are all there, two more seconds bring in the rest.
+        _poll(lambda: set(TRACE_SPAN_NAMES) <= {
+            x["name"] for x in tl_util.fetch_span_events()},
+            "the trace's spans")
+        time.sleep(2.0)
+        spans = tl_util.fetch_span_events()
+        out["trace"] = _trace_gates(spans, trace, slab_bytes)
+        live = tr_util.live_spans()
+        if {s.trace_id for s in live} != {trace.trace_id} or \
+                len(live) != len(spans):
+            raise AssertionError("live_spans() holds other traces or "
+                                 "misses spans")
+        covered = {s.attributes["task_id"] for s in live
+                   if "task_id" in s.attributes}
+        derived = [s for s in tr_util.task_spans()
+                   if s.attributes.get("art.task_id") in covered]
+        if derived:
+            raise AssertionError(f"task_spans() re-derived traced tasks: "
+                                 f"{[s.name for s in derived]}")
+
+        # The timeline.
+        with tempfile.TemporaryDirectory(
+                dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+            path = art.timeline(os.path.join(tmp, "timeline.json"))
+            with open(path) as f:
+                events = json.load(f)
+        tasks = {e["name"] for e in events
+                 if e.get("ph") == "X" and e.get("cat") == "task"}
+        rows = [e for e in events if e.get("cat") == "request_span"]
+        out["timeline"] = {"events": len(events), "request_rows": len(rows),
+                           "task_names": sorted(tasks)}
+        if not {"TracedServer.complete", "TracedServer.turn",
+                "TracedServer.stream"} <= tasks or \
+                {e["tid"] for e in rows} != {trace.trace_id[:8]} or \
+                len(rows) != len(spans):
+            raise AssertionError(f"the timeline lacks the actor calls or "
+                                 f"the trace's rows: {out['timeline']}")
+
+        # Metrics: the RPC histogram and the loop's gauges in the GCS.
+        def series():
+            got = runtime._gcs.call("MetricsGet", {}, retries=3)
+            rpc = [m for m in got if m["name"] == "art_rpc_latency_s"]
+            gauges = {m["name"]: m["value"] for m in got
+                      if m["name"] in ("art_llm_tokens_per_s",
+                                       "art_llm_queue_depth",
+                                       "art_llm_resident_sessions")
+                      and m["tags"] == {"deployment": "llm"}}
+            return (rpc, gauges) if len(gauges) == 3 and {
+                m["tags"]["stage"] for m in rpc} >= {
+                "client_queue", "client_wire", "queue", "execute"} \
+                else None
+
+        rpc, gauges = _poll(series, "the RPC histogram and the gauges")
+        out["metrics"] = {
+            "rpc": {f"{m['tags']['method']}/{m['tags']['stage']}":
+                    {"count": m["count"], "sum_s": m["sum"],
+                     "exemplar": m.get("exemplar", {}).get(
+                         "labels", {}).get("trace_id", "")[:8]}
+                    for m in rpc}, "llm_gauges": gauges}
+        if any(sum(m["buckets"]) != m["count"] for m in rpc) or any(
+                m.get("exemplar", {}).get("labels", {}).get("trace_id")
+                != trace.trace_id for m in rpc):
+            raise AssertionError(f"art_rpc_latency_s: {rpc}")
+        card_series = device_stats_gauges()
+        out["device_gauges"] = {s["name"]: s["value"] for s in card_series}
+        total = torch.cuda.get_device_properties(0).total_memory
+        if [(s["name"], s["tags"]) for s in card_series] != [
+                (n, {"device": "cuda:0", "platform": "gpu"}) for n in (
+                    "art_device_hbm_bytes_in_use",
+                    "art_device_hbm_peak_bytes",
+                    "art_device_hbm_bytes_limit")] or \
+                card_series[2]["value"] != float(total):
+            raise AssertionError(f"device_stats_gauges(): {card_series}")
+
+        # The split of a no-op actor call, sampled, beside unsampled ones.
+        echo = art.remote(_Echo).remote()
+        art.get(echo.ping.remote(0))
+        split = tracing_plane.mint(sampled=True)
+        wall_sampled, wall_unsampled = [], []
+        for i in range(TRACE_SPLIT_CALLS):
+            for c, walls_of in ((split, wall_sampled),
+                                (untraced, wall_unsampled)):
+                with tracing_plane.use(c):
+                    t0 = time.perf_counter()
+                    art.get(echo.ping.remote(i))
+                    walls_of.append(time.perf_counter() - t0)
+        split_spans = _poll(lambda: (lambda s: s if len(s) >= 2 *
+                                     TRACE_SPLIT_CALLS else None)(
+            tl_util.fetch_span_events(trace_id=split.trace_id)),
+            "the split's spans")
+        out["split"] = _split_us(split_spans, wall_sampled, wall_unsampled)
+        print(f"trace split ({card}): " + json.dumps(out["split"]),
+              flush=True)
+        workers.update(c for d in daemons for c in _child_pids(d))
+    except BaseException:
+        _print_worker_logs(session_dir)
+        print("tracing (failed) " + json.dumps(out, default=str), flush=True)
+        art.shutdown()
+        raise
+    finally:
+        tracing_plane.reset(scope)
+    t0 = time.perf_counter()
+    art.shutdown()
+    pids = daemons + sorted(workers)
+    deadline = time.monotonic() + CLUSTER_EXIT_WAIT_S
+    while any(_pid_alive(p) for p in pids) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    out["shutdown_s"] = round(time.perf_counter() - t0, 3)
+    out["left_alive"] = [p for p in pids if _pid_alive(p)]
+    out["session_dir_left"] = os.path.exists(session_dir)
+    out["arena_left"] = os.path.exists(store_dir)
+    print("tracing " + json.dumps(out), flush=True)
+    if out["left_alive"] or out["session_dir_left"] or out["arena_left"]:
+        raise AssertionError("shutdown left a process, the session "
+                             "directory or the arena behind")
+    return launches
+
+
 def _exit_on_sigterm(signum, frame):
     raise SystemExit(128 + signum)
 
@@ -3077,8 +3472,8 @@ def server_phase(torch, fa, llama):
     handles: dict = {}
     submit = srv._loop.submit
 
-    def recording_submit(prompt, sampling, session_id=None):
-        handle = submit(prompt, sampling, session_id=session_id)
+    def recording_submit(prompt, sampling, **kwargs):
+        handle = submit(prompt, sampling, **kwargs)
         handles[label.name] = handle
         return handle
 
@@ -3797,6 +4192,8 @@ def main() -> int:
     objects_phase(torch, engine, card)
     paths["cluster"] = cluster_phase(torch, fa, llama, params, engine, card)
     del engine, params
+    torch.cuda.empty_cache()
+    paths["tracing"] = tracing_phase(torch, llama, card)
     paths["checkpoint"] = checkpoint_phase(torch, fa, llama)
     paths["server"] = server_phase(torch, fa, llama)
     paths["train"] = train_phase(torch, fa, llama)

@@ -765,7 +765,7 @@ def test_dashboard_and_node_agent_are_off_and_not_settable():
     for flag in ("include_dashboard", "enable_node_agent"):
         with pytest.raises(ValueError, match=f"{flag}.*item 6.6"):
             Config().apply_dict({flag: True})
-    with pytest.raises(ValueError, match="item 6.2, the node agent"):
+    with pytest.raises(ValueError, match="item 6.6, the node agent"):
         Config().apply_dict({"device_stats_interval_s": 1.0})
 
 

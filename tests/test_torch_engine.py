@@ -120,10 +120,21 @@ def test_seeded_sampling_reproducible_and_top_k_one_is_greedy(weights):
 
 
 def test_unported_options_raise(weights):
+    """Tensor parallelism is not ported and raises; a trace context is
+    accepted and rides the request's sequence (its `llm:restore`
+    spans), and the request still runs."""
+    from ant_ray_tpu_torch.observability import tracing_plane
+
     with pytest.raises(NotImplementedError):
         _engine(weights, tensor_parallel_size=2)
-    with pytest.raises(NotImplementedError):
-        _engine(weights).add_request([1, 2], trace_ctx=object())
+    eng = _engine(weights)
+    ctx = tracing_plane.mint(sampled=False)
+    rid = eng.add_request([1, 2], _greedy(2), trace_ctx=ctx)
+    assert [s.trace_ctx for s in eng._waiting] == [ctx]
+    outs = {}
+    while eng.has_unfinished():
+        outs.update((o.request_id, o) for o in eng.step())
+    assert len(outs[rid].token_ids) == 2
     with pytest.raises(ValueError, match="neither a named config"):
         LLMEngine("/no/such/checkpoint", device="cpu")
     with pytest.raises(ValueError):

@@ -120,6 +120,8 @@ def test_no_route_reaches_the_cuda_core_kernels(monkeypatch, dtype,
     monkeypatch.setattr(fa, "_check_kernel_inputs", lambda q, k: None)
     monkeypatch.setattr(fa, "_launch",
                         lambda name, *args: launched.append(name))
+    for counter in COUNTERS:
+        monkeypatch.setattr(fa, counter, 0)
     q, k, v, _, _, do = _meta_inputs(128, 4, 2, head_dim, dtype)
     for causal in (True, False):
         out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal)

@@ -60,6 +60,9 @@ def test_importing_every_module_loads_neither_jax_nor_the_jax_package():
             "ant_ray_tpu_torch.actor",
             "ant_ray_tpu_torch.api",
             "ant_ray_tpu_torch.util.scheduling_strategies",
+            "ant_ray_tpu_torch.util.metrics",
+            "ant_ray_tpu_torch.util.timeline",
+            "ant_ray_tpu_torch.util.tracing",
             "ant_ray_tpu_torch._private.hotframe",
             "ant_ray_tpu_torch._private.wire_schema",
             "ant_ray_tpu_torch._private.protocol",
@@ -143,6 +146,36 @@ def test_serializing_a_plain_value_does_not_import_torch():
         "assert out['a'] == [1, 'x'] and out['c'] == value['c']\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('torch', 'jax')))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+def test_tracing_plane_and_the_util_modules_import_no_torch():
+    """The GCS and the node daemon load the tracing plane, which reaches
+    ``util/metrics.py``; ``util/timeline.py`` and ``util/tracing.py``
+    serve a driver that may never touch a tensor.  None of them, nor
+    the plane reached through ``ant_ray_tpu_torch.observability``, loads
+    torch, JAX or the JAX package, even when used."""
+    code = (
+        "import sys\n"
+        "from ant_ray_tpu_torch.observability import tracing_plane as tp\n"
+        "from ant_ray_tpu_torch.observability import TraceContext\n"
+        "from ant_ray_tpu_torch.util import metrics, timeline, tracing\n"
+        "assert TraceContext is tp.TraceContext\n"
+        "metrics.Histogram('h', boundaries=[1.0]).observe(0.5)\n"
+        "tp.record_rpc('PushTask', {'execute': 0.1}, 'a' * 32)\n"
+        "ctx = tp.mint(sampled=True)\n"
+        "with tp.use(ctx), tp.span('s'):\n"
+        "    pass\n"
+        "spans = tp.recorder().snapshot()\n"
+        "trace = timeline.build_chrome_trace([], span_events=spans)\n"
+        "assert trace and tracing.export_otlp_json(\n"
+        "    spans=tracing.live_spans(spans))['resourceSpans']\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('torch', 'jax', 'ant_ray_tpu')))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)

@@ -503,8 +503,7 @@ def test_tasks_and_actors_pass_tensors_as_they_are():
 
 
 def test_exports_match_the_jax_package():
-    assert set(tart.__all__) == set(jart.__all__) - {"timeline"} | {
-        "resolve_device"}
+    assert set(tart.__all__) == set(jart.__all__) | {"resolve_device"}
     for name in tart.__all__:
         assert getattr(tart, name) is not None
 

@@ -28,7 +28,7 @@ from ant_ray_tpu_torch.llm import EngineLoop, LLMEngine, SamplingParams
 from ant_ray_tpu_torch.llm.kv_offload import KvStoreError, LocalKvStore
 from ant_ray_tpu_torch.models import llama as tl
 from ant_ray_tpu_torch.models.convert import params_from_jax_numpy
-from ant_ray_tpu_torch.observability import StepProfiler
+from ant_ray_tpu_torch.observability import StepProfiler, tracing_plane
 
 DEADLINE_S = 120
 COUNTERS = ("offloads", "restores", "pressure_evictions", "idle_evictions",
@@ -302,8 +302,24 @@ def test_engine_loop_submit_stream_wait_and_sessions(weights):
         stats = loop.stats()
         assert set(stats) == set(EngineLoop.METRIC_NAMES)
         assert stats["art_llm_tokens_per_s"] >= 0
-        with pytest.raises(NotImplementedError):
-            loop.submit([1, 2], trace_ctx=object())
+        # A trace context rides the request: the restore of a traced
+        # continuation is attributed to it as an `llm:restore` span.
+        ctx = tracing_plane.mint(sampled=True)
+        loop.submit([4, 8, 15], SamplingParams(max_tokens=3),
+                    session_id="t").wait(timeout=DEADLINE_S)
+        offloaded = eng.stats["offload_bytes"]
+        assert loop.evict_session("t")
+        out = loop.submit([16, 23], SamplingParams(max_tokens=3),
+                          session_id="t",
+                          trace_ctx=ctx).wait(timeout=DEADLINE_S)
+        assert len(out.token_ids) == 3 and out.error is None
+        spans = [sp for sp in tracing_plane.recorder().snapshot()
+                 if sp["trace_id"] == ctx.trace_id]
+        assert [(sp["name"], sp["parent_id"], sp["attrs"]["session"],
+                 sp["attrs"]["bytes"]) for sp in spans] == [
+            ("llm:restore", ctx.span_id, "t",
+             eng.stats["offload_bytes"] - offloaded)]
+        assert loop.end_session("t")
     finally:
         loop.shutdown()
     assert not loop._thread.is_alive()
