@@ -35,9 +35,8 @@
 The reference's jitted device calls are plain calls here; everything
 that writes the cache runs under ``torch.inference_mode()``.
 
-Not in this port yet: the object-plane offload stores and tensor
-parallelism (``tensor_parallel_size`` / ``mesh``).  Passing either raises
-``NotImplementedError``.
+Not in this port yet: tensor parallelism (``tensor_parallel_size`` /
+``mesh``).  Passing either raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -149,7 +148,8 @@ class LLMEngine:
                  decode_steps_per_chunk: int = 1,
                  tensor_parallel_size: int = 1, mesh=None,
                  kv_idle_evict_s: float | None = None,
-                 kv_offload_store=None, profiler=None):
+                 kv_offload_store=None,
+                 kv_evict_on_pressure: bool = True, profiler=None):
         """``prefill_chunk_tokens``: enable chunked prefill with this fixed
         chunk width (None = bucketed prefill).
         ``decode_steps_per_chunk``: decode steps run between successive
@@ -157,10 +157,14 @@ class LLMEngine:
         ``max_waiting``: with every KV slot busy, at most this many
         requests may wait for one (None = unbounded).
         ``kv_idle_evict_s``: evict a session's slab after this many
-        seconds idle (None disables the LRU sweep; admission pressure
-        evicts regardless).
-        ``kv_offload_store``: a kv_offload.py store; defaults to a
-        LocalKvStore built lazily on first eviction.  ``profiler``:
+        seconds idle (None disables the LRU sweep; pressure eviction is
+        governed separately by ``kv_evict_on_pressure``).
+        ``kv_offload_store``: a kv_offload.py store (LocalKvStore /
+        ObjectPlaneKvStore); defaults to a LocalKvStore built lazily on
+        first eviction.  ``kv_evict_on_pressure``: with every slot busy,
+        admission offloads the least recently used idle session to make
+        room (False: the request waits, or sheds past ``max_waiting``).
+        ``profiler``:
         optional StepProfiler (observability/step_profiler.py) — each
         step() records prefill/decode/restore_install phases."""
         self.device = resolve_device(device)
@@ -210,6 +214,7 @@ class LLMEngine:
         self._prefilling: list[_Seq] = []         # chunked-mode ingest queue
         self._sessions: dict[str, _Session] = {}
         self._kv_idle_evict_s = kv_idle_evict_s
+        self._kv_evict_on_pressure = kv_evict_on_pressure
         self._kv_store = kv_offload_store
         self._restoring: dict[str, dict] = {}     # sid -> ticket
         self._chunk_rate: float | None = None     # tokens/s EWMA
@@ -616,6 +621,8 @@ class LLMEngine:
         """Free one slot by offloading the least-recently-used IDLE
         resident session.  Admission pressure spills cold state instead
         of shedding new work."""
+        if not self._kv_evict_on_pressure:
+            return False
         idle = [s for s in self._sessions.values()
                 if s.state == "resident" and s.slot >= 0
                 and s.current is None and s.paused is None]
@@ -916,7 +923,6 @@ def _to_device(tree, device):
 
 # ---------------------------------------------------------------- loop
 
-_IDLE_SLEEP_S = 0.01      # the loop's longest nap with nothing to step
 _OP = object()            # inbox marker of a loop-thread op
 
 class _LoopHandle:
@@ -982,7 +988,8 @@ class EngineLoop:
     (``art_llm_tokens_per_s``, ``art_llm_queue_depth``,
     ``art_llm_resident_sessions``, tagged ``deployment``) every
     ``metrics_interval_s``, and exposes them via :meth:`load_signals`
-    for controller polling."""
+    for controller polling.  With nothing to step, the loop naps at
+    most ``idle_sleep_s`` (a submission wakes it at once)."""
 
     METRIC_NAMES = ("art_llm_tokens_per_s", "art_llm_queue_depth",
                     "art_llm_resident_sessions")
@@ -990,12 +997,14 @@ class EngineLoop:
     def __init__(self, engine: LLMEngine, *,
                  max_waiting: int | None = None,
                  deployment: str = "llm",
-                 metrics_interval_s: float = 2.0):
+                 metrics_interval_s: float = 2.0,
+                 idle_sleep_s: float = 0.01):
         self._engine = engine
         self._max_waiting = (max_waiting if max_waiting is not None
                              else engine._max_waiting)
         self._deployment = deployment
         self._metrics_interval = metrics_interval_s
+        self._idle_sleep = idle_sleep_s
         self._inbox: list = []
         self._lock = threading.Lock()
         self._wake = threading.Event()
@@ -1144,7 +1153,7 @@ class EngineLoop:
                     logger.exception("llm engine step failed")
                     time.sleep(0.05)
             else:
-                self._wake.wait(_IDLE_SLEEP_S)
+                self._wake.wait(self._idle_sleep)
                 self._wake.clear()
             self._snapshot = self._loop_snapshot(eng)
             now = time.monotonic()

@@ -1,34 +1,34 @@
-"""One-process LLM server over the port's engine (counterpart of
+"""Serve deployment wrapping the LLM engine (counterpart of
 ant_ray_tpu/llm/serve_llm.py, which the port does not import).
 
-:class:`LLMServer` owns one engine driven by a background
+``build_llm_deployment`` returns a serve Application; each replica owns
+one :class:`LLMServer`: one engine driven by a background
 :class:`EngineLoop` — concurrent requests from many threads SHARE engine
 steps (chunked prefill interleaved with decode) instead of serializing
 whole generations behind a lock.  The request/response dicts follow the
 OpenAI completions and chat shapes (``prompt`` → ``choices[].text``,
 ``messages`` → ``choices[].message``, ``stream`` → chunk dicts), as the
-reference's do.
+reference's do.  ``LLMServer`` also runs on its own, in any process.
 
-Deadlines: a caller sets the absolute ``time.time()`` deadline of a
-request in serve/api.py's ``_request_deadline`` (the reference's replica
-does it from the stamped wire field); a request whose deadline has passed
-is shed before it reaches the engine, and a wait that outlives it raises
+Deadlines: the replica sets serve/api.py's ``_request_deadline`` from
+the deadline the ingress or handle stamped (a caller in one process sets
+it itself); a request whose deadline has passed is shed before it
+reaches the engine, and a wait that outlives it raises
 :class:`~ant_ray_tpu_torch.exceptions.DeadlineExceededError`.
 
 Session affinity: a request carrying ``session_id`` keeps its KV slab
-across turns (idle slabs offload to the host store and restore
-transparently).
+across turns on THIS replica (idle slabs offload to a kv_offload.py
+store and restore transparently).  ``kv_offload="auto"`` picks the
+object-plane store in any process connected to a runtime (a Serve
+replica, a cluster's driver, local mode) and the host store otherwise.
+Multi-replica session routing rides the owner-direct call plane — until
+then, pin sessions to a replica via handle affinity or num_replicas=1.
 
 Tracing: under a trace context (observability/tracing_plane.py), a
 completion or a chat runs inside an ``llm:generate`` span and a stream
 inside ``llm:stream``; each submission runs inside ``llm:admission``, and
 the context rides the request into the engine (its ``llm:restore``
 spans).  Without a context these spans are no-ops.
-
-Not in the port yet (ROADMAP.md): Serve deployments
-(``build_llm_deployment``) and the object-plane KV store
-(``kv_offload="object"``); ``"auto"`` picks the host store, the
-reference's choice outside a cluster.
 """
 
 from __future__ import annotations
@@ -37,12 +37,12 @@ import time
 
 from ant_ray_tpu_torch.exceptions import DeadlineExceededError
 from ant_ray_tpu_torch.llm.chat import render_chat
-from ant_ray_tpu_torch.llm.engine import EngineLoop, LLMEngine, _not_in_port
-from ant_ray_tpu_torch.llm.kv_offload import LocalKvStore
+from ant_ray_tpu_torch.llm import kv_offload as kvo
+from ant_ray_tpu_torch.llm.engine import EngineLoop, LLMEngine
 from ant_ray_tpu_torch.llm.sampling import SamplingParams
 from ant_ray_tpu_torch.llm.tokenizer import get_tokenizer
 from ant_ray_tpu_torch.observability import tracing_plane
-from ant_ray_tpu_torch.serve.api import get_request_deadline
+from ant_ray_tpu_torch.serve.api import deployment, get_request_deadline
 
 
 class LLMServer:
@@ -71,17 +71,22 @@ class LLMServer:
 
     @staticmethod
     def _resolve_store(kv_offload):
-        """"auto" and "local" → the host store (the port has no cluster
-        runtime, so "auto" never finds one); "object" is not ported; a
-        store instance passes through; None lets the engine default
-        apply."""
+        """"auto" → object plane when this process is connected to a
+        runtime (a cluster worker or driver, or local mode), host-local
+        otherwise; "object"/"local" force a tier; a store instance
+        passes through; None lets the engine default apply."""
         if kv_offload is None or not isinstance(kv_offload, str):
             return kv_offload
-        if kv_offload in ("local", "auto"):
-            return LocalKvStore()
+        if kv_offload == "local":
+            return kvo.LocalKvStore()
         if kv_offload == "object":
-            raise _not_in_port(
-                'the object-plane KV store (kv_offload="object")')
+            return kvo.ObjectPlaneKvStore()
+        if kv_offload == "auto":
+            from ant_ray_tpu_torch._private.worker import global_worker  # noqa: PLC0415
+
+            if global_worker.connected:
+                return kvo.ObjectPlaneKvStore()
+            return kvo.LocalKvStore()
         raise ValueError(f"unknown kv_offload mode {kv_offload!r}")
 
     @staticmethod
@@ -287,7 +292,54 @@ class LLMServer:
         self._loop.shutdown()
 
 
-def build_llm_deployment(*_args, **_kwargs):
-    """The reference's Serve application factory.  Serve needs the
-    runtime, which is not ported yet: this raises."""
-    raise _not_in_port("Serve deployments (build_llm_deployment)")
+def build_llm_deployment(model="tiny", *, name: str = "llm",
+                         num_replicas: int = 1, slots: int = 8,
+                         max_seq: int | None = None,
+                         tokenizer_name: str | None = None,
+                         tensor_parallel_size: int = 1,
+                         route_prefix: str | None = "/v1",
+                         max_ongoing_requests: int | None = None,
+                         max_queued_requests: int = 0,
+                         request_timeout_s: float | None = None,
+                         max_waiting: int | None = None,
+                         autoscaling_config=None,
+                         prefill_chunk_tokens: int | None = 64,
+                         decode_steps_per_chunk: int = 1,
+                         kv_idle_evict_s: float | None = None,
+                         kv_offload="auto", device=None):
+    """Application for ``serve.run`` exposing the engine under the
+    OpenAI surface: POST /v1/completions and /v1/chat/completions
+    (+ streaming via {"stream": true}).
+
+    The overload knobs compose: ``max_ongoing_requests`` /
+    ``max_queued_requests`` bound the replica's request gate,
+    ``request_timeout_s`` stamps the default end-to-end deadline, and
+    ``max_waiting`` bounds the ENGINE's prompt line once every KV slot
+    is busy — all sheds surface as 429/RESOURCE_EXHAUSTED with the
+    retry hint derived from the measured chunk-drain rate.
+
+    Serving enables chunked prefill by default
+    (``prefill_chunk_tokens=64``); ``kv_idle_evict_s`` turns on
+    idle-session offload through ``kv_offload`` ("auto" picks the
+    object plane inside a replica).  Only the string modes reach a
+    replica: a store instance does not pickle.  ``autoscaling_config``
+    may target the engine's published load signals (see
+    `AutoscalingConfig.target_signal`).
+
+    ``device`` is passed to each replica's ``LLMServer``: None is the
+    replica's current CUDA device, ``"cpu"`` runs on the CPU."""
+    dep = deployment(
+        LLMServer, name=name, num_replicas=num_replicas,
+        route_prefix=route_prefix,
+        max_ongoing_requests=max_ongoing_requests,
+        max_queued_requests=max_queued_requests,
+        request_timeout_s=request_timeout_s,
+        autoscaling_config=autoscaling_config)
+    return dep.bind(model, slots=slots, max_seq=max_seq,
+                    tokenizer_name=tokenizer_name,
+                    tensor_parallel_size=tensor_parallel_size,
+                    max_waiting=max_waiting,
+                    prefill_chunk_tokens=prefill_chunk_tokens,
+                    decode_steps_per_chunk=decode_steps_per_chunk,
+                    kv_idle_evict_s=kv_idle_evict_s,
+                    kv_offload=kv_offload, device=device)

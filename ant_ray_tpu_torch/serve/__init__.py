@@ -1,8 +1,38 @@
-"""ant_ray_tpu_torch.serve — the start of the port of ant_ray_tpu.serve:
-the request-deadline context that LLMServer reads.  Deployments, the
-router and the HTTP ingress need the runtime and are not ported yet
-(ROADMAP.md)."""
+"""Model serving (the port of ant_ray_tpu.serve; ref capability:
+ray.serve — controller/replica reconciliation, deployment handles, HTTP
+and gRPC ingress).  Importing it imports neither torch nor aiohttp nor
+grpcio."""
 
-from ant_ray_tpu_torch.serve.api import get_request_deadline
+from ant_ray_tpu_torch.serve.api import (
+    CONTROLLER_NAME,
+    Application,
+    AutoscalingConfig,
+    CircuitBreakerConfig,
+    Deployment,
+    DeploymentHandle,
+    RequestRetryConfig,
+    batch,
+    deployment,
+    get_multiplexed_model_id,
+    get_request_deadline,
+    multiplexed,
+    run,
+    shutdown,
+)
 
-__all__ = ["get_request_deadline"]
+__all__ = [
+    "CONTROLLER_NAME",
+    "Application",
+    "AutoscalingConfig",
+    "CircuitBreakerConfig",
+    "Deployment",
+    "DeploymentHandle",
+    "RequestRetryConfig",
+    "batch",
+    "deployment",
+    "get_multiplexed_model_id",
+    "get_request_deadline",
+    "multiplexed",
+    "run",
+    "shutdown",
+]

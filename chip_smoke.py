@@ -184,19 +184,20 @@ final line is printed:
 11. Tracing and metrics through a cluster on the card
    (``init(num_cpus=2)``): a num_gpus=1 actor builds two LLMServers on
    Llama-3-8B (random weights from seed 0, slots=2, max_seq=4096,
-   kv_offload="local"), one with bucketed prefill, one with the
-   reference's chunks of 64.  Under one sampled trace context (the
-   global trace_sample_rate left at its default; every other call of
-   the phase under an unsampled one) the driver sends a completion of
-   1500 token ids, a session's two turns with its slab evicted to the
-   host store between them, and a stream, and records the request's
-   root span.  Gates: the traced completion's tokens equal an untraced
-   one's on the same actor; the worker launched the sm90 forward
-   n_layers times for each bucketed prefill of 128 tokens or more and
-   nothing else; the spans in the GCS and util.tracing.live_spans() are
-   one trace with one root and no orphan, holding the driver's call
-   spans, the worker's execution spans, llm:admission inside
-   llm:generate, llm:stream and one llm:restore under the second turn
+   kv_offload="auto": the object-plane store in the worker), one with
+   bucketed prefill, one with the reference's chunks of 64.  Under one
+   sampled trace context (the global trace_sample_rate left at its
+   default; every other call of the phase under an unsampled one) the
+   driver sends a completion of 1500 token ids, a session's two turns
+   with its slab evicted to the object-plane store between them, and a
+   stream, and records the request's root span.  Gates: the traced
+   completion's tokens equal an untraced one's on the same actor; the
+   worker launched the sm90 forward n_layers times for each bucketed
+   prefill of 128 tokens or more and nothing else; the spans in the
+   GCS and util.tracing.live_spans() are one trace with one root and
+   no orphan, holding the driver's call spans, the worker's execution
+   spans, llm:admission inside llm:generate, llm:stream and one
+   llm:restore under the second turn
    whose bytes equal the evicted slab's, and task_spans() derives no
    span for a traced task; art.timeline(path) writes JSON with task
    slices for the actor calls and one request row per span; MetricsGet
@@ -211,7 +212,38 @@ final line is printed:
    median wall of those calls and of 200 unsampled ones, in turns, with
    the card's name and power limit; then one "tracing" JSON line.  Its
    launches are the kernels line's "tracing" path.
-12. Serving from a checkpoint directory: llama-400m at its published
+12. Serve on the card (``init(num_cpus=4)``): build_llm_deployment
+   serves Llama-3-8B (random weights from seed 0, bf16, slots=2,
+   max_seq=4096, max_ongoing_requests=8) from replicas in worker
+   processes, deployed together: "llm", two replicas with bucketed
+   prefill, and "sessions", one replica with chunks of 64,
+   kv_idle_evict_s=1.0 and kv_offload="auto" (the object-plane store
+   in a replica); a subclass of LLMServer defined here, deployed with
+   build_llm_deployment's arguments, warms each replica up (one request
+   per prefill bucket) and reports its launches, prompts and times.
+   Through the DeploymentHandle one completion of 1500 token ids, a
+   chat of 300 characters, a stream of 100 and a completion of 40 (16
+   new tokens each) alone, then the same from four driver threads;
+   over HTTP (aiohttp is installed on the card's machine) a completion
+   and an SSE stream of 200; a session's turns around two idle
+   evictions beside the same turns with none; a 0.537 GB slab through
+   a KvVault actor and ObjectPlaneKvStore(vault=...).  Gates: greedy
+   tokens equal whichever replica answered, over HTTP and SSE too;
+   both replicas served; each "llm" replica launched the sm90 forward
+   32 times per bucketed prefill of 128 tokens or more and nothing
+   else, "sessions" nothing; the sessions replica's store is
+   ObjectPlaneKvStore, each offload 536,870,912 bytes, the continued
+   turns' tokens equal the unevicted ones; the vault's slab back
+   bitwise; serve.shutdown() and shutdown() leave no process (pgrep),
+   session directory or arena, and the card's free memory comes back.
+   Prints "deployment up" (serve.run per deployment, each replica's
+   build and warm-up), "deployment walls" (per request kind, alone and
+   the median from the threads), "deployment session" (each offload's
+   extract and put, each restore's get and restore_wait, each install
+   on the host and the card) and one "deployment" JSON line (the
+   vault's put and fetch ms and GB/s, requests and launches per
+   replica).  Its launches are the kernels line's "deployment" path.
+13. Serving from a checkpoint directory: llama-400m at its published
    widths and depth (bf16, seed 0) written to a temporary directory of
    this checkout in the HF layout twice, as model.safetensors (a writer
    here: the format's header and raw buffers) and as pytorch_model.bin
@@ -225,7 +257,7 @@ final line is printed:
    write and load seconds and GB/s (host clock; the write ends in fsync,
    the load is the engine's construction), then the launches and peak
    memory.
-13. LLMServer on Llama-3-8B (random weights from seed 0, slots=8,
+14. LLMServer on Llama-3-8B (random weights from seed 0, slots=8,
    max_seq=4096, the reference's serving defaults: chunks of 64,
    kv_offload="local").  Four client threads send four completions of
    100 to 1500 token ids (one opening a session), two chats, two streams
@@ -239,7 +271,7 @@ final line is printed:
    its first token; no flash launch.  Prints TTFT per request
    (handle.ttft_s() through the server's loop), the wall time,
    load_signals, device_memory_stats() and peak memory.
-14. The training slice: llama-400m at its published widths and all 24
+15. The training slice: llama-400m at its published widths and all 24
    layers, bf16, random weights from seed 0, one fixed batch of 8 x 2049
    token ids, AdamW (make_optimizer), remat "none": 3 warm-up and 10
    timed train_step calls.  The launch counts are reset just before and
@@ -247,7 +279,7 @@ final line is printed:
    once per layer, all on the sm90 route.  Prints the step time,
    tokens/s, MFU against the bf16 peak, peak memory and a torch.profiler
    line of one step.
-15. Remat: the training slice again, from the same weights, under
+16. Remat: the training slice again, from the same weights, under
    each remat policy ("none", "full", "dots", "matmuls"), 3 warm-up and
    10 timed steps each.  Gates: the forward kernel launched twice per
    layer and step under "full" and "dots" and once under "none" and
@@ -257,7 +289,7 @@ final line is printed:
    Prints per policy the step time, tokens/s, MFU and peak memory, a
    profile, and the step on 1 x 128 tokens, where the host sets the
    time.
-16. GPT-2: `gpt2` (124 M) at its published widths and depth, in its
+17. GPT-2: `gpt2` (124 M) at its published widths and depth, in its
    published fp32 (the 3xTF32 forward and backward) and in a
    bf16 copy (the sm90 kernels at head_dim 64, plain multi-head
    attention), random weights
@@ -270,7 +302,7 @@ final line is printed:
    GPT2_LOGIT_TOL of reference attention's and the greedy next tokens
    equal but for ties.  Prints step time, tokens/s, MFU against the
    peak of the dtype the step computes in, and peak memory.
-17. Head_dim 256: a Llama at Gemma-2B's widths (hidden 2048, 8 heads
+18. Head_dim 256: a Llama at Gemma-2B's widths (hidden 2048, 8 heads
    of 256, 1 KV head, MLP 16384, vocab 256000, tied embeddings, 18
    layers; 2.51 B parameters; SwiGLU and no embedding scale, so not
    Gemma), bf16, random weights from seed 0, a fixed batch of 2 x 2049
@@ -283,7 +315,7 @@ final line is printed:
    attention's; the loss falling.  Prints
    step time, tokens/s, MFU, peak memory and a profile of one step with
    the attention kernels' share.
-18. Head_dim 256 in fp32: the same Llama at Gemma-2B's widths and all
+19. Head_dim 256 in fp32: the same Llama at Gemma-2B's widths and all
    18 layers in fp32 (TF32 off), remat D256_FP32_REMAT ("full": AdamW's
    state alone is 20 GB), the same weights' seed and batch.  First one
    step's loss and every gradient leaf through the kernels against fp32
@@ -295,11 +327,12 @@ final line is printed:
    the loss falling.  Prints step time, tokens/s, MFU against fp32's 67
    TFLOP/s, peak memory and a profile of one step with the attention
    kernels' card time, the forward's and the backward pair's apart.
-19. One line {"kernels": [...]} with the fifteen kernels (the sm90,
+20. One line {"kernels": [...]} with the fifteen kernels (the sm90,
    tf32x3, sm90_d256, tf32x3_d256 and CUDA-core forward; the sm90, tf32x3,
    sm90_d256, tf32x3_d256 and CUDA-core dQ and dK/dV; launches by path,
    the main paths being serving, sessions, the loop, the cluster's
-   worker, the traced cluster's worker, the checkpoint directory, the
+   worker, the traced cluster's worker, the deployment's replicas, the
+   checkpoint directory, the
    server, training, training under each remat policy, GPT-2 in fp32
    and bf16 and the head_dim-256 Llama in bf16 and fp32; the older kernels' times also at GPT-2's
    shape, the sm90_d256 ones at Gemma-7B's and Gemma-2B's attention and
@@ -2707,7 +2740,7 @@ def cluster_phase(torch, fa, llama, params, engine, card):
     return launches
 
 
-TRACE_SERVER = dict(slots=2, max_seq=4096, seed=0, kv_offload="local")
+TRACE_SERVER = dict(slots=2, max_seq=4096, seed=0, kv_offload="auto")
 TRACE_PROMPTS = {"completion": 1500, "turn1": 300, "turn2": 50,
                  "stream": 100}  # prompt tokens of the traced requests
 TRACE_TOKENS = 16               # new tokens per traced request
@@ -2822,10 +2855,11 @@ def tracing_phase(torch, llama, card):
     and more run the sm90 flash forward, and one with the reference's
     serving default (chunks of 64), whose sessions continue.  Under one
     sampled trace context the driver sends a 1500-token completion, a
-    session's two turns with the slab evicted to the host store between
-    them, and a stream.  Gates: the traced completion's tokens equal an
-    untraced one's; the worker launched the sm90 forward n_layers times
-    per bucketed prefill and nothing else; the trace (_trace_gates);
+    session's two turns with the slab evicted between them (to the
+    object-plane store: kv_offload="auto" in a worker), and a stream.
+    Gates: the traced completion's tokens equal an untraced one's; the
+    worker launched the sm90 forward n_layers times per bucketed
+    prefill and nothing else; the trace (_trace_gates);
     ``art.timeline`` JSON with task slices for the actor calls and the
     trace's request rows; ``MetricsGet`` with ``art_rpc_latency_s``
     series whose buckets sum to their count and whose exemplar names the
@@ -3069,6 +3103,506 @@ def tracing_phase(torch, llama, card):
     if out["left_alive"] or out["session_dir_left"] or out["arena_left"]:
         raise AssertionError("shutdown left a process, the session "
                              "directory or the arena behind")
+    return launches
+
+
+DEPLOY_SERVER = dict(slots=2, max_seq=4096, max_ongoing_requests=8)
+DEPLOY_PROMPTS = {"completion": 1500, "chat": 300, "stream": 100,
+                  "short": 40, "http": 200, "turn1": 300, "turn2": 50,
+                  "turn3": 50, "filler": 20}  # tokens (the chat's: chars)
+# A replica's warm-up prompts before it reports ready: one per prefill
+# bucket of the phase's requests (2048, 512, 256, 128, 64).
+DEPLOY_WARMUP = (1500, 300, 200, 100, 40)
+DEPLOY_TOKENS = 16              # new tokens per request
+DEPLOY_THREADS = 4              # driver threads sending through the handle
+DEPLOY_IDLE_EVICT_S = 1.0       # the sessions replica's kv_idle_evict_s
+DEPLOY_KINDS = ("completion", "chat", "stream", "short")
+
+
+def _deployed_server_cls():
+    """LLMServer plus what the deployment phase reads in a replica: its
+    pid, build and warm-up times, its kernel launches and the prompt
+    lengths it was given since it was warm, its store and counters, and
+    the times of its sessions' offloads and restores: ``extract_slot``
+    (card to pinned host memory), the store's ``put`` and ``get``, and
+    ``install_slot`` on the host and on the card (CUDA events).  The
+    warm-up (one request per prefill bucket of DEPLOY_WARMUP) runs in
+    the constructor, before the replica reports ready: a process's first
+    prefill of a bucket loads its kernels, which took 8-11 s on the
+    card.  Built in a function: the class is shipped to the replicas by
+    value."""
+    import torch  # noqa: PLC0415
+
+    from ant_ray_tpu_torch.llm.serve_llm import LLMServer  # noqa: PLC0415
+    from ant_ray_tpu_torch.models import llama as llama_mod  # noqa: PLC0415
+    from ant_ray_tpu_torch.ops import flash_attention as fa  # noqa: PLC0415
+
+    def timed(log, key, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            value = fn(*args, **kwargs)
+            log.setdefault(key, []).append(time.perf_counter() - t0)
+            return value
+        return wrapper
+
+    class DeployedServer(LLMServer):
+        def __init__(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            super().__init__(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.build_s = time.perf_counter() - t0
+            self.prompt_lens = []
+            self.served = 0
+            gen = np.random.default_rng(0)
+            vocab = self.engine.config.vocab_size
+            t0 = time.perf_counter()
+            for n in DEPLOY_WARMUP:
+                self({"prompt": gen.integers(0, vocab, n).tolist(),
+                      "max_tokens": 2})
+            torch.cuda.synchronize()
+            self.warm_s = time.perf_counter() - t0
+            self.prompt_lens = []
+            self.served = 0
+            self.log = {}
+            self.installs = []
+            store = self.engine._store()
+            store.put = timed(self.log, "put_s", store.put)
+            store.get = timed(self.log, "get_s", store.get)
+            llama_mod.extract_slot = timed(self.log, "extract_s",
+                                           llama_mod.extract_slot)
+            install = llama_mod.install_slot
+
+            def timed_install(*args, **kwargs):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                t0 = time.perf_counter()
+                value = install(*args, **kwargs)
+                host_s = time.perf_counter() - t0
+                end.record()
+                self.installs.append((host_s, start, end))
+                return value
+
+            llama_mod.install_slot = timed_install
+            _reset_counts(fa)
+
+        def _submit(self, prompt, sampling, session_id=None):
+            self.prompt_lens.append(len(prompt) if isinstance(prompt, list)
+                                    else len(self.engine.tokenizer.encode(
+                                        prompt)))
+            return super()._submit(prompt, sampling, session_id=session_id)
+
+        def __call__(self, request):
+            self.served += 1
+            return {**super().__call__(request), "replica_pid": os.getpid()}
+
+        def stream(self, request):
+            self.served += 1
+            yield from super().stream(request)
+
+        def evict(self, session_id):
+            return self._loop.evict_session(session_id)
+
+        def report(self):
+            torch.cuda.synchronize()
+            return {"pid": os.getpid(), "build_s": round(self.build_s, 3),
+                    "warm_s": round(self.warm_s, 3),
+                    "served": self.served, "prompt_lens": self.prompt_lens,
+                    "launches": _counts(fa),
+                    "store": type(self.engine._kv_store).__name__,
+                    "stats": dict(self.engine.stats),
+                    "times_s": self.log,
+                    "install_host_s": [h for h, _, _ in self.installs],
+                    "install_card_ms": [s.elapsed_time(e)
+                                        for _, s, e in self.installs]}
+
+    return DeployedServer
+
+
+def _ancestors():
+    """This process and its ancestors (a shell that started this script
+    may name the package on its command line)."""
+    out, pid = set(), os.getpid()
+    while pid > 1 and pid not in out:
+        out.add(pid)
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                pid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            break
+    return out
+
+
+def _http_post(port, path, payload):
+    import urllib.request  # noqa: PLC0415
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        return resp.status, resp.headers["Content-Type"], resp.read()
+
+
+def deployment_phase(torch, llama, card):
+    """Serve on the card (``init(num_cpus=4)``): build_llm_deployment
+    serves Llama-3-8B (random weights from seed 0, bf16, slots=2,
+    max_seq=4096, max_ongoing_requests=8) from replicas, each in its own
+    worker process, deployed together: "llm", two replicas with
+    bucketed prefill, whose prefills of 128 tokens and more run the sm90
+    flash forward, and "sessions", one replica with the reference's
+    serving default (chunks of 64), kv_idle_evict_s and
+    kv_offload="auto" — the object-plane store in a replica.  Each
+    replica warms up before it reports ready (DEPLOY_WARMUP).  Through
+    the DeploymentHandle: one completion, chat, stream and short
+    completion alone, then the same from four driver threads; over
+    HTTP, when aiohttp is installed, a completion and an SSE stream.  A
+    session's turns around two idle evictions (a pause past
+    kv_idle_evict_s, then a request that steps the engine) beside the
+    same turns with no eviction.  A slab of the 8B shape through a
+    KvVault actor and ObjectPlaneKvStore(vault=...).  Gates: greedy
+    tokens equal whichever replica answered, and over HTTP; both
+    replicas served; each "llm" replica launched the sm90 forward
+    n_layers times per bucketed prefill of 128 tokens or more and
+    nothing else, "sessions" nothing; the sessions replica's store is
+    ObjectPlaneKvStore, each offload 536,870,912 bytes, the continued
+    turns' tokens those of the unevicted ones; the vault's slab back
+    bitwise; serve.shutdown() and shutdown() leave no process, session
+    directory or arena, and the card's memory comes back.  Returns the
+    replicas' launches."""
+    import ant_ray_tpu_torch as art  # noqa: PLC0415
+    from ant_ray_tpu_torch import serve  # noqa: PLC0415
+    from ant_ray_tpu_torch._private.worker import global_worker  # noqa: PLC0415
+    from ant_ray_tpu_torch.llm.engine import _bucket  # noqa: PLC0415
+    from ant_ray_tpu_torch.llm.kv_offload import (  # noqa: PLC0415
+        KvVault, ObjectPlaneKvStore)
+    from ant_ray_tpu_torch.llm.serve_llm import \
+        build_llm_deployment  # noqa: PLC0415
+    from ant_ray_tpu_torch.observability import tracing_plane  # noqa: PLC0415
+
+    cfg = llama.CONFIGS["llama3-8b"]
+    rng = np.random.default_rng(17)
+    ids = {k: rng.integers(0, cfg.vocab_size, n).tolist()
+           for k, n in DEPLOY_PROMPTS.items() if k != "chat"}
+    words = "".join(chr(97 + int(c)) for c in rng.integers(
+        0, 26, DEPLOY_PROMPTS["chat"]))
+    requests = {
+        "completion": {"prompt": ids["completion"]},
+        "chat": {"messages": [{"role": "user", "content": words}]},
+        "stream": {"prompt": ids["stream"]},
+        "short": {"prompt": ids["short"]}}
+    for r in requests.values():
+        r["max_tokens"] = DEPLOY_TOKENS
+    http = importlib.util.find_spec("aiohttp") is not None
+    out = {"card": card, "model": "llama3-8b", "aiohttp": http,
+           "grpcio": importlib.util.find_spec("grpc") is not None}
+    server_cls = _deployed_server_cls()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free_before = torch.cuda.mem_get_info()[0]
+    # Every call of the phase runs under an unsampled trace context: a
+    # call without one is head-sampled (trace_sample_rate).
+    scope = tracing_plane.set_current(tracing_plane.mint(sampled=False))
+    art.init(num_cpus=4)
+    runtime = global_worker.runtime
+    session_dir, store_dir = runtime.session_dir, runtime.store_dir
+    daemons = [p.pid for p in runtime._owned_processes]
+    workers = set()
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        value = fn()
+        return value, time.perf_counter() - t0
+
+    def replicas_of(name):
+        controller = art.get_actor(serve.CONTROLLER_NAME, namespace="_serve")
+        info = art.get(controller.get_handle_info.remote(name), timeout=60)
+        return info["replicas"]
+
+    def reports(name):
+        return [art.get(r.handle_request.remote("report", (), {}),
+                        timeout=120) for r in replicas_of(name)]
+
+    try:
+        # The two deployments, with build_llm_deployment's arguments,
+        # deployed together (the controller first).
+        apps = {
+            "llm": (build_llm_deployment(
+                "llama3-8b", name="llm", num_replicas=2,
+                prefill_chunk_tokens=None,
+                route_prefix="/v1" if http else None, **DEPLOY_SERVER),
+                0 if http else None),
+            "sessions": (build_llm_deployment(
+                "llama3-8b", name="sessions", num_replicas=1,
+                route_prefix=None, kv_idle_evict_s=DEPLOY_IDLE_EVICT_S,
+                kv_offload="auto", **DEPLOY_SERVER), None)}
+        serve.api._get_or_create_controller()
+        handles, run_errors = {}, []
+
+        def deploy(name):
+            app, port = apps[name]
+            app = dataclasses.replace(app, deployment=dataclasses.replace(
+                app.deployment, cls_or_fn=server_cls))
+            try:
+                handles[name] = timed(lambda: serve.run(app, port=port))
+            except BaseException as e:  # noqa: BLE001 — raised below
+                run_errors.append(e)
+
+        runs = [threading.Thread(target=deploy, args=(n,)) for n in apps]
+        for t in runs:
+            t.start()
+        for t in runs:
+            t.join()
+        if run_errors:
+            raise run_errors[0]
+        (handle, out["llm_run_s"]), (sessions, out["sessions_run_s"]) = \
+            handles["llm"], handles["sessions"]
+        out["replica_build_warm_s"] = {
+            name: [(r["build_s"], r["warm_s"]) for r in reports(name)]
+            for name in ("llm", "sessions")}
+        print(f"deployment up ({card}): serve.run llm "
+              f"{out['llm_run_s']:.3f} s, sessions "
+              f"{out['sessions_run_s']:.3f} s, together; replicas' build "
+              f"and warm-up s {out['replica_build_warm_s']}", flush=True)
+
+        def send(kind):
+            if kind == "stream":
+                gen = handle.options(method_name="stream", stream=True
+                                     ).remote(dict(requests[kind]))
+                chunks = [art.get(ref, timeout=300) for ref in gen]
+                return [c["choices"][0].get("token_id") for c in chunks]
+            reply = art.get(handle.remote(dict(requests[kind])), timeout=300)
+            choice = reply["choices"][0]
+            tokens = (choice.get("token_ids") if kind != "chat"
+                      else choice["message"]["content"])
+            return tokens, reply["replica_pid"]
+
+        # Alone, one of each kind, then four threads each sending every
+        # kind.
+        walls = {"alone": {}, "threads": {k: [] for k in DEPLOY_KINDS}}
+        alone = {}
+        for kind in DEPLOY_KINDS:
+            alone[kind], walls["alone"][kind] = timed(lambda: send(kind))
+        results = {k: [] for k in DEPLOY_KINDS}
+        errors = []
+
+        def client(i):
+            try:
+                for kind in DEPLOY_KINDS[i % 4:] + DEPLOY_KINDS[:i % 4]:
+                    value, wall = timed(lambda: send(kind))
+                    results[kind].append(value)
+                    walls["threads"][kind].append(wall)
+            except BaseException as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(DEPLOY_THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        out["threads_wall_s"] = round(time.perf_counter() - t0, 3)
+        if errors:
+            raise errors[0]
+        out["wall_s"] = {
+            "alone": {k: round(v, 4) for k, v in walls["alone"].items()},
+            "threads_median": {k: round(statistics.median(v), 4)
+                               for k, v in walls["threads"].items()}}
+        pids = {}
+        for kind in DEPLOY_KINDS:
+            want = alone[kind]
+            for got in results[kind]:
+                if kind == "stream":
+                    if got != want or len(got) != DEPLOY_TOKENS + 1:
+                        raise AssertionError(f"a stream gave {got}, "
+                                             f"alone {want}")
+                    continue
+                pids.setdefault(kind, set()).add(got[1])
+                if got[0] != want[0]:
+                    raise AssertionError(
+                        f"{kind}: replica {got[1]} answered {got[0]}, "
+                        f"replica {want[1]} {want[0]}")
+        out["completion_replicas"] = len(pids["completion"])
+        if len(alone["completion"][0]) != DEPLOY_TOKENS or \
+                len(alone["stream"]) != DEPLOY_TOKENS + 1:
+            raise AssertionError("the completion or the stream is short")
+        print(f"deployment walls ({card}): " + json.dumps(out["wall_s"]),
+              flush=True)
+
+        # HTTP: a completion and an SSE stream through the proxy.
+        if http:
+            port = serve.api.run.last_http_port
+            code, ctype, raw = _http_post(
+                port, "/v1/completions",
+                {"prompt": ids["http"], "max_tokens": DEPLOY_TOKENS})
+            via_http = json.loads(raw)["result"]["choices"][0]["token_ids"]
+            code_s, ctype_s, raw_s = _http_post(
+                port, "/v1/completions", {"prompt": ids["http"],
+                                          "max_tokens": DEPLOY_TOKENS,
+                                          "stream": True})
+            frames = [ln[6:] for ln in raw_s.decode().splitlines()
+                      if ln.startswith("data: ")]
+            sse = [json.loads(f)["choices"][0].get("token_id")
+                   for f in frames[:-1]]
+            direct = art.get(handle.remote(
+                {"prompt": ids["http"], "max_tokens": DEPLOY_TOKENS}),
+                timeout=300)["choices"][0]["token_ids"]
+            out["http"] = {"status": [code, code_s],
+                           "content_type": [ctype, ctype_s],
+                           "sse_frames": len(frames)}
+            if (code, code_s) != (200, 200) or via_http != direct or \
+                    sse[:-1] != direct or frames[-1] != "[DONE]" or \
+                    ctype_s != "text/event-stream":
+                raise AssertionError(f"HTTP: {out['http']}, tokens "
+                                     f"{via_http} / {sse} / {direct}")
+        else:
+            out["http"] = "aiohttp is not installed: deployed with " \
+                          "route_prefix=None"
+
+        # A session's turns around two idle evictions (the replica's
+        # first offload and restore, then warm ones), beside the same
+        # turns with no eviction (a second session, ended after).
+        def turn(kind, sid):
+            reply = sessions.call({"prompt": ids[kind], "session_id": sid,
+                                   "max_tokens": DEPLOY_TOKENS},
+                                  timeout_s=300)
+            return reply["choices"][0]["token_ids"]
+
+        kinds = ("turn1", "turn2", "turn3")
+        plain = [turn(kind, "plain") for kind in kinds]
+        if not sessions.options(method_name="end_session").call("plain"):
+            raise AssertionError("end_session('plain') found no session")
+        marks = reports("sessions")
+        got = [turn(kinds[0], "s")]
+        for kind in kinds[1:]:
+            time.sleep(DEPLOY_IDLE_EVICT_S + 0.5)
+            turn("filler", None)        # its steps run the idle sweep
+            marks += reports("sessions")
+            got.append(turn(kind, "s"))
+        marks += reports("sessions")
+        sessions.options(method_name="end_session").call("s")
+        before, evicted1, evicted2, after = marks
+
+        def delta(key, a=before, b=after):
+            return b["stats"][key] - a["stats"][key]
+
+        times = after["times_s"]
+        out["session"] = {
+            "store": after["store"],
+            "idle_evictions": delta("idle_evictions"),
+            "offload_bytes": [delta("offload_bytes", before, evicted1),
+                              delta("offload_bytes", evicted1, evicted2)],
+            "restores": delta("restores"),
+            "tokens_equal": got == plain,
+            **{f"{key[:-2]}_ms": [round(t * 1e3, 3) for t in
+                                  times.get(key, [])]
+               for key in ("extract_s", "put_s", "get_s")},
+            "restore_wait_ms": [
+                round(delta("restore_wait_s", evicted1, evicted2) * 1e3, 3),
+                round(delta("restore_wait_s", evicted2) * 1e3, 3)],
+            "install_host_ms": [round(t * 1e3, 3)
+                                for t in after["install_host_s"]],
+            "install_card_ms": [round(t, 3)
+                                for t in after["install_card_ms"]]}
+        print(f"deployment session ({card}): "
+              + json.dumps(out["session"]), flush=True)
+        if out["session"]["store"] != "ObjectPlaneKvStore" or \
+                out["session"]["idle_evictions"] != 2 or \
+                out["session"]["offload_bytes"] != [536_870_912] * 2 or \
+                out["session"]["restores"] != 2 or \
+                not out["session"]["tokens_equal"]:
+            raise AssertionError(f"the session through the object-plane "
+                                 f"store: {out['session']}")
+
+        # The vault: a slab of the 8B shape through a KvVault actor.
+        vault = art.remote(KvVault).remote()
+        art.get(vault.put.remote("warm", 1), timeout=300)   # the actor is up
+        store = ObjectPlaneKvStore(vault=vault, get_timeout_s=300.0)
+        gen = torch.Generator(device="cuda").manual_seed(17)
+        shape = (cfg.n_layers, DEPLOY_SERVER["max_seq"], cfg.n_kv_heads,
+                 cfg.head_dim)
+        slab = tuple(torch.randn(shape, generator=gen, device="cuda",
+                                 dtype=torch.bfloat16).cpu()
+                     for _ in range(2))
+        nbytes = sum(t.numel() * t.element_size() for t in slab)
+        _, put_s = timed(lambda: store.put("slab", (*slab, 4096)))
+        (k, v, length), get_s = timed(lambda: store.get("slab"))
+        out["vault"] = {
+            "bytes": nbytes, "put_ms": round(put_s * 1e3, 3),
+            "put_gb_s": round(nbytes / put_s / 1e9, 3),
+            "fetch_ms": round(get_s * 1e3, 3),
+            "fetch_gb_s": round(nbytes / get_s / 1e9, 3),
+            "bitwise": length == 4096 and all(
+                torch.equal(a.view(torch.int16), b.view(torch.int16))
+                for a, b in zip(slab, (k, v)))}
+        del slab, k, v
+        art.kill(vault)
+        if not out["vault"]["bitwise"]:
+            raise AssertionError("the vault's slab came back changed")
+
+        # The replicas' kernels: n_layers sm90 forward launches per
+        # bucketed prefill of 128 tokens or more, nothing in "sessions".
+        launches = {}
+        out["replicas"] = {}
+        for name in ("llm", "sessions"):
+            for r in reports(name):
+                want = (0 if name == "sessions" else cfg.n_layers * sum(
+                    _bucket(n, DEPLOY_SERVER["max_seq"]) >= 128
+                    for n in r["prompt_lens"]))
+                out["replicas"][r["pid"]] = {
+                    "deployment": name, "served": r["served"],
+                    "launches": r["launches"], "want_fwd_sm90": want}
+                if r["launches"] != {**dict.fromkeys(r["launches"], 0),
+                                     "fwd": want, "fwd_sm90": want}:
+                    raise AssertionError(
+                        f"replica {r['pid']} of {name} launched "
+                        f"{r['launches']}, expected {want} sm90 forward "
+                        "launches")
+                for key, n in r["launches"].items():
+                    launches[key] = launches.get(key, 0) + n
+        served = [r["served"] for r in out["replicas"].values()
+                  if r["deployment"] == "llm"]
+        if len(served) != 2 or min(served) == 0:
+            raise AssertionError(f"a replica of llm served nothing: {served}")
+        out["launches"] = launches
+        workers.update(c for d in daemons for c in _child_pids(d))
+    except BaseException:
+        _print_worker_logs(session_dir)
+        print("deployment (failed) " + json.dumps(out, default=str),
+              flush=True)
+        try:
+            serve.shutdown()
+        finally:
+            art.shutdown()
+            tracing_plane.reset(scope)
+        raise
+    t0 = time.perf_counter()
+    serve.shutdown()
+    art.shutdown()
+    tracing_plane.reset(scope)
+    pids = daemons + sorted(workers)
+    deadline = time.monotonic() + CLUSTER_EXIT_WAIT_S
+    while any(_pid_alive(p) for p in pids) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    out["shutdown_s"] = round(time.perf_counter() - t0, 3)
+    out["left_alive"] = [p for p in pids if _pid_alive(p)]
+    out["pgrep"] = [int(p) for p in subprocess.run(
+        ["pgrep", "-f", "ant_ray_tpu_torch"], capture_output=True,
+        text=True).stdout.split() if int(p) not in _ancestors()]
+    out["session_dir_left"] = os.path.exists(session_dir)
+    out["arena_left"] = os.path.exists(store_dir)
+    torch.cuda.empty_cache()
+    deadline = time.monotonic() + CLUSTER_FREE_WAIT_S
+    while torch.cuda.mem_get_info()[0] < free_before - CLUSTER_FREE_SLACK \
+            and time.monotonic() < deadline:
+        time.sleep(0.2)
+    out["card_free_back"] = \
+        torch.cuda.mem_get_info()[0] >= free_before - CLUSTER_FREE_SLACK
+    print("deployment " + json.dumps(out, default=str), flush=True)
+    if out["left_alive"] or out["pgrep"] or out["session_dir_left"] or \
+            out["arena_left"] or not out["card_free_back"]:
+        raise AssertionError("shutdown left a process, the session "
+                             "directory, the arena or card memory behind")
     return launches
 
 
@@ -4194,6 +4728,7 @@ def main() -> int:
     del engine, params
     torch.cuda.empty_cache()
     paths["tracing"] = tracing_phase(torch, llama, card)
+    paths["deployment"] = deployment_phase(torch, llama, card)
     paths["checkpoint"] = checkpoint_phase(torch, fa, llama)
     paths["server"] = server_phase(torch, fa, llama)
     paths["train"] = train_phase(torch, fa, llama)

@@ -183,6 +183,66 @@ def test_tracing_plane_and_the_util_modules_import_no_torch():
     assert proc.stdout.strip() == "[]"
 
 
+def test_serve_imports_no_torch_and_loads_its_proxies_lazily():
+    """The controller, the proxies and the handles run in processes
+    that never touch a tensor: ``serve/api.py`` and ``serve/__init__.py``
+    load no torch, and aiohttp and grpcio only when a proxy starts."""
+    for name in ("api.py", "__init__.py"):
+        with open(os.path.join(PKG, "serve", name)) as f:
+            tree = ast.parse(f.read())
+        imported = {a.name.split(".")[0] for n in ast.walk(tree)
+                    if isinstance(n, ast.Import) for a in n.names}
+        imported |= {(n.module or "").split(".")[0] for n in ast.walk(tree)
+                     if isinstance(n, ast.ImportFrom) and n.level == 0}
+        assert "torch" not in imported, name
+    code = (
+        "import sys, time\n"
+        "import ant_ray_tpu_torch.serve as serve\n"
+        "from ant_ray_tpu_torch.serve import api\n"
+        "@serve.deployment(name='d', num_replicas=2)\n"
+        "class D:\n"
+        "    @serve.batch(max_batch_size=2)\n"
+        "    def __call__(self, items):\n"
+        "        return items\n"
+        "app = D.bind()\n"
+        "class R:\n"
+        "    actor_id = b'r' * 16\n"
+        "h = serve.DeploymentHandle('d', [R()])\n"
+        "assert h._pick() is not None and app.deployment.num_replicas == 2\n"
+        "replica = api.Replica(lambda x: x + 1, (), {})\n"
+        "assert replica.handle_request('__call__', (1,), {}) == 2\n"
+        "print(sorted({m.split('.')[0] for m in sys.modules} & {\n"
+        "    'torch', 'aiohttp', 'grpc', 'jax', 'ant_ray_tpu'}))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+def test_kv_offload_imports_nothing_of_the_jax_package():
+    """``llm/kv_offload.py`` reaches the runtime only through the port:
+    building both stores, a vault and a slab round trip load neither
+    JAX nor the JAX package."""
+    code = (
+        "import sys, torch\n"
+        "from ant_ray_tpu_torch.llm import kv_offload as kvo\n"
+        "slab = (torch.ones(2, 3, dtype=torch.bfloat16),\n"
+        "        torch.zeros(2, 3), 4)\n"
+        "for store in (kvo.LocalKvStore(), kvo.ObjectPlaneKvStore()):\n"
+        "    assert store is not None\n"
+        "vault = kvo.KvVault()\n"
+        "vault.put('k', slab)\n"
+        "assert vault.fetch('k') is slab and vault.drop('k')\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'ant_ray_tpu')))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
 class _CudaTagged:
     """Pickles exactly as a float32 CUDA tensor of shape (4,) would."""
 

@@ -234,15 +234,30 @@ def test_deadline_expiring_during_generation_raises(model_dir):
 
 
 def test_store_modes_and_deployment():
-    assert type(LLMServer._resolve_store("auto")).__name__ == "LocalKvStore"
-    assert type(LLMServer._resolve_store("local")).__name__ == "LocalKvStore"
+    from ant_ray_tpu.llm.serve_llm import \
+        build_llm_deployment as jax_build_llm_deployment
+    from ant_ray_tpu_torch.llm import kv_offload as kvo
+
+    # No runtime in this process: "auto" is the host store.
+    assert type(LLMServer._resolve_store("auto")) is kvo.LocalKvStore
+    assert type(LLMServer._resolve_store("local")) is kvo.LocalKvStore
     assert LLMServer._resolve_store(None) is None
-    with pytest.raises(NotImplementedError):
-        LLMServer._resolve_store("object")
+    assert type(LLMServer._resolve_store("object")) is \
+        kvo.ObjectPlaneKvStore
     with pytest.raises(ValueError):
         LLMServer._resolve_store("disk")
-    with pytest.raises(NotImplementedError):
-        build_llm_deployment("tiny")
+    app = build_llm_deployment("tiny")
+    want = jax_build_llm_deployment("tiny")
+    assert app.deployment.cls_or_fn is LLMServer
+    assert app.args == want.args == ("tiny",)
+    assert app.kwargs == {**want.kwargs, "device": None}
+    for field in ("name", "num_replicas", "route_prefix",
+                  "max_ongoing_requests", "max_queued_requests",
+                  "request_timeout_s", "autoscaling_config"):
+        assert getattr(app.deployment, field) == \
+            getattr(want.deployment, field), field
+    assert build_llm_deployment("tiny", device="cpu").kwargs["device"] \
+        == "cpu"
 
 
 # --------------------------------------------- profiler and device stats
