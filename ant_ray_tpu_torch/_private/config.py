@@ -49,8 +49,6 @@ UNPORTED_FLAGS = {
                     "6.6, lockcheck's instrumented path"),
     **dict.fromkeys(("gcs_ha_lease_ttl_s", "gcs_ha_renew_period_s",
                      "gcs_ha_sync_period_s"), "6.6, GCS HA"),
-    **dict.fromkeys(("data_inflight_tasks", "data_inflight_bytes",
-                     "data_target_block_bytes"), "6.4, Data"),
     **dict.fromkeys(("tpu_chips_override", "testing_preemption_notice",
                      "preemption_poll_interval_s"),
                     "9, GPU placement and the preemption watch "
@@ -131,6 +129,19 @@ class Config:
     enable_object_spilling: bool = True
     # Per-node spill budget; past it, evictions drop instead of spill.
     max_spill_bytes: int = 10 * 1024 * 1024 * 1024
+
+    # ---- data engine ----
+    # Max concurrent tasks per streaming-Data stage (map / split / merge).
+    data_inflight_tasks: int = 8
+    # Per-stage cap on estimated in-flight block bytes: further launches
+    # wait once the sum of known in-window block sizes passes it (ref:
+    # streaming executor backpressure policies,
+    # data/_internal/execution/backpressure_policy/).  0 disables.
+    data_inflight_bytes: int = 128 * 1024 * 1024
+    # Target output block size: size-aware repartition/shuffle pick
+    # their partition count from total bytes / this when the caller
+    # gives no explicit block count.
+    data_target_block_bytes: int = 32 * 1024 * 1024
 
     # ---- scheduling ----
     # Workers pre-started per node at boot (-1 = auto: min(2, num_cpus)).

@@ -2,9 +2,12 @@
 (counterpart of ant_ray_tpu.llm): the continuous-batching engine with
 dense per-slot KV slabs, bucketed or chunked prefill, batched decode and
 session KV offload, the EngineLoop that steps it on a thread of its own,
-and LLMServer, the OpenAI-shaped front end over both.
+LLMServer, the OpenAI-shaped front end over both, and the batch
+processors over Datasets (llm/batch.py).
 """
 
+from ant_ray_tpu_torch.llm.batch import (build_llm_processor,
+                                         build_logprob_processor)
 from ant_ray_tpu_torch.llm.engine import EngineLoop, LLMEngine, RequestOutput
 from ant_ray_tpu_torch.llm.sampling import SamplingParams
 from ant_ray_tpu_torch.llm.serve_llm import LLMServer
@@ -17,5 +20,7 @@ __all__ = [
     "LLMServer",
     "RequestOutput",
     "SamplingParams",
+    "build_llm_processor",
+    "build_logprob_processor",
     "get_tokenizer",
 ]

@@ -39,14 +39,17 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
     (``preferred_element_type``); torch returns bf16 from a bf16 matmul,
     so the operands are upcast here (bf16 products are exact in fp32)
     and p is rounded to the input dtype before P·V as there.
+
+    Unlike the reference, which raises when ``kv_len`` is longer than
+    ``block_k`` and not a multiple of it, the last KV block may be
+    shorter: a forward over ``max_len - 1`` tokens
+    (llm/batch.py ``build_logprob_processor``) at any ``max_len``.
     """
     batch, q_len, num_heads, head_dim = q.shape
     kv_len, num_kv_heads = k.shape[1], k.shape[2]
     groups = num_heads // num_kv_heads
     scale = scale if scale is not None else head_dim ** -0.5
     block_k = min(block_k, kv_len)
-    if kv_len % block_k != 0:
-        raise ValueError(f"kv_len {kv_len} % block_k {block_k} != 0")
 
     qt = q.transpose(1, 2).float()                               # b h q d
     kt = k.repeat_interleave(groups, dim=2).transpose(1, 2).float()
@@ -64,7 +67,7 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
         v_b = vt[:, :, start:start + block_k]
         scores = torch.matmul(qt, k_b.transpose(-1, -2)) * scale
         if causal:
-            kv_pos = start + torch.arange(block_k, device=q.device)
+            kv_pos = start + torch.arange(k_b.shape[2], device=q.device)
             mask = kv_pos[None, :] > q_pos[:, None]
             scores = scores.masked_fill(mask, NEG_INF)
         m_new = torch.maximum(m, scores.amax(dim=-1))

@@ -61,6 +61,16 @@ def _art():
     return art
 
 
+def _runtime():
+    """This process's runtime (None once it shut down).  Serve's
+    background loops stop when it changes: their next API call would
+    otherwise auto-init a new cluster in a process that shut its own
+    down."""
+    from ant_ray_tpu_torch._private.worker import global_worker  # noqa: PLC0415
+
+    return global_worker.runtime
+
+
 # ------------------------------------------------------------- observability
 
 _METRICS: dict | None = None
@@ -758,14 +768,22 @@ class _RoutingState:
         self._listener.start()
 
     def _listen_loop(self) -> None:
-        art = _art()
-        while True:
+        # Calls go to the runtime this loop started under, not through
+        # the API: after a shutdown they raise instead of auto-initing a
+        # new cluster, and the loop stops once the runtime has changed.
+        from ant_ray_tpu_torch._private.task_options import TaskOptions  # noqa: PLC0415
+
+        runtime = _runtime()
+        while runtime is not None and _runtime() is runtime:
             try:
-                changed = art.get(
-                    self.controller.listen_for_change.remote(
-                        {self.name: self.version}),
-                    timeout=_LISTEN_TIMEOUT_S + 15)
+                ref = runtime.submit_actor_task(
+                    self.controller, "listen_for_change",
+                    ({self.name: self.version},), {}, TaskOptions())
+                changed = runtime.get([ref],
+                                      timeout=_LISTEN_TIMEOUT_S + 15)[0]
             except Exception:  # noqa: BLE001 — controller restarting
+                if _runtime() is not runtime:
+                    return
                 time.sleep(0.5)
                 continue
             if not changed:
@@ -1796,6 +1814,8 @@ class ServeController:
     def _scale_loop(self):
         while not self._stopping:
             time.sleep(0.25)
+            if self._stopping:
+                return
             with self._lock:
                 snapshot = [(name, list(entry["replicas"]),
                              entry["deployment"].autoscaling_config)
@@ -1902,6 +1922,8 @@ class ServeController:
         art = _art()
         while not self._stopping:
             time.sleep(1.0)
+            if self._stopping:
+                return
             try:
                 draining = {n["NodeID"] for n in art.nodes()
                             if n["Alive"] and n.get("Draining")}

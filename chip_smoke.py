@@ -243,6 +243,31 @@ final line is printed:
    on the host and the card) and one "deployment" JSON line (the
    vault's put and fetch ms and GB/s, requests and launches per
    replica).  Its launches are the kernels line's "deployment" path.
+12b. Data and batch inference on the card (``init(num_cpus=4)``):
+   build_llm_processor("llama3-8b", concurrency=2, slots=8,
+   max_seq=4096, device="cuda") generates 16 greedy tokens for each of
+   64 rows of 128-1500 token ids (default_rng(18)) from
+   data.from_items(rows, parallelism=8), its two engine actors each in
+   a worker process; then, with the actors killed,
+   build_logprob_processor("llama3-8b", batch_size=8, max_len=1024)
+   scores 64 rows of 1024 token ids in the driver through the device
+   feed, with prefetch_batches 2 and 0; then random_shuffle, sort and
+   groupby().count() of 1,000,000 list-block ints in 16 blocks, which
+   must load no pyarrow in the driver.  Gates: 64 rows back in order with
+   their keys and "generated_text"; each actor 32 sm90 forward launches
+   per prefill (2048 together) and nothing else; the feed's card
+   batches bitwise the collated host batches; NLL per row equal at
+   both settings and within DATA_NLL_TOL of reference attention on the
+   same weights; no flash launch while scoring (1023 tokens: blockwise,
+   the reference's rule); the million-row results equal numpy's;
+   nothing left after shutdown(); one LLMEngine in the driver
+   generating the actors' token ids (16 a row) and texts row by row.
+   Prints "data actors up" (each actor's start, the card's free
+   memory), "data blocks" (each block's wall), "data score" (wall,
+   starve fraction and stage times per prefetch setting), "data nll",
+   "data table" (seconds and rows/s per operation), "data generation"
+   (rows/s, generated tokens/s) and one "data" JSON line.  Its
+   launches are the kernels line's "data" path.
 13. Serving from a checkpoint directory: llama-400m at its published
    widths and depth (bf16, seed 0) written to a temporary directory of
    this checkout in the HF layout twice, as model.safetensors (a writer
@@ -332,7 +357,7 @@ final line is printed:
    sm90_d256, tf32x3_d256 and CUDA-core dQ and dK/dV; launches by path,
    the main paths being serving, sessions, the loop, the cluster's
    worker, the traced cluster's worker, the deployment's replicas, the
-   checkpoint directory, the
+   data processor's actors, the checkpoint directory, the
    server, training, training under each remat policy, GPT-2 in fp32
    and bf16 and the head_dim-256 Llama in bf16 and fp32; the older kernels' times also at GPT-2's
    shape, the sm90_d256 ones at Gemma-7B's and Gemma-2B's attention and
@@ -385,6 +410,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 
 import numpy as np
 
@@ -3580,7 +3606,19 @@ def deployment_phase(torch, llama, card):
     serve.shutdown()
     art.shutdown()
     tracing_plane.reset(scope)
-    pids = daemons + sorted(workers)
+    _after_shutdown(torch, out, t0, daemons + sorted(workers), session_dir,
+                    store_dir, free_before)
+    print("deployment " + json.dumps(out, default=str), flush=True)
+    _gate_nothing_left(out)
+    return launches
+
+
+def _after_shutdown(torch, out, t0, pids, session_dir, store_dir,
+                    free_before):
+    """Into ``out``, after a cluster's shutdown() that began at ``t0``:
+    the seconds until its processes (``pids``) were gone, any left alive
+    or found by pgrep, whether its session directory or arena are left,
+    and whether the card's free memory came back."""
     deadline = time.monotonic() + CLUSTER_EXIT_WAIT_S
     while any(_pid_alive(p) for p in pids) and time.monotonic() < deadline:
         time.sleep(0.1)
@@ -3591,18 +3629,446 @@ def deployment_phase(torch, llama, card):
         text=True).stdout.split() if int(p) not in _ancestors()]
     out["session_dir_left"] = os.path.exists(session_dir)
     out["arena_left"] = os.path.exists(store_dir)
+    out["card_free_back"] = _card_free_back(torch, free_before)
+
+
+def _card_free_back(torch, free_before):
+    """Whether the card's free memory comes back within
+    CLUSTER_FREE_SLACK of ``free_before`` inside CLUSTER_FREE_WAIT_S."""
     torch.cuda.empty_cache()
     deadline = time.monotonic() + CLUSTER_FREE_WAIT_S
     while torch.cuda.mem_get_info()[0] < free_before - CLUSTER_FREE_SLACK \
             and time.monotonic() < deadline:
         time.sleep(0.2)
-    out["card_free_back"] = \
-        torch.cuda.mem_get_info()[0] >= free_before - CLUSTER_FREE_SLACK
-    print("deployment " + json.dumps(out, default=str), flush=True)
+    return torch.cuda.mem_get_info()[0] >= free_before - CLUSTER_FREE_SLACK
+
+
+def _gate_nothing_left(out):
     if out["left_alive"] or out["pgrep"] or out["session_dir_left"] or \
             out["arena_left"] or not out["card_free_back"]:
         raise AssertionError("shutdown left a process, the session "
                              "directory, the arena or card memory behind")
+
+
+DATA_ROWS = 64                  # prompts through build_llm_processor
+DATA_PROMPT_LENS = (128, 1500)  # their lengths, drawn from default_rng(18)
+DATA_TOKENS = 16                # new tokens per prompt (greedy)
+DATA_BLOCKS = 8                 # from_items(rows, parallelism=...)
+DATA_PROCESSOR = dict(concurrency=2, slots=8, max_seq=4096)
+DATA_SCORE = dict(rows=64, tokens=1024, batch_size=8)
+DATA_TABLE = (1_000_000, 16)    # rows and blocks of the Data operations
+DATA_GROUPS = 1000              # groupby keys: value % DATA_GROUPS
+# |NLL| per row of build_logprob_processor (blockwise attention, which
+# rounds p to bf16 before P.V) against reference attention (fp32
+# softmax) on the same bf16 8B weights: the sound reading is 4.72e-3 on
+# NLLs of 12.49-12.67, alike at prefetch 2 and 0; the faults of
+# _blockwise_faults read 9.96e-2 (the ragged last block dropped) and
+# 1.13e-1 (no causal mask) (tools/phase.py data --readings, NVIDIA H100
+# 80GB HBM3, 700.00 W).  The limit lies near their geometric mean: 4x
+# the sound reading, a fifth of the nearer fault's.
+DATA_NLL_TOL = 2e-2
+DATA_BLOCK_K = 512              # blockwise_attention's default block_k
+
+
+def _group_of(value):
+    return value % DATA_GROUPS
+
+
+def _blockwise_faults(attn):
+    """Faults planted in ``attn.blockwise_attention`` for the NLL gate's
+    readings: at 1023 tokens the last KV block (511 keys) is ragged.
+    Returns the sound function and the faulty ones by name."""
+    sound = attn.blockwise_attention
+
+    def ragged_block_dropped(q, k, v, **kw):
+        n = k.shape[1] - k.shape[1] % DATA_BLOCK_K or k.shape[1]
+        return sound(q, k[:, :n], v[:, :n], **kw)
+
+    def not_causal(q, k, v, **kw):
+        return sound(q, k, v, **{**kw, "causal": False})
+
+    return sound, {"ragged_block_dropped": ragged_block_dropped,
+                   "not_causal": not_causal}
+
+
+def _actor_call(art, actor, name, *args):
+    """A private method of an engine actor (llm/batch.py ``_launches``,
+    ``_token_ids``), called through ActorMethod."""
+    from ant_ray_tpu_torch.actor import ActorMethod  # noqa: PLC0415
+
+    return art.get(ActorMethod(actor, name, 1, "").remote(*args),
+                   timeout=600)
+
+
+def _actor_launches(art, actor):
+    """An engine actor's launch counters as a _counts() dict."""
+    return _counts(types.SimpleNamespace(
+        **_actor_call(art, actor, "_launches")))
+
+
+def data_phase(torch, llama, card, readings=False):
+    """Data and batch inference on the card (``init(num_cpus=4)``).
+
+    (a) build_llm_processor("llama3-8b", concurrency=2, slots=8,
+    max_seq=4096, device="cuda") over from_items of 64 rows {"id",
+    "prompt": token ids of 128-1500, default_rng(18)} in 8 blocks, 16
+    greedy tokens each: two actors, each its own engine (random weights
+    from seed 0) in its own worker process.  Gates: 64 rows back in
+    order, each with its keys unchanged and "generated_text" added; each
+    actor launched the sm90 forward 32 times per bucketed prefill it ran
+    (all of them: every prompt is 128 tokens or more) and nothing else,
+    2048 between the two; the actors' generated token ids (llm/batch.py
+    ``_token_ids``) are read back block by block.  (b) With the actors
+    killed and the card's memory back,
+    build_logprob_processor("llama3-8b", batch_size=8,
+    max_len=1024) in the driver over 64 rows of 1024 token ids, with
+    prefetch_batches=2 and 0 (after one untimed pass, which loads the
+    forward's kernels).  Gates: each batch on the card bitwise
+    the collated host batch; NLL per row equal at both settings and
+    within DATA_NLL_TOL of the plain path (reference attention, the same
+    cross-entropy) on the same weights; no flash launch (blockwise by
+    the reference's multiple-of-128 rule at 1023 tokens).  With
+    ``readings`` the tolerance is not gated, and each fault of
+    _blockwise_faults is read in one more pass at prefetch 0.  (c)
+    random_shuffle(seed=0), sort and groupby(value % 1000).count() of
+    1,000,000 list-block ints in 16 blocks, equal to numpy's, without
+    loading pyarrow in the driver.  Then shutdown() leaves nothing, and one
+    LLMEngine("llama3-8b", slots=8, max_seq=4096) in the driver must
+    generate the actors' token ids row by row, 16 a row, and their
+    texts.  Returns the actors' launches."""
+    import ant_ray_tpu_torch as art  # noqa: PLC0415
+    import torch.nn.functional as F  # noqa: PLC0415
+
+    from ant_ray_tpu_torch import data  # noqa: PLC0415
+    from ant_ray_tpu_torch._private.worker import global_worker  # noqa: PLC0415
+    from ant_ray_tpu_torch.data import device_feed  # noqa: PLC0415
+    from ant_ray_tpu_torch.llm import (  # noqa: PLC0415
+        LLMEngine, SamplingParams, build_llm_processor,
+        build_logprob_processor)
+    from ant_ray_tpu_torch.llm.engine import _bucket  # noqa: PLC0415
+    from ant_ray_tpu_torch.observability import tracing_plane  # noqa: PLC0415
+    from ant_ray_tpu_torch.ops import flash_attention as fa  # noqa: PLC0415
+
+    # The module, not the package's attention() of the same name.
+    attn = importlib.import_module("ant_ray_tpu_torch.ops.attention")
+    cfg = llama.CONFIGS["llama3-8b"]
+    nll_tol = None if readings else DATA_NLL_TOL
+    sound, faults = _blockwise_faults(attn)
+    rng = np.random.default_rng(18)
+    lens = rng.integers(DATA_PROMPT_LENS[0], DATA_PROMPT_LENS[1] + 1,
+                        DATA_ROWS)
+    rows = [{"id": i, "prompt": rng.integers(0, cfg.vocab_size,
+                                             int(n)).tolist()}
+            for i, n in enumerate(lens)]
+    scored = [{"tokens": rng.integers(1, cfg.vocab_size,
+                                      DATA_SCORE["tokens"]).tolist()}
+              for _ in range(DATA_SCORE["rows"])]
+    values = rng.integers(0, 1 << 30, DATA_TABLE[0])
+    sampling = SamplingParams(max_tokens=DATA_TOKENS)
+    gib = 1 << 30
+    out = {"card": card, "model": "llama3-8b",
+           "pyarrow": importlib.util.find_spec("pyarrow") is not None,
+           "pandas": importlib.util.find_spec("pandas") is not None}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free_before = torch.cuda.mem_get_info()[0]
+    scope = tracing_plane.set_current(tracing_plane.mint(sampled=False))
+    art.init(num_cpus=4)
+    runtime = global_worker.runtime
+    session_dir, store_dir = runtime.session_dir, runtime.store_dir
+    daemons = [p.pid for p in runtime._owned_processes]
+    to_device, hand_over = (device_feed.DeviceFeed._to_device,
+                            device_feed.DeviceFeed._hand_over)
+    try:
+        # (a) Generation through two engine actors.
+        t0 = time.perf_counter()
+        process = build_llm_processor("llama3-8b", sampling=sampling,
+                                      device="cuda", **DATA_PROCESSOR)
+        actors = process._actors
+        starts, fresh = [None] * len(actors), [None] * len(actors)
+
+        def first_answer(i):
+            _actor_call(art, actors[i], "_token_ids")     # keep them
+            fresh[i] = _actor_launches(art, actors[i])
+            starts[i] = time.perf_counter() - t0
+
+        threads = [threading.Thread(target=first_answer, args=(i,))
+                   for i in range(len(actors))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        out["actor_start_s"] = [round(s, 3) for s in starts]
+        out["card_free_gib"] = {
+            "before": round(free_before / gib, 3),
+            "with_actors": round(torch.cuda.mem_get_info()[0] / gib, 3)}
+        print(f"data actors up ({card}): start s {out['actor_start_s']}, "
+              f"card free GiB {out['card_free_gib']}", flush=True)
+        if any(any(c.values()) for c in fresh):
+            raise AssertionError(f"a new engine actor had launched: {fresh}")
+
+        ds = data.from_items(rows, parallelism=DATA_BLOCKS)
+        t1 = time.perf_counter()
+        result = process(ds)
+        refs = list(result._block_refs)
+        done = {}
+        while len(done) < len(refs):
+            ready, _ = art.wait([r for r in refs if r not in done],
+                                num_returns=1, timeout=900)
+            if not ready:
+                raise AssertionError("a block of the processor took more "
+                                     "than 900 s")
+            now = time.perf_counter() - t1
+            for r in ready:
+                done[r] = now
+        got = result.take_all()
+        wall = time.perf_counter() - t1
+        done_at = [done[r] for r in refs]
+        n = DATA_PROCESSOR["concurrency"]
+        out["block_walls_s"] = [round(done_at[i] - (done_at[i - n] if i >= n
+                                                    else 0.0), 3)
+                                for i in range(len(refs))]
+        out["generation_wall_s"] = round(wall, 3)
+        print(f"data blocks ({card}): walls s {out['block_walls_s']} "
+              f"(blocks {list(range(n))} are each actor's first)",
+              flush=True)
+        if len(got) != DATA_ROWS or [
+                {k: v for k, v in r.items() if k != "generated_text"}
+                for r in got] != rows or not all(
+                isinstance(r.get("generated_text"), str) for r in got):
+            raise AssertionError("the processor's rows came back changed, "
+                                 "out of order or without generated_text")
+        kept = [_actor_call(art, a, "_token_ids", False) for a in actors]
+        if [len(k) for k in kept] != [len(range(i, len(refs), n))
+                                      for i in range(n)]:
+            raise AssertionError(f"the actors kept {[len(k) for k in kept]}"
+                                 f" blocks of token ids for {len(refs)}")
+        ids = [row for b in range(len(refs)) for row in kept[b % n][b // n]]
+        launches, per_actor = {}, []
+        for i, actor in enumerate(actors):
+            counts = _actor_launches(art, actor)
+            mine = [len(rows[j]["prompt"]) for b in range(i, DATA_BLOCKS, n)
+                    for j in range(b * DATA_ROWS // DATA_BLOCKS,
+                                   (b + 1) * DATA_ROWS // DATA_BLOCKS)]
+            want = cfg.n_layers * sum(
+                _bucket(m, DATA_PROCESSOR["max_seq"]) >= 128 for m in mine)
+            per_actor.append({"fwd_sm90": counts["fwd_sm90"],
+                              "want": want})
+            if counts != {**dict.fromkeys(counts, 0), "fwd": want,
+                          "fwd_sm90": want}:
+                raise AssertionError(f"actor {i} launched {counts}, "
+                                     f"expected {want} sm90 forwards")
+            for key, v in counts.items():
+                launches[key] = launches.get(key, 0) + v
+        out["actor_launches"] = per_actor
+        if launches["fwd_sm90"] != cfg.n_layers * DATA_ROWS:
+            raise AssertionError(f"the actors launched {launches}")
+        for actor in actors:
+            art.kill(actor)
+        del process, actors, result
+        out["card_free_back_after_kill"] = _card_free_back(torch,
+                                                           free_before)
+        out["card_free_gib"]["after_kill"] = round(
+            torch.cuda.mem_get_info()[0] / gib, 3)
+        if not out["card_free_back_after_kill"]:
+            raise AssertionError("the card's memory did not come back "
+                                 "after the engine actors were killed")
+
+        # (b) Scoring through the device feed, in the driver.
+        seen = {"host": [], "card": [], "feeds": []}
+
+        def spy_to_device(self, tree):
+            if self not in seen["feeds"]:
+                seen["feeds"].append(self)
+            seen["host"].append({k: a.copy() for k, a in tree.items()})
+            return to_device(self, tree)
+
+        def spy_hand_over(self, tree, event):
+            tree = hand_over(self, tree, event)
+            seen["card"].append(tree)
+            return tree
+
+        device_feed.DeviceFeed._to_device = spy_to_device
+        device_feed.DeviceFeed._hand_over = spy_hand_over
+        _reset_counts(fa)
+        nll, out["score"] = {}, {}
+        for prefetch in (2, 0):
+            proc = build_logprob_processor(
+                "llama3-8b", batch_size=DATA_SCORE["batch_size"],
+                max_len=DATA_SCORE["tokens"], prefetch_batches=prefetch)
+            if prefetch == 2:           # warm: the process's first pass
+                proc(data.from_items(scored, parallelism=DATA_BLOCKS))
+            for v in seen.values():
+                v.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scored_rows = proc(data.from_items(
+                scored, parallelism=DATA_BLOCKS)).take_all()
+            wall = time.perf_counter() - t0
+            stats = dict(seen["feeds"][0].stats)
+            bitwise = len(seen["host"]) == len(seen["card"]) == \
+                DATA_SCORE["rows"] // DATA_SCORE["batch_size"] and all(
+                    h.keys() == c.keys() and all(
+                        c[k].device.type == "cuda" and torch.equal(
+                            c[k].cpu(), torch.from_numpy(h[k]))
+                        for k in h)
+                    for h, c in zip(seen["host"], seen["card"]))
+            nll[prefetch] = [r["nll"] for r in sorted(
+                scored_rows, key=lambda r: r["row"])]
+            out["score"][f"prefetch_{prefetch}"] = {
+                "wall_s": round(wall, 4), "bitwise": bitwise,
+                **{k: (round(v, 6) if isinstance(v, float) else v)
+                   for k, v in stats.items()}}
+            print(f"data score ({card}) prefetch={prefetch}: "
+                  + json.dumps(out["score"][f"prefetch_{prefetch}"]),
+                  flush=True)
+            if readings and prefetch == 0:
+                faulted = {}
+                for name, fault in faults.items():
+                    attn.blockwise_attention = fault
+                    try:
+                        faulted[name] = [r["nll"] for r in sorted(
+                            proc(data.from_items(
+                                scored, parallelism=DATA_BLOCKS)).take_all(),
+                            key=lambda r: r["row"])]
+                    finally:
+                        attn.blockwise_attention = sound
+            del proc, scored_rows
+            seen["card"].clear()
+            torch.cuda.empty_cache()
+            if not bitwise:
+                raise AssertionError(f"prefetch={prefetch}: the feed's card "
+                                     "batches differ from the host's")
+        score_counts = _counts(fa)
+        device_feed.DeviceFeed._to_device = to_device
+        device_feed.DeviceFeed._hand_over = hand_over
+        if any(score_counts.values()):
+            raise AssertionError(f"the scoring path launched flash "
+                                 f"kernels: {score_counts}")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = llama.init_params(cfg, generator=gen, device="cuda")
+        tokens = torch.tensor([r["tokens"] for r in scored],
+                              dtype=torch.long, device="cuda")
+        plain = []
+        with torch.inference_mode():
+            for b in range(0, len(scored), DATA_SCORE["batch_size"]):
+                toks = tokens[b:b + DATA_SCORE["batch_size"]]
+                logits = llama.forward(params, toks[:, :-1], cfg,
+                                       attn_impl="reference")
+                losses = F.cross_entropy(
+                    logits.reshape(-1, logits.shape[-1]),
+                    toks[:, 1:].reshape(-1), reduction="none").view(
+                        toks.shape[0], -1)
+                plain += losses.mean(-1).tolist()
+                del logits, losses
+        del params, tokens
+        torch.cuda.empty_cache()
+        out["nll_max_abs_err"] = {
+            f"prefetch_{p}": float(max(abs(a - b) for a, b in
+                                       zip(nll[p], plain)))
+            for p in nll}
+        out["nll_prefetch_equal"] = nll[2] == nll[0]
+        out["nll_range"] = [round(min(plain), 4), round(max(plain), 4)]
+        out["nll_tol"] = nll_tol
+        if readings:
+            out["nll_fault_err"] = {
+                name: float(max(abs(a - b) for a, b in zip(f, plain)))
+                for name, f in faulted.items()}
+        print(f"data nll ({card}): max abs err against the plain path "
+              f"{out['nll_max_abs_err']}, planted faults "
+              f"{out.get('nll_fault_err', 'not read')}, range "
+              f"{out['nll_range']}, tol {nll_tol}", flush=True)
+        if not out["nll_prefetch_equal"]:
+            raise AssertionError("the NLL per row differs between prefetch "
+                                 "2 and 0")
+        if nll_tol is not None and max(out["nll_max_abs_err"].values()) \
+                > nll_tol:
+            raise AssertionError(f"NLL off the plain path: "
+                                 f"{out['nll_max_abs_err']} > {nll_tol}")
+
+        # (c) List-block Data at a million rows.
+        pyarrow_before = "pyarrow" in sys.modules
+        table = data.from_items(values.tolist(), parallelism=DATA_TABLE[1])
+        want_sorted = np.sort(values)
+        ops = {"random_shuffle": lambda: table.random_shuffle(seed=0),
+               "sort": lambda: table.sort(),
+               "groupby_count": lambda: table.groupby(_group_of).count()}
+        results, out["table"] = {}, {}
+        for name, op in ops.items():
+            t0 = time.perf_counter()
+            results[name] = op().take_all()
+            sec = time.perf_counter() - t0
+            out["table"][name] = {"s": round(sec, 3),
+                                  "rows_per_s": round(DATA_TABLE[0] / sec)}
+        counts = np.bincount(values % DATA_GROUPS, minlength=DATA_GROUPS)
+        groups = sorted((r["key"], r["count"])
+                        for r in results["groupby_count"])
+        out["table_equal"] = {
+            "random_shuffle": bool(np.array_equal(
+                np.sort(results["random_shuffle"]), want_sorted))
+            and results["random_shuffle"] != values.tolist(),
+            "sort": bool(np.array_equal(results["sort"], want_sorted)),
+            "groupby_count": groups == [(g, int(c)) for g, c in
+                                        enumerate(counts) if c]}
+        out["pyarrow_in_driver"] = [pyarrow_before, "pyarrow" in sys.modules]
+        print(f"data table ({card}, pyarrow installed: {out['pyarrow']}, "
+              f"in the driver before and after: {out['pyarrow_in_driver']}"
+              "): " + json.dumps(out["table"]), flush=True)
+        if not all(out["table_equal"].values()):
+            raise AssertionError(f"Data's results differ from numpy's: "
+                                 f"{out['table_equal']}")
+        if out["pyarrow_in_driver"] == [False, True]:
+            raise AssertionError("list-block Data loaded pyarrow")
+        workers = {c for d in daemons for c in _child_pids(d)}
+    except BaseException:
+        device_feed.DeviceFeed._to_device = to_device
+        device_feed.DeviceFeed._hand_over = hand_over
+        attn.blockwise_attention = sound
+        _print_worker_logs(session_dir)
+        print("data (failed) " + json.dumps(out, default=str), flush=True)
+        try:
+            art.shutdown()
+        finally:
+            tracing_plane.reset(scope)
+        raise
+    t0 = time.perf_counter()
+    art.shutdown()
+    tracing_plane.reset(scope)
+    _after_shutdown(torch, out, t0, daemons + sorted(workers), session_dir,
+                    store_dir, free_before)
+    _gate_nothing_left(out)
+    out["card_free_gib"]["after_shutdown"] = round(
+        torch.cuda.mem_get_info()[0] / gib, 3)
+
+    # The same prompts through one engine in the driver.
+    engine = LLMEngine("llama3-8b", slots=DATA_PROCESSOR["slots"],
+                       max_seq=DATA_PROCESSOR["max_seq"])
+    direct = engine.generate([r["prompt"] for r in rows], sampling)
+    del engine
+    torch.cuda.empty_cache()
+    want = [list(o.token_ids) for o in direct]
+    out["token_ids_equal"] = ids == want
+    out["tokens_per_row"] = sorted({len(t) for t in want})
+    out["texts_equal"] = [o.text for o in direct] == \
+        [r["generated_text"] for r in got]
+    n_tokens = sum(len(t) for t in want)
+    out["generation"] = {
+        "rows_per_s": round(DATA_ROWS / out["generation_wall_s"], 3),
+        "generated_tokens": n_tokens,
+        "generated_tokens_per_s": round(n_tokens / out["generation_wall_s"],
+                                        3)}
+    print(f"data generation ({card}): {DATA_ROWS} rows in "
+          f"{out['generation_wall_s']} s: " + json.dumps(out["generation"]),
+          flush=True)
+    print("data " + json.dumps(out, default=str), flush=True)
+    if out["tokens_per_row"] != [DATA_TOKENS]:
+        raise AssertionError(f"the driver's engine generated "
+                             f"{out['tokens_per_row']} tokens a row, not "
+                             f"{DATA_TOKENS}")
+    if not (out["token_ids_equal"] and out["texts_equal"]):
+        diff = [i for i, (o, r, t) in enumerate(zip(direct, got, ids))
+                if list(o.token_ids) != t or o.text != r["generated_text"]]
+        raise AssertionError(f"rows {diff} differ from the driver's engine")
     return launches
 
 
@@ -4714,29 +5180,46 @@ def main() -> int:
         if lib == "flash_attention_fwd_tf32x3_d256" and any(spills.values()):
             raise AssertionError(f"{lib} spills: {spills}")
 
+    t_script = time.perf_counter()
+
+    def lap(name):
+        # The script's clock at each phase's end: where the time limit goes.
+        print(f"phase {name} ended at {time.perf_counter() - t_script:.1f} "
+              "s", flush=True)
+
     rows = kernel_phase(torch, fa)
     bwd_rows = bwd_kernel_phase(torch, fa)
     model_check_phase(torch, llama)
+    lap("kernels")
     paths = {"grad_check_fp32": grad_check_phase(torch, fa, llama)[0],
              "grad_check_bf16": bf16_grad_check_phase(torch, fa, llama)}
     paths["serve"], params = slice_phase(torch, fa, llama)
     paths["sessions"] = sessions_phase(torch, fa, llama, params)
     paths["loop"] = loop_phase(torch, fa, llama, params)
+    lap("serving")
     engine = runtime_phase(torch, fa, llama, params)
     objects_phase(torch, engine, card)
     paths["cluster"] = cluster_phase(torch, fa, llama, params, engine, card)
     del engine, params
     torch.cuda.empty_cache()
+    lap("runtime")
     paths["tracing"] = tracing_phase(torch, llama, card)
+    lap("tracing")
     paths["deployment"] = deployment_phase(torch, llama, card)
+    lap("deployment")
+    paths["data"] = data_phase(torch, llama, card)
+    lap("data")
     paths["checkpoint"] = checkpoint_phase(torch, fa, llama)
     paths["server"] = server_phase(torch, fa, llama)
+    lap("checkpoint and server")
     paths["train"] = train_phase(torch, fa, llama)
     paths.update(remat_phase(torch, fa, llama))
     paths["gpt2_fp32"] = gpt2_phase(torch, fa, "float32")[0]
     paths["gpt2_bf16"] = gpt2_phase(torch, fa, "bfloat16")[0]
+    lap("training")
     paths["d256"] = d256_phase(torch, fa, llama)
     paths["d256_fp32"] = d256_fp32_phase(torch, fa, llama)
+    lap("d256")
     print(json.dumps(kernels_line(rows, bwd_rows, paths)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -102,6 +102,21 @@ def test_blockwise_and_reference_attention_match_jax(causal, groups):
            jax_reference(jq, jk, jv, causal=causal), ATTN_TOL)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("q_len,kv_len", [(63, 63), (47, 63)])
+def test_blockwise_takes_a_ragged_last_block(causal, q_len, kv_len):
+    """Where the reference's blockwise attention raises (kv_len longer
+    than block_k and not a multiple of it), the port's runs a shorter
+    last block and equals the reference's plain attention."""
+    q, k, v = _qkv(4, q_len, kv_len, 4, 2, 32)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    with pytest.raises(ValueError, match="block_k"):
+        jax_blockwise(jq, jk, jv, causal=causal, block_k=16)
+    _close(blockwise_attention(tq, tk, tv, causal=causal, block_k=16),
+           jax_reference(jq, jk, jv, causal=causal), ATTN_TOL)
+
+
 def test_attention_auto_picks_blockwise_on_cpu():
     q, k, v = _qkv(3, 128, 128, 4, 2, 64)
     tq, tk, tv = map(torch.from_numpy, (q, k, v))

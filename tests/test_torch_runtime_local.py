@@ -451,14 +451,19 @@ def test_system_config_carries_every_flag_a_ported_module_reads():
     assert not set(port_flags) & set(UNPORTED_FLAGS)
     assert all(port_flags[k] == jax_flags[k] for k in port_flags)
     assert {"max_inline_object_size", "hot_wire_enabled",
-            "object_transfer_chunk_size", "heartbeat_period_s"} <= \
-        set(port_flags)
+            "object_transfer_chunk_size", "heartbeat_period_s",
+            "data_inflight_tasks", "data_inflight_bytes",
+            "data_target_block_bytes"} <= set(port_flags)
     tart.init(local_mode=True,
-              _system_config={"max_inline_object_size": 4096})
+              _system_config={"max_inline_object_size": 4096,
+                              "data_inflight_tasks": 3,
+                              "data_target_block_bytes": 512})
     try:
         from ant_ray_tpu_torch._private.config import global_config
 
         assert global_config().max_inline_object_size == 4096
+        assert (global_config().data_inflight_tasks,
+                global_config().data_target_block_bytes) == (3, 512)
     finally:
         tart.shutdown()
 

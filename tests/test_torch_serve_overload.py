@@ -136,8 +136,10 @@ class DlShed:
     def __init__(self):
         self.executed = []
 
-    def __call__(self, i, sleep_s=0.0):
+    def __call__(self, i, sleep_s=0.0, started=None):
         self.executed.append(i)
+        if started is not None:
+            open(started, "w").close()       # it holds the slot now
         time.sleep(sleep_s)
         return i
 
@@ -145,11 +147,21 @@ class DlShed:
         return list(self.executed)
 
 
-def test_deadline_sheds_queued_work_never_executed(clusters):
+# How long the deadline test's first request holds the only slot, and
+# how long it waits on a condition: the queued calls' 0.25-s deadlines
+# must pass while the slot is held, even on a loaded host.
+OCCUPY_S = 3.0
+SHED_WAIT_S = 60.0
+
+
+def test_deadline_sheds_queued_work_never_executed(clusters, tmp_path):
     """A request whose deadline expires while queued for a replica slot
     is never executed, and the deployment's request_timeout_s default
-    stamps calls that set no explicit timeout."""
+    stamps calls that set no explicit timeout.  The queued calls start
+    once the first request runs on the replica (a file it writes), and
+    the executed ids are read after it, with an explicit timeout."""
     def scenario(art, serve, _bp, deadline_error, _c):
+        started = str(tmp_path / f"{art.__name__}.started")
         dep = serve.deployment(DlShed, name="dlshed",
                                max_ongoing_requests=1,
                                max_queued_requests=8,
@@ -159,13 +171,17 @@ def test_deadline_sheds_queued_work_never_executed(clusters):
 
         def occupy():
             try:
-                occupier_result.append(("ok", h.call(0, sleep_s=0.6)))
+                occupier_result.append(("ok", h.call(
+                    0, sleep_s=OCCUPY_S, started=started)))
             except deadline_error as e:
                 occupier_result.append(("deadline", _mask(str(e))))
 
         occupier = threading.Thread(target=occupy)
         occupier.start()
-        time.sleep(0.2)                  # let it take the only slot
+        deadline = time.monotonic() + SHED_WAIT_S
+        while not os.path.exists(started):   # it takes the only slot
+            assert time.monotonic() < deadline, "the occupier never ran"
+            time.sleep(0.01)
 
         def call(i):
             try:
@@ -175,8 +191,8 @@ def test_deadline_sheds_queued_work_never_executed(clusters):
 
         results = sorted(_concurrent(call, 3))
         occupier.join()
-        time.sleep(0.3)
-        executed = h.options(method_name="executed_ids").call()
+        executed = h.options(method_name="executed_ids").call(
+            timeout_s=SHED_WAIT_S)       # queued behind the occupier
         return occupier_result, results, executed
 
     want, got = _both(scenario)

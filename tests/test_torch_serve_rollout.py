@@ -173,6 +173,11 @@ def test_redeploy_racing_delete_falls_through_to_fresh_deploy(clusters):
                         art.kill(replica)
                     except Exception:  # noqa: BLE001
                         pass
+            # The controller's loops run in this process: none may
+            # outlive the cluster (its next API call would start one).
+            for loop in (controller._scaler, controller._drainer):
+                loop.join(timeout=WAIT_S)
+                assert not loop.is_alive(), loop.name
 
     want, got = _both(scenario)
     assert got == want == ({"name": "raced"}, 1,

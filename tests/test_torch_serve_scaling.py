@@ -5,7 +5,16 @@ that ejects a wedged replica.  Each scenario is one of
 tests/test_serve.py or tests/test_serve_overload.py (marked slow
 there), keeps the reference's assertions, and runs through both
 packages, each in its own cluster (started without
-``_system_config``); the outcomes must be equal."""
+``_system_config``); the outcomes must be equal.
+
+Where the reference waits fixed windows of wall clock (a 6 s pump, a
+push seen within half the TTL, 2 s calls), these wait on each condition
+under WAIT_S, so that a host loaded by the rest of the suite slows them
+down without failing them: the pump runs until the scale-up is seen,
+the TTL test sets the fallback TTL to an hour in both packages (any
+update the handle sees came from the push), and calls get a timeout
+that survives the suite's load.  A wrong outcome still shows as
+unequal tuples."""
 
 import os
 import signal
@@ -13,6 +22,9 @@ import threading
 import time
 
 from test_torch_serve import _both, _replica_count, clusters  # noqa: F401
+
+WAIT_S = 60       # per condition
+CALL_S = 30       # per call through the handle
 
 
 class _Pump:
@@ -62,7 +74,7 @@ def test_autoscaling_follows_load(clusters):
                                 "downscale_patience": 2})
         handle = serve.run(dep.bind(1.0))
         start = _replica_count(art, serve, "scaly")
-        pump = _Pump(art, handle, 6, 6)
+        pump = _Pump(art, handle, WAIT_S, 6)
         grown = 0
         while time.monotonic() < pump.until:
             grown = max(grown, _replica_count(art, serve, "scaly"))
@@ -70,7 +82,7 @@ def test_autoscaling_follows_load(clusters):
                 break
             time.sleep(0.25)
         pump.join()
-        deadline = time.monotonic() + 20
+        deadline = time.monotonic() + WAIT_S
         while time.monotonic() < deadline:
             if _replica_count(art, serve, "scaly") == 1:
                 break
@@ -81,11 +93,14 @@ def test_autoscaling_follows_load(clusters):
     assert got == want == (1, True, 1)
 
 
-def test_scale_up_pushed_to_handle_without_ttl(clusters):
-    """A scale-up reaches the handle's routing state well inside the
-    fallback TTL: the controller pushes the new replica set."""
+def test_scale_up_pushed_to_handle_without_ttl(clusters, monkeypatch):
+    """A scale-up reaches the handle's routing state without the
+    fallback TTL: with the TTL set to an hour, the new replica set can
+    only have come from the controller's push."""
     def scenario(art, serve):
-        assert serve.api.DeploymentHandle._REFRESH_TTL_S >= 10
+        handle_cls = serve.api.DeploymentHandle
+        assert handle_cls._REFRESH_TTL_S >= 10
+        monkeypatch.setattr(handle_cls, "_REFRESH_TTL_S", 3600.0)
         dep = serve.deployment(
             Sleepy, name="pushy",
             autoscaling_config={"min_replicas": 1, "max_replicas": 3,
@@ -94,17 +109,15 @@ def test_scale_up_pushed_to_handle_without_ttl(clusters):
         handle = serve.run(dep.bind(0.8))
         before = len(handle._routing.replicas)
         handle.remote(0)                      # arm the listener
-        start = time.monotonic()
-        pump = _Pump(art, handle, 8, 5)
-        observed_at = None
+        pump = _Pump(art, handle, WAIT_S, 5)
+        pushed = False
         while time.monotonic() < pump.until:
             if len(handle._routing.replicas) >= 2:
-                observed_at = time.monotonic() - start
+                pushed = True
                 break
             time.sleep(0.1)
         pump.join()
-        return (before, observed_at is not None and observed_at
-                < serve.api.DeploymentHandle._REFRESH_TTL_S / 2)
+        return before, pushed
 
     want, got = _both(scenario)
     assert got == want == (1, True)
@@ -125,31 +138,34 @@ def test_ongoing_poll_strikes_eject_wedged_replica(clusters):
 
         h = serve.run(Wedge.bind())
         pids = set()
-        deadline = time.monotonic() + 20
+        deadline = time.monotonic() + WAIT_S
         while len(pids) < 2 and time.monotonic() < deadline:
-            pids.add(h.call(timeout_s=5))
+            pids.add(h.call(timeout_s=CALL_S))
         assert len(pids) == 2, pids
         victim = sorted(pids)[0]
         survivor = (pids - {victim}).pop()
         os.kill(victim, signal.SIGSTOP)
         try:
-            deadline = time.monotonic() + 25
+            deadline = time.monotonic() + WAIT_S
             while not h._routing.suspect and time.monotonic() < deadline:
                 time.sleep(0.2)
             marked = bool(h._routing.suspect)
-            routed = [h.call(timeout_s=2.0) == survivor for _ in range(8)]
+            # A call routed to the wedge would never answer: it would
+            # raise at its timeout, or come back from the wrong pid.
+            routed = [h.call(timeout_s=CALL_S) == survivor
+                      for _ in range(8)]
             opened = any(br.state == "open"
                          for br in h._routing.breakers.values())
         finally:
             os.kill(victim, signal.SIGCONT)
-        deadline = time.monotonic() + 20
+        deadline = time.monotonic() + WAIT_S
         while h._routing.suspect and time.monotonic() < deadline:
             time.sleep(0.2)
         cleared = not h._routing.suspect
         seen = set()
-        deadline = time.monotonic() + 15
+        deadline = time.monotonic() + WAIT_S
         while seen != pids and time.monotonic() < deadline:
-            seen.add(h.call(timeout_s=5))
+            seen.add(h.call(timeout_s=CALL_S))
         return marked, routed, opened, cleared, seen == pids
 
     want, got = _both(scenario)

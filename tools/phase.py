@@ -1,0 +1,81 @@
+#!/usr/bin/env python3
+"""chip_smoke.py's cluster phases alone, on one NVIDIA GPU:
+
+    python3 tools/phase.py NAME... [--readings] [--checkout PATH]
+
+NAME is ``tracing``, ``deployment`` or ``data``: each runs
+chip_smoke.py's ``NAME_phase`` of PATH's checkout (default: this one),
+in the order given, after building the checkout's kernels.  tracing: a
+traced Llama-3-8B request through an actor in cluster mode;
+deployment: build_llm_deployment serving Llama-3-8B from three
+replicas; data: build_llm_processor generating from Llama-3-8B in two
+actors, build_logprob_processor scoring through the device feed, and
+list-block Data at a million rows.  Random weights from seed 0, gates
+included.  ``--readings`` is for phases that take it (data): the NLL
+gate is left out, every other gate stays, and faults planted in
+blockwise attention are read beside the sound reading, which is what
+``DATA_NLL_TOL`` is set from.
+
+Prints the card's nvidia-smi line, the Python, torch and CUDA versions
+and which optional packages are installed, then each phase's lines and
+its launches; exits non-zero if a gate fails (a cluster phase prints
+its workers' logs first).
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import inspect
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PHASES = ("tracing", "deployment", "data")
+OPTIONAL = ("aiohttp", "grpc", "transformers", "pyarrow", "pandas")
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("names", nargs="+", choices=PHASES)
+    parser.add_argument("--readings", action="store_true")
+    parser.add_argument("--checkout", default=ROOT)
+    args = parser.parse_args()
+    sys.path.insert(0, os.path.abspath(args.checkout))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("phase: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke  # noqa: PLC0415
+    from ant_ray_tpu_torch.models import llama  # noqa: PLC0415
+    from ant_ray_tpu_torch.ops import _build  # noqa: PLC0415
+
+    os.environ["HF_HUB_OFFLINE"] = os.environ["TRANSFORMERS_OFFLINE"] = "1"
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print(card, f"checkout {os.path.abspath(args.checkout)}",
+          sys.version.split()[0], torch.__version__, torch.version.cuda,
+          {m: importlib.util.find_spec(m) is not None for m in OPTIONAL},
+          flush=True)
+    t0 = time.perf_counter()
+    _build.build_all()
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
+    for name in args.names:
+        phase = getattr(chip_smoke, f"{name}_phase")
+        kwargs = ({"readings": True} if args.readings and "readings" in
+                  inspect.signature(phase).parameters else {})
+        t0 = time.perf_counter()
+        launches = phase(torch, llama, card, **kwargs)
+        print(f"{name} phase: {time.perf_counter() - t0:.1f} s, launches "
+              f"{launches}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
