@@ -35,16 +35,11 @@ def _env_override(name: str, default: Any) -> Any:
 # Flags of the JAX package's table that the port does not carry, by the
 # ROADMAP item (queue A) that brings the code that reads them.
 UNPORTED_FLAGS = {
-    **dict.fromkeys(("include_dashboard", "enable_node_agent"),
-                    "6.6, the dashboard and the node agent"),
-    "device_stats_interval_s": "6.6, the node agent's device gauges",
     "enable_insight": "6.6, flow insight",
     "export_task_events": "6.6, export events",
     **dict.fromkeys(("enable_cgroups", "cgroup_root",
                      "cgroup_workers_memory_max",
                      "cgroup_workers_cpu_weight"), "6.6, cgroups"),
-    **dict.fromkeys(("cpu_profile_hz", "cpu_profile_publish_period_s",
-                     "cpu_profile_max_stacks"), "6.5, the CPU profiler"),
     **dict.fromkeys(("lockcheck", "lockcheck_hold_budget_s"),
                     "6.6, lockcheck's instrumented path"),
     **dict.fromkeys(("gcs_ha_lease_ttl_s", "gcs_ha_renew_period_s",
@@ -129,6 +124,20 @@ class Config:
     enable_object_spilling: bool = True
     # Per-node spill budget; past it, evictions drop instead of spill.
     max_spill_bytes: int = 10 * 1024 * 1024 * 1024
+
+    # ---- operator surface (dashboard.py, node_agent.py) ----
+    # Start the dashboard head (REST state API + /metrics) with the
+    # cluster.
+    include_dashboard: bool = True
+    # Spawn a per-node agent process (log serving, OS metrics, device
+    # gauges, trace capture) supervised by the daemon (ref:
+    # agent_manager.h + the dashboard agent).
+    enable_node_agent: bool = True
+    # Node-agent interval for publishing per-card memory gauges
+    # (observability/device_stats.py) into the GCS metrics table.
+    # 0 disables the publish loop (stats stay available on demand via
+    # the AgentDeviceStats RPC).
+    device_stats_interval_s: float = 15.0
 
     # ---- data engine ----
     # Max concurrent tasks per streaming-Data stage (map / split / merge).
@@ -310,6 +319,20 @@ class Config:
     # /api/memory.  Off by default: the stack walk costs ~microseconds
     # per put and the strings cost directory memory.
     record_object_callsite: bool = False
+
+    # ---- continuous CPU profiling (observability/cpu_profiler.py) ----
+    # Sampling rate of the always-on profiler in every process class
+    # (driver, GCS, node daemon, workers, node agent).  67 Hz is a prime
+    # that avoids lockstep with 10ms/100ms periodic work; 0 disables
+    # the whole profiling plane (sampler, publication, wire-counter
+    # rollups).  Env channel: ART_CPU_PROFILE_HZ.
+    cpu_profile_hz: float = 67.0
+    # How often each process publishes its folded-stack delta (and its
+    # wire-accounting counter deltas) to the GCS CpuProfileAdd ring.
+    cpu_profile_publish_period_s: float = 2.5
+    # Bound on DISTINCT folded stacks aggregated per process; once full,
+    # new stacks collapse into a single "(overflow)" bucket.
+    cpu_profile_max_stacks: int = 800
 
     # ---- logging ----
     log_level: str = "INFO"

@@ -331,11 +331,13 @@ class ClusterRuntime(CoreRuntime):
             store_dir = boot["store_dir"]
             owned = boot["processes"]
             session_dir = boot["session_dir"]
+            dashboard_url = boot.get("dashboard_url", "")
         else:
             gcs_address = address.removeprefix("art://")
             node_address, store_dir = services.find_local_node(gcs_address)
             owned = []
             session_dir = ""
+            dashboard_url = ""
 
         try:
             runtime = cls(role="driver", job_id=job_id,
@@ -351,8 +353,11 @@ class ClusterRuntime(CoreRuntime):
         # looks up (the JAX package takes the argument and uses
         # "default" regardless).
         runtime.namespace = namespace
-        # The port starts no dashboard (ROADMAP queue A item 6.6).
-        runtime.dashboard_url = ""
+        if not dashboard_url:
+            blob = runtime._gcs.call("KVGet", {"key": "dashboard_url"},
+                                     retries=3)
+            dashboard_url = blob.decode() if blob else ""
+        runtime.dashboard_url = dashboard_url
         runtime._gcs.call(
             "RegisterJob",
             {"job_id": job_id, "driver_address": runtime.address},

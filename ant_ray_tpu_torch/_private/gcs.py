@@ -162,6 +162,9 @@ class GcsServer:
         # Heartbeat ingest: beats handled and versioned views applied.
         self._hb_stats = {"beats": 0, "views_applied": 0,
                           "unknown_node": 0}
+        # Health ticks that judged nobody because they woke late
+        # (_health_check_loop).
+        self.health_ticks_deferred = 0
         # Long-pollers currently parked in _sub_poll (subscriber gauge).
         self._sub_pollers = 0
         # io-loop duty cursor: (io_samples, io_idle_samples) at the
@@ -254,9 +257,25 @@ class GcsServer:
         if self._durable:
             self._flush_task = asyncio.run_coroutine_threadsafe(
                 self._location_flush_loop(), self._io.loop)
-        # The JAX package starts its continuous CPU profiler here; the
-        # profiler is ROADMAP queue A item 6.5, so the CpuProfile ring
-        # holds only what other processes publish.
+        # Continuous CPU profiling: the GCS ingests its own records —
+        # the publisher appends straight into the local ring and metric
+        # rollups run through the local handler on the io loop.
+        # Instance profiler, not the module singleton: tests run several
+        # GCS servers in one process.
+        from ant_ray_tpu_torch.observability import cpu_profiler  # noqa: PLC0415
+
+        self._cpu_profiler = None
+        if global_config().cpu_profile_hz > 0:
+            def _publish_profile(record, server=self):
+                server._cpu_profile.append(record)
+
+            def _publish_metric(payload, server=self):
+                asyncio.run_coroutine_threadsafe(
+                    server._metric_record(payload), server._io.loop)
+
+            self._cpu_profiler = cpu_profiler.CpuProfiler(
+                "gcs", publish_fn=_publish_profile,
+                metric_fn=_publish_metric, node_id="gcs").start()
         logger.info("GCS listening on %s", self.address)
         return self.address
 
@@ -486,6 +505,10 @@ class GcsServer:
         that need io-loop turns: the loop may be busy reacting to the
         same cluster teardown (node deaths), and the dying process's
         sockets close with it anyway."""
+        profiler = getattr(self, "_cpu_profiler", None)
+        if profiler is not None:
+            self._cpu_profiler = None
+            profiler.stop(final_publish=False)
         if self._health_task is not None:
             self._health_task.cancel()
         flush_task = getattr(self, "_flush_task", None)
@@ -700,8 +723,8 @@ class GcsServer:
         last call, derived from the always-on CPU profiler's folded
         stacks: an io-thread sample whose leaf is the selector wait is
         idle; anything else is the loop doing work.  None when the
-        profiling plane is off (always, until ROADMAP queue A item 6.5)
-        or no io samples landed yet."""
+        profiling plane is off (``cpu_profile_hz`` 0) or no io samples
+        landed yet."""
         prof = getattr(self, "_cpu_profiler", None)
         if prof is None:
             return None
@@ -830,14 +853,36 @@ class GcsServer:
         return True
 
     async def _health_check_loop(self):
+        """Marks a node dead once its last beat is older than
+        ``heartbeat_period_s * num_heartbeats_timeout``.
+
+        Deliberately unlike the JAX package's loop: a tick that woke
+        more than one period late judges nobody.  Its lateness is this
+        process's own stall (the io loop held elsewhere), and the beats
+        that queued on the sockets meanwhile are read only after this
+        tick yields — judged now, a live node would die of the GCS's
+        stall.  The next tick judges whatever its own timing, so a node
+        whose beats really stopped is still marked dead within the
+        timeout plus two periods."""
         cfg = global_config()
         period = cfg.heartbeat_period_s
         timeout = cfg.heartbeat_period_s * cfg.num_heartbeats_timeout
         self_metrics_every = max(1, int(round(2.0 / period)))
         ticks = 0
+        deferred = False
+        due = time.monotonic() + period
         while True:
-            await asyncio.sleep(period)
+            await asyncio.sleep(max(0.0, due - time.monotonic()))
             ticks += 1
+            late = time.monotonic() - due
+            due = time.monotonic() + period
+            if late > period and not deferred:
+                deferred = True
+                self.health_ticks_deferred += 1
+                logger.warning("health check woke %.2f s late; judging "
+                               "liveness on the next tick", late)
+                continue
+            deferred = False
             if ticks % self_metrics_every == 0:
                 try:  # observability must never stall liveness judging
                     await self._publish_self_metrics()

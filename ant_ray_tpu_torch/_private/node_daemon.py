@@ -18,6 +18,7 @@ import random
 import signal
 import subprocess
 import sys
+import threading
 import time
 import uuid
 from collections import OrderedDict, deque
@@ -230,6 +231,7 @@ class NodeManager:
             "DeleteObject": self._delete_object,
             "ContainsObject": self._contains_object,
             "GetNodeInfo": self._get_node_info,
+            "GetAgentInfo": self._get_agent_info,
             "NotifyDrain": self._notify_drain,
             "DebugResources": self._debug_resources,
             "GetSyncStats": self._get_sync_stats,
@@ -238,9 +240,8 @@ class NodeManager:
             "GetNodeMetrics": self._get_node_metrics,
             "GetFlightRecorder": self._get_flight_recorder,
             "GetTransferStats": self._get_transfer_stats,
-            # Log serving: ROADMAP queue A item 6.6.
-            "ListLogs": self._log_serving_unported,
-            "ReadLog": self._log_serving_unported,
+            "ListLogs": self._list_logs,
+            "ReadLog": self._read_log,
             "Shutdown": self._shutdown_rpc,
         })
         # Sync fast route: the raw reply is written inline (no task
@@ -265,12 +266,13 @@ class NodeManager:
             self._tasks.append(asyncio.run_coroutine_threadsafe(
                 self._log_stream_loop(), self._io.loop))
         self._subreaper_enabled = _enable_subreaper()
-        # The JAX package's daemon also spawns a node agent here and can
-        # place workers in a cgroup2 tree; neither is ported (ROADMAP
-        # queue A item 6.6), and the flags that turn them on are not in
-        # the port's Config.  Nor is its preemption watch, which drains
-        # the node on a maintenance notice: a GPU host has no notice
-        # source the port reads (item 9).
+        self._start_agent()
+        # The JAX package's daemon can also place workers in a cgroup2
+        # tree; cgroups are ROADMAP queue A item 6.6, and the flags that
+        # turn them on are not in the port's Config.  Nor is its
+        # preemption watch, which drains the node on a maintenance
+        # notice: a GPU host has no notice source the port reads (item
+        # 9).
         if global_config().fs_monitor_interval_s > 0:
             self._tasks.append(asyncio.run_coroutine_threadsafe(
                 self._fs_monitor_loop(), self._io.loop))
@@ -304,8 +306,26 @@ class NodeManager:
 
         tracing_plane.set_publisher(_publish_spans)
         tracing_plane.set_metric_recorder(_publish_metric)
-        # The JAX package starts its continuous CPU profiler here; the
-        # profiler is ROADMAP queue A item 6.5.
+        # Continuous CPU profiling: the daemon's sampler ships folded
+        # stacks (and its wire-counter rollups) through the same
+        # oneway-via-io-loop channel as the span publisher above.  An
+        # instance profiler, not the module singleton — tests run
+        # multiple daemons in one process.
+        from ant_ray_tpu_torch.observability import cpu_profiler  # noqa: PLC0415
+
+        self._cpu_profiler = None
+        if global_config().cpu_profile_hz > 0:
+            def _publish_profile(record, manager=self):
+                gcs = manager._clients.get(manager._gcs_address)
+                asyncio.run_coroutine_threadsafe(
+                    gcs.oneway_async("CpuProfileAdd",
+                                     {"records": [record]}),
+                    manager._io.loop)
+
+            self._cpu_profiler = cpu_profiler.CpuProfiler(
+                "daemon", publish_fn=_publish_profile,
+                metric_fn=_publish_metric,
+                node_id=self.node_id.hex()).start()
         logger.info("node %s listening on %s (resources=%s)",
                     self.node_id.hex()[:8], self.address, self._total)
         return self.address
@@ -331,18 +351,24 @@ class NodeManager:
         await gcs.call_async("RegisterNode", self._node_info(), timeout=30)
 
     # ------------------------------------------------------ log monitor
-    # (ref: python/ray/_private/log_monitor.py).  The JAX package's
-    # daemon also serves its session logs over RPC (ListLogs / ReadLog);
-    # log serving is ROADMAP queue A item 6.6, so the port only streams
-    # user lines to the driver.
+    # (ref: python/ray/_private/log_monitor.py + the dashboard log
+    # agent — here the node daemon itself serves its session logs, so
+    # debugging worker N never needs ssh.)
 
     def _logs_dir(self) -> str:
-        return os.path.join(self._session_dir, "logs")
+        from ant_ray_tpu_torch._private import log_serving  # noqa: PLC0415
 
-    async def _log_serving_unported(self, _payload):
-        raise NotImplementedError(
-            "log serving (ListLogs / ReadLog) is not ported (ROADMAP queue "
-            "A item 6.6); the logs are files under the session directory")
+        return log_serving.logs_dir(self._session_dir)
+
+    async def _list_logs(self, _payload):
+        from ant_ray_tpu_torch._private import log_serving  # noqa: PLC0415
+
+        return log_serving.list_logs(self._session_dir)
+
+    async def _read_log(self, payload):
+        from ant_ray_tpu_torch._private import log_serving  # noqa: PLC0415
+
+        return log_serving.read_log(self._session_dir, payload)
 
     async def _log_stream_loop(self):
         """Tail worker logs and fan new USER lines out to drivers via
@@ -430,6 +456,12 @@ class NodeManager:
                          "entries": entries}, timeout=10)
                 except Exception:  # noqa: BLE001 — head restarting
                     pass
+
+    async def _get_agent_info(self, _payload):
+        proc = getattr(self, "_agent_proc", None)
+        return {"address": getattr(self, "_agent_address", None),
+                "alive": proc is not None and proc.poll() is None,
+                "restarts": getattr(self, "_agent_restarts", 0)}
 
     async def _get_node_info(self, _payload):
         return self._node_info()
@@ -708,6 +740,10 @@ class NodeManager:
 
     def stop(self):
         self._stopping = True
+        profiler = getattr(self, "_cpu_profiler", None)
+        if profiler is not None:
+            self._cpu_profiler = None
+            profiler.stop(final_publish=False)
         for t in self._tasks:
             t.cancel()
         # Destroy the store first: everything after can take seconds and
@@ -728,6 +764,9 @@ class NodeManager:
                 handle.proc.wait(timeout=remaining)
             except subprocess.TimeoutExpired:
                 handle.proc.kill()
+        agent = getattr(self, "_agent_proc", None)
+        if agent is not None and agent.poll() is None:
+            agent.terminate()
         self._clients.close_all()
 
     async def _shutdown_rpc(self, _payload):
@@ -790,6 +829,7 @@ class NodeManager:
         while not self._stopping:
             await asyncio.sleep(0.1)
             now = time.monotonic()
+            self._supervise_agent()
             if self._subreaper_enabled and now - last_orphan_sweep > 2.0:
                 last_orphan_sweep = now
                 self._reap_orphans()
@@ -826,6 +866,11 @@ class NodeManager:
         session that aren't known workers are orphans (ref:
         src/ray/util/subreaper.h kill-unknown-children policy)."""
         known = {h.proc.pid for h in self._workers.values()}
+        agent = getattr(self, "_agent_proc", None)
+        if agent is not None:
+            # The node agent is a daemon child in its own session — the
+            # foreign-session heuristic would reap it every sweep.
+            known.add(agent.pid)
         my_pid = os.getpid()
         try:
             my_sid = os.getsid(0)
@@ -1030,6 +1075,66 @@ class NodeManager:
         self._vc_cache[job_id] = (
             allowed, now + global_config().vc_fence_ttl_s)
         return allowed
+
+    # ---------------------------------------------------- agent manager
+    # (ref: src/ray/raylet/agent_manager.h — the raylet spawns and
+    #  supervises per-node agent processes)
+
+    def _start_agent(self) -> None:
+        if not global_config().enable_node_agent:
+            return
+        from ant_ray_tpu_torch._private import services  # noqa: PLC0415
+
+        os.makedirs(os.path.join(self._session_dir, "logs"),
+                    exist_ok=True)
+        agent_env = services._child_env()
+        # The agent tags its published device gauges with the node id
+        # (per-node series identity + death-time expiry in the GCS).
+        agent_env["ART_NODE_ID"] = self.node_id.hex()
+        self._agent_proc = subprocess.Popen(
+            [sys.executable, "-m", "ant_ray_tpu_torch._private.node_agent",
+             "--session-dir", self._session_dir,
+             "--gcs-address", self._gcs_address,
+             "--monitor-pid", str(os.getpid())],
+            stdout=subprocess.PIPE,
+            stderr=open(os.path.join(self._session_dir, "logs",
+                                     "agent.err"), "ab"),
+            env=agent_env, start_new_session=True)
+        self._agent_address = None
+
+        def _wait_ready(proc=self._agent_proc):
+            # Off-thread READY wait: daemon boot never blocks on the
+            # agent.
+            try:
+                for line in proc.stdout:
+                    text = line.decode(errors="replace").strip()
+                    if text.startswith("AGENT_READY"):
+                        if self._agent_proc is proc:
+                            self._agent_address = text.split(" ", 1)[1]
+                        return
+            except Exception:  # noqa: BLE001
+                pass
+
+        threading.Thread(target=_wait_ready, daemon=True).start()
+
+    def _supervise_agent(self) -> None:
+        """Restart a dead agent (called from the worker-monitor loop)
+        with a simple backoff."""
+        proc = getattr(self, "_agent_proc", None)
+        if proc is None or proc.poll() is None:
+            return
+        now = time.monotonic()
+        if now < getattr(self, "_agent_backoff_until", 0.0):
+            return
+        self._agent_backoff_until = now + min(
+            2.0 * (getattr(self, "_agent_restarts", 0) + 1), 30.0)
+        self._agent_restarts = getattr(self, "_agent_restarts", 0) + 1
+        # Clear the dead address NOW — during the backoff window a
+        # caller would otherwise dial it first and pay a failed connect.
+        self._agent_address = None
+        logger.warning("node agent died (exit %s); restarting",
+                       proc.returncode)
+        self._start_agent()
 
     def _idle_worker(self) -> WorkerHandle | None:
         for handle in self._workers.values():

@@ -1,8 +1,9 @@
 """Cluster process bootstrap (ref: python/ray/_private/services.py +
 node.py — start/stop of gcs_server, raylet, workers).
 
-The port starts the GCS and one node daemon, both its own modules; it
-starts no dashboard (ROADMAP queue A item 6.6).  The JAX package also
+The port starts the GCS, one node daemon and, where
+``include_dashboard`` is on and aiohttp is installed, the dashboard, all
+its own modules (the daemon starts the node agent).  The JAX package also
 stashes a TPU-plugin trigger from the daemons' environment and restores
 it for workers (``control_plane_env`` / ``accelerator_env``); nothing in
 the port's site configuration imports an accelerator library at
@@ -11,7 +12,9 @@ environment as it is."""
 
 from __future__ import annotations
 
+import importlib.util
 import json
+import logging
 import os
 import shutil
 import subprocess
@@ -21,6 +24,8 @@ import time
 import uuid
 
 from ant_ray_tpu_torch._private.protocol import ClientPool, find_free_port
+
+logger = logging.getLogger(__name__)
 
 _READY_TIMEOUT_S = 30.0
 
@@ -139,12 +144,29 @@ def remove_session_dir(session_dir: str) -> None:
         shutil.rmtree(session_dir, ignore_errors=True)
 
 
+def start_dashboard(gcs_address: str, session_dir: str
+                    ) -> tuple[subprocess.Popen, str]:
+    """Start the dashboard (its log in the session's ``dash.err``)."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ant_ray_tpu_torch._private.dashboard",
+         "--gcs-address", gcs_address,
+         "--monitor-pid", str(os.getpid())],
+        stdout=subprocess.PIPE, stderr=_log_file(session_dir, "dash.err"),
+        env=_child_env(), start_new_session=True)
+    url = _wait_ready(proc, "DASH_READY")
+    return proc, url
+
+
 def start_cluster(num_cpus: int | None = None, num_tpus: int | None = None,
                   resources: dict | None = None,
                   num_gpus: int | None = None) -> dict:
-    """Start head (GCS) + one node daemon; returns addresses + procs."""
+    """Start head (GCS) + one node daemon (+ the dashboard where
+    ``include_dashboard`` is on); returns addresses + procs."""
+    from ant_ray_tpu_torch._private.config import global_config  # noqa: PLC0415
+
     session_dir = new_session_dir()
     procs = []
+    dashboard_url = ""
     try:
         gcs_proc, gcs_address = start_gcs(session_dir)
         procs.append(gcs_proc)
@@ -153,6 +175,27 @@ def start_cluster(num_cpus: int | None = None, num_tpus: int | None = None,
             default_resources(num_cpus, num_tpus, resources, num_gpus),
             session_dir)
         procs.insert(0, node_proc)
+        want_dashboard = global_config().include_dashboard
+        if want_dashboard and importlib.util.find_spec("aiohttp") is None:
+            logger.warning("aiohttp not installed; dashboard (state API, "
+                           "/metrics) disabled")
+            want_dashboard = False
+        if want_dashboard:
+            try:
+                dash_proc, dashboard_url = start_dashboard(
+                    gcs_address, session_dir)
+            except Exception as e:  # noqa: BLE001 — dashboard is optional
+                logger.warning("dashboard failed to start: %s", e)
+            else:
+                procs.insert(0, dash_proc)
+                # Published for drivers that join later.
+                pool = ClientPool()
+                try:
+                    pool.get(gcs_address).call("KVPut", {
+                        "key": "dashboard_url",
+                        "value": dashboard_url.encode()}, retries=3)
+                finally:
+                    pool.close_all()
     except Exception:
         stop_processes(procs)
         remove_session_dir(session_dir)
@@ -164,6 +207,7 @@ def start_cluster(num_cpus: int | None = None, num_tpus: int | None = None,
         "store_dir": store_dir,
         "session_dir": session_dir,
         "processes": procs,
+        "dashboard_url": dashboard_url,
     }
 
 

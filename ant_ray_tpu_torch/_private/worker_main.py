@@ -476,8 +476,11 @@ def main():  # pragma: no cover — exercised via subprocess in tests
     global_worker.runtime = runtime
     global_worker.mode = CLUSTER_MODE
 
-    # The JAX package starts its continuous CPU profiler here (ROADMAP
-    # queue A item 6.5).
+    # Continuous CPU profiling: workers use the module singleton with
+    # the default runtime-oneway publisher (global_worker is bound now).
+    from ant_ray_tpu_torch.observability import cpu_profiler  # noqa: PLC0415
+
+    cpu_profiler.start("worker")
 
     executor = TaskExecutor(runtime)
     io = IoThread.get()

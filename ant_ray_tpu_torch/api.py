@@ -126,8 +126,16 @@ def init(
         _restore_config_env()
         raise
     global_worker.mode = CLUSTER_MODE
+    # Continuous CPU profiling of the driver itself (submission-path
+    # attribution: serialize vs frame-encode vs task_events vs io-loop
+    # — the item the `profile --diff` A/B tool exists for).
+    from ant_ray_tpu_torch.observability import cpu_profiler  # noqa: PLC0415
+
+    cpu_profiler.start("driver")
     _register_atexit_once()
-    return ClientContext(CLUSTER_MODE)
+    return ClientContext(
+        CLUSTER_MODE,
+        dashboard_url=getattr(global_worker.runtime, "dashboard_url", ""))
 
 
 _atexit_registered = False
@@ -173,11 +181,13 @@ class ClientContext:
 
 def shutdown() -> None:
     from ant_ray_tpu_torch._private import task_events  # noqa: PLC0415
+    from ant_ray_tpu_torch.observability import cpu_profiler  # noqa: PLC0415
 
     try:
         task_events.flush()  # drain before the runtime goes away
     except Exception:  # noqa: BLE001 — observability must not block
         pass             # the disconnect (events are best-effort)
+    cpu_profiler.stop()  # idempotent; final publish rides the runtime
     global_worker.shutdown()
     _restore_config_env()
 

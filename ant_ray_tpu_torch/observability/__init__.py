@@ -2,12 +2,15 @@
 counterpart of ant_ray_tpu.observability): the per-step phase profiler
 (``StepProfiler``, whose records publish to the GCS step-events table),
 per-card memory statistics and their gauge series
-(``device_memory_stats``, ``device_stats_gauges``) and the request-level
-tracing plane (``tracing_plane``, ``TraceContext``, ``FlightRecorder``).
+(``device_memory_stats``, ``device_stats_gauges``), the request-level
+tracing plane (``tracing_plane``, ``TraceContext``, ``FlightRecorder``)
+and the continuous CPU profiler every process class runs
+(``cpu_profiler``, a submodule outside ``__all__``, as in the JAX
+package).
 
 Exports are loaded on first use: the GCS and the node daemon import
-``tracing_plane`` from here and must never load torch, which the
-profiler and the memory statistics import."""
+``tracing_plane`` and ``cpu_profiler`` from here and must never load
+torch, which the step profiler and the memory statistics import."""
 
 from __future__ import annotations
 
@@ -26,9 +29,9 @@ __all__ = sorted([*_EXPORTS, "tracing_plane"])
 
 
 def __getattr__(name: str):
-    if name == "tracing_plane":
+    if name in ("cpu_profiler", "tracing_plane"):
         return importlib.import_module(
-            "ant_ray_tpu_torch.observability.tracing_plane")
+            f"ant_ray_tpu_torch.observability.{name}")
     module = _EXPORTS.get(name)
     if module is None:
         raise AttributeError(

@@ -29,7 +29,7 @@ reads a TPU table); on the CPU or an unlisted card MFU stays None, as in
 the reference off a TPU.
 
 Not in the port yet (ROADMAP.md): the attached stats streams of a device
-feed and of collective fusion (queue A items 6.5 and 7), and the train
+feed and of collective fusion (queue A item 7), and the train
 session's rank (records carry rank 0).
 """
 

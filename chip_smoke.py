@@ -246,16 +246,16 @@ final line is printed:
 12b. Data and batch inference on the card (``init(num_cpus=4)``):
    build_llm_processor("llama3-8b", concurrency=2, slots=8,
    max_seq=4096, device="cuda") generates 16 greedy tokens for each of
-   64 rows of 128-1500 token ids (default_rng(18)) from
+   32 rows of 128-1500 token ids (default_rng(18)) from
    data.from_items(rows, parallelism=8), its two engine actors each in
    a worker process; then, with the actors killed,
    build_logprob_processor("llama3-8b", batch_size=8, max_len=1024)
    scores 64 rows of 1024 token ids in the driver through the device
    feed, with prefetch_batches 2 and 0; then random_shuffle, sort and
    groupby().count() of 1,000,000 list-block ints in 16 blocks, which
-   must load no pyarrow in the driver.  Gates: 64 rows back in order with
+   must load no pyarrow in the driver.  Gates: 32 rows back in order with
    their keys and "generated_text"; each actor 32 sm90 forward launches
-   per prefill (2048 together) and nothing else; the feed's card
+   per prefill (1024 together) and nothing else; the feed's card
    batches bitwise the collated host batches; NLL per row equal at
    both settings and within DATA_NLL_TOL of reference attention on the
    same weights; no flash launch while scoring (1023 tokens: blockwise,
@@ -268,6 +268,29 @@ final line is printed:
    "data table" (seconds and rows/s per operation), "data generation"
    (rows/s, generated tokens/s) and one "data" JSON line.  Its
    launches are the kernels line's "data" path.
+12c. The operator's surface on the card (``init(num_cpus=4)`` with
+   the dashboard, a node agent publishing the card's memory every 2 s
+   and the CPU profiler at 67 Hz in every process): a placement group
+   [{"CPU": 1, "GPU": 1}] (STRICT_PACK) holds one num_gpus=1 actor with
+   LLMEngine("llama3-8b", slots=4, max_seq=2048) in its bundle, which
+   generates 16 greedy tokens for 4 prompts of 256-1024 token ids
+   (default_rng(19)) while POST /api/profile captures a 2-s trace.
+   Gates, each on an "operations gate" line: 32 sm90 forward launches
+   per prefill in the actor's process and nothing else; the group
+   CREATED on the node, the GPU taken while the actor lives and free
+   after the kill and the group's removal; the actor ALIVE in the state
+   API and its worker's log listed and read; the agent's
+   art_device_hbm_bytes_in_use >= 16.06e9 in /metrics, within 1 GiB of
+   nvidia-smi's memory.used; CPU profiles of the driver, the GCS, the
+   daemon, the worker and the agent (the engine's frames in the
+   worker's), through /api/cpuprofile and the CLI, each profiler's mean
+   cost per sample under 300 µs in the driver and the worker; the trace
+   archive listed, served and holding a Chrome trace; the CLI's status
+   and placement groups; nothing left after shutdown; the actor's token
+   ids equal to a driver engine's.  Prints "operations io loops" (the
+   GCS's and the daemon's io threads while the actor started) and one
+   "operations" JSON line.  Its launches are the kernels line's
+   "operations" path.
 13. Serving from a checkpoint directory: llama-400m at its published
    widths and depth (bf16, seed 0) written to a temporary directory of
    this checkout in the HF layout twice, as model.safetensors (a writer
@@ -2433,6 +2456,11 @@ def runtime_phase(torch, fa, llama, params):
 
 
 # Cluster phase: the runtime's processes on the card.
+# The operator's processes (the dashboard, a node agent per node) start
+# with every cluster by default, as in the JAX package; the cluster
+# phases before the operations phase turn both off, so that their
+# process, card-memory and timing gates see only the runtime's own.
+QUIET = {"include_dashboard": False, "enable_node_agent": False}
 CLUSTER_SLAB_REPS = 5           # warm round trips of the slab after the first
 CLUSTER_FREE_SLACK = 1 << 30    # card memory a killed actor may leave behind
 CLUSTER_FREE_WAIT_S = 30.0      # ... within this long
@@ -2575,8 +2603,8 @@ def cluster_phase(torch, fa, llama, params, engine, card):
     out = {"card": card, "model": "llama3-8b"}
     shm = os.statvfs("/dev/shm")
     out["dev_shm_bytes"] = shm.f_blocks * shm.f_frsize
-    t0 = time.perf_counter()
-    ctx = art.init(num_cpus=4)
+    t0, t_init = time.perf_counter(), time.time()
+    ctx = art.init(num_cpus=4, _system_config=QUIET)
     out["init_s"] = round(time.perf_counter() - t0, 3)
     runtime = global_worker.runtime
     session_dir, store_dir = runtime.session_dir, runtime.store_dir
@@ -2594,10 +2622,13 @@ def cluster_phase(torch, fa, llama, params, engine, card):
 
         # Step 2: the engine in a worker process.
         free_before = card_free()
-        t0 = time.perf_counter()
+        t0, since = time.perf_counter(), time.time()
         actor = EngineWorker.remote()
         sums = art.get(actor.checksums.remote(), timeout=900)
         out["actor_start_s"] = round(time.perf_counter() - t0, 3)
+        # What the GCS's and the daemon's io loops did meanwhile (ROADMAP
+        # §C: a node marked dead while an 8B actor started).
+        out["io_loops_at_actor_start"] = _io_loops(runtime._gcs, since)
         want_sums = _leaf_checksums(torch, params)
         out["weights_checksums_equal"] = sums == want_sums
         if sums != want_sums:
@@ -2743,10 +2774,16 @@ def cluster_phase(torch, fa, llama, params, engine, card):
         workers.update(c for d in daemons for c in _child_pids(d))
     except BaseException:
         _print_worker_logs(session_dir)
+        try:
+            out["io_loops_since_init"] = _io_loops(runtime._gcs, t_init)
+        except Exception as e:  # noqa: BLE001 — the GCS may be gone
+            out["io_loops_since_init"] = repr(e)
+        out["gcs_deferred_ticks"] = _deferred_ticks(session_dir)
         print("cluster (failed) " + json.dumps(out, default=str), flush=True)
         art.shutdown()
         raise
     # Step 7: shutdown leaves nothing behind.
+    deferred = _deferred_ticks(session_dir)
     t0 = time.perf_counter()
     art.shutdown()
     pids = daemons + sorted(workers)
@@ -2759,6 +2796,7 @@ def cluster_phase(torch, fa, llama, params, engine, card):
     out["session_dir_left"] = os.path.exists(session_dir)
     out["arena_left"] = os.path.exists(store_dir)
     out["launches"] = launches
+    out["gcs_deferred_ticks"] = deferred
     print("cluster " + json.dumps(out), flush=True)
     if out["left_alive"] or out["session_dir_left"] or out["arena_left"]:
         raise AssertionError("shutdown left a process, the session "
@@ -2951,7 +2989,7 @@ def tracing_phase(torch, llama, card):
     # Spans recorded before the cluster (none are sampled by the earlier
     # phases, but a 1-in-100 head-sampled call may be) are dropped here.
     tracing_plane.flush()
-    art.init(num_cpus=2)
+    art.init(num_cpus=2, _system_config=QUIET)
     runtime = global_worker.runtime
     session_dir, store_dir = runtime.session_dir, runtime.store_dir
     daemons = [p.pid for p in runtime._owned_processes]
@@ -3328,7 +3366,7 @@ def deployment_phase(torch, llama, card):
     # Every call of the phase runs under an unsampled trace context: a
     # call without one is head-sampled (trace_sample_rate).
     scope = tracing_plane.set_current(tracing_plane.mint(sampled=False))
-    art.init(num_cpus=4)
+    art.init(num_cpus=4, _system_config=QUIET)
     runtime = global_worker.runtime
     session_dir, store_dir = runtime.session_dir, runtime.store_dir
     daemons = [p.pid for p in runtime._owned_processes]
@@ -3650,7 +3688,7 @@ def _gate_nothing_left(out):
                              "directory, the arena or card memory behind")
 
 
-DATA_ROWS = 64                  # prompts through build_llm_processor
+DATA_ROWS = 32                  # prompts through build_llm_processor
 DATA_PROMPT_LENS = (128, 1500)  # their lengths, drawn from default_rng(18)
 DATA_TOKENS = 16                # new tokens per prompt (greedy)
 DATA_BLOCKS = 8                 # from_items(rows, parallelism=...)
@@ -3710,14 +3748,14 @@ def data_phase(torch, llama, card, readings=False):
     """Data and batch inference on the card (``init(num_cpus=4)``).
 
     (a) build_llm_processor("llama3-8b", concurrency=2, slots=8,
-    max_seq=4096, device="cuda") over from_items of 64 rows {"id",
+    max_seq=4096, device="cuda") over from_items of 32 rows {"id",
     "prompt": token ids of 128-1500, default_rng(18)} in 8 blocks, 16
     greedy tokens each: two actors, each its own engine (random weights
-    from seed 0) in its own worker process.  Gates: 64 rows back in
+    from seed 0) in its own worker process.  Gates: 32 rows back in
     order, each with its keys unchanged and "generated_text" added; each
     actor launched the sm90 forward 32 times per bucketed prefill it ran
     (all of them: every prompt is 128 tokens or more) and nothing else,
-    2048 between the two; the actors' generated token ids (llm/batch.py
+    1024 between the two; the actors' generated token ids (llm/batch.py
     ``_token_ids``) are read back block by block.  (b) With the actors
     killed and the card's memory back,
     build_logprob_processor("llama3-8b", batch_size=8,
@@ -3773,7 +3811,7 @@ def data_phase(torch, llama, card, readings=False):
     torch.cuda.empty_cache()
     free_before = torch.cuda.mem_get_info()[0]
     scope = tracing_plane.set_current(tracing_plane.mint(sampled=False))
-    art.init(num_cpus=4)
+    art.init(num_cpus=4, _system_config=QUIET)
     runtime = global_worker.runtime
     session_dir, store_dir = runtime.session_dir, runtime.store_dir
     daemons = [p.pid for p in runtime._owned_processes]
@@ -4069,6 +4107,397 @@ def data_phase(torch, llama, card, readings=False):
         diff = [i for i, (o, r, t) in enumerate(zip(direct, got, ids))
                 if list(o.token_ids) != t or o.text != r["generated_text"]]
         raise AssertionError(f"rows {diff} differ from the driver's engine")
+    return launches
+
+
+OPS_CONFIG = {"include_dashboard": True, "enable_node_agent": True,
+              "device_stats_interval_s": 2.0}
+OPS_ENGINE = dict(slots=4, max_seq=2048)
+OPS_PROMPT_LENS = (256, 1024)   # 4 prompts, lengths from default_rng(19)
+OPS_PROMPTS = 4
+OPS_TOKENS = 16                 # new tokens per prompt (greedy)
+OPS_PROFILE_S = 2.0             # POST /api/profile's duration
+OPS_WEIGHT_BYTES = 16.06e9      # Llama-3-8B's bf16 weights
+OPS_SMI_SLACK = 1 << 30         # the agent's gauge against nvidia-smi
+OPS_SAMPLE_COST_S = 300e-6      # the reference's per-sample bound
+OPS_PROCS = ("driver", "gcs", "daemon", "worker", "agent")
+OPS_WAIT_S = 60.0               # for gauges and profiles to reach the GCS
+
+
+def _io_loops(gcs, since_ts):
+    """What the GCS's and the node daemon's io loops did since
+    ``since_ts``, from the CPU profiler's ring: per process class the io
+    thread's samples, its busy share (samples whose leaf is not the
+    selector's wait), the busiest publish window's share, and its three
+    heaviest busy stacks (their last four frames)."""
+    records = gcs.call("CpuProfileGet", {"since_ts": since_ts},
+                       timeout=30) or []
+    out = {}
+    for proc in ("gcs", "daemon"):
+        total = busy = 0
+        worst = 0.0
+        stacks = {}
+        for record in records:
+            if record.get("proc") != proc:
+                continue
+            r_total = r_busy = 0
+            for key, n in record["stacks"].items():
+                parts = key.split(";")
+                if len(parts) < 3 or parts[1] != "art-io":
+                    continue
+                r_total += n
+                if ":select" in parts[-1] or ":poll" in parts[-1]:
+                    continue
+                r_busy += n
+                tail = ";".join(parts[-4:])
+                stacks[tail] = stacks.get(tail, 0) + n
+            total, busy = total + r_total, busy + r_busy
+            if r_total:
+                worst = max(worst, r_busy / r_total)
+        out[proc] = {"io_samples": total,
+                     "busy_share": round(busy / total, 4) if total else None,
+                     "worst_window_busy_share": round(worst, 4),
+                     "top_busy": sorted(stacks.items(),
+                                        key=lambda kv: -kv[1])[:3]}
+    return out
+
+
+def _deferred_ticks(session_dir):
+    """Health ticks the GCS deferred because they woke late (its
+    warnings in gcs.err)."""
+    path = os.path.join(session_dir, "logs", "gcs.err")
+    try:
+        with open(path, errors="replace") as f:
+            return sum("judging liveness on the next tick" in line
+                       for line in f)
+    except OSError:
+        return None
+
+
+def _metric_values(text, name):
+    """{labels: value} of one series family in Prometheus text."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(name + "{"):
+            labels, value = line[len(name):].rsplit(" ", 1)
+            out[labels] = float(value)
+    return out
+
+
+def operations_phase(torch, llama, card):
+    """The operator's surface on the card (``init(num_cpus=4,
+    _system_config=OPS_CONFIG)``: the dashboard, a node agent publishing
+    the card's memory every 2 s, the CPU profiler at its default 67 Hz
+    in every process).  A placement group ``[{"CPU": 1, "GPU": 1}]``
+    (STRICT_PACK) holds one ``num_gpus=1`` actor with
+    ``LLMEngine("llama3-8b", slots=4, max_seq=2048)`` (random weights
+    from seed 0) in bundle 0; it generates 16 greedy tokens for 4 prompts
+    of 256-1024 token ids (default_rng(19)) while ``POST /api/profile
+    {"duration_s": 2}`` captures the agent's trace.  Gates, each printed:
+    the actor's 32 sm90 forward launches per bucketed prefill and
+    nothing else (counted in its process); the group CREATED with its
+    bundle on the node, ``/api/cluster_status`` GPU 1 total and 0 free
+    while the actor lives and 1 free after the kill and the group's
+    removal; ``list_actors`` shows the actor ALIVE at the address of a
+    worker whose log ``list_logs`` names and ``get_log`` reads;
+    ``/metrics`` carries the agent's ``art_device_hbm_bytes_in_use`` of
+    the card at 16.06e9 or more, at most its limit and within 1 GiB of
+    nvidia-smi's memory.used; ``/api/cpuprofile`` and ``python -m
+    ant_ray_tpu_torch profile --json`` hold records of the driver, the
+    GCS, the daemon, the worker and the agent, with the engine's or the
+    model's frames in the worker's stacks, and the profiler's mean cost
+    per sample under 300 µs in the driver and in the worker; the trace
+    archive is listed and served by the log routes and holds a Chrome
+    trace; ``status`` and ``list placement-groups`` through the CLI name
+    the node, the GPU and the group.  After shutdown nothing is left and
+    the card's memory is back; then one LLMEngine of the same shape in
+    the driver must generate the actor's token ids row by row.  Also
+    printed: the GCS's and the daemon's io loops while the actor
+    started.  Returns the actor's launches."""
+    import tarfile  # noqa: PLC0415
+    import urllib.request  # noqa: PLC0415
+
+    import ant_ray_tpu_torch as art  # noqa: PLC0415
+    from ant_ray_tpu_torch._private.worker import global_worker  # noqa: PLC0415
+    from ant_ray_tpu_torch.llm import LLMEngine, SamplingParams  # noqa: PLC0415
+    from ant_ray_tpu_torch.llm.engine import _bucket  # noqa: PLC0415
+    from ant_ray_tpu_torch.observability import cpu_profiler  # noqa: PLC0415
+    from ant_ray_tpu_torch.observability import tracing_plane  # noqa: PLC0415
+    from ant_ray_tpu_torch.util import state  # noqa: PLC0415
+    from ant_ray_tpu_torch.util.placement_group import (  # noqa: PLC0415
+        placement_group, placement_group_table, remove_placement_group)
+
+    cfg = llama.CONFIGS["llama3-8b"]
+    rng = np.random.default_rng(19)
+    lens = rng.integers(OPS_PROMPT_LENS[0], OPS_PROMPT_LENS[1] + 1,
+                        OPS_PROMPTS)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in lens]
+    greedy = SamplingParams(max_tokens=OPS_TOKENS)
+    want_launches = cfg.n_layers * sum(
+        _bucket(int(n), OPS_ENGINE["max_seq"]) >= 128 for n in lens)
+
+    @art.remote(num_gpus=1)
+    class OpsEngine:
+        def __init__(self):
+            self.engine = LLMEngine("llama3-8b", seed=0, **OPS_ENGINE)
+            torch.cuda.synchronize()
+            print("operations actor ready", flush=True)
+
+        def where(self):
+            return os.getpid(), os.environ["ART_WORKER_ID"]
+
+        def generate(self, rows):
+            from ant_ray_tpu_torch.ops import flash_attention  # noqa: PLC0415
+
+            _reset_counts(flash_attention)
+            outs = self.engine.generate(rows, greedy)
+            torch.cuda.synchronize()
+            return [list(o.token_ids) for o in outs]
+
+        def _launches(self):
+            from ant_ray_tpu_torch.ops import flash_attention  # noqa: PLC0415
+
+            return _counts(flash_attention)
+
+        def _profiler_cost(self):
+            return cpu_profiler.profiler().overhead_stats()
+
+    def get(url):
+        with urllib.request.urlopen(url, timeout=120) as resp:
+            return resp.read().decode()
+
+    def cli(*args):
+        env = dict(os.environ, ART_ADDRESS=runtime.gcs_address)
+        proc = subprocess.run(
+            [sys.executable, "-m", "ant_ray_tpu_torch", "--json", *args],
+            capture_output=True, text=True, env=env, timeout=300,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        if proc.returncode != 0:
+            raise AssertionError(f"CLI {args} exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        return json.loads(proc.stdout)
+
+    def gate(name, ok, detail):
+        out["gates"][name] = bool(ok)
+        print(f"operations gate {name} ({card}): "
+              f"{'held' if ok else 'FAILED'}: {json.dumps(detail, default=str)}",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"operations gate {name} failed: {detail}")
+
+    gib = 1 << 30
+    out = {"card": card, "model": "llama3-8b", "gates": {},
+           "prompt_lens": [int(n) for n in lens]}
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free_before = torch.cuda.mem_get_info()[0]
+    scope = tracing_plane.set_current(tracing_plane.mint(sampled=False))
+    ctx = art.init(num_cpus=4, _system_config=OPS_CONFIG)
+    runtime = global_worker.runtime
+    session_dir, store_dir = runtime.session_dir, runtime.store_dir
+    owned = [p.pid for p in runtime._owned_processes]
+    url = ctx.dashboard_url
+    workers = set()
+    try:
+        if not url:
+            raise AssertionError("the dashboard did not start")
+        node_id = state.list_nodes()[0].node_id
+        status = json.loads(get(url + "/api/cluster_status"))
+        out["resources_total"] = status["resources_total"]
+
+        # The placement group and the actor in its bundle.
+        pg = placement_group([{"CPU": 1, "GPU": 1}], strategy="STRICT_PACK")
+        if not pg.ready(timeout=60):
+            raise AssertionError("the placement group was never created")
+        table = placement_group_table()
+        entry = table.get(pg.id.hex(), {})
+        bundle_node = pg.bundle_node(0)
+        since = time.time()
+        t0 = time.perf_counter()
+        actor = OpsEngine.options(placement_group=pg,
+                                  placement_group_bundle_index=0).remote()
+        pid, worker_id = art.get(actor.where.remote(), timeout=900)
+        out["actor_start_s"] = round(time.perf_counter() - t0, 3)
+        workers.update(c for d in owned for c in _child_pids(d))
+        status_live = json.loads(get(url + "/api/cluster_status"))
+        gate("placement_group",
+             entry.get("state") == "CREATED"
+             and entry.get("bundles") == [{"CPU": 1, "GPU": 1}]
+             and bundle_node in (node_id, runtime.node_address)
+             and status_live["resources_total"].get("GPU") == 1.0
+             and status_live["resources_available"].get("GPU") == 0.0,
+             {"entry": entry, "bundle_node": bundle_node,
+              "node_id": node_id, "status": status_live})
+
+        # The work, with a trace captured while it runs.
+        ref = actor.generate.remote(prompts)
+        t0 = time.perf_counter()
+        profile = json.loads(_http_post(
+            int(url.rsplit(":", 1)[1]), "/api/profile",
+            {"duration_s": OPS_PROFILE_S})[2])
+        out["profile_call_s"] = round(time.perf_counter() - t0, 3)
+        out["generating_when_the_trace_ended"] = not art.wait(
+            [ref], timeout=0)[0]
+        tokens = art.get(ref, timeout=900)
+        out["generate_s"] = round(time.perf_counter() - t0, 3)
+        launches = _actor_call(art, actor, "_launches")
+        gate("launches", launches == {**dict.fromkeys(launches, 0),
+                                      "fwd": want_launches,
+                                      "fwd_sm90": want_launches},
+             {"launches": launches, "want_fwd_sm90": want_launches})
+
+        # State: the actor, its worker's log.
+        actors = [a for a in state.list_actors()
+                  if a.class_name == "OpsEngine"]
+        logs = state.list_logs()
+        log_name = f"worker-{worker_id[:8]}.log"
+        tail = state.get_log(log_name, tail=4096)
+        gate("state",
+             len(actors) == 1 and actors[0].state == "ALIVE"
+             and actors[0].node_id == node_id and pid in workers
+             and log_name in [f["filename"] for f in logs["files"]]
+             and "operations actor ready" in tail,
+             {"actor": actors and dataclasses.asdict(actors[0]),
+              "pid": pid, "log": log_name, "tail": tail[-200:]})
+
+        # The agent's card gauges against nvidia-smi.
+        deadline = time.monotonic() + OPS_WAIT_S
+        while True:
+            text = get(url + "/metrics")
+            in_use = _metric_values(text, "art_device_hbm_bytes_in_use")
+            limit = _metric_values(text, "art_device_hbm_bytes_limit")
+            used_mib = subprocess.run(
+                ["nvidia-smi", "--query-gpu=memory.used",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True, check=True, timeout=60).stdout.split()[0]
+            smi = float(used_mib) * (1 << 20)
+            reading = max(in_use.values(), default=0.0)
+            if (reading >= OPS_WEIGHT_BYTES and abs(reading - smi)
+                    <= OPS_SMI_SLACK) or time.monotonic() > deadline:
+                break
+            time.sleep(1.0)
+        out["device_gauges"] = {"in_use": in_use, "limit": limit,
+                                "nvidia_smi_used_bytes": smi}
+        gate("device_gauges",
+             len(in_use) == 1 and 'device="cuda:0"' in next(iter(in_use))
+             and reading >= OPS_WEIGHT_BYTES
+             and reading <= max(limit.values(), default=0.0)
+             and abs(reading - smi) <= OPS_SMI_SLACK,
+             out["device_gauges"])
+
+        # CPU profiles of every process class.
+        deadline = time.monotonic() + OPS_WAIT_S
+        while True:
+            prof = json.loads(get(url + "/api/cpuprofile"))
+            worker_frames = sorted({
+                f for key in prof["stacks"] if key.startswith("worker;")
+                for f in ("engine:generate", "llama:forward")
+                if f in key.split(";")})
+            if (set(OPS_PROCS) <= set(prof["procs"]) and worker_frames) \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(1.0)
+        capture = cli("profile", "--duration", "3")
+        costs = {"driver": cpu_profiler.profiler().overhead_stats(),
+                 "worker": _actor_call(art, actor, "_profiler_cost")}
+        out["cpu_profile"] = {
+            "procs": prof["procs"], "records": prof["records"],
+            "samples": prof["samples"], "worker_frames": worker_frames,
+            "cli_procs": capture["procs"], "cli_samples":
+            capture["samples"], "sample_cost_s": {
+                k: v["avg_sample_cost_s"] for k, v in costs.items()},
+            "overhead_fraction": {
+                k: v["overhead_fraction"] for k, v in costs.items()}}
+        gate("cpu_profile",
+             set(OPS_PROCS) <= set(prof["procs"])
+             and set(OPS_PROCS) <= set(capture["procs"])
+             and worker_frames
+             and all(v["avg_sample_cost_s"] < OPS_SAMPLE_COST_S
+                     for v in costs.values()),
+             out["cpu_profile"])
+
+        # The trace archive through the log routes.
+        archive = profile.get("archive", "")
+        listed = [f["filename"] for n in json.loads(get(url + "/api/logs"))
+                  for f in n["files"]]
+        served = json.loads(get(url + f"/api/logs/{archive}")) \
+            if archive else {}
+        events = 0
+        if archive:
+            with tarfile.open(os.path.join(session_dir, "logs",
+                                           archive)) as tar:
+                member = next(m for m in tar.getmembers()
+                              if m.name.endswith("trace.json"))
+                events = len(json.load(tar.extractfile(member))[
+                    "traceEvents"])
+        out["trace"] = {"reply": profile, "listed": archive in listed,
+                        "served_chars": len(served.get("data", "")),
+                        "chrome_events": events}
+        gate("trace_capture",
+             archive.endswith(".tar.gz") and archive in listed
+             and served.get("data") and events > 0, out["trace"])
+
+        # The CLI.
+        cli_status = cli("status")
+        cli_pgs = cli("list", "placement-groups")
+        gate("cli",
+             cli_status["nodes"]["alive"] == 1
+             and cli_status["resources_total"].get("GPU") == 1.0
+             and [r["pg_id"] for r in cli_pgs] == [pg.id.hex()]
+             and cli_pgs[0]["state"] == "CREATED",
+             {"status": cli_status, "placement_groups": cli_pgs})
+
+        out["io_loops_at_actor_start"] = _io_loops(runtime._gcs, since)
+        out["gcs_deferred_ticks"] = _deferred_ticks(session_dir)
+        print(f"operations io loops ({card}): " + json.dumps(
+            {"since_actor_start": out["io_loops_at_actor_start"],
+             "gcs_deferred_ticks": out["gcs_deferred_ticks"]}),
+            flush=True)
+
+        # The group's GPU comes back.
+        art.kill(actor)
+        remove_placement_group(pg)
+        deadline = time.monotonic() + 30
+        while True:
+            status_after = json.loads(get(url + "/api/cluster_status"))
+            if status_after["resources_available"].get("GPU") == 1.0 or \
+                    time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        gate("placement_group_removed",
+             status_after["resources_available"].get("GPU") == 1.0,
+             status_after)
+        workers.update(c for d in owned for c in _child_pids(d))
+    except BaseException:
+        _print_worker_logs(session_dir)
+        print("operations (failed) " + json.dumps(out, default=str),
+              flush=True)
+        try:
+            art.shutdown()
+        finally:
+            tracing_plane.reset(scope)
+        raise
+    t0 = time.perf_counter()
+    art.shutdown()
+    tracing_plane.reset(scope)
+    _after_shutdown(torch, out, t0, owned + sorted(workers), session_dir,
+                    store_dir, free_before)
+    _gate_nothing_left(out)
+    out["card_free_gib_after_shutdown"] = round(
+        torch.cuda.mem_get_info()[0] / gib, 3)
+
+    engine = LLMEngine("llama3-8b", seed=0, **OPS_ENGINE)
+    want = [list(o.token_ids) for o in engine.generate(prompts, greedy)]
+    del engine
+    torch.cuda.empty_cache()
+    gate("tokens", tokens == want and all(len(t) == OPS_TOKENS
+                                          for t in want),
+         {"rows_equal": [a == b for a, b in zip(tokens, want)],
+          "tokens_per_row": [len(t) for t in want]})
+    out["phase_s"] = round(time.perf_counter() - t_phase, 3)
+    print("operations " + json.dumps(out, default=str), flush=True)
     return launches
 
 
@@ -5209,6 +5638,8 @@ def main() -> int:
     lap("deployment")
     paths["data"] = data_phase(torch, llama, card)
     lap("data")
+    paths["operations"] = operations_phase(torch, llama, card)
+    lap("operations")
     paths["checkpoint"] = checkpoint_phase(torch, fa, llama)
     paths["server"] = server_phase(torch, fa, llama)
     lap("checkpoint and server")

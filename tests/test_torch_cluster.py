@@ -50,6 +50,27 @@ def _outcome(fn):
         return ("raise", _error(e))
 
 
+def _children(pid: int) -> list[int]:
+    out = []
+    for entry in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue
+        if ppid == pid:
+            out.append(int(entry))
+    return out
+
+
+def _cmdline(pid: int) -> str:
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return f.read().replace(b"\0", b" ").decode()
+    except OSError:
+        return ""
+
+
 def _worker_of(art):
     return importlib.import_module(art.__name__ + "._private.worker")
 
@@ -758,31 +779,71 @@ def test_runtime_env_option_raises(clusters):
     assert tart.get(f.remote()) == 1
 
 
-def test_dashboard_and_node_agent_are_off_and_not_settable():
-    """The port starts neither process, and their flags cannot be set."""
+def test_dashboard_and_node_agent_are_off_and_not_settable(clusters):
+    """The suite turns both processes off (``ART_INCLUDE_DASHBOARD=0``,
+    ``ART_ENABLE_NODE_AGENT=0``): the port's cluster then starts
+    neither, and its daemon reports no agent.  Their flags are ported
+    (ROADMAP queue A item 6.6's first part), with the JAX package's
+    defaults, and can be set."""
+    from ant_ray_tpu._private.config import Config as JConfig
     from ant_ray_tpu_torch._private.config import Config
+    from ant_ray_tpu_torch._private.worker import global_worker
 
-    for flag in ("include_dashboard", "enable_node_agent"):
-        with pytest.raises(ValueError, match=f"{flag}.*item 6.6"):
-            Config().apply_dict({flag: True})
-    with pytest.raises(ValueError, match="item 6.6, the node agent"):
-        Config().apply_dict({"device_stats_interval_s": 1.0})
+    for flag, value in (("include_dashboard", False),
+                        ("enable_node_agent", False),
+                        ("device_stats_interval_s", 1.0)):
+        assert getattr(Config(), flag) == getattr(JConfig(), flag)
+        assert getattr(Config().apply_dict({flag: value}), flag) == value
+    rt = global_worker.runtime
+    assert rt._node.call("GetAgentInfo", {}, timeout=10) == {
+        "address": None, "alive": False, "restarts": 0}
+    assert not any("node_agent" in _cmdline(c) or "dashboard" in _cmdline(c)
+                   for p in rt._owned_processes for c in [p.pid]
+                   + _children(p.pid))
 
 
 def test_cluster_context_has_no_dashboard(clusters):
+    """A cluster started with ``include_dashboard`` off (the suite's
+    setting) has no dashboard URL, on the context, on the runtime and
+    in the GCS's KV."""
     assert tart.init(ignore_reinit_error=True).dashboard_url == ""
     from ant_ray_tpu_torch._private.worker import global_worker
 
     assert global_worker.runtime.dashboard_url == ""
+    assert global_worker.runtime._gcs.call(
+        "KVGet", {"key": "dashboard_url"}, timeout=10) is None
 
 
-def test_cpu_profiler_raises():
+def test_cpu_profiler_raises(clusters):
+    """The CPU profiler is ported (ROADMAP queue A item 6.5): its flags
+    take the JAX package's defaults, and the driver, the GCS, the node
+    daemon and the workers of the port's cluster each publish folded
+    stacks to the GCS ring."""
+    from ant_ray_tpu._private.config import Config as JConfig
     from ant_ray_tpu_torch._private.config import Config
+    from ant_ray_tpu_torch._private.worker import global_worker
+    from ant_ray_tpu_torch.observability import cpu_profiler
 
-    with pytest.raises(ValueError, match="cpu_profile_hz.*item 6.5"):
-        Config().apply_dict({"cpu_profile_hz": 67.0})
-    with pytest.raises(ModuleNotFoundError):
-        importlib.import_module("ant_ray_tpu_torch.observability.cpu_profiler")
+    for flag in ("cpu_profile_hz", "cpu_profile_publish_period_s",
+                 "cpu_profile_max_stacks"):
+        assert getattr(Config(), flag) == getattr(JConfig(), flag)
+    assert Config().apply_dict({"cpu_profile_hz": 0.0}).cpu_profile_hz == 0
+    assert cpu_profiler.profiler() is not None
+    rt = global_worker.runtime
+
+    @tart.remote
+    def spin(n):
+        return sum(i * i for i in range(n))
+
+    deadline = time.monotonic() + 30
+    procs = set()
+    while time.monotonic() < deadline and not {
+            "driver", "gcs", "daemon", "worker"} <= procs:
+        tart.get([spin.remote(20000) for _ in range(4)])
+        procs = {r["proc"] for r in rt._gcs.call(
+            "CpuProfileGet", {}, timeout=10)}
+        time.sleep(0.3)
+    assert {"driver", "gcs", "daemon", "worker"} <= procs, procs
 
 
 @pytest.mark.parametrize("kwargs,what", [
@@ -862,12 +923,22 @@ def test_compiled_dag_and_collective_methods_raise(clusters, method, item):
 
 
 def test_log_serving_raises(clusters):
+    """Log serving is ported (ROADMAP queue A item 6.6's first part):
+    the daemon lists its session's logs and reads one, as the JAX
+    package's does; a name outside the log directory reads nothing."""
     from ant_ray_tpu_torch._private.worker import global_worker
 
     rt = global_worker.runtime
-    for method in ("ListLogs", "ReadLog"):
-        with pytest.raises(NotImplementedError, match="log serving.*6.6"):
-            rt._node.call(method, {"filename": "x"}, timeout=10)
+    files = rt._node.call("ListLogs", {}, timeout=10)
+    names = [f["filename"] for f in files]
+    assert "gcs.err" in names and any(n.startswith("worker-")
+                                      for n in names)
+    reply = rt._node.call("ReadLog", {"filename": "gcs.err", "tail": 4096},
+                          timeout=10)
+    assert reply["eof"] and b"GCS listening" in reply["data"]
+    missing = rt._node.call("ReadLog", {"filename": "../gcs_store.db"},
+                            timeout=10)
+    assert "error" in missing
 
 
 def test_lockcheck_instrumented_path_raises():

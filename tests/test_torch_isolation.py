@@ -80,7 +80,17 @@ def test_importing_every_module_loads_neither_jax_nor_the_jax_package():
             "ant_ray_tpu_torch._private.worker_main",
             "ant_ray_tpu_torch._private.services",
             "ant_ray_tpu_torch._private.auto_init",
-            "ant_ray_tpu_torch.cluster_utils"} <= set(modules)
+            "ant_ray_tpu_torch.cluster_utils",
+            "ant_ray_tpu_torch.observability.cpu_profiler",
+            "ant_ray_tpu_torch.util.placement_group",
+            "ant_ray_tpu_torch.util.state",
+            "ant_ray_tpu_torch._private.log_serving",
+            "ant_ray_tpu_torch._private.state_aggregator",
+            "ant_ray_tpu_torch._private.node_agent",
+            "ant_ray_tpu_torch._private.dashboard",
+            "ant_ray_tpu_torch._private.dashboard_ui",
+            "ant_ray_tpu_torch.cli",
+            "ant_ray_tpu_torch.__main__"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
@@ -181,6 +191,47 @@ def test_tracing_plane_and_the_util_modules_import_no_torch():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"
+
+
+def test_operator_surface_imports_no_torch():
+    """The CLI, the dashboard, the state API, placement groups, log
+    serving, the node agent and the CPU profiler run in processes that
+    never touch a tensor: none loads torch, JAX or the JAX package, even
+    when used — the profiler sampling and folding, the CLI parsing and
+    diffing two captures, the agent reading the card's memory (through
+    NVML, or the CPU entry on a host without a card).  Only the agent's
+    trace capture imports torch, when asked for one."""
+    code = (
+        "import sys, json, tempfile, os, threading, time\n"
+        "from ant_ray_tpu_torch import cli\n"
+        "from ant_ray_tpu_torch._private import (dashboard, dashboard_ui,\n"
+        "    log_serving, node_agent, state_aggregator)\n"
+        "from ant_ray_tpu_torch.observability import cpu_profiler\n"
+        "from ant_ray_tpu_torch.observability import device_stats\n"
+        "from ant_ray_tpu_torch.util import placement_group, state\n"
+        "prof = cpu_profiler.CpuProfiler('probe', hz=200.0).start()\n"
+        "while prof.overhead_stats()['samples'] < 5:\n"
+        "    time.sleep(0.01)\n"
+        "prof.stop(final_publish=False)\n"
+        "stacks = prof.snapshot()\n"
+        "assert cpu_profiler.render_folded(cpu_profiler.merge_folded(\n"
+        "    [{'stacks': stacks}]))\n"
+        "d = tempfile.mkdtemp()\n"
+        "for name in ('a.json', 'b.json'):\n"
+        "    json.dump({'stacks': stacks}, open(os.path.join(d, name), 'w'))\n"
+        "assert cli.main(['--json', 'profile', '--diff',\n"
+        "                 os.path.join(d, 'a.json'),\n"
+        "                 os.path.join(d, 'b.json')]) == 0\n"
+        "device_stats.device_stats_gauges(device_stats.card_memory_stats())\n"
+        "assert 'ant-ray-tpu' in dashboard_ui.INDEX_HTML\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('torch', 'jax', 'ant_ray_tpu')),\n"
+        "      file=sys.stderr)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stderr.strip().splitlines()[-1] == "[]"
 
 
 def test_serve_imports_no_torch_and_loads_its_proxies_lazily():

@@ -421,9 +421,9 @@ def test_system_config_applies_until_the_next_init(monkeypatch):
 
 @pytest.mark.parametrize("flag,item", [
     ("no_such_flag", "a flag of neither package"),
-    ("include_dashboard", "item 6.6, the dashboard"),
+    ("export_task_events", "item 6.6, export events"),
     ("lockcheck", "item 6.6, lockcheck"),
-    ("cpu_profile_hz", "item 6.5, the CPU profiler"),
+    ("tpu_chips_override", "item 9, GPU placement"),
     ("enable_cgroups", "item 6.6, cgroups"),
     ("enable_insight", "item 6.6, flow insight"),
     ("gcs_ha_lease_ttl_s", "item 6.6, GCS HA")])
@@ -453,7 +453,10 @@ def test_system_config_carries_every_flag_a_ported_module_reads():
     assert {"max_inline_object_size", "hot_wire_enabled",
             "object_transfer_chunk_size", "heartbeat_period_s",
             "data_inflight_tasks", "data_inflight_bytes",
-            "data_target_block_bytes"} <= set(port_flags)
+            "data_target_block_bytes", "cpu_profile_hz",
+            "cpu_profile_publish_period_s", "cpu_profile_max_stacks",
+            "include_dashboard", "enable_node_agent",
+            "device_stats_interval_s"} <= set(port_flags)
     tart.init(local_mode=True,
               _system_config={"max_inline_object_size": 4096,
                               "data_inflight_tasks": 3,

@@ -3,14 +3,16 @@
 
     python3 tools/phase.py NAME... [--readings] [--checkout PATH]
 
-NAME is ``tracing``, ``deployment`` or ``data``: each runs
+NAME is ``tracing``, ``deployment``, ``data`` or ``operations``: each runs
 chip_smoke.py's ``NAME_phase`` of PATH's checkout (default: this one),
 in the order given, after building the checkout's kernels.  tracing: a
 traced Llama-3-8B request through an actor in cluster mode;
 deployment: build_llm_deployment serving Llama-3-8B from three
 replicas; data: build_llm_processor generating from Llama-3-8B in two
 actors, build_logprob_processor scoring through the device feed, and
-list-block Data at a million rows.  Random weights from seed 0, gates
+list-block Data at a million rows; operations: a Llama-3-8B actor in a
+placement group, watched through the dashboard, the node agent's card
+gauges, the CPU profiler, the state API and the CLI.  Random weights from seed 0, gates
 included.  ``--readings`` is for phases that take it (data): the NLL
 gate is left out, every other gate stays, and faults planted in
 blockwise attention are read beside the sound reading, which is what
@@ -33,7 +35,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PHASES = ("tracing", "deployment", "data")
+PHASES = ("tracing", "deployment", "data", "operations")
 OPTIONAL = ("aiohttp", "grpc", "transformers", "pyarrow", "pandas")
 
 
