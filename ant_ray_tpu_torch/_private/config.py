@@ -36,7 +36,6 @@ def _env_override(name: str, default: Any) -> Any:
 # ROADMAP item (queue A) that brings the code that reads them.
 UNPORTED_FLAGS = {
     "enable_insight": "6.6, flow insight",
-    "export_task_events": "6.6, export events",
     **dict.fromkeys(("enable_cgroups", "cgroup_root",
                      "cgroup_workers_memory_max",
                      "cgroup_workers_cpu_weight"), "6.6, cgroups"),
@@ -115,6 +114,11 @@ class Config:
     # pubsub (ref: log_monitor.py) — `print()` inside a task shows up
     # on the driver as `(worker=.. pid=..) line`.
     log_to_driver: bool = True
+    # Mirror per-task lifecycle events into the export pipeline (ref:
+    # the reference's per-source enable_export_api_write gates).  Off by
+    # default: tasks are the one high-volume source and recording each
+    # event costs real control-plane throughput.
+    export_task_events: bool = False
     # Task lifecycle events (submitted/started/finished) buffered per
     # process and batch-flushed to the GCS — feeds the Chrome-trace
     # timeline and the state API (ref: task_event_buffer.h).

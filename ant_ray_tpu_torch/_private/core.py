@@ -122,6 +122,15 @@ class _ActorSubmitState:
 # shape; skips a serializer pass per call.
 _EMPTY_ARGS_PAYLOAD = serialization.serialize(((), {})).to_payload()
 
+
+def _serialized_args(args, kwargs) -> serialization.SerializedObject:
+    """A call's ``(args, kwargs)`` serialized, or ``args`` itself where a
+    proxy passes them on already serialized (util/client/server.py)."""
+    if isinstance(args, serialization.SerializedObject):
+        return args
+    return serialization.serialize((args, kwargs))
+
+
 _FRAMEWORK_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -297,6 +306,7 @@ class ClusterRuntime(CoreRuntime):
         self._actor_reply_cb = self._on_actor_reply_done
         self._actor_meta_cache: dict[ActorID, dict] = {}
         self._pg_bundle_cache: dict = {}  # pg_id -> [node addresses]
+        self._renv_cache: dict = {}       # runtime_env -> wire form
         self._arena_client = ArenaClient()
         # Live zero-copy pins (weak: pins die when their values are
         # GC'd); the renewal loop heartbeats their daemon leases.
@@ -915,8 +925,10 @@ class ClusterRuntime(CoreRuntime):
         # (POSIX), so plain zero-copy views are already safe.
         return open_object(reply["path"]), None
 
-    async def _get_one(self, ref: ObjectRef, timeout: float | None):
-        """Resolve one ref to (kind, data): kind ∈ value|error.
+    async def _get_one(self, ref: ObjectRef, timeout: float | None,
+                       raw: bool = False):
+        """Resolve one ref to (kind, data): kind ∈ value|error; with
+        ``raw`` the data is the stored payload as bytes, not rebuilt.
 
         The outer loop exists for lineage recovery: after a
         reconstruction round the entry is re-resolved from scratch, so a
@@ -961,12 +973,14 @@ class ClusterRuntime(CoreRuntime):
                             f"get() timed out on {oid.hex()[:12]} during "
                             "reconstruction") from None
                     continue  # re-resolve: replay may have stored an error
+                if raw:
+                    return ("value", bytes(view))
                 return ("value",
                         self._deserialize_payload(view, pin_owner))
-            if kind == "inline":
-                return ("value", self._deserialize_payload(value))
-            if kind == "error":
-                return ("error", self._deserialize_payload(value))
+            if kind in ("inline", "error"):
+                data = (bytes(value) if raw
+                        else self._deserialize_payload(value))
+                return ("value" if kind == "inline" else "error", data)
             raise AssertionError(f"unexpected entry kind {kind}")
         raise exceptions.ObjectLostError(
             oid, "object kept disappearing despite reconstruction")
@@ -984,6 +998,18 @@ class ClusterRuntime(CoreRuntime):
                 raise data
             out.append(data)
         return out
+
+    def get_payloads(self, refs: Sequence[ObjectRef],
+                     timeout: float | None) -> list[tuple[str, bytes]]:
+        """The stored payloads of ``refs`` as ("value" | "error", bytes),
+        none of them deserialized: what a proxy forwards to its clients
+        (util/client/server.py), so a CUDA tensor is never built there."""
+        async def _gather():
+            return await asyncio.gather(
+                *[self._get_one(r, timeout, raw=True) for r in refs])
+
+        with self._blocked():
+            return self._io.run_coro(_gather())
 
     def wait(self, refs, num_returns, timeout, fetch_local):
         """Block until `num_returns` refs are terminal or `timeout`
@@ -1262,7 +1288,7 @@ class ClusterRuntime(CoreRuntime):
         for the task's lifetime — unpinned by the caller on completion)."""
         if not args and not kwargs:
             return _EMPTY_ARGS_PAYLOAD, []
-        ser = serialization.serialize((args, kwargs))
+        ser = _serialized_args(args, kwargs)
         if ser.payload_nbytes() <= global_config().max_inline_object_size:
             if ser.contained_refs:
                 self._pin(ser.contained_refs)
@@ -1275,13 +1301,21 @@ class ClusterRuntime(CoreRuntime):
         return wrapper.to_payload(), [args_ref]
 
     def _package_runtime_env(self, runtime_env: dict | None):
-        """A task's or actor's runtime env on the wire: always None, as
-        runtime envs are not ported (ROADMAP queue A item 6.6)."""
-        if runtime_env:
-            raise NotImplementedError(
-                "the runtime_env option is not ported (ROADMAP queue A "
-                "item 6.6)")
-        return None
+        """Stage a runtime env into GCS KV (cached per content)."""
+        if not runtime_env:
+            return None
+        from ant_ray_tpu_torch._private import runtime_env as renv  # noqa: PLC0415
+
+        cache_key = renv.content_fingerprint(runtime_env)
+        wire = self._renv_cache.get(cache_key)
+        if wire is None:
+            wire = renv.package(
+                runtime_env,
+                lambda key, blob: self._gcs.call(
+                    "KVPut", {"key": key, "value": blob,
+                              "overwrite": False}, retries=3))
+            self._renv_cache[cache_key] = wire
+        return wire
 
     def _post_submit(self, fn, *args) -> None:
         """Run fn(*args) on the io loop, coalescing wakeups across a
@@ -1317,9 +1351,12 @@ class ClusterRuntime(CoreRuntime):
     #  trip; without this every task pays lease+push+return round trips.)
 
     def _sched_key(self, spec: TaskSpec) -> tuple:
+        from ant_ray_tpu_torch._private import runtime_env as renv  # noqa: PLC0415
+
         strategy = spec.scheduling_strategy
         return (
             tuple(sorted(spec.resources.items())),
+            renv.env_key(spec.runtime_env),
             tuple(sorted((spec.label_selector or {}).items())),
             (spec.placement_group_id, spec.placement_group_bundle_index)
             if spec.placement_group_id is not None else None,
@@ -2016,7 +2053,7 @@ class ClusterRuntime(CoreRuntime):
                 "(ref: @ray.remote(concurrency_groups=...))")
         cls_key = self.export(actor_class.cls, "cls")
         actor_id = ActorID.of(self.job_id)
-        ser = serialization.serialize((args, kwargs))
+        ser = _serialized_args(args, kwargs)
         args_payload = ser.to_payload()
         # Large ctor args travel through plasma like task args do —
         # except for detached actors, whose restarts must outlive this

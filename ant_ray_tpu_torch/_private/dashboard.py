@@ -1,31 +1,174 @@
-"""Dashboard head process: REST state API and Prometheus /metrics.
+"""Dashboard head process: REST state API, Prometheus /metrics exporter,
+and the job-submission server.
 
-Capability mirror of the reference's dashboard head (ref:
-python/ray/dashboard/head.py:49, _private/metrics_agent.py Prometheus
-export), as one aiohttp process colocated with the head node.
-Endpoints:
+Capability mirror of the reference's dashboard head + job manager
+(ref: python/ray/dashboard/head.py:49, dashboard/modules/job/
+job_manager.py:62, _private/metrics_agent.py Prometheus export), as one
+aiohttp process colocated with the head node.  Endpoints:
 
     GET  /api/nodes | /api/actors | /api/placement_groups | /api/objects
     GET  /api/tasks | /api/tasks/summary | /api/memory
-    GET  /api/cluster_status | /api/ha
+    GET  /api/cluster_status | /api/export_events | /api/ha
     GET  /api/scale                       per-subsystem head cost counters
     GET  /api/timeline | /api/cpuprofile | /api/trace/{id}
     GET  /api/flightrecorder | /api/logs | /api/logs/{filename}
     GET  /metrics                         (Prometheus text format)
     POST /api/profile                     {node_id?, duration_s} → trace
+    POST /api/jobs                        {entrypoint, runtime_env, ...}
+    GET  /api/jobs            /api/jobs/{id}   /api/jobs/{id}/logs
+    POST /api/jobs/{id}/stop
+
+Jobs are driver subprocesses launched with ART_ADDRESS pointing at this
+cluster (the reference's job supervisor pattern without the wrapper
+actor — the dashboard process owns supervision).  A job driver inherits
+the dashboard's environment, which is its launcher's: on a host with
+cards it sees them, so the port's entry points run on CUDA there.
 
 The JAX package's dashboard also serves flow insight (``/api/insight``),
-export events (``/api/export_events``) and job submission (``/api/jobs``
-and its four sub-routes); those are ROADMAP queue A item 6.6, so their
-routes answer 501 with an error naming it.
+ROADMAP queue A item 6.6: that route answers 501 with an error naming it.
 """
 
 from __future__ import annotations
 
 import asyncio
 import os
+import signal
+import subprocess
+import threading
+import time
+import uuid
 
 from ant_ray_tpu_torch._private.protocol import ClientPool
+
+
+class JobManager:
+    """Tracks driver subprocesses (ref: job_manager.py:62)."""
+
+    def __init__(self, gcs_address: str, session_dir: str):
+        self._gcs_address = gcs_address
+        self._session_dir = session_dir
+        self._jobs: dict[str, dict] = {}
+        self._procs: dict[str, subprocess.Popen] = {}
+        # aiohttp dispatches handlers onto executor threads — every
+        # _jobs/_procs mutation must hold this.
+        self._lock = threading.Lock()
+
+    def submit(self, entrypoint: str, runtime_env: dict | None = None,
+               submission_id: str | None = None,
+               metadata: dict | None = None) -> str:
+        from ant_ray_tpu_torch._private.runtime_env import (  # noqa: PLC0415
+            ensure_framework_on_pythonpath)
+
+        job_id = submission_id or f"art-job-{uuid.uuid4().hex[:10]}"
+        with self._lock:
+            if job_id in self._jobs:
+                raise ValueError(f"job {job_id} already exists")
+            # reserve the id before the (slow) spawn so a concurrent
+            # duplicate submit can't double-launch
+            self._jobs[job_id] = self._record(job_id, entrypoint,
+                                              "PENDING",
+                                              metadata=metadata)
+        log_path = os.path.join(self._session_dir, "logs",
+                                f"job-{job_id}.log")
+        os.makedirs(os.path.dirname(log_path), exist_ok=True)
+        # Job drivers are user code that may run on the card: they take
+        # this process's environment as it is (services.py stashes no
+        # accelerator trigger from the control plane).
+        env = dict(os.environ)
+        env["ART_ADDRESS"] = self._gcs_address
+        # Drivers must be able to import the framework even when it is
+        # run from a checkout rather than pip-installed.
+        ensure_framework_on_pythonpath(env)
+        renv = runtime_env or {}
+        env.update({str(k): str(v)
+                    for k, v in (renv.get("env_vars") or {}).items()})
+        cwd = renv.get("working_dir") or None
+        log_file = open(log_path, "ab")
+        try:
+            proc = subprocess.Popen(
+                entrypoint, shell=True, env=env, cwd=cwd,
+                stdout=log_file, stderr=subprocess.STDOUT,
+                start_new_session=True)
+        except OSError as e:
+            log_file.close()
+            with self._lock:
+                self._jobs[job_id].update(status="FAILED",
+                                          message=str(e))
+            return job_id
+        log_file.close()
+        with self._lock:
+            self._procs[job_id] = proc
+            self._jobs[job_id].update(status="RUNNING")
+        return job_id
+
+    @staticmethod
+    def _record(job_id, entrypoint, status, message="", metadata=None):
+        return {"submission_id": job_id, "entrypoint": entrypoint,
+                "status": status, "message": message,
+                "metadata": metadata or {},
+                "start_time": time.time(), "end_time": None}
+
+    def _refresh_locked(self, job_id: str):
+        job = self._jobs.get(job_id)
+        proc = self._procs.get(job_id)
+        if job is None or proc is None or job["status"] not in (
+                "RUNNING", "STOPPING"):
+            return
+        code = proc.poll()
+        if code is None:
+            return
+        job["end_time"] = time.time()
+        if job["status"] == "STOPPING":
+            job["status"] = "STOPPED"
+        elif code == 0:
+            job["status"] = "SUCCEEDED"
+        else:
+            job["status"] = "FAILED"
+            job["message"] = f"driver exited with code {code}"
+
+    def get(self, job_id: str) -> dict | None:
+        with self._lock:
+            self._refresh_locked(job_id)
+            job = self._jobs.get(job_id)
+            return dict(job) if job else None
+
+    def list(self) -> list[dict]:
+        with self._lock:
+            for jid in list(self._jobs):
+                self._refresh_locked(jid)
+            return [dict(j) for j in self._jobs.values()]
+
+    def stop(self, job_id: str) -> bool:
+        with self._lock:
+            job = self._jobs.get(job_id)
+            proc = self._procs.get(job_id)
+            if job is None or proc is None or proc.poll() is not None:
+                return False
+            job["status"] = "STOPPING"
+        try:
+            os.killpg(proc.pid, signal.SIGTERM)
+        except (ProcessLookupError, PermissionError):
+            proc.terminate()
+        return True
+
+    def logs(self, job_id: str) -> str:
+        path = os.path.join(self._session_dir, "logs",
+                            f"job-{job_id}.log")
+        try:
+            with open(path, "r", errors="replace") as f:
+                return f.read()
+        except FileNotFoundError:
+            return ""
+
+    def shutdown(self):
+        with self._lock:
+            procs = list(self._procs.values())
+        for proc in procs:
+            if proc.poll() is None:
+                try:
+                    os.killpg(proc.pid, signal.SIGTERM)
+                except (ProcessLookupError, PermissionError):
+                    proc.terminate()
 
 
 def _escape_label(value) -> str:
@@ -93,11 +236,12 @@ def _prometheus_text(series: list[dict], exemplars: bool = False) -> str:
     return "\n".join(lines) + "\n"
 
 
-def create_app(gcs_address: str):
+def create_app(gcs_address: str, session_dir: str):
     from aiohttp import web
 
     clients = ClientPool()
     gcs = clients.get(gcs_address)
+    jobs = JobManager(gcs_address, session_dir)
 
     def _nodes():
         infos = gcs.call("GetAllNodes", retries=3)
@@ -220,6 +364,14 @@ def create_app(gcs_address: str):
                 {"error": f"{what} is not ported (ROADMAP queue A item "
                           "6.6)"}, status=501)
         return handler
+
+    async def export_events(req):
+        def build():
+            return gcs.call("ExportEventsGet", {
+                "source_type": req.query.get("source_type"),
+                "limit": int(req.query.get("limit", 1000)),
+            }, retries=3)
+        return web.json_response(await _call(build))
 
     async def node_logs(req):
         node_id = req.query.get("node_id")
@@ -473,6 +625,37 @@ def create_app(gcs_address: str):
             content_type=("application/openmetrics-text" if openmetrics
                           else "text/plain"))
 
+    async def submit_job(req):
+        body = await req.json()
+        if "entrypoint" not in body:
+            return web.json_response({"error": "entrypoint required"},
+                                     status=400)
+        try:
+            job_id = await _call(
+                lambda: jobs.submit(
+                    body["entrypoint"], body.get("runtime_env"),
+                    body.get("submission_id"), body.get("metadata")))
+        except ValueError as e:
+            return web.json_response({"error": str(e)}, status=409)
+        return web.json_response({"submission_id": job_id})
+
+    async def list_jobs(_req):
+        return web.json_response(await _call(jobs.list))
+
+    async def get_job(req):
+        job = await _call(jobs.get, req.match_info["job_id"])
+        if job is None:
+            return web.json_response({"error": "no such job"}, status=404)
+        return web.json_response(job)
+
+    async def job_logs(req):
+        text = await _call(jobs.logs, req.match_info["job_id"])
+        return web.json_response({"logs": text})
+
+    async def stop_job(req):
+        ok = await _call(jobs.stop, req.match_info["job_id"])
+        return web.json_response({"stopped": bool(ok)})
+
     app = web.Application()
     app.router.add_get("/", index)
     app.router.add_get("/api/nodes", nodes)
@@ -486,7 +669,7 @@ def create_app(gcs_address: str):
     app.router.add_get("/api/ha", ha)
     app.router.add_get("/api/scale", scale)
     app.router.add_get("/api/insight", unported("flow insight"))
-    app.router.add_get("/api/export_events", unported("export events"))
+    app.router.add_get("/api/export_events", export_events)
     app.router.add_get("/api/timeline", timeline)
     app.router.add_get("/api/cpuprofile", cpuprofile)
     app.router.add_get("/api/trace/{trace_id}", trace)
@@ -495,12 +678,12 @@ def create_app(gcs_address: str):
     app.router.add_get("/api/logs/{filename}", node_log_read)
     app.router.add_get("/metrics", metrics)
     app.router.add_post("/api/profile", profile)
-    jobs = unported("job submission (job_submission/, runtime_env)")
-    app.router.add_post("/api/jobs", jobs)
-    app.router.add_get("/api/jobs", jobs)
-    app.router.add_get("/api/jobs/{job_id}", jobs)
-    app.router.add_get("/api/jobs/{job_id}/logs", jobs)
-    app.router.add_post("/api/jobs/{job_id}/stop", jobs)
+    app.router.add_post("/api/jobs", submit_job)
+    app.router.add_get("/api/jobs", list_jobs)
+    app.router.add_get("/api/jobs/{job_id}", get_job)
+    app.router.add_get("/api/jobs/{job_id}/logs", job_logs)
+    app.router.add_post("/api/jobs/{job_id}/stop", stop_job)
+    app["job_manager"] = jobs
     return app
 
 
@@ -511,11 +694,12 @@ def main():  # pragma: no cover — subprocess entry, driven by tests
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--gcs-address", required=True)
+    parser.add_argument("--session-dir", required=True)
     parser.add_argument("--port", type=int, default=0)
     parser.add_argument("--monitor-pid", type=int, default=0)
     args = parser.parse_args()
 
-    app = create_app(args.gcs_address)
+    app = create_app(args.gcs_address, args.session_dir)
     loop = asyncio.new_event_loop()
     asyncio.set_event_loop(loop)
     runner = web.AppRunner(app)
@@ -532,6 +716,7 @@ def main():  # pragma: no cover — subprocess entry, driven by tests
                 try:
                     os.kill(args.monitor_pid, 0)
                 except ProcessLookupError:
+                    app["job_manager"].shutdown()
                     loop.stop()
                     return
 
@@ -540,6 +725,7 @@ def main():  # pragma: no cover — subprocess entry, driven by tests
         loop.run_forever()
     except KeyboardInterrupt:
         pass
+    app["job_manager"].shutdown()
 
 
 if __name__ == "__main__":

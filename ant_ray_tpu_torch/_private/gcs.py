@@ -57,14 +57,20 @@ class GcsServer:
             store_client_for,
         )
 
-        # The export-event pipeline and the replicated control plane
-        # (GCS HA) are ROADMAP queue A item 6.6: the port keeps the
-        # arguments so a caller that passes them learns so, and leaves
-        # nothing of them on any path below.
+        # Export-event pipeline (ref: RayEventRecorder + export_*.proto
+        # — durable JSONL lifecycle events for external pipelines);
+        # active only when the session provides an export dir.
+        self._exporter = None
         if export_dir:
-            raise NotImplementedError(
-                "GCS export events (export_dir) are not ported (ROADMAP "
-                "queue A item 6.6)")
+            from ant_ray_tpu_torch._private.export_events import (  # noqa: PLC0415
+                ExportEventRecorder,
+            )
+
+            self._exporter = ExportEventRecorder(export_dir)
+
+        # The replicated control plane (GCS HA) is ROADMAP queue A item
+        # 6.6: the port keeps the argument so a caller that passes it
+        # learns so, and leaves nothing of it on any path below.
         if ha_replica_id is not None:
             raise NotImplementedError(
                 "GCS HA (ha_replica_id) is not ported (ROADMAP queue A "
@@ -520,6 +526,11 @@ class GcsServer:
         # Drain the store's async write queue: acknowledged mutations
         # must reach the (possibly remote) store before the head exits.
         self._store.close()
+        if self._exporter is not None:
+            # Terminal lifecycle events (node DEAD, worker DIED) queue
+            # milliseconds before shutdown; os._exit in main would drop
+            # them from the JSONL files the pipeline promises.
+            self._exporter.flush(timeout=2.0)
         if graceful:
             self._server.stop()
             self._clients.close_all()
@@ -539,6 +550,19 @@ class GcsServer:
         schedules ONE notify, not one per event."""
         self._pub_seq += 1
         self._pub_events.append((self._pub_seq, channel, data))
+        if self._exporter is not None and channel != "worker_logs":
+            # Mirror control-plane pubsub into the export pipeline:
+            # node alive/dead and actor state transitions ARE the
+            # lifecycle events external consumers want.
+            if channel == "node":
+                self._exporter.record(
+                    "EXPORT_NODE",
+                    "ALIVE" if data.get("alive") else "DEAD",
+                    data.get("node_id"), data)
+            elif channel == "actor_state":
+                self._exporter.record("EXPORT_ACTOR",
+                                      str(data.get("state", "")).upper(),
+                                      data.get("actor_id"), data)
         if self._pub_cond is not None and not self._pub_notify_pending:
             self._pub_notify_pending = True
 
@@ -550,9 +574,16 @@ class GcsServer:
             _spawn(_notify())
 
     async def _export_events_get(self, payload):
-        """Read back export-pipeline events: none, as the export
-        pipeline is ROADMAP queue A item 6.6."""
-        return {"enabled": False, "events": []}
+        """Read back export-pipeline events (dashboard /api and tests;
+        external pipelines normally tail the JSONL files directly).
+        File parsing runs off the event loop — a full export dir must
+        not stall heartbeats and lease RPCs."""
+        if self._exporter is None:
+            return {"enabled": False, "events": []}
+        events = await asyncio.to_thread(
+            self._exporter.read, payload.get("source_type"),
+            int(payload.get("limit", 1000)))
+        return {"enabled": True, "events": events}
 
     async def _publish_logs(self, payload):
         """Fan worker stdout/stderr lines out to subscribed drivers
@@ -1050,6 +1081,16 @@ class GcsServer:
         dropped = payload.get("dropped")
         if dropped:
             self._task_events_dropped += int(dropped)
+        if self._exporter is not None and \
+                global_config().export_task_events:
+            # Off by default, like the reference's per-source
+            # enable_export_api_write gates: task events are the one
+            # high-volume source, and recording each one costs ~40%% of
+            # async task throughput on a small head.
+            for ev in events:
+                self._exporter.record("EXPORT_TASK",
+                                      str(ev.get("event", "")).upper(),
+                                      ev.get("task_id"), ev)
         return True
 
     async def _task_events_get(self, payload):
@@ -1293,6 +1334,10 @@ class GcsServer:
         }
         self._persist("jobs", payload["job_id"].hex(),
                       (payload["job_id"], self._jobs[payload["job_id"]]))
+        if self._exporter is not None:
+            self._exporter.record("EXPORT_DRIVER_JOB", "STARTED",
+                                  payload["job_id"],
+                                  self._jobs[payload["job_id"]])
         return True
 
     # ------------------------------------------------------------- actors
@@ -1693,6 +1738,9 @@ class GcsServer:
         return True
 
     async def _worker_died(self, payload):
+        if self._exporter is not None:
+            self._exporter.record("EXPORT_WORKER", "DIED",
+                                  payload.get("worker_id"), payload)
         actor_id = payload.get("actor_id")
         if actor_id is not None:
             record = self._actors.get(actor_id)
@@ -1797,6 +1845,11 @@ class GcsServer:
         }
         self._placement_groups[payload["pg_id"]] = record
         self._save_pg(record)
+        if self._exporter is not None:
+            self._exporter.record(
+                "EXPORT_PLACEMENT_GROUP", "PENDING", payload["pg_id"],
+                {"strategy": record["strategy"], "name": record["name"],
+                 "bundles": record["bundles"]})
         _spawn(self._schedule_placement_group(record))
         return True
 
@@ -2050,6 +2103,9 @@ class GcsServer:
         if record is None:
             return False
         record["state"] = "REMOVED"
+        if self._exporter is not None:
+            self._exporter.record("EXPORT_PLACEMENT_GROUP", "REMOVED",
+                                  record["pg_id"], {})
         self._drop_gang_demand(record)
         # Persist the terminal state FIRST: a head crash mid-removal must
         # not resurrect a CREATED/PENDING record whose bundles the nodes
@@ -2276,12 +2332,16 @@ def main():  # pragma: no cover — exercised via subprocess in tests
     parser.add_argument("--store", default="",
                         help="sqlite path for durable tables (restart-"
                              "resync; empty = in-memory only)")
+    parser.add_argument("--export-dir", default="",
+                        help="directory for export-event JSONL files "
+                             "(empty = export pipeline disabled)")
     args = parser.parse_args()
 
     logging.basicConfig(
         level=global_config().log_level,
         format="[gcs %(levelname)s %(asctime)s] %(message)s")
-    server = GcsServer(port=args.port, store_path=args.store or None)
+    server = GcsServer(port=args.port, store_path=args.store or None,
+                       export_dir=args.export_dir or None)
     server.start()
     print(f"GCS_READY {server.address}", flush=True)
 

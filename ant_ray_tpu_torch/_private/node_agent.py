@@ -1,10 +1,14 @@
 """Per-node agent process (ref: the reference's per-node agents —
-dashboard agent `dashboard/agent.py:24`, metrics agent
+dashboard agent `dashboard/agent.py:24`, runtime-env agent
+`runtime_env/agent/runtime_env_agent.py:167`, metrics agent
 `_private/metrics_agent.py` — spawned and supervised by the raylet's
 AgentManager, `src/ray/raylet/agent_manager.h`).
 
-One process covers the agent roles the port carries:
+One process covers the four agent roles:
 
+* **runtime-env builds** — package extraction and pip/uv/conda env
+  materialization run HERE, so a slow or crashing build can never take
+  the node daemon's event loop or process down with it;
 * **log serving** — ListLogs/ReadLog over the session dir (the daemon
   keeps its own copies of these routes; the dashboard may talk to
   either);
@@ -19,9 +23,8 @@ One process covers the agent roles the port carries:
   process for the requested duration, its Chrome trace archived into
   the session log dir so the existing log routes list and serve it.
 
-The JAX package's agent also builds runtime envs (``BuildRuntimeEnv``);
-runtime envs are ROADMAP queue A item 6.6, so that route raises.  The
-daemon restarts a dead agent with backoff — agents are an isolation
+The daemon restarts a dead agent with backoff and falls back to
+in-process builds while the agent is down — agents are an isolation
 upgrade, never a single point of failure.
 """
 
@@ -46,7 +49,8 @@ class NodeAgent:
         self._gcs_address = gcs_address
         self._server = RpcServer(host, port)
         self._clients = ClientPool()
-        self.stats = {"log_reads": 0, "profiles_captured": 0,
+        self.stats = {"env_builds": 0, "env_build_failures": 0,
+                      "log_reads": 0, "profiles_captured": 0,
                       "started_at": time.time()}
         self.address = ""
         self._profiling = threading.Lock()
@@ -117,12 +121,28 @@ class NodeAgent:
 
     # ---------------------------------------------------- runtime envs
 
-    async def _build_runtime_env(self, _payload):
-        """The JAX package materializes a runtime env here, delegated by
-        the daemon; runtime envs are not ported."""
-        raise NotImplementedError(
-            "runtime envs (BuildRuntimeEnv) are not ported (ROADMAP queue A "
-            "item 6.6)")
+    async def _build_runtime_env(self, payload):
+        """Materialize a runtime env in THIS process — the daemon
+        delegates here so builds are isolated from its event loop (ref:
+        runtime_env_agent.py:167).  The build sequence itself is the
+        shared runtime_env.materialize (identical to the daemon's
+        in-process fallback)."""
+        from ant_ray_tpu_torch._private import runtime_env as renv  # noqa: PLC0415
+
+        gcs = self._clients.get(self._gcs_address)
+
+        async def kv_get(key):
+            return await gcs.call_async("KVGet", {"key": key},
+                                        timeout=60)
+
+        try:
+            await renv.materialize(payload.get("wire"),
+                                   self._session_dir, kv_get)
+            self.stats["env_builds"] += 1
+            return {"ok": True}
+        except Exception as e:  # noqa: BLE001 — reported to the daemon
+            self.stats["env_build_failures"] += 1
+            return {"ok": False, "error": f"{type(e).__name__}: {e}"}
 
     # ------------------------------------------------------------ logs
 

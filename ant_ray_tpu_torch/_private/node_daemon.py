@@ -101,6 +101,7 @@ class WorkerHandle:
     actor_spec: ActorSpec | None = None
     job_id: object | None = None         # last job served (log scoping)
     blocked: bool = False
+    env_key: str = ""                    # runtime-env pool identity
     registered: asyncio.Event = field(default_factory=asyncio.Event)
 
 
@@ -195,6 +196,8 @@ class NodeManager:
         # Holder-side log of served transfer-chunk requests (bounded),
         # for stripe tests/debugging: (object_hex, offset, length).
         self._chunk_read_log: deque = deque(maxlen=8192)
+        # terminated-but-unreaped workers (retired for env mismatch)
+        self._retired_procs: list[subprocess.Popen] = []
         # job_id -> (allowed_here, expires_at): virtual-cluster fencing
         self._vc_cache: dict = {}
         self.address = ""
@@ -764,6 +767,9 @@ class NodeManager:
                 handle.proc.wait(timeout=remaining)
             except subprocess.TimeoutExpired:
                 handle.proc.kill()
+        for proc in self._retired_procs:
+            if proc.poll() is None:
+                proc.kill()
         agent = getattr(self, "_agent_proc", None)
         if agent is not None and agent.poll() is None:
             agent.terminate()
@@ -775,14 +781,26 @@ class NodeManager:
 
     # ------------------------------------------------------------ workers
 
-    def _spawn_worker(self, actor_spec: ActorSpec | None = None
-                      ) -> WorkerHandle:
+    def _spawn_worker(self, actor_spec: ActorSpec | None = None,
+                      runtime_env: dict | None = None) -> WorkerHandle:
+        from ant_ray_tpu_torch._private import runtime_env as renv  # noqa: PLC0415
+
+        if actor_spec is not None and runtime_env is None:
+            runtime_env = actor_spec.runtime_env
         worker_id = WorkerID.from_random()
         # Workers inherit the daemon's environment as it is: no chip or
-        # card mask (the JAX package gives its workers none either), and
-        # no runtime env (ROADMAP queue A item 6.6) — so no venv
-        # interpreter, no staged cwd and one pool for every task.
+        # card mask (the JAX package gives its workers none either, and
+        # the port's daemons stash no accelerator trigger to restore).
         env = dict(os.environ)
+        cwd = None
+        if runtime_env:
+            # packages were prefetched by _ensure_runtime_env (async);
+            # resolve() is pure path logic, safe on the event loop
+            overlay, cwd = renv.resolve(runtime_env, self._session_dir)
+            env.update(overlay)
+            # A staged cwd loses the implicit cwd-based import of a
+            # checkout-run framework — pin the package root explicitly.
+            renv.ensure_framework_on_pythonpath(env)
         env["ART_NODE_ADDRESS"] = self.address
         env["ART_GCS_ADDRESS"] = self._gcs_address
         # Worker stdout is a log file (block-buffered by default): run
@@ -795,12 +813,17 @@ class NodeManager:
                                 f"worker-{worker_id.hex()[:8]}.log")
         os.makedirs(os.path.dirname(log_path), exist_ok=True)
         log_file = open(log_path, "ab")
+        # A pip env's workers run on its venv interpreter (built by
+        # _ensure_runtime_env before the spawn reaches here).
+        python = renv.venv_python(runtime_env, self._session_dir) \
+            or sys.executable
         proc = subprocess.Popen(
-            [sys.executable, "-m", "ant_ray_tpu_torch._private.worker_main"],
-            env=env, stdout=log_file, stderr=subprocess.STDOUT,
+            [python, "-m", "ant_ray_tpu_torch._private.worker_main"],
+            env=env, cwd=cwd, stdout=log_file, stderr=subprocess.STDOUT,
             start_new_session=True)
         log_file.close()
-        handle = WorkerHandle(worker_id, proc, actor_spec=actor_spec)
+        handle = WorkerHandle(worker_id, proc, actor_spec=actor_spec,
+                              env_key=renv.env_key(runtime_env))
         self._workers[worker_id] = handle
         return handle
 
@@ -828,6 +851,9 @@ class NodeManager:
         last_orphan_sweep = 0.0
         while not self._stopping:
             await asyncio.sleep(0.1)
+            if self._retired_procs:
+                self._retired_procs = [p for p in self._retired_procs
+                                       if p.poll() is None]
             now = time.monotonic()
             self._supervise_agent()
             if self._subreaper_enabled and now - last_orphan_sweep > 2.0:
@@ -866,6 +892,7 @@ class NodeManager:
         session that aren't known workers are orphans (ref:
         src/ray/util/subreaper.h kill-unknown-children policy)."""
         known = {h.proc.pid for h in self._workers.values()}
+        known |= {p.pid for p in self._retired_procs}
         agent = getattr(self, "_agent_proc", None)
         if agent is not None:
             # The node agent is a daemon child in its own session — the
@@ -1078,7 +1105,8 @@ class NodeManager:
 
     # ---------------------------------------------------- agent manager
     # (ref: src/ray/raylet/agent_manager.h — the raylet spawns and
-    #  supervises per-node agent processes)
+    #  supervises per-node agent processes; runtime-env builds run in
+    #  the agent so a slow/crashing build can't take the daemon down)
 
     def _start_agent(self) -> None:
         if not global_config().enable_node_agent:
@@ -1104,7 +1132,7 @@ class NodeManager:
 
         def _wait_ready(proc=self._agent_proc):
             # Off-thread READY wait: daemon boot never blocks on the
-            # agent.
+            # agent; builds fall back in-process until it reports in.
             try:
                 for line in proc.stdout:
                     text = line.decode(errors="replace").strip()
@@ -1129,16 +1157,47 @@ class NodeManager:
         self._agent_backoff_until = now + min(
             2.0 * (getattr(self, "_agent_restarts", 0) + 1), 30.0)
         self._agent_restarts = getattr(self, "_agent_restarts", 0) + 1
-        # Clear the dead address NOW — during the backoff window a
-        # caller would otherwise dial it first and pay a failed connect.
+        # Clear the dead address NOW — during the backoff window every
+        # build would otherwise dial it first and pay a failed connect.
         self._agent_address = None
         logger.warning("node agent died (exit %s); restarting",
                        proc.returncode)
         self._start_agent()
 
-    def _idle_worker(self) -> WorkerHandle | None:
+    async def _ensure_runtime_env(self, wire: dict | None):
+        """Prefetch + extract a runtime env's packages (working_dir +
+        py_modules) and build its pip venv, so the (sync) worker spawn
+        only touches local paths.  Delegated to the node agent when one
+        is serving (build isolation, ref: runtime_env_agent.py:167);
+        falls back in-process while the agent is down/booting."""
+        from ant_ray_tpu_torch._private import runtime_env as renv  # noqa: PLC0415
+
+        if not wire or renv.is_ready(wire, self._session_dir):
+            return  # fully materialized: no RPC, no executor hop
+        agent_addr = getattr(self, "_agent_address", None)
+        if agent_addr:
+            try:
+                reply = await self._clients.get(agent_addr).call_async(
+                    "BuildRuntimeEnv", {"wire": wire}, timeout=1800)
+                if reply.get("ok"):
+                    return
+                raise RuntimeError(reply.get("error", "agent build failed"))
+            except RuntimeError:
+                raise
+            except Exception as e:  # noqa: BLE001 — agent died mid-build
+                logger.warning("agent env build unavailable (%s); "
+                               "building in-process", e)
+        gcs = self._clients.get(self._gcs_address)
+
+        async def kv_get(key):
+            return await gcs.call_async("KVGet", {"key": key}, timeout=60)
+
+        await renv.materialize(wire, self._session_dir, kv_get)
+
+    def _idle_worker(self, env_key: str = "") -> WorkerHandle | None:
         for handle in self._workers.values():
-            if handle.state == IDLE and handle.address:
+            if (handle.state == IDLE and handle.address
+                    and handle.env_key == env_key):
                 # Liveness check at grant: a worker that died while
                 # leased gets ReturnWorker'd back to IDLE by its driver
                 # before the reaper runs — handing out the corpse makes
@@ -1147,6 +1206,21 @@ class NodeManager:
                     continue  # reaper will collect it
                 return handle
         return None
+
+    def _retire_idle_mismatch(self, env_key: str) -> bool:
+        """Kill one idle worker of a *different* runtime env so a full
+        pool can still serve a new env (ref: WorkerPool eviction of
+        idle workers for mismatched runtime envs).  Non-blocking: the
+        monitor loop reaps the terminated process."""
+        for worker_id, handle in list(self._workers.items()):
+            if (handle.state == IDLE and handle.env_key != env_key
+                    and handle.actor_spec is None):
+                del self._workers[worker_id]
+                if handle.proc.poll() is None:
+                    handle.proc.terminate()
+                self._retired_procs.append(handle.proc)
+                return True
+        return False
 
     def _pool_size(self) -> int:
         """Workers counted against the pool cap: task workers that are
@@ -1182,6 +1256,8 @@ class NodeManager:
     async def _lease_worker_impl(self, payload):
         demand: dict[str, float] = payload.get("resources", {})
         gcs = self._clients.get(self._gcs_address)
+        from ant_ray_tpu_torch._private import runtime_env as renv  # noqa: PLC0415
+
         pg_key = payload.get("pg")
         job_id = payload.get("job_id")
         selector = payload.get("label_selector")
@@ -1269,13 +1345,11 @@ class NodeManager:
                     "reason": "no node in this job's virtual cluster "
                               "can satisfy the request"}
 
-        if payload.get("runtime_env"):
-            # The driver refuses the option first; a lease that still
-            # carries one (a peer of the JAX package) gets no worker.
-            return {"infeasible": True,
-                    "reason": "runtime_env is not ported (ROADMAP queue A "
-                              "item 6.6)"}
+        runtime_env = payload.get("runtime_env")
         deps = payload.get("deps") or ()
+        env_key = renv.env_key(runtime_env)
+        if runtime_env:
+            await self._ensure_runtime_env(runtime_env)
         if pg_key is not None:
             bundle = self._bundles.get(pg_key)
             if deps and bundle is not None and \
@@ -1303,12 +1377,15 @@ class NodeManager:
                             "reason": f"demand {demand} exceeds bundle "
                                       f"capacity {bundle['resources']}"}
                 if self._bundle_can_allocate(pg_key, demand):
-                    worker = self._idle_worker()
+                    worker = self._idle_worker(env_key)
                     pool = self._pool_size() + self._starting_workers
+                    if worker is None and pool >= self._max_workers + 4:
+                        self._retire_idle_mismatch(env_key)
                     if worker is None and pool < self._max_workers + 4:
                         self._starting_workers += 1
                         try:
-                            handle = self._spawn_worker()
+                            handle = self._spawn_worker(
+                                runtime_env=runtime_env)
                             await handle.registered.wait()
                         finally:
                             self._starting_workers -= 1
@@ -1376,12 +1453,15 @@ class NodeManager:
         spill_deadline = start + global_config().spillback_timeout_s
         while True:
             if self._can_allocate(demand):
-                worker = self._idle_worker()
+                worker = self._idle_worker(env_key)
                 pool = self._pool_size() + self._starting_workers
+                if worker is None and pool >= self._max_workers:
+                    self._retire_idle_mismatch(env_key)
                 if worker is None and pool < self._max_workers:
                     self._starting_workers += 1
                     try:
-                        handle = self._spawn_worker()
+                        handle = self._spawn_worker(
+                            runtime_env=runtime_env)
                         await handle.registered.wait()
                     finally:
                         self._starting_workers -= 1
@@ -1394,7 +1474,8 @@ class NodeManager:
                     worker.job_id = job_id
                     reply = {"granted": worker.address,
                              "worker_id": worker.worker_id}
-                    extra = self._grant_extras(payload, demand, job_id)
+                    extra = self._grant_extras(payload, demand, env_key,
+                                               job_id)
                     if extra:
                         reply["extra"] = extra
                     return reply
@@ -1419,7 +1500,8 @@ class NodeManager:
             except asyncio.TimeoutError:
                 pass
 
-    def _grant_extras(self, payload, demand, job_id) -> list[dict]:
+    def _grant_extras(self, payload, demand, env_key: str,
+                      job_id) -> list[dict]:
         """Batched lease (payload ``count``): after the primary grant,
         hand out up to count-1 MORE leases from capacity that is free
         RIGHT NOW (already-idle workers; never spawns, never waits) so
@@ -1431,7 +1513,7 @@ class NodeManager:
         extras: list[dict] = []
         want = int(payload.get("count", 1)) - 1
         while len(extras) < want and self._can_allocate(demand):
-            worker = self._idle_worker()
+            worker = self._idle_worker(env_key)
             if worker is None:
                 break
             self._allocate(demand)
@@ -1701,8 +1783,7 @@ class NodeManager:
 
     async def _start_actor_worker(self, spec: ActorSpec):
         if spec.runtime_env:
-            raise RuntimeError("runtime_env is not ported (ROADMAP queue A "
-                               "item 6.6)")
+            await self._ensure_runtime_env(spec.runtime_env)
         if spec.placement_group_id is not None:
             key = (spec.placement_group_id,
                    spec.placement_group_bundle_index)

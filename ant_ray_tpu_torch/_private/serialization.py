@@ -358,6 +358,44 @@ def deserialize(obj: SerializedObject) -> Any:
     return pickle.loads(obj.inband, buffers=iter(buffers))
 
 
+class _RefFinder(pickle.Unpickler):
+    """Unpickles a payload only to find the ObjectRefs inside it: every
+    tensor stays unbuilt (None), so no bytes are copied and no device is
+    touched."""
+
+    def __init__(self, file, buffers, found: list):
+        super().__init__(file, buffers=buffers)
+        self._found = found
+
+    def find_class(self, module, name):
+        if module == __name__ and name == "_rebuild_tensor":
+            return _unbuilt_tensor
+        found = super().find_class(module, name)
+        if module == "ant_ray_tpu_torch.object_ref" and \
+                name == "_deserialize_ref":
+            def collect(*args):
+                ref = found(*args)
+                self._found.append(ref)
+                return ref
+            return collect
+        return found
+
+
+def _unbuilt_tensor(*_args):
+    return None
+
+
+def refs_in(payload) -> list:
+    """The ObjectRefs inside a serialized payload, found without building
+    its tensors: what a proxy pins for a value it forwards untouched
+    (util/client/server.py)."""
+    obj = SerializedObject.from_payload(payload)
+    found: list = []
+    _RefFinder(io.BytesIO(obj.inband),
+               iter([memoryview(b) for b in obj.buffers]), found).load()
+    return found
+
+
 def record_contained_ref(ref) -> None:
     """Called from ObjectRef.__reduce__ while a serialize() is in flight."""
     sink = getattr(_thread_local, "ref_sink", None)

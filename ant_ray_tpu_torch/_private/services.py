@@ -7,8 +7,9 @@ its own modules (the daemon starts the node agent).  The JAX package also
 stashes a TPU-plugin trigger from the daemons' environment and restores
 it for workers (``control_plane_env`` / ``accelerator_env``); nothing in
 the port's site configuration imports an accelerator library at
-interpreter start, so the daemons and workers inherit the launcher's
-environment as it is."""
+interpreter start, so the daemons, the workers and the dashboard's job
+drivers inherit the launcher's environment as it is (``CUDA_VISIBLE_DEVICES``
+included: a job driver sees the cards its launcher saw)."""
 
 from __future__ import annotations
 
@@ -64,13 +65,15 @@ def start_gcs(session_dir: str,
 
     Tables persist to ``<session_dir>/gcs_store.db`` so a restarted head
     resumes the cluster (ref: Redis-backed GCS fault tolerance,
-    src/ray/gcs/store_client/redis_store_client.h).  The JAX package
-    also passes an export-event directory and, for the replicated
-    control plane, a replica id; both are ROADMAP queue A item 6.6."""
+    src/ray/gcs/store_client/redis_store_client.h).  Export events go
+    to ``<session_dir>/export_events``.  The JAX package also passes,
+    for the replicated control plane, a replica id: GCS HA is ROADMAP
+    queue A item 6.6."""
     port = port or find_free_port()
     store = os.path.join(session_dir, "gcs_store.db")
     cmd = [sys.executable, "-m", "ant_ray_tpu_torch._private.gcs",
            "--port", str(port), "--store", store,
+           "--export-dir", os.path.join(session_dir, "export_events"),
            "--monitor-pid", str(os.getpid())]
     proc = subprocess.Popen(
         cmd,
@@ -146,10 +149,12 @@ def remove_session_dir(session_dir: str) -> None:
 
 def start_dashboard(gcs_address: str, session_dir: str
                     ) -> tuple[subprocess.Popen, str]:
-    """Start the dashboard (its log in the session's ``dash.err``)."""
+    """Start the dashboard (its log in the session's ``dash.err``; its
+    jobs' logs in ``logs/job-<id>.log``)."""
     proc = subprocess.Popen(
         [sys.executable, "-m", "ant_ray_tpu_torch._private.dashboard",
          "--gcs-address", gcs_address,
+         "--session-dir", session_dir,
          "--monitor-pid", str(os.getpid())],
         stdout=subprocess.PIPE, stderr=_log_file(session_dir, "dash.err"),
         env=_child_env(), start_new_session=True)
@@ -178,7 +183,7 @@ def start_cluster(num_cpus: int | None = None, num_tpus: int | None = None,
         want_dashboard = global_config().include_dashboard
         if want_dashboard and importlib.util.find_spec("aiohttp") is None:
             logger.warning("aiohttp not installed; dashboard (state API, "
-                           "/metrics) disabled")
+                           "/metrics, job server) disabled")
             want_dashboard = False
         if want_dashboard:
             try:
@@ -188,7 +193,7 @@ def start_cluster(num_cpus: int | None = None, num_tpus: int | None = None,
                 logger.warning("dashboard failed to start: %s", e)
             else:
                 procs.insert(0, dash_proc)
-                # Published for drivers that join later.
+                # Published for drivers that join later and the jobs SDK.
                 pool = ClientPool()
                 try:
                     pool.get(gcs_address).call("KVPut", {

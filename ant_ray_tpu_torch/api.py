@@ -50,9 +50,10 @@ def init(
       package, so callers of both packages pass the same arguments).
     - ``address="host:port"``: connect to an existing GCS as a driver
       (the process must be on a cluster node).
-    - ``address="art://host:port"`` (the client, from outside the
-      cluster) is ROADMAP queue A item 6.6: it raises
-      ``NotImplementedError``.
+    - ``address="art://host:port"``: connect from outside the cluster
+      through a client server (``python -m
+      ant_ray_tpu_torch.util.client.server``); this process runs no
+      daemons, and every call is one RPC to that server.
     - ``local_mode=True``: synchronous in-process execution, no daemons.
       The arguments that size or name a cluster (``num_cpus``,
       ``num_gpus``, ``num_tpus``, ``resources``,
@@ -74,10 +75,6 @@ def init(
             raise ValueError(
                 f"init(local_mode=True, {', '.join(given)}=...): these "
                 "size or name a cluster, and local mode starts none")
-    elif address is not None and address.startswith("art://"):
-        raise NotImplementedError(
-            f"init({address!r}): the client (connecting from outside the "
-            "cluster) is not ported (ROADMAP queue A item 6.6)")
 
     config = Config().apply_env_overrides().apply_dict(_system_config)
     if object_store_memory:
@@ -90,6 +87,15 @@ def init(
         global_worker.runtime = worker_mod.LocalModeRuntime(job_id)
         global_worker.mode = LOCAL_MODE
         return ClientContext(LOCAL_MODE)
+
+    if address is not None and address.startswith("art://"):
+        from ant_ray_tpu_torch.util.client import ClientRuntime  # noqa: PLC0415
+
+        global_worker.runtime = ClientRuntime.connect(
+            address.removeprefix("art://"))
+        global_worker.mode = CLUSTER_MODE
+        _register_atexit_once()
+        return ClientContext(CLUSTER_MODE)
 
     # Propagate _system_config to the daemons/workers this driver will
     # spawn: flags travel as ART_<NAME> env vars, the same channel the

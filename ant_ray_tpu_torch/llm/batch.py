@@ -96,8 +96,10 @@ def build_logprob_processor(model="tiny", *, batch_size: int = 8,
     N+1 to the card on a side stream while the forward for batch N
     runs — the same copy/compute overlap the Train ingest path gets.
 
-    ``sharding`` is the device the weights load on and the batches go
-    to (None: the current CUDA device; ``"cpu"`` for the CPU).  The
+    ``model`` is what ``checkpoint.resolve_model`` reads: a named
+    config, a ``LlamaConfig`` or a checkpoint directory.  ``sharding`` is
+    the device the weights load on and the batches go to (None: the
+    current CUDA device; ``"cpu"`` for the CPU).  The
     forward runs over ``tokens[:, :-1]``, as the reference's does: at
     ``max_len - 1`` tokens ``attention(impl="auto")`` takes blockwise
     attention (its multiple-of-128 rule), so this path runs no flash

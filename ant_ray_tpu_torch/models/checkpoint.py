@@ -355,14 +355,19 @@ def load_params(path: str, config: LlamaConfig, device=None) -> dict:
     return params
 
 
-def resolve_model(model: str, device=None, *, load: bool = True
+def resolve_model(model: str | LlamaConfig, device=None, *,
+                  load: bool = True
                   ) -> tuple[dict | None, LlamaConfig, bool]:
     """The engine-facing entry, and the one place a model string is
     read.  Returns (params, config, is_directory): a named config
     ("tiny", "llama3-8b") gives (None, config, False) — random init; a
     local checkpoint directory gives (params loaded onto ``device``,
     config-from-json, True), or no params with ``load=False`` (the caller
-    brings its own; only config.json is read)."""
+    brings its own; only config.json is read).  A ``LlamaConfig`` itself,
+    which ``LLMEngine`` also takes (say, a named one with fewer layers),
+    gives (None, it, False); the JAX package's takes strings only."""
+    if isinstance(model, LlamaConfig):
+        return None, model, False
     if model in CONFIGS:
         return None, CONFIGS[model], False
     if not os.path.isdir(model):

@@ -183,7 +183,8 @@ final line is printed:
    of those calls.  Its launches are the kernels line's "cluster" path.
 11. Tracing and metrics through a cluster on the card
    (``init(num_cpus=2)``): a num_gpus=1 actor builds two LLMServers on
-   Llama-3-8B (random weights from seed 0, slots=2, max_seq=4096,
+   Llama-3-8B's widths with its depth cut to TRACE_LAYERS (8) layers
+   (random weights from seed 0, slots=2, max_seq=4096,
    kv_offload="auto": the object-plane store in the worker), one with
    bucketed prefill, one with the reference's chunks of 64.  Under one
    sampled trace context (the global trace_sample_rate left at its
@@ -213,7 +214,8 @@ final line is printed:
    the card's name and power limit; then one "tracing" JSON line.  Its
    launches are the kernels line's "tracing" path.
 12. Serve on the card (``init(num_cpus=4)``): build_llm_deployment
-   serves Llama-3-8B (random weights from seed 0, bf16, slots=2,
+   serves Llama-3-8B's widths with its depth cut to DEPLOY_LAYERS (8)
+   layers (random weights from seed 0, bf16, slots=2,
    max_seq=4096, max_ongoing_requests=8) from replicas in worker
    processes, deployed together: "llm", two replicas with bucketed
    prefill, and "sessions", one replica with chunks of 64,
@@ -226,13 +228,14 @@ final line is printed:
    new tokens each) alone, then the same from four driver threads;
    over HTTP (aiohttp is installed on the card's machine) a completion
    and an SSE stream of 200; a session's turns around two idle
-   evictions beside the same turns with none; a 0.537 GB slab through
-   a KvVault actor and ObjectPlaneKvStore(vault=...).  Gates: greedy
-   tokens equal whichever replica answered, over HTTP and SSE too;
+   evictions beside the same turns with none; a 0.134 GB slab (a slot
+   of that model) through a KvVault actor and
+   ObjectPlaneKvStore(vault=...).  Gates: greedy tokens equal whichever
+   replica answered, over HTTP and SSE too;
    both replicas served; each "llm" replica launched the sm90 forward
-   32 times per bucketed prefill of 128 tokens or more and nothing
+   8 times per bucketed prefill of 128 tokens or more and nothing
    else, "sessions" nothing; the sessions replica's store is
-   ObjectPlaneKvStore, each offload 536,870,912 bytes, the continued
+   ObjectPlaneKvStore, each offload 134,217,728 bytes, the continued
    turns' tokens equal the unevicted ones; the vault's slab back
    bitwise; serve.shutdown() and shutdown() leave no process (pgrep),
    session directory or arena, and the card's free memory comes back.
@@ -244,18 +247,19 @@ final line is printed:
    vault's put and fetch ms and GB/s, requests and launches per
    replica).  Its launches are the kernels line's "deployment" path.
 12b. Data and batch inference on the card (``init(num_cpus=4)``):
-   build_llm_processor("llama3-8b", concurrency=2, slots=8,
-   max_seq=4096, device="cuda") generates 16 greedy tokens for each of
+   build_llm_processor(<Llama-3-8B's widths, its depth cut to
+   DATA_LAYERS (8) layers>, concurrency=2, slots=8, max_seq=4096,
+   device="cuda") generates 16 greedy tokens for each of
    32 rows of 128-1500 token ids (default_rng(18)) from
    data.from_items(rows, parallelism=8), its two engine actors each in
    a worker process; then, with the actors killed,
-   build_logprob_processor("llama3-8b", batch_size=8, max_len=1024)
+   build_logprob_processor(<the same model>, batch_size=8, max_len=1024)
    scores 64 rows of 1024 token ids in the driver through the device
    feed, with prefetch_batches 2 and 0; then random_shuffle, sort and
    groupby().count() of 1,000,000 list-block ints in 16 blocks, which
    must load no pyarrow in the driver.  Gates: 32 rows back in order with
-   their keys and "generated_text"; each actor 32 sm90 forward launches
-   per prefill (1024 together) and nothing else; the feed's card
+   their keys and "generated_text"; each actor 8 sm90 forward launches
+   per prefill (256 together) and nothing else; the feed's card
    batches bitwise the collated host batches; NLL per row equal at
    both settings and within DATA_NLL_TOL of reference attention on the
    same weights; no flash launch while scoring (1023 tokens: blockwise,
@@ -291,6 +295,33 @@ final line is printed:
    GCS's and the daemon's io threads while the actor started) and one
    "operations" JSON line.  Its launches are the kernels line's
    "operations" path.
+12d. Jobs, the client, runtime envs and export events on the card
+   (``init(num_cpus=4)`` with the dashboard, a node agent and task
+   events exported; a client server, ``python -m
+   ant_ray_tpu_torch.util.client.server``, beside it): a job submitted
+   through JobSubmissionClient with a working_dir and an env var naming
+   ``art://<client server>``.  The job, a driver outside the cluster,
+   creates through the client one num_gpus=1 actor with
+   LLMEngine("llama3-8b", slots=4, max_seq=2048) under a runtime env of
+   an env var and a py_module, generates 16 greedy tokens for the
+   operations phase's 4 prompts, and puts a 256-MiB bf16 CUDA tensor
+   through the client that the actor takes by ref and returns.  A
+   second job (sleep 600) is stopped; a num_gpus=1 task runs in a pip
+   venv built from a wheel made here.  Gates, each on a "jobs gate"
+   line: the job SUCCEEDED and listed, its log holding its result;
+   token ids equal to the operations phase's driver engine's row by
+   row; 32 sm90 forward launches per prefill in the actor's process and
+   nothing else; the env var and the py_module seen in the actor; the
+   tensor bitwise equal after the round trip, on the card at both ends,
+   the client server mapping no CUDA library; the stopped job STOPPED
+   and its processes gone; EXPORT_DRIVER_JOB and the actor's ALIVE and
+   DEAD in /api/export_events; the venv task on the venv's interpreter
+   with the wheel, the sm90 forward's library loaded unbuilt and
+   launched once at B=1 S=4096 H=32 KVH=8 D=128 within TOL of its plain
+   version, a task without the env unable to import the wheel; nothing
+   left after shutdown.  Prints each step's wall on a "jobs <step>"
+   line and one "jobs" JSON line.  Its launches are the kernels line's
+   "jobs" path.
 13. Serving from a checkpoint directory: llama-400m at its published
    widths and depth (bf16, seed 0) written to a temporary directory of
    this checkout in the HF layout twice, as model.safetensors (a writer
@@ -329,8 +360,8 @@ final line is printed:
    line of one step.
 16. Remat: the training slice again, from the same weights, under
    each remat policy ("none", "full", "dots", "matmuls"), 3 warm-up and
-   10 timed steps each.  Gates: the forward kernel launched twice per
-   layer and step under "full" and "dots" and once under "none" and
+   5 timed steps each (REMAT_STEPS).  Gates: the forward kernel
+   launched twice per layer and step under "full" and "dots" and once under "none" and
    "matmuls" (whose selective-checkpoint policy saves the flash
    forward's out and lse), the backward pair once; the losses of the
    first two steps equal across the policies within BF16_LOSS_TOL.
@@ -380,7 +411,8 @@ final line is printed:
    sm90_d256, tf32x3_d256 and CUDA-core dQ and dK/dV; launches by path,
    the main paths being serving, sessions, the loop, the cluster's
    worker, the traced cluster's worker, the deployment's replicas, the
-   data processor's actors, the checkpoint directory, the
+   data processor's actors, the operations and the jobs phases' actors,
+   the checkpoint directory, the
    server, training, training under each remat policy, GPT-2 in fp32
    and bf16 and the head_dim-256 Llama in bf16 and fp32; the older kernels' times also at GPT-2's
    shape, the sm90_d256 ones at Gemma-7B's and Gemma-2B's attention and
@@ -425,6 +457,7 @@ import itertools
 import json
 import os
 import re
+import shlex
 import shutil
 import signal
 import statistics
@@ -434,6 +467,7 @@ import tempfile
 import threading
 import time
 import types
+import urllib.request
 
 import numpy as np
 
@@ -1286,14 +1320,19 @@ def train_phase(torch, fa, llama):
     return launches
 
 
+# Steps per remat policy (3 of them warm-up): 13 until the jobs phase
+# came, whose time this pays for in part.
+REMAT_STEPS = 8
+
+
 def remat_phase(torch, fa, llama):
     """llama-400m's training slice under each remat policy, each from the
-    same weights: 3 warm-up and 10 timed steps, a profile, and the step
-    on 1 x 128 tokens, where the host sets the time.  Gates: the forward
-    kernel launched FWD_PER_LAYER[remat] times per layer and step, the
-    backward pair once; the losses of the first two steps (the second
-    after one update, so it carries the first step's gradients) equal
-    across the policies within BF16_LOSS_TOL.  Returns the launches per
+    same weights: 3 warm-up and REMAT_STEPS - 3 timed steps, a profile,
+    and the step on 1 x 128 tokens, where the host sets the time.  Gates:
+    the forward kernel launched FWD_PER_LAYER[remat] times per layer and
+    step, the backward pair once; the losses of the first two steps (the
+    second after one update, so it carries the first step's gradients)
+    equal across the policies within BF16_LOSS_TOL.  Returns the launches per
     policy, keyed "remat_<policy>"."""
     from ant_ray_tpu_torch.train import make_optimizer, train_step  # noqa: PLC0415
 
@@ -1312,14 +1351,14 @@ def remat_phase(torch, fa, llama):
                     "fwd_sm90_d256": 0, "dq": n, "dkv": n, "sm90": n,
                     "tf32x3": 0, "sm90_d256": 0,
                     "tf32x3_d256": 0, "fwd_tf32x3_d256": 0}
-        losses, step_ms, launches, peak_gb = _train_steps(torch, fa, step,
-                                                          per_step)
+        losses, step_ms, launches, peak_gb = _train_steps(
+            torch, fa, step, per_step, n_steps=REMAT_STEPS)
         ms = statistics.median(step_ms[3:])
         tokens_per_s = batch * seq / (ms / 1e3)
         mfu = tokens_per_s * llama.flops_per_token(cfg, seq) / PEAK_FLOPS[
             "bfloat16"]
         print(f"remat {remat} llama-400m batch {batch} x seq {seq}: step "
-              f"{ms:.2f} ms (median of 10 after 3 warm-up; all "
+              f"{ms:.2f} ms (median of {REMAT_STEPS - 3} after 3 warm-up; all "
               f"{[round(x, 1) for x in step_ms]}), {tokens_per_s:.0f} "
               f"tokens/s, MFU {mfu:.4f} (bf16 peak), peak memory "
               f"{peak_gb:.2f} GB; launches per step {per_step}; losses "
@@ -2805,6 +2844,9 @@ def cluster_phase(torch, fa, llama, params, engine, card):
 
 
 TRACE_SERVER = dict(slots=2, max_seq=4096, seed=0, kv_offload="auto")
+# The servers' depth: Llama-3-8B's widths with its depth cut from 32
+# layers to this, to pay for the jobs phase in the time limit.
+TRACE_LAYERS = 8
 TRACE_PROMPTS = {"completion": 1500, "turn1": 300, "turn2": 50,
                  "stream": 100}  # prompt tokens of the traced requests
 TRACE_TOKENS = 16               # new tokens per traced request
@@ -2914,7 +2956,8 @@ def _split_us(spans, wall_sampled, wall_unsampled):
 def tracing_phase(torch, llama, card):
     """Tracing and metrics through a cluster on the card
     (``init(num_cpus=2)``): a ``num_gpus=1`` actor holds two LLMServers
-    on Llama-3-8B (random weights from seed 0), one with bucketed
+    on Llama-3-8B's widths at TRACE_LAYERS layers (random weights from
+    seed 0), one with bucketed
     prefill for completions and streams, whose prefills of 128 tokens
     and more run the sm90 flash forward, and one with the reference's
     serving default (chunks of 64), whose sessions continue.  Under one
@@ -2939,7 +2982,8 @@ def tracing_phase(torch, llama, card):
     from ant_ray_tpu_torch.util import timeline as tl_util  # noqa: PLC0415
     from ant_ray_tpu_torch.util import tracing as tr_util  # noqa: PLC0415
 
-    cfg = llama.CONFIGS["llama3-8b"]
+    cfg = dataclasses.replace(llama.CONFIGS["llama3-8b"],
+                              n_layers=TRACE_LAYERS)
     rng = np.random.default_rng(16)
     prompts = {k: rng.integers(0, cfg.vocab_size, n).tolist()
                for k, n in TRACE_PROMPTS.items()}
@@ -2951,9 +2995,9 @@ def tracing_phase(torch, llama, card):
             from ant_ray_tpu_torch.ops import flash_attention  # noqa: PLC0415
 
             self.fa = flash_attention
-            self.server = LLMServer("llama3-8b", prefill_chunk_tokens=None,
+            self.server = LLMServer(cfg, prefill_chunk_tokens=None,
                                     **TRACE_SERVER)
-            self.sessions = LLMServer("llama3-8b", **TRACE_SERVER)
+            self.sessions = LLMServer(cfg, **TRACE_SERVER)
             torch.cuda.synchronize()
             _reset_counts(flash_attention)
 
@@ -2985,7 +3029,7 @@ def tracing_phase(torch, llama, card):
         value = fn()
         return value, round(time.perf_counter() - t0, 4)
 
-    out = {"card": card, "model": "llama3-8b"}
+    out = {"card": card, "model": "llama3-8b", "layers": TRACE_LAYERS}
     # Spans recorded before the cluster (none are sampled by the earlier
     # phases, but a 1-in-100 head-sampled call may be) are dropped here.
     tracing_plane.flush()
@@ -3171,6 +3215,9 @@ def tracing_phase(torch, llama, card):
 
 
 DEPLOY_SERVER = dict(slots=2, max_seq=4096, max_ongoing_requests=8)
+# The replicas' depth: Llama-3-8B's widths with its depth cut from 32
+# layers to this, to pay for the jobs phase in the time limit.
+DEPLOY_LAYERS = 8
 DEPLOY_PROMPTS = {"completion": 1500, "chat": 300, "stream": 100,
                   "short": 40, "http": 200, "turn1": 300, "turn2": 50,
                   "turn3": 50, "filler": 20}  # tokens (the chat's: chars)
@@ -3309,7 +3356,8 @@ def _http_post(port, path, payload):
 
 def deployment_phase(torch, llama, card):
     """Serve on the card (``init(num_cpus=4)``): build_llm_deployment
-    serves Llama-3-8B (random weights from seed 0, bf16, slots=2,
+    serves Llama-3-8B's widths at DEPLOY_LAYERS layers (random weights
+    from seed 0, bf16, slots=2,
     max_seq=4096, max_ongoing_requests=8) from replicas, each in its own
     worker process, deployed together: "llm", two replicas with
     bucketed prefill, whose prefills of 128 tokens and more run the sm90
@@ -3322,14 +3370,15 @@ def deployment_phase(torch, llama, card):
     HTTP, when aiohttp is installed, a completion and an SSE stream.  A
     session's turns around two idle evictions (a pause past
     kv_idle_evict_s, then a request that steps the engine) beside the
-    same turns with no eviction.  A slab of the 8B shape through a
-    KvVault actor and ObjectPlaneKvStore(vault=...).  Gates: greedy
+    same turns with no eviction.  A slab of that model's shape through
+    a KvVault actor and ObjectPlaneKvStore(vault=...).  Gates: greedy
     tokens equal whichever replica answered, and over HTTP; both
     replicas served; each "llm" replica launched the sm90 forward
     n_layers times per bucketed prefill of 128 tokens or more and
     nothing else, "sessions" nothing; the sessions replica's store is
-    ObjectPlaneKvStore, each offload 536,870,912 bytes, the continued
-    turns' tokens those of the unevicted ones; the vault's slab back
+    ObjectPlaneKvStore, each offload one slot's k and v (134,217,728
+    bytes at 8 layers), the continued turns' tokens those of the
+    unevicted ones; the vault's slab back
     bitwise; serve.shutdown() and shutdown() leave no process, session
     directory or arena, and the card's memory comes back.  Returns the
     replicas' launches."""
@@ -3343,7 +3392,11 @@ def deployment_phase(torch, llama, card):
         build_llm_deployment  # noqa: PLC0415
     from ant_ray_tpu_torch.observability import tracing_plane  # noqa: PLC0415
 
-    cfg = llama.CONFIGS["llama3-8b"]
+    cfg = dataclasses.replace(llama.CONFIGS["llama3-8b"],
+                              n_layers=DEPLOY_LAYERS)
+    # One slot's k and v in bf16: what each offload moves.
+    slot_bytes = (2 * cfg.n_layers * DEPLOY_SERVER["max_seq"]
+                  * cfg.n_kv_heads * cfg.head_dim * 2)
     rng = np.random.default_rng(17)
     ids = {k: rng.integers(0, cfg.vocab_size, n).tolist()
            for k, n in DEPLOY_PROMPTS.items() if k != "chat"}
@@ -3357,7 +3410,8 @@ def deployment_phase(torch, llama, card):
     for r in requests.values():
         r["max_tokens"] = DEPLOY_TOKENS
     http = importlib.util.find_spec("aiohttp") is not None
-    out = {"card": card, "model": "llama3-8b", "aiohttp": http,
+    out = {"card": card, "model": "llama3-8b", "layers": DEPLOY_LAYERS,
+           "aiohttp": http,
            "grpcio": importlib.util.find_spec("grpc") is not None}
     server_cls = _deployed_server_cls()
     torch.cuda.synchronize()
@@ -3391,12 +3445,12 @@ def deployment_phase(torch, llama, card):
         # deployed together (the controller first).
         apps = {
             "llm": (build_llm_deployment(
-                "llama3-8b", name="llm", num_replicas=2,
+                cfg, name="llm", num_replicas=2,
                 prefill_chunk_tokens=None,
                 route_prefix="/v1" if http else None, **DEPLOY_SERVER),
                 0 if http else None),
             "sessions": (build_llm_deployment(
-                "llama3-8b", name="sessions", num_replicas=1,
+                cfg, name="sessions", num_replicas=1,
                 route_prefix=None, kv_idle_evict_s=DEPLOY_IDLE_EVICT_S,
                 kv_offload="auto", **DEPLOY_SERVER), None)}
         serve.api._get_or_create_controller()
@@ -3572,13 +3626,13 @@ def deployment_phase(torch, llama, card):
               + json.dumps(out["session"]), flush=True)
         if out["session"]["store"] != "ObjectPlaneKvStore" or \
                 out["session"]["idle_evictions"] != 2 or \
-                out["session"]["offload_bytes"] != [536_870_912] * 2 or \
+                out["session"]["offload_bytes"] != [slot_bytes] * 2 or \
                 out["session"]["restores"] != 2 or \
                 not out["session"]["tokens_equal"]:
             raise AssertionError(f"the session through the object-plane "
                                  f"store: {out['session']}")
 
-        # The vault: a slab of the 8B shape through a KvVault actor.
+        # The vault: a slab of the model's shape through a KvVault actor.
         vault = art.remote(KvVault).remote()
         art.get(vault.put.remote("warm", 1), timeout=300)   # the actor is up
         store = ObjectPlaneKvStore(vault=vault, get_timeout_s=300.0)
@@ -3693,17 +3747,23 @@ DATA_PROMPT_LENS = (128, 1500)  # their lengths, drawn from default_rng(18)
 DATA_TOKENS = 16                # new tokens per prompt (greedy)
 DATA_BLOCKS = 8                 # from_items(rows, parallelism=...)
 DATA_PROCESSOR = dict(concurrency=2, slots=8, max_seq=4096)
+# The depth of the model that generates and scores: Llama-3-8B's widths
+# with its depth cut from 32 layers to this, to pay for the jobs phase
+# in the time limit.
+DATA_LAYERS = 8
 DATA_SCORE = dict(rows=64, tokens=1024, batch_size=8)
 DATA_TABLE = (1_000_000, 16)    # rows and blocks of the Data operations
 DATA_GROUPS = 1000              # groupby keys: value % DATA_GROUPS
 # |NLL| per row of build_logprob_processor (blockwise attention, which
 # rounds p to bf16 before P.V) against reference attention (fp32
-# softmax) on the same bf16 8B weights: the sound reading is 4.72e-3 on
-# NLLs of 12.49-12.67, alike at prefetch 2 and 0; the faults of
-# _blockwise_faults read 9.96e-2 (the ragged last block dropped) and
-# 1.13e-1 (no causal mask) (tools/phase.py data --readings, NVIDIA H100
-# 80GB HBM3, 700.00 W).  The limit lies near their geometric mean: 4x
-# the sound reading, a fifth of the nearer fault's.
+# softmax) on the same bf16 weights (tools/phase.py data --readings,
+# NVIDIA H100 80GB HBM3, 700.00 W).  At Llama-3-8B's 32 layers the sound
+# reading was 4.72e-3 on NLLs of 12.49-12.67, alike at prefetch 2 and 0,
+# and the faults of _blockwise_faults 9.96e-2 (the ragged last block
+# dropped) and 1.13e-1 (no causal mask); at DATA_LAYERS (8) they read
+# 2.22e-3 on 12.48-12.65, and 9.41e-2 and 1.38e-1.  The limit lies
+# between: 9x the sound reading at 8 layers, a fifth of the nearer
+# fault's.
 DATA_NLL_TOL = 2e-2
 DATA_BLOCK_K = 512              # blockwise_attention's default block_k
 
@@ -3747,18 +3807,20 @@ def _actor_launches(art, actor):
 def data_phase(torch, llama, card, readings=False):
     """Data and batch inference on the card (``init(num_cpus=4)``).
 
-    (a) build_llm_processor("llama3-8b", concurrency=2, slots=8,
-    max_seq=4096, device="cuda") over from_items of 32 rows {"id",
+    (a) build_llm_processor(<Llama-3-8B at DATA_LAYERS layers>,
+    concurrency=2, slots=8, max_seq=4096, device="cuda") over
+    from_items of 32 rows {"id",
     "prompt": token ids of 128-1500, default_rng(18)} in 8 blocks, 16
     greedy tokens each: two actors, each its own engine (random weights
     from seed 0) in its own worker process.  Gates: 32 rows back in
     order, each with its keys unchanged and "generated_text" added; each
-    actor launched the sm90 forward 32 times per bucketed prefill it ran
-    (all of them: every prompt is 128 tokens or more) and nothing else,
-    1024 between the two; the actors' generated token ids (llm/batch.py
+    actor launched the sm90 forward DATA_LAYERS times per bucketed
+    prefill it ran (all of them: every prompt is 128 tokens or more) and
+    nothing else, 256 between the two; the actors' generated token ids
+    (llm/batch.py
     ``_token_ids``) are read back block by block.  (b) With the actors
     killed and the card's memory back,
-    build_logprob_processor("llama3-8b", batch_size=8,
+    build_logprob_processor(<the same model>, batch_size=8,
     max_len=1024) in the driver over 64 rows of 1024 token ids, with
     prefetch_batches=2 and 0 (after one untimed pass, which loads the
     forward's kernels).  Gates: each batch on the card bitwise
@@ -3771,7 +3833,7 @@ def data_phase(torch, llama, card, readings=False):
     random_shuffle(seed=0), sort and groupby(value % 1000).count() of
     1,000,000 list-block ints in 16 blocks, equal to numpy's, without
     loading pyarrow in the driver.  Then shutdown() leaves nothing, and one
-    LLMEngine("llama3-8b", slots=8, max_seq=4096) in the driver must
+    LLMEngine(<the same model>, slots=8, max_seq=4096) in the driver must
     generate the actors' token ids row by row, 16 a row, and their
     texts.  Returns the actors' launches."""
     import ant_ray_tpu_torch as art  # noqa: PLC0415
@@ -3790,6 +3852,7 @@ def data_phase(torch, llama, card, readings=False):
     # The module, not the package's attention() of the same name.
     attn = importlib.import_module("ant_ray_tpu_torch.ops.attention")
     cfg = llama.CONFIGS["llama3-8b"]
+    model_cfg = dataclasses.replace(cfg, n_layers=DATA_LAYERS)
     nll_tol = None if readings else DATA_NLL_TOL
     sound, faults = _blockwise_faults(attn)
     rng = np.random.default_rng(18)
@@ -3805,6 +3868,7 @@ def data_phase(torch, llama, card, readings=False):
     sampling = SamplingParams(max_tokens=DATA_TOKENS)
     gib = 1 << 30
     out = {"card": card, "model": "llama3-8b",
+           "generating_layers": DATA_LAYERS,
            "pyarrow": importlib.util.find_spec("pyarrow") is not None,
            "pandas": importlib.util.find_spec("pandas") is not None}
     torch.cuda.synchronize()
@@ -3820,7 +3884,7 @@ def data_phase(torch, llama, card, readings=False):
     try:
         # (a) Generation through two engine actors.
         t0 = time.perf_counter()
-        process = build_llm_processor("llama3-8b", sampling=sampling,
+        process = build_llm_processor(model_cfg, sampling=sampling,
                                       device="cuda", **DATA_PROCESSOR)
         actors = process._actors
         starts, fresh = [None] * len(actors), [None] * len(actors)
@@ -3888,7 +3952,7 @@ def data_phase(torch, llama, card, readings=False):
             mine = [len(rows[j]["prompt"]) for b in range(i, DATA_BLOCKS, n)
                     for j in range(b * DATA_ROWS // DATA_BLOCKS,
                                    (b + 1) * DATA_ROWS // DATA_BLOCKS)]
-            want = cfg.n_layers * sum(
+            want = model_cfg.n_layers * sum(
                 _bucket(m, DATA_PROCESSOR["max_seq"]) >= 128 for m in mine)
             per_actor.append({"fwd_sm90": counts["fwd_sm90"],
                               "want": want})
@@ -3899,7 +3963,7 @@ def data_phase(torch, llama, card, readings=False):
             for key, v in counts.items():
                 launches[key] = launches.get(key, 0) + v
         out["actor_launches"] = per_actor
-        if launches["fwd_sm90"] != cfg.n_layers * DATA_ROWS:
+        if launches["fwd_sm90"] != model_cfg.n_layers * DATA_ROWS:
             raise AssertionError(f"the actors launched {launches}")
         for actor in actors:
             art.kill(actor)
@@ -3932,7 +3996,7 @@ def data_phase(torch, llama, card, readings=False):
         nll, out["score"] = {}, {}
         for prefetch in (2, 0):
             proc = build_logprob_processor(
-                "llama3-8b", batch_size=DATA_SCORE["batch_size"],
+                model_cfg, batch_size=DATA_SCORE["batch_size"],
                 max_len=DATA_SCORE["tokens"], prefetch_batches=prefetch)
             if prefetch == 2:           # warm: the process's first pass
                 proc(data.from_items(scored, parallelism=DATA_BLOCKS))
@@ -3984,14 +4048,14 @@ def data_phase(torch, llama, card, readings=False):
             raise AssertionError(f"the scoring path launched flash "
                                  f"kernels: {score_counts}")
         gen = torch.Generator(device="cuda").manual_seed(0)
-        params = llama.init_params(cfg, generator=gen, device="cuda")
+        params = llama.init_params(model_cfg, generator=gen, device="cuda")
         tokens = torch.tensor([r["tokens"] for r in scored],
                               dtype=torch.long, device="cuda")
         plain = []
         with torch.inference_mode():
             for b in range(0, len(scored), DATA_SCORE["batch_size"]):
                 toks = tokens[b:b + DATA_SCORE["batch_size"]]
-                logits = llama.forward(params, toks[:, :-1], cfg,
+                logits = llama.forward(params, toks[:, :-1], model_cfg,
                                        attn_impl="reference")
                 losses = F.cross_entropy(
                     logits.reshape(-1, logits.shape[-1]),
@@ -4079,7 +4143,7 @@ def data_phase(torch, llama, card, readings=False):
         torch.cuda.mem_get_info()[0] / gib, 3)
 
     # The same prompts through one engine in the driver.
-    engine = LLMEngine("llama3-8b", slots=DATA_PROCESSOR["slots"],
+    engine = LLMEngine(model_cfg, slots=DATA_PROCESSOR["slots"],
                        max_seq=DATA_PROCESSOR["max_seq"])
     direct = engine.generate([r["prompt"] for r in rows], sampling)
     del engine
@@ -4122,6 +4186,16 @@ OPS_SMI_SLACK = 1 << 30         # the agent's gauge against nvidia-smi
 OPS_SAMPLE_COST_S = 300e-6      # the reference's per-sample bound
 OPS_PROCS = ("driver", "gcs", "daemon", "worker", "agent")
 OPS_WAIT_S = 60.0               # for gauges and profiles to reach the GCS
+
+
+def _ops_prompts(cfg):
+    """The operations phase's prompt lengths and token ids (4 prompts of
+    256-1024 ids from default_rng(19)); the jobs phase sends the same."""
+    rng = np.random.default_rng(19)
+    lens = rng.integers(OPS_PROMPT_LENS[0], OPS_PROMPT_LENS[1] + 1,
+                        OPS_PROMPTS)
+    return lens, [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+                  for n in lens]
 
 
 def _io_loops(gcs, since_ts):
@@ -4184,7 +4258,7 @@ def _metric_values(text, name):
     return out
 
 
-def operations_phase(torch, llama, card):
+def operations_phase(torch, llama, card, keep=None):
     """The operator's surface on the card (``init(num_cpus=4,
     _system_config=OPS_CONFIG)``: the dashboard, a node agent publishing
     the card's memory every 2 s, the CPU profiler at its default 67 Hz
@@ -4211,9 +4285,10 @@ def operations_phase(torch, llama, card):
     trace; ``status`` and ``list placement-groups`` through the CLI name
     the node, the GPU and the group.  After shutdown nothing is left and
     the card's memory is back; then one LLMEngine of the same shape in
-    the driver must generate the actor's token ids row by row.  Also
-    printed: the GCS's and the daemon's io loops while the actor
-    started.  Returns the actor's launches."""
+    the driver must generate the actor's token ids row by row (kept
+    under ``keep["tokens"]`` where ``keep`` is a dict, for the jobs
+    phase).  Also printed: the GCS's and the daemon's io loops while the
+    actor started.  Returns the actor's launches."""
     import tarfile  # noqa: PLC0415
     import urllib.request  # noqa: PLC0415
 
@@ -4228,11 +4303,7 @@ def operations_phase(torch, llama, card):
         placement_group, placement_group_table, remove_placement_group)
 
     cfg = llama.CONFIGS["llama3-8b"]
-    rng = np.random.default_rng(19)
-    lens = rng.integers(OPS_PROMPT_LENS[0], OPS_PROMPT_LENS[1] + 1,
-                        OPS_PROMPTS)
-    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
-               for n in lens]
+    lens, prompts = _ops_prompts(cfg)
     greedy = SamplingParams(max_tokens=OPS_TOKENS)
     want_launches = cfg.n_layers * sum(
         _bucket(int(n), OPS_ENGINE["max_seq"]) >= 128 for n in lens)
@@ -4492,6 +4563,8 @@ def operations_phase(torch, llama, card):
     want = [list(o.token_ids) for o in engine.generate(prompts, greedy)]
     del engine
     torch.cuda.empty_cache()
+    if keep is not None:
+        keep["tokens"] = want
     gate("tokens", tokens == want and all(len(t) == OPS_TOKENS
                                           for t in want),
          {"rows_equal": [a == b for a, b in zip(tokens, want)],
@@ -4499,6 +4572,480 @@ def operations_phase(torch, llama, card):
     out["phase_s"] = round(time.perf_counter() - t_phase, 3)
     print("operations " + json.dumps(out, default=str), flush=True)
     return launches
+
+
+JOBS_CONFIG = {"include_dashboard": True, "enable_node_agent": True,
+               "export_task_events": True}
+JOBS_TENSOR_ELEMS = 128 << 20   # 256 MiB of bf16 through the client
+JOBS_VENV_ATTN = (1, 4096, 4096, 32, 8, 128)   # row 1's shape, bf16, causal
+JOBS_TIMEOUT_S = 600.0          # for the job to end
+JOBS_WAIT_S = 30.0              # for a stopped job, and for export events
+JOBS_ACTOR_FLAG = "jobs-runtime-env"
+JOBS_MAGIC = 20                 # the py_module's constant
+# A venv is built with pip from a wheel made here: pip asks no index.
+JOBS_PIP_ENV = {"PIP_NO_INDEX": "1", "PIP_DISABLE_PIP_VERSION_CHECK": "1"}
+JOBS_COUNTERS = ("launch_count", "fwd_sm90_launch_count",
+                 "fwd_tf32x3_launch_count", "fwd_sm90_d256_launch_count",
+                 "fwd_tf32x3_d256_launch_count", "bwd_dq_launch_count",
+                 "bwd_dkv_launch_count", "bwd_sm90_launch_count",
+                 "bwd_tf32x3_launch_count", "bwd_sm90_d256_launch_count",
+                 "bwd_tf32x3_d256_launch_count")
+
+# The job's driver script: a process outside the cluster that connects
+# through the client server, holds Llama-3-8B in one num_gpus=1 actor
+# whose runtime env carries an env var and a py_module, generates, and
+# sends a CUDA tensor through the client by ref to the actor and back.
+JOB_SCRIPT = '''\
+import json
+import os
+import time
+
+import ant_ray_tpu_torch as art
+
+with open("spec.json") as f:
+    spec = json.load(f)
+out = {}
+t0 = time.perf_counter()
+art.init(os.environ["ART_CLIENT_ADDRESS"])
+out["connect_s"] = round(time.perf_counter() - t0, 3)
+
+
+@art.remote(num_gpus=1)
+class JobEngine:
+    def __init__(self, engine):
+        import torch
+        from ant_ray_tpu_torch.llm import LLMEngine
+
+        self.engine = LLMEngine("llama3-8b", seed=0, **engine)
+        torch.cuda.synchronize()
+
+    def seen(self):
+        import jobs_payload
+
+        return {"env": os.environ.get("JOBS_ACTOR_FLAG"),
+                "py_module": jobs_payload.MAGIC, "pid": os.getpid()}
+
+    def generate(self, prompts, max_tokens):
+        import torch
+        from ant_ray_tpu_torch.llm import SamplingParams
+        from ant_ray_tpu_torch.ops import flash_attention as fa
+
+        for name in spec["counters"]:
+            setattr(fa, name, 0)
+        t0 = time.perf_counter()
+        outs = self.engine.generate(prompts,
+                                    SamplingParams(max_tokens=max_tokens))
+        torch.cuda.synchronize()
+        return ([list(o.token_ids) for o in outs],
+                round(time.perf_counter() - t0, 3))
+
+    def launches(self):
+        from ant_ray_tpu_torch.ops import flash_attention as fa
+
+        return {name: getattr(fa, name) for name in spec["counters"]}
+
+    def echo(self, tensor):
+        return tensor, tensor.device.type
+
+
+t0 = time.perf_counter()
+actor = JobEngine.options(runtime_env={
+    "env_vars": {"JOBS_ACTOR_FLAG": spec["flag"]},
+    "py_modules": [os.path.abspath("jobs_payload")]}).remote(spec["engine"])
+import torch  # noqa: E402 — while the actor starts
+
+out["actor_id"] = actor._actor_id.hex()
+out["seen"] = art.get(actor.seen.remote(), timeout=900)
+out["actor_start_s"] = round(time.perf_counter() - t0, 3)
+out["tokens"], out["generate_s"] = art.get(
+    actor.generate.remote(spec["prompts"], spec["max_tokens"]), timeout=900)
+out["launches"] = art.get(actor.launches.remote(), timeout=60)
+
+gen = torch.Generator(device="cuda").manual_seed(20)
+tensor = torch.randn(spec["tensor_elems"], generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+ref = art.put(tensor)
+out["put_s"] = round(time.perf_counter() - t0, 3)
+t0 = time.perf_counter()
+back_ref = actor.echo.remote(ref)
+art.wait([back_ref], timeout=600)
+out["echo_s"] = round(time.perf_counter() - t0, 3)
+t0 = time.perf_counter()
+back, actor_device = art.get(back_ref, timeout=600)
+torch.cuda.synchronize()
+out["get_s"] = round(time.perf_counter() - t0, 3)
+out["tensor"] = {"bytes": tensor.numel() * tensor.element_size(),
+                 "actor_device": actor_device,
+                 "device": back.device.type, "dtype": str(back.dtype),
+                 "bitwise": bool(torch.equal(back, tensor))}
+art.kill(actor)
+print("JOB_RESULT " + json.dumps(out), flush=True)
+art.shutdown()
+'''
+
+
+def _cmdline(pid):
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return f.read().replace(b"\0", b" ").decode(errors="replace")
+    except OSError:
+        return ""
+
+
+def _descendants(pid):
+    out, todo = [], [pid]
+    while todo:
+        for child in _child_pids(todo.pop()):
+            out.append(child)
+            todo.append(child)
+    return out
+
+
+def _maps_name(pid, *names):
+    """Which of ``names`` the shared objects mapped by ``pid`` mention."""
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            text = f.read()
+    except OSError:
+        return None
+    return sorted(n for n in names if n in text)
+
+
+def _write_wheel(path):
+    """A minimal pure-python wheel made here (a wheel is a zip): the pip
+    runtime env installs it with no index."""
+    import zipfile  # noqa: PLC0415
+
+    name, version = "artjobswheel", "0.1"
+    wheel = os.path.join(path, f"{name}-{version}-py3-none-any.whl")
+    info = f"{name}-{version}.dist-info"
+    with zipfile.ZipFile(wheel, "w") as zf:
+        zf.writestr(f"{name}/__init__.py", f"MAGIC = {JOBS_MAGIC}\n")
+        zf.writestr(f"{info}/METADATA", "Metadata-Version: 2.1\n"
+                    f"Name: {name}\nVersion: {version}\n")
+        zf.writestr(f"{info}/WHEEL", "Wheel-Version: 1.0\nGenerator: "
+                    "chip_smoke\nRoot-Is-Purelib: true\nTag: py3-none-any\n")
+        zf.writestr(f"{info}/RECORD", "")
+    return wheel
+
+
+def _venv_kernel_check(attn):
+    """A num_gpus=1 task's body in a pip venv: where it runs, the wheel,
+    whether the sm90 forward's library was already built, and one launch
+    of it at ``attn`` (bf16, causal) against its plain version."""
+    import artjobswheel  # noqa: PLC0415
+    import torch  # noqa: PLC0415
+
+    from ant_ray_tpu_torch.ops import _build  # noqa: PLC0415
+    from ant_ray_tpu_torch.ops import flash_attention as fa  # noqa: PLC0415
+
+    lib = "flash_attention_fwd_sm90"
+    prebuilt = _build._library_path(lib).exists()
+    t0 = time.perf_counter()
+    _build.load(lib)
+    load_s = time.perf_counter() - t0
+    batch, q_len, kv_len, heads, kv_heads, dim = attn
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    q = rand(batch, q_len, heads, dim)
+    k = rand(batch, kv_len, kv_heads, dim)
+    v = rand(batch, kv_len, kv_heads, dim)
+    _reset_counts(fa)
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    launches = _counts(fa)
+    ref_out, ref_lse = fa.flash_attention_fwd_lse_ref(q, k, v, causal=True)
+    return {"prefix": sys.prefix, "executable": sys.executable,
+            "wheel": artjobswheel.MAGIC, "prebuilt": prebuilt,
+            "load_s": round(load_s, 3), "launches": launches,
+            "max_abs_err": (out.float() - ref_out.float()).abs().max().item(),
+            "lse_err": (lse - ref_lse).abs().max().item()}
+
+
+def _imports_the_wheel():
+    try:
+        import artjobswheel  # noqa: F401, PLC0415
+        return True
+    except ImportError:
+        return False
+
+
+def jobs_phase(torch, llama, card, want=None):
+    """Job submission, the client, runtime envs and export events on the
+    card (``init(num_cpus=4, _system_config=JOBS_CONFIG)``: the
+    dashboard, a node agent, task events exported).  A client server
+    (``python -m ant_ray_tpu_torch.util.client.server``) fronts the
+    cluster; through the dashboard's ``JobSubmissionClient`` a job is
+    submitted with ``runtime_env={"working_dir": <dir>, "env_vars":
+    {"ART_CLIENT_ADDRESS": "art://<server>"}}``.  The job, a driver
+    outside the cluster, connects through ``art://``, creates one
+    ``num_gpus=1`` actor with ``LLMEngine("llama3-8b", slots=4,
+    max_seq=2048)`` (random weights from seed 0) under a runtime env of
+    an env var and a py_module, generates 16 greedy tokens for the
+    operations phase's 4 prompts, puts a 256-MiB bf16 CUDA tensor
+    through the client, which the actor takes by ref and returns, then
+    kills the actor and prints one ``JOB_RESULT`` line.  Meanwhile a
+    second job (``sleep 600``) is stopped, and a ``num_gpus=1`` task
+    with ``runtime_env={"pip": [<wheel made here>]}`` waits for the card.
+    Gates, each on a "jobs gate" line: the job SUCCEEDED, listed, its
+    log holding the result; the actor's token ids equal, row by row, to
+    the operations phase's driver engine's (``want``; built here once
+    when not given); 32 sm90 forward launches per bucketed prefill in
+    the actor's process and nothing else; the env var and the py_module
+    in the actor; the tensor bitwise equal after the round trip, on the
+    card at both ends, the client server holding no CUDA library; the
+    stopped job STOPPED and its processes gone; EXPORT_DRIVER_JOB and
+    the actor's ALIVE and DEAD in ``/api/export_events``; the venv task
+    on the venv's interpreter, importing the wheel, loading the sm90
+    forward without building it and launching it once at row 1's shape
+    within TOL of its plain version, a task without the env unable to
+    import the wheel; nothing left after shutdown and the card's memory
+    back.  Returns the actor's launches."""
+    import ant_ray_tpu_torch as art  # noqa: PLC0415
+    from ant_ray_tpu_torch._private import runtime_env as renv  # noqa: PLC0415
+    from ant_ray_tpu_torch._private.worker import global_worker  # noqa: PLC0415
+    from ant_ray_tpu_torch.job_submission import (  # noqa: PLC0415
+        JobStatus, JobSubmissionClient)
+    from ant_ray_tpu_torch.llm import LLMEngine, SamplingParams  # noqa: PLC0415
+    from ant_ray_tpu_torch.llm.engine import _bucket  # noqa: PLC0415
+    from ant_ray_tpu_torch.observability import tracing_plane  # noqa: PLC0415
+
+    t_phase = time.perf_counter()
+    cfg = llama.CONFIGS["llama3-8b"]
+    lens, prompts = _ops_prompts(cfg)
+    want_launches = cfg.n_layers * sum(
+        _bucket(int(n), OPS_ENGINE["max_seq"]) >= 128 for n in lens)
+    out = {"card": card, "model": "llama3-8b", "gates": {},
+           "prompt_lens": [int(n) for n in lens]}
+    out["reference"] = "operations phase" if want else "built here"
+    if want is None:
+        engine = LLMEngine("llama3-8b", seed=0, **OPS_ENGINE)
+        want = [list(o.token_ids) for o in engine.generate(
+            prompts, SamplingParams(max_tokens=OPS_TOKENS))]
+        del engine
+    launch_keys = list(_counts(types.SimpleNamespace(
+        **dict.fromkeys(JOBS_COUNTERS, 0))))
+
+    def gate(name, ok, detail):
+        out["gates"][name] = bool(ok)
+        print(f"jobs gate {name} ({card}): "
+              f"{'held' if ok else 'FAILED'}: "
+              f"{json.dumps(detail, default=str)}", flush=True)
+        if not ok:
+            raise AssertionError(f"jobs gate {name} failed: {detail}")
+
+    def lap(what, seconds):
+        out.setdefault("walls_s", {})[what] = round(seconds, 3)
+        print(f"jobs {what} ({card}): {seconds:.3f} s", flush=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free_before = torch.cuda.mem_get_info()[0]
+    root = os.path.dirname(os.path.abspath(__file__))
+    workdir = tempfile.mkdtemp(prefix="jobs_smoke_", dir=root)
+    prior_env = {k: os.environ.get(k) for k in JOBS_PIP_ENV}
+    os.environ.update(JOBS_PIP_ENV)
+    scope = tracing_plane.set_current(tracing_plane.mint(sampled=False))
+    server = None
+    t0 = time.perf_counter()
+    ctx = art.init(num_cpus=4, _system_config=JOBS_CONFIG)
+    lap("cluster start", time.perf_counter() - t0)
+    runtime = global_worker.runtime
+    session_dir, store_dir = runtime.session_dir, runtime.store_dir
+    owned = [p.pid for p in runtime._owned_processes]
+    seen_pids = set()
+    url = ctx.dashboard_url
+    try:
+        if not url:
+            raise AssertionError("the dashboard did not start")
+        t0 = time.perf_counter()
+        with open(os.path.join(session_dir, "logs", "client-server.err"),
+                  "ab") as err:
+            server = subprocess.Popen(
+                [sys.executable, "-m", "ant_ray_tpu_torch.util.client.server",
+                 "--cluster-address", runtime.gcs_address,
+                 "--host", "127.0.0.1"], cwd=root,
+                stdout=subprocess.PIPE, stderr=err, start_new_session=True)
+        line = server.stdout.readline().decode(errors="replace").split()
+        if line[:1] != ["ART_CLIENT_SERVER_READY"]:
+            raise AssertionError(f"the client server did not start: {line}")
+        address = line[1]
+        lap("client server start", time.perf_counter() - t0)
+
+        # The job's working directory: its script, its spec, the py_module.
+        os.makedirs(os.path.join(workdir, "jobs_payload"))
+        with open(os.path.join(workdir, "jobs_payload", "__init__.py"),
+                  "w") as f:
+            f.write(f"MAGIC = {JOBS_MAGIC}\n")
+        with open(os.path.join(workdir, "jobs_driver.py"), "w") as f:
+            f.write(JOB_SCRIPT)
+        with open(os.path.join(workdir, "spec.json"), "w") as f:
+            json.dump({"prompts": prompts, "max_tokens": OPS_TOKENS,
+                       "engine": OPS_ENGINE, "flag": JOBS_ACTOR_FLAG,
+                       "tensor_elems": JOBS_TENSOR_ELEMS,
+                       "counters": JOBS_COUNTERS}, f)
+        wheel = _write_wheel(tempfile.mkdtemp(dir=workdir))
+
+        client = JobSubmissionClient(url)
+        t0 = time.perf_counter()
+        job_id = client.submit_job(
+            entrypoint=f"{shlex.quote(sys.executable)} jobs_driver.py",
+            runtime_env={"working_dir": workdir, "env_vars": {
+                "ART_CLIENT_ADDRESS": f"art://{address}"}})
+        while client.get_job_status(job_id) == JobStatus.PENDING:
+            time.sleep(0.01)
+        lap("submit_job to RUNNING", time.perf_counter() - t0)
+        sleeper = client.submit_job(entrypoint="sleep 600")
+
+        # The venv task, sent now: the agent builds its venv while the
+        # job runs, and it starts once the job's actor gives the card up.
+        t_venv = time.time()
+        venv_ref = art.remote(num_gpus=1)(_venv_kernel_check).options(
+            runtime_env={"pip": [wheel]}).remote(JOBS_VENV_ATTN)
+
+        # The stopped job.
+        deadline = time.monotonic() + JOBS_WAIT_S
+        sleeping = []
+        while not sleeping and time.monotonic() < deadline:
+            sleeping = [p for p in _descendants(owned[0])
+                        if "sleep 600" in _cmdline(p)]
+            time.sleep(0.05)
+        stopped = client.stop_job(sleeper)
+        status = client.wait_until_finished(sleeper, timeout=JOBS_WAIT_S)
+        time.sleep(0.2)
+        gate("stop_job",
+             stopped and status == JobStatus.STOPPED and sleeping
+             and not any(_pid_alive(p) for p in sleeping),
+             {"stopped": stopped, "status": status, "pids": sleeping,
+              "alive": [p for p in sleeping if _pid_alive(p)]})
+
+        # The job.
+        seen_pids.update(_descendants(owned[0]) + _descendants(owned[1]))
+        status = client.wait_until_finished(job_id, timeout=JOBS_TIMEOUT_S)
+        logs = client.get_job_logs(job_id)
+        result_lines = [ln for ln in logs.splitlines()
+                        if ln.startswith("JOB_RESULT ")]
+        listed = [j for j in client.list_jobs()
+                  if j["submission_id"] == job_id]
+        gate("job", status == JobStatus.SUCCEEDED and len(result_lines) == 1
+             and len(listed) == 1 and listed[0]["status"] == status,
+             {"status": status, "listed": listed, "logs": logs[-3000:]})
+        result = json.loads(result_lines[0].split(" ", 1)[1])
+        tokens = result.pop("tokens")
+        out["job"] = result
+        for what, key in (("connect through the client", "connect_s"),
+                          ("8B actor start through the client",
+                           "actor_start_s"),
+                          ("generation (4 prompts, 16 tokens)",
+                           "generate_s"),
+                          ("put of 256 MiB through the client", "put_s"),
+                          ("the actor's echo by ref", "echo_s"),
+                          ("get of 256 MiB through the client", "get_s")):
+            lap(what, result[key])
+        gate("tokens", tokens == want and all(len(t) == OPS_TOKENS
+                                              for t in want),
+             {"rows_equal": [a == b for a, b in zip(tokens, want)],
+              "tokens_per_row": [len(t) for t in tokens],
+              "reference": out["reference"]})
+        launches = _counts(types.SimpleNamespace(**result["launches"]))
+        gate("launches", launches == {**dict.fromkeys(launch_keys, 0),
+                                      "fwd": want_launches,
+                                      "fwd_sm90": want_launches},
+             {"launches": launches, "want_fwd_sm90": want_launches})
+        gate("runtime_env",
+             result["seen"]["env"] == JOBS_ACTOR_FLAG
+             and result["seen"]["py_module"] == JOBS_MAGIC, result["seen"])
+        proxy_libs = _maps_name(server.pid, "libcuda", "libtorch")
+        gate("tensor_round_trip",
+             result["tensor"] == {"bytes": 2 * JOBS_TENSOR_ELEMS,
+                                  "actor_device": "cuda", "device": "cuda",
+                                  "dtype": "torch.bfloat16", "bitwise": True}
+             and proxy_libs == [],
+             {**result["tensor"], "client_server_maps": proxy_libs})
+
+        # Export events: the jobs' and the job's actor's lifecycle.
+        deadline = time.monotonic() + JOBS_WAIT_S
+        while True:
+            with urllib.request.urlopen(
+                    url + "/api/export_events?limit=5000", timeout=60) as r:
+                events = json.loads(r.read().decode())
+            kinds = sorted({(e["source_type"], e["event_type"])
+                            for e in events["events"]})
+            actor_events = sorted({e["event_type"] for e in events["events"]
+                                   if e["source_type"] == "EXPORT_ACTOR"
+                                   and e["entity_id"] == result["actor_id"]})
+            ok = (("EXPORT_DRIVER_JOB", "STARTED") in kinds
+                  and {"ALIVE", "DEAD"} <= set(actor_events))
+            if ok or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+        out["export_events"] = {"enabled": events["enabled"],
+                                "events": len(events["events"]),
+                                "kinds": kinds, "actor": actor_events}
+        gate("export_events", events["enabled"] and ok, out["export_events"])
+
+        # The venv task.
+        venv = art.get(venv_ref, timeout=JOBS_TIMEOUT_S)
+        ready = os.path.join(renv.venv_dir([wheel], session_dir), ".art_ready")
+        lap("venv build (pip, from the task's submission)",
+            os.path.getmtime(ready) - t_venv)
+        lap("sm90 forward library load in the venv", venv["load_s"])
+        bare = art.get(art.remote(_imports_the_wheel).remote(), timeout=120)
+        tol_out, tol_lse = TOL["bfloat16"]
+        out["venv"] = {**venv, "without_the_env_imports_the_wheel": bare}
+        gate("pip_venv",
+             "venvs" in venv["prefix"] and venv["wheel"] == JOBS_MAGIC
+             and venv["prebuilt"] and not bare
+             and venv["launches"] == {**dict.fromkeys(launch_keys, 0),
+                                      "fwd": 1, "fwd_sm90": 1}
+             and venv["max_abs_err"] <= tol_out
+             and venv["lse_err"] <= tol_lse, out["venv"])
+        seen_pids.update(_descendants(owned[0]) + _descendants(owned[1]))
+    except BaseException:
+        _print_worker_logs(session_dir)
+        print("jobs (failed) " + json.dumps(out, default=str), flush=True)
+        try:
+            if server is not None:
+                server.kill()
+                server.wait(timeout=30)
+            art.shutdown()
+        finally:
+            tracing_plane.reset(scope)
+            _restore_env(prior_env)
+            shutil.rmtree(workdir, ignore_errors=True)
+        raise
+    t0 = time.perf_counter()
+    server.terminate()
+    server.wait(timeout=30)
+    art.shutdown()
+    tracing_plane.reset(scope)
+    _restore_env(prior_env)
+    shutil.rmtree(workdir, ignore_errors=True)
+    _after_shutdown(torch, out, t0, owned + [server.pid] + sorted(seen_pids),
+                    session_dir, store_dir, free_before)
+    gate("shutdown", not (out["left_alive"] or out["pgrep"]
+                          or out["session_dir_left"] or out["arena_left"])
+         and out["card_free_back"],
+         {k: out[k] for k in ("shutdown_s", "left_alive", "pgrep",
+                              "session_dir_left", "arena_left",
+                              "card_free_back")})
+    lap("phase", time.perf_counter() - t_phase)
+    print("jobs " + json.dumps(out, default=str), flush=True)
+    return launches
+
+
+def _restore_env(prior):
+    for key, value in prior.items():
+        if value is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = value
 
 
 def _exit_on_sigterm(signum, frame):
@@ -5638,8 +6185,13 @@ def main() -> int:
     lap("deployment")
     paths["data"] = data_phase(torch, llama, card)
     lap("data")
-    paths["operations"] = operations_phase(torch, llama, card)
+    ops_tokens = {}
+    paths["operations"] = operations_phase(torch, llama, card,
+                                           keep=ops_tokens)
     lap("operations")
+    paths["jobs"] = jobs_phase(torch, llama, card,
+                               want=ops_tokens.get("tokens"))
+    lap("jobs")
     paths["checkpoint"] = checkpoint_phase(torch, fa, llama)
     paths["server"] = server_phase(torch, fa, llama)
     lap("checkpoint and server")

@@ -330,6 +330,38 @@ def test_resolve_model_reads_each_kind_of_model_string(tmp_path, model, load,
         ckpt.resolve_model(str(tmp_path / "absent"), "cpu", load=load)
 
 
+def test_resolve_model_takes_a_config_as_the_engine_does():
+    """A LlamaConfig resolves to itself with random init, as LLMEngine
+    takes one: ``build_logprob_processor`` given the named config's
+    object scores bitwise as given its name (same seed), and given it
+    with fewer layers, at that depth."""
+    import dataclasses
+
+    from ant_ray_tpu_torch import data
+    from ant_ray_tpu_torch.llm import build_logprob_processor
+
+    cut = dataclasses.replace(tl.CONFIGS["tiny"], n_layers=1)
+    assert ckpt.resolve_model(cut, "cpu") == (None, cut, False)
+    rows = [{"tokens": list(range(1 + i, 33 + i))} for i in range(4)]
+
+    def nll(model):
+        got = build_logprob_processor(model, batch_size=2, max_len=32,
+                                      sharding="cpu")(
+            data.from_items(rows, parallelism=2)).take_all()
+        return [r["nll"] for r in sorted(got, key=lambda r: r["row"])]
+
+    import ant_ray_tpu_torch as tart
+
+    tart.init(local_mode=True)      # Data runs its blocks through tasks
+    try:
+        named, by_config, shallow = (nll("tiny"), nll(tl.CONFIGS["tiny"]),
+                                     nll(cut))
+    finally:
+        tart.shutdown()
+    assert by_config == named
+    assert all(np.isfinite(shallow)) and shallow != named
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fmt", ["safetensors", "bin"])
 def test_hf_export_loads_back_bit_for_bit(tmp_path, fmt, dtype):

@@ -764,19 +764,30 @@ def test_call_overhead_matches_jax_package(clusters):
 
 
 def test_runtime_env_option_raises(clusters):
-    @tart.remote
-    def f():
-        return 1
+    """The ``runtime_env`` option is ported (ROADMAP queue A item 6.6):
+    a task and an actor with ``env_vars`` see them, a task without the
+    env does not, in both packages alike (more cases in
+    tests/test_torch_runtime_env.py)."""
+    def scenario(art, _rng):
+        @art.remote
+        def f():
+            return os.environ.get("ART_PIN_FLAG")
 
-    @tart.remote
-    class A:
-        pass
+        @art.remote
+        class A:
+            def read(self):
+                return os.environ.get("ART_PIN_FLAG")
 
-    with pytest.raises(NotImplementedError, match="runtime_env.*6.6"):
-        f.options(runtime_env={"env_vars": {"A": "1"}}).remote()
-    with pytest.raises(NotImplementedError, match="runtime_env.*6.6"):
-        A.options(runtime_env={"env_vars": {"A": "1"}}).remote()
-    assert tart.get(f.remote()) == 1
+        env = {"env_vars": {"ART_PIN_FLAG": "1"}}
+        a = A.options(runtime_env=env).remote()
+        out = (art.get(f.options(runtime_env=env).remote(), timeout=60),
+               art.get(a.read.remote(), timeout=60),
+               art.get(f.remote(), timeout=60))
+        art.kill(a)
+        return out
+
+    want, got = _both(scenario)
+    assert got == want == ("1", "1", None)
 
 
 def test_dashboard_and_node_agent_are_off_and_not_settable(clusters):
@@ -849,11 +860,26 @@ def test_cpu_profiler_raises(clusters):
 @pytest.mark.parametrize("kwargs,what", [
     ({"ha_replica_id": "r0", "store_path": "unused.db"}, "GCS HA"),
     ({"export_dir": "unused"}, "export events")])
-def test_gcs_ha_and_export_events_raise(kwargs, what):
+def test_gcs_ha_and_export_events_raise(kwargs, what, tmp_path,
+                                        monkeypatch):
+    """GCS HA raises, naming its item.  Export events are ported (ROADMAP
+    queue A item 6.6): a GCS given an export directory makes it and
+    answers ``ExportEventsGet`` as enabled, as the JAX package's does
+    (more in tests/test_torch_export_events.py)."""
+    import asyncio
+
+    from ant_ray_tpu._private.gcs import GcsServer as JGcsServer
     from ant_ray_tpu_torch._private.gcs import GcsServer
 
-    with pytest.raises(NotImplementedError, match=f"{what}.*6.6"):
-        GcsServer(**kwargs)
+    monkeypatch.chdir(tmp_path)
+    if what == "GCS HA":
+        with pytest.raises(NotImplementedError, match=f"{what}.*6.6"):
+            GcsServer(**kwargs)
+        return
+    replies = [asyncio.run(cls(**kwargs)._export_events_get({}))
+               for cls in (JGcsServer, GcsServer)]
+    assert replies[0] == replies[1] == {"enabled": True, "events": []}
+    assert os.path.isdir(tmp_path / kwargs["export_dir"])
 
 
 def test_cluster_utils_gcs_standbys_raise():

@@ -8,9 +8,11 @@ outcomes — statuses, key sets, series names.  On the CPU the agent's
 device gauges are empty in both, and ``POST /api/profile`` archives a
 trace of the agent's process (``jax.profiler`` in the reference,
 ``torch.profiler`` in the port, whose archive holds a Chrome trace).
-The routes of ROADMAP queue A item 6.6 (flow insight, export events,
-job submission) answer 501 naming it, as does the agent's runtime-env
-build.  The card-wide memory reading the agent publishes is tested in
+Flow insight's route (ROADMAP queue A item 6.6) answers 501 naming it;
+the agent's runtime-env build runs (job submission, export events and
+runtime envs are held against the JAX package in tests/test_torch_job_
+submission.py, test_torch_export_events.py and test_torch_runtime_env.py).
+The card-wide memory reading the agent publishes is tested in
 tests/test_torch_card_memory.py."""
 
 from __future__ import annotations
@@ -282,13 +284,7 @@ def test_api_profile_roundtrip(clusters):
 def test_unported_routes_answer_501_naming_their_item(clusters):
     url = clusters[tart]["url"]
     for method, path, what in (
-            ("GET", "/api/insight", "flow insight"),
-            ("GET", "/api/export_events", "export events"),
-            ("GET", "/api/jobs", "job submission"),
-            ("POST", "/api/jobs", "job submission"),
-            ("GET", "/api/jobs/j1", "job submission"),
-            ("GET", "/api/jobs/j1/logs", "job submission"),
-            ("POST", "/api/jobs/j1/stop", "job submission")):
+            ("GET", "/api/insight", "flow insight"),):
         req = urllib.request.Request(
             url + path, method=method,
             data=b"{}" if method == "POST" else None)
@@ -368,7 +364,8 @@ def test_lone_agent_profile_log_serving_and_stats(lone_agent):
     """A port agent over a dead GCS address (tests/test_observability.py's
     lone agent): trace capture archives into the log dir, the agent's
     own log routes serve it, its stats count it, the CPU has no device
-    gauges, and a runtime-env build raises naming item 6.6."""
+    gauges, and it builds a runtime env (one of env_vars alone: nothing
+    to fetch from the dead GCS), counted in its stats."""
     from ant_ray_tpu_torch._private import log_serving
     from ant_ray_tpu_torch._private.protocol import ClientPool
 
@@ -390,5 +387,8 @@ def test_lone_agent_profile_log_serving_and_stats(lone_agent):
                                 "peak_bytes_in_use": None,
                                 "bytes_limit": None}]
     assert client.call("AgentDeviceStats", {}, timeout=60) == []
-    with pytest.raises(NotImplementedError, match="runtime envs.*6.6"):
-        client.call("BuildRuntimeEnv", {"wire": {}}, timeout=30)
+    assert client.call("BuildRuntimeEnv",
+                       {"wire": {"env_vars": {"A": "1"}}},
+                       timeout=30) == {"ok": True}
+    stats = client.call("AgentStats", {}, timeout=30)
+    assert stats["env_builds"] == 1 and stats["env_build_failures"] == 0

@@ -90,7 +90,14 @@ def test_importing_every_module_loads_neither_jax_nor_the_jax_package():
             "ant_ray_tpu_torch._private.dashboard",
             "ant_ray_tpu_torch._private.dashboard_ui",
             "ant_ray_tpu_torch.cli",
-            "ant_ray_tpu_torch.__main__"} <= set(modules)
+            "ant_ray_tpu_torch.__main__",
+            "ant_ray_tpu_torch._private.runtime_env",
+            "ant_ray_tpu_torch._private.export_events",
+            "ant_ray_tpu_torch.job_submission",
+            "ant_ray_tpu_torch.util.client",
+            "ant_ray_tpu_torch.util.client.wire",
+            "ant_ray_tpu_torch.util.client.runtime",
+            "ant_ray_tpu_torch.util.client.server"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"

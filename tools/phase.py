@@ -3,7 +3,8 @@
 
     python3 tools/phase.py NAME... [--readings] [--checkout PATH]
 
-NAME is ``tracing``, ``deployment``, ``data`` or ``operations``: each runs
+NAME is ``tracing``, ``deployment``, ``data``, ``operations`` or ``jobs``:
+each runs
 chip_smoke.py's ``NAME_phase`` of PATH's checkout (default: this one),
 in the order given, after building the checkout's kernels.  tracing: a
 traced Llama-3-8B request through an actor in cluster mode;
@@ -12,7 +13,12 @@ replicas; data: build_llm_processor generating from Llama-3-8B in two
 actors, build_logprob_processor scoring through the device feed, and
 list-block Data at a million rows; operations: a Llama-3-8B actor in a
 placement group, watched through the dashboard, the node agent's card
-gauges, the CPU profiler, the state API and the CLI.  Random weights from seed 0, gates
+gauges, the CPU profiler, the state API and the CLI; jobs: a job
+submitted through the dashboard that drives a Llama-3-8B actor from
+outside the cluster through the client (``art://``) under a runtime env,
+a stopped job, export events and a task in a pip venv launching the sm90
+forward (after ``operations`` it reuses that phase's reference tokens,
+alone it builds them once).  Random weights from seed 0, gates
 included.  ``--readings`` is for phases that take it (data): the NLL
 gate is left out, every other gate stays, and faults planted in
 blockwise attention are read beside the sound reading, which is what
@@ -35,7 +41,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PHASES = ("tracing", "deployment", "data", "operations")
+PHASES = ("tracing", "deployment", "data", "operations", "jobs")
 OPTIONAL = ("aiohttp", "grpc", "transformers", "pyarrow", "pandas")
 
 
@@ -68,10 +74,16 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
+    kept = {}   # the operations phase's reference tokens, for jobs
     for name in args.names:
         phase = getattr(chip_smoke, f"{name}_phase")
+        params = inspect.signature(phase).parameters
         kwargs = ({"readings": True} if args.readings and "readings" in
-                  inspect.signature(phase).parameters else {})
+                  params else {})
+        if "keep" in params:
+            kwargs["keep"] = kept
+        if "want" in params:
+            kwargs["want"] = kept.get("tokens")
         t0 = time.perf_counter()
         launches = phase(torch, llama, card, **kwargs)
         print(f"{name} phase: {time.perf_counter() - t0:.1f} s, launches "
