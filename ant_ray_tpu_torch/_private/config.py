@@ -35,14 +35,8 @@ def _env_override(name: str, default: Any) -> Any:
 # Flags of the JAX package's table that the port does not carry, by the
 # ROADMAP item (queue A) that brings the code that reads them.
 UNPORTED_FLAGS = {
-    "enable_insight": "6.6, flow insight",
-    **dict.fromkeys(("enable_cgroups", "cgroup_root",
-                     "cgroup_workers_memory_max",
-                     "cgroup_workers_cpu_weight"), "6.6, cgroups"),
     **dict.fromkeys(("lockcheck", "lockcheck_hold_budget_s"),
                     "6.6, lockcheck's instrumented path"),
-    **dict.fromkeys(("gcs_ha_lease_ttl_s", "gcs_ha_renew_period_s",
-                     "gcs_ha_sync_period_s"), "6.6, GCS HA"),
     **dict.fromkeys(("tpu_chips_override", "testing_preemption_notice",
                      "preemption_poll_interval_s"),
                     "9, GPU placement and the preemption watch "
@@ -133,6 +127,8 @@ class Config:
     # Start the dashboard head (REST state API + /metrics) with the
     # cluster.
     include_dashboard: bool = True
+    # Emit flow-insight call-graph events (ant-fork util/insight).
+    enable_insight: bool = False
     # Spawn a per-node agent process (log serving, OS metrics, device
     # gauges, trace capture) supervised by the daemon (ref:
     # agent_manager.h + the dashboard agent).
@@ -155,6 +151,17 @@ class Config:
     # their partition count from total bytes / this when the caller
     # gives no explicit block count.
     data_target_block_bytes: int = 32 * 1024 * 1024
+
+    # ---- cgroup v2 isolation (ref: src/ray/common/cgroup2/) ----
+    # Place workers in a sibling cgroup under a delegated cgroup2 tree
+    # (opt-in; silently skipped when the tree isn't writable).
+    enable_cgroups: bool = False
+    # The delegated cgroup2 tree root (tests point this at a fake).
+    cgroup_root: str = "/sys/fs/cgroup"
+    # Collective memory.max for the workers cgroup (bytes; 0 = no cap).
+    cgroup_workers_memory_max: int = 0
+    # cpu.weight for the workers cgroup (0 = kernel default).
+    cgroup_workers_cpu_weight: int = 0
 
     # ---- scheduling ----
     # Workers pre-started per node at boot (-1 = auto: min(2, num_cpus)).
@@ -241,6 +248,14 @@ class Config:
     infeasible_wait_s: float = 300.0
 
     # ---- GCS HA (replicated control plane) ----
+    # Leader lease TTL: a leader that cannot renew within it is fenced
+    # out and a standby takes over — the dominant term in failover time.
+    gcs_ha_lease_ttl_s: float = 2.0
+    # How often the holder renews (and standbys poll) the lease.
+    gcs_ha_renew_period_s: float = 0.4
+    # Follower store-sync period: bounds follower-read staleness and
+    # the replication lag reported in the HA view.
+    gcs_ha_sync_period_s: float = 0.25
     # Client-side failover budget: how long the GCS router keeps
     # re-resolving the leader (capped-backoff probes over the known
     # replica set) after a connection failure before surfacing the

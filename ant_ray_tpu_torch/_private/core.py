@@ -1269,8 +1269,11 @@ class ClusterRuntime(CoreRuntime):
                 options.scheduling_strategy),
         )
         self._trace_attach(spec)
-        # The JAX package records a flow-insight submit event here
-        # (ROADMAP queue A item 6.6).
+        if cfg.enable_insight:
+            from ant_ray_tpu_torch.util import insight  # noqa: PLC0415
+
+            insight.record_call_submit(spec.function_name,
+                                       task_id.hex(), self.role)
         if cfg.enable_task_events:
             task_events.record(task_id.hex(), spec.function_name,
                                "submitted")
@@ -2236,7 +2239,16 @@ class ClusterRuntime(CoreRuntime):
         )
         self._trace_attach(spec)
 
-        if global_config().enable_task_events:
+        cfg = global_config()
+        if cfg.enable_insight:
+            # Unlike the JAX package, which records submits of tasks
+            # only: an actor call is an edge of the call graph too, or a
+            # cluster that serves from actors shows none.
+            from ant_ray_tpu_torch.util import insight  # noqa: PLC0415
+
+            insight.record_call_submit(spec.function_name,
+                                       task_id.hex(), self.role)
+        if cfg.enable_task_events:
             task_events.record(task_id.hex(), spec.function_name,
                                "submitted", actor_id=actor_id.hex())
 

@@ -9,6 +9,7 @@ aiohttp process colocated with the head node.  Endpoints:
     GET  /api/nodes | /api/actors | /api/placement_groups | /api/objects
     GET  /api/tasks | /api/tasks/summary | /api/memory
     GET  /api/cluster_status | /api/export_events | /api/ha
+    GET  /api/insight                     flow-insight events + call graph
     GET  /api/scale                       per-subsystem head cost counters
     GET  /api/timeline | /api/cpuprofile | /api/trace/{id}
     GET  /api/flightrecorder | /api/logs | /api/logs/{filename}
@@ -23,9 +24,6 @@ cluster (the reference's job supervisor pattern without the wrapper
 actor — the dashboard process owns supervision).  A job driver inherits
 the dashboard's environment, which is its launcher's: on a host with
 cards it sees them, so the port's entry points run on CUDA there.
-
-The JAX package's dashboard also serves flow insight (``/api/insight``),
-ROADMAP queue A item 6.6: that route answers 501 with an error naming it.
 """
 
 from __future__ import annotations
@@ -358,12 +356,14 @@ def create_app(gcs_address: str, session_dir: str):
             return stats
         return web.json_response(await _call(build))
 
-    def unported(what: str):
-        async def handler(_req):
-            return web.json_response(
-                {"error": f"{what} is not ported (ROADMAP queue A item "
-                          "6.6)"}, status=501)
-        return handler
+    async def insight(_req):
+        def build():
+            from ant_ray_tpu_torch.util.insight import build_call_graph  # noqa: PLC0415
+
+            events = gcs.call("InsightGet", {"limit": 10000}, retries=3)
+            return {"events": events[-1000:],
+                    "graph": build_call_graph(events)}
+        return web.json_response(await _call(build))
 
     async def export_events(req):
         def build():
@@ -668,7 +668,7 @@ def create_app(gcs_address: str, session_dir: str):
     app.router.add_get("/api/cluster_status", cluster_status)
     app.router.add_get("/api/ha", ha)
     app.router.add_get("/api/scale", scale)
-    app.router.add_get("/api/insight", unported("flow insight"))
+    app.router.add_get("/api/insight", insight)
     app.router.add_get("/api/export_events", export_events)
     app.router.add_get("/api/timeline", timeline)
     app.router.add_get("/api/cpuprofile", cpuprofile)

@@ -68,13 +68,6 @@ class GcsServer:
 
             self._exporter = ExportEventRecorder(export_dir)
 
-        # The replicated control plane (GCS HA) is ROADMAP queue A item
-        # 6.6: the port keeps the argument so a caller that passes it
-        # learns so, and leaves nothing of it on any path below.
-        if ha_replica_id is not None:
-            raise NotImplementedError(
-                "GCS HA (ha_replica_id) is not ported (ROADMAP queue A "
-                "item 6.6)")
         # Write-through persistence (ref: gcs store clients,
         # src/ray/gcs/store_client/redis_store_client.h): with a store
         # spec, every table mutation lands in the store and a restarted
@@ -85,6 +78,20 @@ class GcsServer:
         # head anywhere can restore the tables (shared-store HA).
         self._store = store_client_for(store_path)
         self._durable = store_path is not None
+        # Replicated control plane (gcs_ha.HaCoordinator): with a
+        # replica id AND a shared store, this process is one member of
+        # a leader + warm-standby set — mutations are fenced on the
+        # lease, standbys tail the store and serve follower reads.
+        self._ha = None
+        if ha_replica_id is not None:
+            if not store_path:
+                raise ValueError(
+                    "GCS HA requires a shared store (--store)")
+            from ant_ray_tpu_torch._private.gcs_ha import (  # noqa: PLC0415
+                HaCoordinator,
+            )
+
+            self._ha = HaCoordinator(self, ha_replica_id, store_path)
         # Tables whose persisted copy lags in-memory truth by at most
         # one flush period (high-churn; see _location_flush_loop).
         self._dirty_nodes: set[NodeID] = set()
@@ -253,9 +260,15 @@ class GcsServer:
             "ExportEventsGet": self._export_events_get,
             "Shutdown": self._shutdown_rpc,
         }
+        if self._ha is not None:
+            # Fence leader-only methods; reads and ring writes stay
+            # servable on any replica (split defined in wire_schema).
+            handlers = self._ha.guard_routes(handlers)
         self._server.routes(handlers)
-        if self._durable:
-            # Restart-FT: re-hydrate before serving.
+        if self._durable and self._ha is None:
+            # Plain restart-FT: re-hydrate before serving.  HA replicas
+            # re-hydrate continuously (standby sync loop) and fully at
+            # promotion instead.
             self._load_tables()
         self.address = self._server.start()
         self._health_task = asyncio.run_coroutine_threadsafe(
@@ -263,11 +276,14 @@ class GcsServer:
         if self._durable:
             self._flush_task = asyncio.run_coroutine_threadsafe(
                 self._location_flush_loop(), self._io.loop)
+        if self._ha is not None:
+            self._ha.start()
         # Continuous CPU profiling: the GCS ingests its own records —
-        # the publisher appends straight into the local ring and metric
-        # rollups run through the local handler on the io loop.
-        # Instance profiler, not the module singleton: tests run several
-        # GCS servers in one process.
+        # the publisher appends straight into the local ring (each HA
+        # replica keeps its own shard; CpuProfileGet merges at query
+        # time) and metric rollups run through the local handler on the
+        # io loop.  Instance profiler, not the module singleton: HA
+        # tests run several replicas in one process.
         from ant_ray_tpu_torch.observability import cpu_profiler  # noqa: PLC0415
 
         self._cpu_profiler = None
@@ -281,18 +297,27 @@ class GcsServer:
 
             self._cpu_profiler = cpu_profiler.CpuProfiler(
                 "gcs", publish_fn=_publish_profile,
-                metric_fn=_publish_metric, node_id="gcs").start()
-        logger.info("GCS listening on %s", self.address)
+                metric_fn=_publish_metric,
+                node_id=(f"gcs-{self._ha.replica_id}"
+                         if self._ha is not None else "gcs")).start()
+        logger.info("GCS listening on %s%s", self.address,
+                    f" (HA replica {self._ha.replica_id})"
+                    if self._ha is not None else "")
         return self.address
 
+    def _leading(self) -> bool:
+        """True when this process owns the cluster (non-HA, or the HA
+        leader): the health-check and flush loops no-op on standbys."""
+        return self._ha is None or self._ha.is_leader_active()
+
     async def _get_ha_view(self, _payload):
-        # The view of a GCS without replicas (GCS HA is ROADMAP queue A
-        # item 6.6).
-        return {"ha": False, "role": "leader",
-                "replica_id": None, "address": self.address,
-                "leader": self.address, "term": 0,
-                "last_failover_ts": None,
-                "replication_lag_s": None, "replicas": []}
+        if self._ha is None:
+            return {"ha": False, "role": "leader",
+                    "replica_id": None, "address": self.address,
+                    "leader": self.address, "term": 0,
+                    "last_failover_ts": None,
+                    "replication_lag_s": None, "replicas": []}
+        return self._ha.view()
 
     # ---------------------------------------------------- persistence
 
@@ -331,12 +356,19 @@ class GcsServer:
     async def _location_flush_loop(self):
         while True:
             await asyncio.sleep(0.5)
+            if not self._leading():
+                continue        # standbys tail the store, never write it
             self._flush_locations()
             self._flush_nodes()
             self._flush_metrics()
             if self._store_gen_dirty:
                 self._store_gen_dirty = False
                 self._store_gen += 1
+            if self._ha is not None:
+                # Leader heartbeat into the store: redirect target +
+                # the wall-clock stamp followers measure lag against +
+                # the store generation they sync against.
+                self._ha.write_leader_ad()
 
     def _flush_locations(self) -> None:
         if not self._durable or not self._dirty_locations:
@@ -517,6 +549,10 @@ class GcsServer:
             profiler.stop(final_publish=False)
         if self._health_task is not None:
             self._health_task.cancel()
+        if self._ha is not None:
+            # Releases a held lease so a standby takes over immediately
+            # (graceful failover) instead of waiting out the TTL.
+            self._ha.stop()
         flush_task = getattr(self, "_flush_task", None)
         if flush_task is not None:
             flush_task.cancel()
@@ -816,7 +852,8 @@ class GcsServer:
         ``art_gcs_*`` gauge set (scrapeable via /metrics like any other
         series).  Runs on the health-loop cadence; ~20 gauge upserts."""
         stats = self._scale_stats()
-        node = "gcs"
+        node = (f"gcs-{self._ha.replica_id}"
+                if self._ha is not None else "gcs")
         for table, rows in stats["table_rows"].items():
             await self._metric_record({
                 "name": "art_gcs_table_rows", "type": "gauge",
@@ -919,6 +956,8 @@ class GcsServer:
                     await self._publish_self_metrics()
                 except Exception:  # noqa: BLE001 — best-effort gauges
                     pass
+            if not self._leading():
+                continue    # standbys observe, only the leader judges
             now = time.monotonic()
             for node_id, info in list(self._nodes.items()):
                 # Nodes synced from the store while standing by have no
@@ -1100,6 +1139,13 @@ class GcsServer:
         events = list(self._task_events)
         if task_id is not None:
             events = [e for e in events if e.get("task_id") == task_id]
+        if self._ha is not None and not payload.get("local_only"):
+            # Sharded ring: merge every live replica's local slice
+            # (producers spread their flushes across replicas).
+            for peer_events in await self._ha.gather_ring(
+                    "TaskEventsGet", payload):
+                events.extend(peer_events)
+            events.sort(key=lambda e: e.get("ts") or 0.0)
         return events[-limit:]
 
     # ---------------------------------------------- task state API
@@ -1112,12 +1158,58 @@ class GcsServer:
                 "task_events_dropped": self._task_events_dropped,
                 **self._task_state.stats()}
 
+    async def _merged_task_records(self,
+                                   filters: dict) -> tuple[list, int, int]:
+        """HA fan-in for the state API: this replica's records plus
+        every live peer's (``local_only`` fan-out), merged with
+        sticky-terminal semantics, THEN filtered — filtering per
+        replica before the merge would let a ``state=RUNNING`` query
+        resurface a task another replica knows FAILED.  Returns
+        (records, dropped, events_dropped) with the drop counters
+        summed across replicas — a clipped view stays visibly
+        clipped after the merge."""
+        from ant_ray_tpu_torch._private.task_state import (  # noqa: PLC0415
+            TaskStateTable,
+            merge_public_records,
+        )
+
+        local = self._task_state.list(filters={}, limit=1 << 30)
+        lists = [local["tasks"]]
+        dropped = local["num_tasks_dropped"]
+        events_dropped = self._task_events_dropped
+        for reply in await self._ha.gather_ring(
+                "ListTasks", {"limit": 1 << 30}):
+            lists.append(reply.get("tasks"))
+            dropped += reply.get("num_tasks_dropped", 0)
+            events_dropped += reply.get("task_events_dropped", 0)
+        merged = [r for r in merge_public_records(lists)
+                  if TaskStateTable._matches(r, filters)]
+        return merged, dropped, events_dropped
+
     async def _list_tasks(self, payload):
         payload = payload or {}
         filters = {k: payload.get(k)
                    for k in ("state", "name", "job_id", "actor_id",
                              "node_id")}
         limit = max(1, int(payload.get("limit", 1000)))
+        if self._ha is not None and not payload.get("local_only"):
+            records, dropped, events_dropped = \
+                await self._merged_task_records(filters)
+            # Offset-style continuation over the deterministically-
+            # sorted merged view (the single-replica seq cursor cannot
+            # span replicas); the token stays an opaque int either way.
+            # Known HA-mode tradeoffs, acceptable at the bounded table
+            # sizes (task_table_max_per_job): each page re-runs the
+            # full fan-in (no cross-page snapshot), and GC between
+            # pages can shift offsets — unlike the eviction-safe
+            # single-replica cursor.
+            offset = int(payload.get("token") or 0)
+            page = records[offset:offset + limit]
+            next_token = (offset + limit
+                          if offset + limit < len(records) else None)
+            return {"tasks": page, "next_token": next_token,
+                    "num_tasks_dropped": dropped,
+                    "task_events_dropped": events_dropped}
         reply = self._task_state.list(
             filters=filters,
             limit=limit,
@@ -1127,6 +1219,18 @@ class GcsServer:
 
     async def _get_task(self, payload):
         attempts = self._task_state.get(payload["task_id"])
+        if self._ha is not None and not payload.get("local_only"):
+            from ant_ray_tpu_torch._private.task_state import (  # noqa: PLC0415
+                merge_public_records,
+            )
+
+            lists = [attempts]
+            for reply in await self._ha.gather_ring(
+                    "GetTask", {"task_id": payload["task_id"]}):
+                if reply:
+                    lists.append(reply.get("attempts"))
+            attempts = sorted(merge_public_records(lists),
+                              key=lambda r: r["attempt"])
         if not attempts:
             return None
         return {"task_id": payload["task_id"], "attempts": attempts,
@@ -1135,6 +1239,17 @@ class GcsServer:
     async def _summarize_tasks(self, payload):
         payload = payload or {}
         filters = {k: payload.get(k) for k in ("job_id", "node_id")}
+        if self._ha is not None and not payload.get("local_only"):
+            from ant_ray_tpu_torch._private.task_state import (  # noqa: PLC0415
+                summarize_public_records,
+            )
+
+            records, dropped, events_dropped = \
+                await self._merged_task_records(filters)
+            reply = summarize_public_records(records)
+            reply["num_tasks_dropped"] = dropped
+            reply["task_events_dropped"] = events_dropped
+            return reply
         reply = self._task_state.summarize(filters=filters)
         reply["task_events_dropped"] = self._task_events_dropped
         return reply
@@ -1162,6 +1277,11 @@ class GcsServer:
         records = list(self._step_events)
         if rank is not None:
             records = [r for r in records if r.get("rank") == rank]
+        if self._ha is not None and not payload.get("local_only"):
+            for peer_records in await self._ha.gather_ring(
+                    "StepEventsGet", payload):
+                records.extend(peer_records)
+            records.sort(key=lambda r: r.get("ts") or 0.0)
         return records[-limit:]
 
     # ------------------------------------------------------ span events
@@ -1187,6 +1307,11 @@ class GcsServer:
                      if str(s.get("node_id", "")).startswith(node_id)]
         if errors_only:
             spans = [s for s in spans if s.get("error")]
+        if self._ha is not None and not payload.get("local_only"):
+            for peer_spans in await self._ha.gather_ring(
+                    "SpanEventsGet", payload):
+                spans.extend(peer_spans)
+            spans.sort(key=lambda s: s.get("ts") or 0.0)
         return spans[-limit:]
 
     # ---------------------------------------------------- cpu profiles
@@ -1213,6 +1338,11 @@ class GcsServer:
         if since_ts is not None:
             records = [r for r in records
                        if (r.get("ts") or 0.0) >= float(since_ts)]
+        if self._ha is not None and not payload.get("local_only"):
+            for peer_records in await self._ha.gather_ring(
+                    "CpuProfileGet", payload):
+                records.extend(peer_records)
+            records.sort(key=lambda r: r.get("ts") or 0.0)
         return records[-limit:]
 
     # -------------------------------------------------------- metrics
@@ -1305,7 +1435,37 @@ class GcsServer:
         return True
 
     async def _kv_get(self, payload):
-        return self._kv.get(payload["key"])
+        import pickle  # noqa: PLC0415
+
+        key = payload["key"]
+        value = self._kv.get(key)
+        if self._ha is None or self._ha.is_leader_active():
+            return value
+        if payload.get("fence"):
+            # Authoritative read-your-writes: ask the LEADER's
+            # in-memory table.  Correct on every store backend — a
+            # remote store's write-through is async (ack precedes
+            # landing), so even a fenced store read could miss the
+            # leader's latest acknowledged put; and the store, not the
+            # synced cache, decides deletes (a deleted key must not
+            # resurrect from sync lag).
+            leader = self._ha.leader_addr()
+            if leader:
+                try:
+                    return await self._clients.get(leader).call_async(
+                        "KVGet", {"key": key}, timeout=5)
+                except Exception:  # noqa: BLE001 — leader mid-death:
+                    pass           # fall back to the fenced store read
+            blob = await asyncio.to_thread(self._store.get, "kv", key)
+            return pickle.loads(blob) if blob is not None else None
+        if value is None:
+            # Plain cache miss: best-effort freshness via the store (a
+            # just-put key beats the sync period; a fence failure
+            # raises typed StoreFenceError instead of serving stale).
+            blob = await asyncio.to_thread(self._store.get, "kv", key)
+            if blob is not None:
+                value = pickle.loads(blob)
+        return value
 
     async def _kv_del(self, payload):
         self._persist_del("kv", payload["key"])
@@ -2335,13 +2495,19 @@ def main():  # pragma: no cover — exercised via subprocess in tests
     parser.add_argument("--export-dir", default="",
                         help="directory for export-event JSONL files "
                              "(empty = export pipeline disabled)")
+    parser.add_argument("--ha-replica-id", default="",
+                        help="join the replicated control plane as this "
+                             "replica (requires --store shared with the "
+                             "other replicas); the lease decides the "
+                             "leader, standbys serve follower reads")
     args = parser.parse_args()
 
     logging.basicConfig(
         level=global_config().log_level,
         format="[gcs %(levelname)s %(asctime)s] %(message)s")
     server = GcsServer(port=args.port, store_path=args.store or None,
-                       export_dir=args.export_dir or None)
+                       export_dir=args.export_dir or None,
+                       ha_replica_id=args.ha_replica_id or None)
     server.start()
     print(f"GCS_READY {server.address}", flush=True)
 

@@ -54,6 +54,14 @@ _VIEW_TTL_S = 2.0
 _MAX_REDIRECTS = 3
 
 
+def _refused_hold_s() -> float:
+    """How long a view may still list a dead replica: the GCS drops a
+    replica's ad from its view this long after the ad's last write
+    (``gcs_ha.HaCoordinator._stale_cutoff_s``)."""
+    cfg = global_config()
+    return max(5 * cfg.gcs_ha_sync_period_s, 2 * cfg.gcs_ha_lease_ttl_s)
+
+
 class GcsRouter:
     """Routes one logical GCS endpoint over a replica set.  Thread-safe
     the same way RpcClient is: all await-side state lives on the io
@@ -85,6 +93,15 @@ class GcsRouter:
         self._shard_key = os.getpid()
         self.ring_epoch = 0
         self._view_ts = 0.0
+        # Replicas that refused a connection, with when.  A view keeps
+        # listing a dead replica until its last ad ages out on the GCS
+        # (``_refused_hold_s``), in the role that ad had: a standby
+        # promoted and killed within one sync period still reads as a
+        # follower there.  Unlike the JAX package's router, this one
+        # takes such a replica back only once it answers a probe or
+        # the hold ends, so follower reads and ring writes do not spin
+        # on it meanwhile.
+        self._refused: dict[str, float] = {}
         self._refreshing = False
         self._io = IoThread.get()
         self._closed = False
@@ -108,6 +125,7 @@ class GcsRouter:
             self._followers = [a for a in self._followers if a != addr]
 
     def _mark_dead(self, addr: str) -> None:
+        self._refused[addr] = time.monotonic()
         if addr in self._live and len(self._live) > 1:
             self._live = [a for a in self._live if a != addr]
             self.ring_epoch += 1
@@ -117,7 +135,12 @@ class GcsRouter:
         if not isinstance(view, dict):
             return
         leader = view.get("leader") or ""
-        replicas = view.get("replicas") or []
+        now = time.monotonic()
+        hold = _refused_hold_s()
+        self._refused = {a: t for a, t in self._refused.items()
+                         if now - t < hold}
+        replicas = [r for r in view.get("replicas") or []
+                    if r.get("address") not in self._refused]
         live = [r["address"] for r in replicas if r.get("address")]
         if not live and view.get("address"):
             live = [view["address"]]
@@ -152,6 +175,7 @@ class GcsRouter:
                     "GetHaView", {}, timeout=2)
             except Exception:  # noqa: BLE001 — dead/slow replica: next
                 continue
+            self._refused.pop(addr, None)       # it answers again
             self._absorb_view(view)
             if view.get("role") == "leader":
                 return True          # straight from the horse's mouth
@@ -163,6 +187,7 @@ class GcsRouter:
                         "GetHaView", {}, timeout=2)
                 except Exception:  # noqa: BLE001 — stale second-hand ad
                     continue
+                self._refused.pop(leader, None)
                 self._absorb_view(confirm)
                 if confirm.get("role") == "leader":
                     return True

@@ -270,12 +270,31 @@ class NodeManager:
                 self._log_stream_loop(), self._io.loop))
         self._subreaper_enabled = _enable_subreaper()
         self._start_agent()
-        # The JAX package's daemon can also place workers in a cgroup2
-        # tree; cgroups are ROADMAP queue A item 6.6, and the flags that
-        # turn them on are not in the port's Config.  Nor is its
-        # preemption watch, which drains the node on a maintenance
-        # notice: a GPU host has no notice source the port reads (item
-        # 9).
+        # cgroup v2 isolation (opt-in; ref: src/ray/common/cgroup2/ —
+        # workers live in a sibling cgroup with a collective memory cap
+        # so one blow-up can't take the daemon down).
+        self._cgroups = None
+        cfg = global_config()
+        if cfg.enable_cgroups:
+            from ant_ray_tpu_torch._private.cgroup2 import CgroupManager  # noqa: PLC0415
+
+            if CgroupManager.available(cfg.cgroup_root):
+                mgr = CgroupManager(
+                    os.path.basename(self._session_dir.rstrip("/"))
+                    + "_" + self.node_id.hex()[:8],
+                    root=cfg.cgroup_root,
+                    workers_memory_max=cfg.cgroup_workers_memory_max,
+                    workers_cpu_weight=cfg.cgroup_workers_cpu_weight)
+                if mgr.setup():
+                    mgr.add_system_process(os.getpid())
+                    self._cgroups = mgr
+                    logger.info("cgroup2 worker isolation active")
+            else:
+                logger.info("enable_cgroups set but no writable cgroup2 "
+                            "tree; running without isolation")
+        # The JAX package's daemon also runs a preemption watch, which
+        # drains the node on a maintenance notice: a GPU host has no
+        # notice source the port reads (ROADMAP queue A item 9).
         if global_config().fs_monitor_interval_s > 0:
             self._tasks.append(asyncio.run_coroutine_threadsafe(
                 self._fs_monitor_loop(), self._io.loop))
@@ -773,6 +792,9 @@ class NodeManager:
         agent = getattr(self, "_agent_proc", None)
         if agent is not None and agent.poll() is None:
             agent.terminate()
+        cgroups = getattr(self, "_cgroups", None)
+        if cgroups is not None:
+            cgroups.cleanup()
         self._clients.close_all()
 
     async def _shutdown_rpc(self, _payload):
@@ -824,6 +846,8 @@ class NodeManager:
         log_file.close()
         handle = WorkerHandle(worker_id, proc, actor_spec=actor_spec,
                               env_key=renv.env_key(runtime_env))
+        if self._cgroups is not None:
+            self._cgroups.add_worker_process(proc.pid)
         self._workers[worker_id] = handle
         return handle
 

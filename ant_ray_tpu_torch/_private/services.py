@@ -60,21 +60,26 @@ def _wait_ready(proc: subprocess.Popen, marker: str) -> str:
 
 
 def start_gcs(session_dir: str,
-              port: int | None = None) -> tuple[subprocess.Popen, str]:
+              port: int | None = None,
+              ha_replica_id: str | None = None
+              ) -> tuple[subprocess.Popen, str]:
     """Start (or restart — same port + store file) the GCS head.
 
     Tables persist to ``<session_dir>/gcs_store.db`` so a restarted head
     resumes the cluster (ref: Redis-backed GCS fault tolerance,
     src/ray/gcs/store_client/redis_store_client.h).  Export events go
-    to ``<session_dir>/export_events``.  The JAX package also passes,
-    for the replicated control plane, a replica id: GCS HA is ROADMAP
-    queue A item 6.6."""
+    to ``<session_dir>/export_events``.  With ``ha_replica_id`` the
+    process joins the replicated control plane over that same store:
+    the lease elects a leader, the rest run as warm standbys (follower
+    reads + NotLeader redirects)."""
     port = port or find_free_port()
     store = os.path.join(session_dir, "gcs_store.db")
     cmd = [sys.executable, "-m", "ant_ray_tpu_torch._private.gcs",
            "--port", str(port), "--store", store,
            "--export-dir", os.path.join(session_dir, "export_events"),
            "--monitor-pid", str(os.getpid())]
+    if ha_replica_id:
+        cmd += ["--ha-replica-id", ha_replica_id]
     proc = subprocess.Popen(
         cmd,
         stdout=subprocess.PIPE, stderr=_log_file(session_dir, "gcs.err"),

@@ -275,8 +275,13 @@ class TaskExecutor:
             # A dependency failed: propagate the *original* error through
             # this task's returns (error lineage, ref: RayTaskError chains).
             return self._error_returns(spec, e)
-        # The JAX package records flow-insight call events here; insight
-        # is ROADMAP queue A item 6.6.
+        insight = None
+        if global_config().enable_insight:
+            from ant_ray_tpu_torch.util import insight  # noqa: PLC0415
+
+            insight.record_call_begin(spec.function_name,
+                                      spec.task_id.hex())
+            started = time.monotonic()
         events = None
         if global_config().enable_task_events:
             events = task_events
@@ -315,6 +320,10 @@ class TaskExecutor:
             err_cls = (exceptions.ActorError if spec.actor_id is not None
                        else exceptions.TaskError)
             err = err_cls.from_exception(spec.function_name, e)
+            if insight is not None:
+                insight.record_call_end(
+                    spec.function_name, spec.task_id.hex(),
+                    time.monotonic() - started, error=True)
             if events is not None:
                 events.current_task.reset(_task_token)
                 events.record(spec.task_id.hex(), spec.function_name,
@@ -327,6 +336,11 @@ class TaskExecutor:
             # generator body spawns keep their parent linkage).
             out = self._stream_returns(spec, result)
             _count, stream_err = out["returns"][0][1]
+            if insight is not None:
+                insight.record_call_end(
+                    spec.function_name, spec.task_id.hex(),
+                    time.monotonic() - started,
+                    error=stream_err is not None)
             if events is not None:
                 events.current_task.reset(_task_token)
                 events.record(spec.task_id.hex(), spec.function_name,
@@ -336,6 +350,10 @@ class TaskExecutor:
                                      if stream_err is not None
                                      else None))
             return out
+        if insight is not None:
+            insight.record_call_end(spec.function_name,
+                                    spec.task_id.hex(),
+                                    time.monotonic() - started)
         if events is not None:
             events.current_task.reset(_task_token)
             events.record(spec.task_id.hex(), spec.function_name,

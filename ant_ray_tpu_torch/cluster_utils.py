@@ -2,9 +2,11 @@
 — the mechanism by which all distributed scheduling/FT tests run without
 real machines: N node daemons, each a full node, on one host).
 
-The JAX package's ``Cluster`` can also replicate the control plane
-(``head_node_args={"gcs_standbys": N}``, ``kill_gcs_leader()``); GCS HA
-is ROADMAP queue A item 6.6, so this one runs a single GCS, which
+With ``head_node_args={"gcs_standbys": N}`` the control plane itself is
+replicated: N+1 GCS processes share the session store, the lease elects
+a leader, and every address handed to daemons/drivers is the full
+comma-joined replica list — so ``kill_gcs_leader()`` exercises a real
+failover, not a restart.  Without standbys a single GCS runs, which
 ``kill_gcs`` / ``restart_gcs`` restart from its store."""
 
 from __future__ import annotations
@@ -48,10 +50,8 @@ class Cluster:
     def __init__(self, initialize_head: bool = True,
                  head_node_args: dict | None = None):
         head_node_args = dict(head_node_args or {})
-        if head_node_args.pop("gcs_standbys", 0):
-            raise NotImplementedError(
-                "GCS HA (gcs_standbys) is not ported (ROADMAP queue A item "
-                "6.6)")
+        self._gcs_standbys = int(head_node_args.pop("gcs_standbys", 0))
+        self._gcs_replica_seq = 0
         self._session_dir = services.new_session_dir()
         self._gcs_procs: list[tuple[subprocess.Popen, str]] = []
         self._node_procs: list[subprocess.Popen] = []
@@ -79,10 +79,12 @@ class Cluster:
 
     @property
     def gcs_address(self) -> str | None:
-        """The GCS endpoint handed to daemons and drivers."""
+        """The GCS endpoint spec handed to daemons/drivers: a single
+        address, or the comma-joined replica list when standbys exist
+        (ClientPool resolves that spec to a leader-aware router)."""
         if not self._gcs_procs:
             return None
-        return self._gcs_procs[0][1]
+        return ",".join(addr for _proc, addr in self._gcs_procs)
 
     @property
     def address(self) -> str:
@@ -91,16 +93,28 @@ class Cluster:
 
     # ------------------------------------------------------------ members
 
+    def _start_gcs_replica(self) -> str:
+        replica_id = f"r{self._gcs_replica_seq}"
+        self._gcs_replica_seq += 1
+        ha = self._gcs_standbys > 0 or self._gcs_replica_seq > 1
+        proc, address = services.start_gcs(
+            self._session_dir,
+            ha_replica_id=replica_id if ha else None)
+        self._gcs_procs.append((proc, address))
+        return address
+
     def add_node(self, num_cpus: int | None = None,
                  num_tpus: int | None = None,
                  resources: dict | None = None,
                  labels: dict | None = None,
                  num_gpus: int | None = None) -> str:
         """Start one more node daemon; the first call also starts the
-        GCS.  ``num_gpus`` overrides the detected cards, as in
-        ``init``."""
+        GCS (plus any configured standbys).  ``num_gpus`` overrides the
+        detected cards, as in ``init``."""
         if not self._gcs_procs:
-            self._gcs_procs.append(services.start_gcs(self._session_dir))
+            self._start_gcs_replica()
+            for _ in range(self._gcs_standbys):
+                self._start_gcs_replica()
         node_resources = services.default_resources(
             num_cpus if num_cpus is not None else 1, num_tpus, resources,
             num_gpus)
@@ -111,6 +125,17 @@ class Cluster:
         self._node_labels.append(dict(labels or {}))
         self._store_dirs.append(services.store_dir_of(address))
         return address
+
+    def add_gcs_standby(self) -> str:
+        """Grow the control-plane replica set by one warm standby.
+        Existing clients learn it through their next HA-view refresh;
+        new daemons/drivers get it in the address spec."""
+        assert self._gcs_procs, "start a head first"
+        # The head must itself be lease-electing: a standby beside a
+        # non-HA head would grab the (uncontested) lease and split-brain.
+        assert self._gcs_standbys > 0, \
+            "construct the Cluster with head_node_args={'gcs_standbys': N}"
+        return self._start_gcs_replica()
 
     # ---------------------------------------------------------- GCS chaos
 
@@ -124,13 +149,58 @@ class Cluster:
 
     def restart_gcs(self) -> None:
         """Restart the GCS on the same port, resuming from its sqlite
-        store (the test_gcs_fault_tolerance scenario)."""
+        store (the test_gcs_fault_tolerance scenario).  On a replicated
+        cluster the restarted process rejoins as an HA replica (fresh
+        id) — restarting it lease-less beside live standbys would make
+        it an unfenced second leader over the same store."""
         assert self._gcs_procs
         _old_proc, old_addr = self._gcs_procs[0]
         port = int(old_addr.rsplit(":", 1)[1])
-        proc, address = services.start_gcs(self._session_dir, port=port)
+        replica_id = None
+        if self._gcs_standbys > 0:
+            replica_id = f"r{self._gcs_replica_seq}"
+            self._gcs_replica_seq += 1
+        proc, address = services.start_gcs(self._session_dir, port=port,
+                                           ha_replica_id=replica_id)
         assert address == old_addr
         self._gcs_procs[0] = (proc, address)
+
+    def gcs_leader_address(self, timeout: float = 10.0) -> str:
+        """The current leader's address, per whichever replica answers
+        the HA view first."""
+        import time
+
+        deadline = time.monotonic() + timeout
+        last_err: Exception | None = None
+        while time.monotonic() < deadline:
+            for _proc, addr in self._gcs_procs:
+                try:
+                    view = self._pool.get(addr).call("GetHaView", {},
+                                                     timeout=2)
+                except Exception as e:  # noqa: BLE001 — replica down
+                    last_err = e
+                    continue
+                # Only the leader's own word counts: a standby's view
+                # can still name the replica that just died.
+                if view.get("role") == "leader":
+                    return view["address"]
+            time.sleep(0.1)
+        raise RuntimeError(f"no GCS leader elected: {last_err}")
+
+    def kill_gcs_leader(self) -> str:
+        """Find the current leader, SIGKILL it, and return its address
+        — the control-plane loss the replicated GCS must absorb.  The
+        dead replica stays out of the set (no restart): failover, not
+        recovery, is under test."""
+        leader = self.gcs_leader_address()
+        for index, (proc, addr) in enumerate(self._gcs_procs):
+            if addr == leader:
+                proc.kill()
+                proc.wait(timeout=5)
+                del self._gcs_procs[index]
+                return addr
+        raise RuntimeError(f"leader {leader} is not one of this "
+                           "cluster's GCS processes")
 
     # -------------------------------------------------------------- nodes
 

@@ -14,9 +14,9 @@ tick, no per-sample allocation beyond the key string.
 Publication is the step/span-events idiom: every
 ``cpu_profile_publish_period_s`` the sampler ships the DELTA since its
 last publish to the GCS ``CpuProfileAdd`` ring, best-effort oneway
-(dropped outside a cluster).  (The JAX package's replicated GCS keeps
-a ring slice per replica and merges them at query time; GCS HA is
-ROADMAP queue A item 6.6.)  The same publish tick
+(dropped outside a cluster).  Under HA each replica keeps its local
+ring slice and ``CpuProfileGet`` merges at query time
+(``gather_ring``, the sharded-ring discipline).  The same publish tick
 rolls up :mod:`protocol`'s wire-accounting counters into
 ``art_rpc_bytes_total{method,direction}`` /
 ``art_rpc_frames_total{method}`` counter deltas through ``MetricRecord``

@@ -2504,6 +2504,9 @@ CLUSTER_SLAB_REPS = 5           # warm round trips of the slab after the first
 CLUSTER_FREE_SLACK = 1 << 30    # card memory a killed actor may leave behind
 CLUSTER_FREE_WAIT_S = 30.0      # ... within this long
 CLUSTER_EXIT_WAIT_S = 10.0      # every process of the session gone within
+CLUSTER_GCS_STANDBYS = 1        # warm standby GCS replicas beside the leader
+CLUSTER_GCS_WAIT_S = 30.0       # for a GCS leader after a kill
+CLUSTER_GCS_STEP_S = 20.0       # the GCS step's budget, restart and failover
 
 
 def _leaf_checksums(torch, params):
@@ -2549,19 +2552,119 @@ def _print_worker_logs(session_dir, tail=4000):
         print(f"--- {name} (last {tail} bytes) ---\n{text}", flush=True)
 
 
+def _gcs_step(art, cluster, runtime, actor, prompt, want, n_layers):
+    """The cluster's GCS is lost twice while the 8B actor lives: its
+    leader is killed and restarted on its port as a new replica (a
+    standby takes the lease meanwhile), then the leader of that set is
+    killed and the restarted replica takes over.  After each, the actor
+    answers ``prompt`` with ``want``'s tokens, in the same process, and
+    launches the sm90 forward for each layer of the bucketed prefill;
+    after the failover a ``num_gpus=0`` task runs and a KV key written
+    before the first kill reads back through the driver's router.
+    Returns the step's record; raises if a gate fails."""
+    gcs = runtime._gcs
+
+    def view(leader):
+        """The leader's own HA view (a standby's trails it by a sync)."""
+        v = cluster._pool.get(leader).call("GetHaView", {}, timeout=30)
+        return {k: v[k] for k in ("leader", "term", "last_failover_ts")} | {
+            "replicas": [(r["replica_id"], r["role"]) for r in v["replicas"]]}
+
+    def answer():
+        tokens, counted = art.get(actor.counted.remote(prompt), timeout=300)
+        return {"equal": tokens == want, "tokens": len(tokens),
+                "worker_launches": counted}
+
+    @art.remote(num_gpus=0)
+    def after_failover():
+        return os.getpid()
+
+    out = {"pid_before": art.get(actor.pid.remote(), timeout=60)}
+    t_step = time.perf_counter()
+    gcs.call("KVPut", {"key": "chip_smoke_gcs", "value": b"kept"},
+             timeout=30, retries=3)
+    leader = cluster.gcs_leader_address(timeout=CLUSTER_GCS_WAIT_S)
+    if leader != cluster.address.split(",")[0]:
+        raise AssertionError(f"the first replica does not lead: {leader}")
+    out["before"] = view(leader)
+
+    # Restart: the leader killed and started again on its port.
+    t0 = time.perf_counter()
+    cluster.kill_gcs()
+    cluster.restart_gcs()
+    out["restart_process_s"] = round(time.perf_counter() - t0, 3)
+    out["restart"] = answer()
+    out["restart_to_answer_s"] = round(time.perf_counter() - t0, 3)
+    leader = cluster.gcs_leader_address(timeout=CLUSTER_GCS_WAIT_S)
+    out["restart_to_leader_s"] = round(time.perf_counter() - t0, 3)
+    out["after_restart"] = view(leader)
+
+    # Failover: the leader killed for good; the restarted replica leads.
+    t0 = time.perf_counter()
+    out["killed_leader"] = cluster.kill_gcs_leader()
+    out["failover"] = answer()
+    out["failover_to_answer_s"] = round(time.perf_counter() - t0, 3)
+    out["new_leader"] = cluster.gcs_leader_address(
+        timeout=CLUSTER_GCS_WAIT_S)
+    out["failover_to_leader_s"] = round(time.perf_counter() - t0, 3)
+    out["task_pid"] = art.get(after_failover.remote(), timeout=120)
+    out["failover_to_task_s"] = round(time.perf_counter() - t0, 3)
+    kept = gcs.call("KVGet", {"key": "chip_smoke_gcs"}, timeout=30,
+                    retries=3)
+    out["kv_after_failover"] = repr(kept)
+    out["failover_to_kv_s"] = round(time.perf_counter() - t0, 3)
+    out["after_failover"] = view(out["new_leader"])
+    out["pid_after"] = art.get(actor.pid.remote(), timeout=60)
+    out["step_s"] = round(time.perf_counter() - t_step, 3)
+    print("cluster gcs " + json.dumps(out, default=str), flush=True)
+
+    row1 = {"fwd": n_layers, "fwd_sm90": n_layers}
+    for name in ("restart", "failover"):
+        got = out[name]
+        if not got["equal"]:
+            raise AssertionError(f"the actor's tokens after the GCS "
+                                 f"{name} differ from the engine's")
+        launched = got["worker_launches"]
+        if launched != {**dict.fromkeys(launched, 0), **row1}:
+            raise AssertionError(
+                f"the worker launched {launched} after the GCS {name}, "
+                f"expected {n_layers} sm90 forward launches")
+    if out["pid_after"] != out["pid_before"]:
+        raise AssertionError("the actor's process changed across the GCS "
+                             "restart and failover")
+    term = out["after_restart"]["term"]
+    if out["after_failover"]["term"] != term + 1 or \
+            out["after_failover"]["leader"] != out["new_leader"] or \
+            out["new_leader"] == out["killed_leader"] or \
+            out["after_failover"]["last_failover_ts"] is None:
+        raise AssertionError(f"the failover's HA view is wrong: "
+                             f"{out['after_restart']} then "
+                             f"{out['after_failover']}")
+    if kept != b"kept":
+        raise AssertionError("the KV key did not survive the failover")
+    if out["step_s"] > CLUSTER_GCS_STEP_S:
+        raise AssertionError(f"the GCS step took {out['step_s']} s, over "
+                             f"its {CLUSTER_GCS_STEP_S} s")
+    return out
+
+
 def cluster_phase(torch, fa, llama, params, engine, card):
-    """The runtime's processes on the card (``init(num_cpus=4)``: a GCS,
-    a node daemon and worker processes).  A ``num_gpus=1`` actor builds
-    Llama-3-8B (seed 0, as ``params``) in its worker and answers the
-    runtime phase's prompts beside ``engine`` (on ``params``) called
-    here; a second ``num_gpus=1`` actor waits for the card until the
-    first is killed, whose memory must come back; a task returns a CUDA
-    tensor, and one slot's KV slab of ``engine`` goes to a worker and
-    back; no-op calls measure the runtime's cost per call; shutdown
-    must leave no process, session directory or arena behind.  Returns
-    the launches the actor counted in its process."""
+    """The runtime's processes on the card (``cluster_utils.Cluster`` with
+    4 CPUs and one warm standby GCS, joined with ``connect()``: two GCS
+    replicas, a node daemon and worker processes).  A ``num_gpus=1``
+    actor builds Llama-3-8B (seed 0, as ``params``) in its worker and
+    answers the runtime phase's prompts beside ``engine`` (on
+    ``params``) called here; the GCS is restarted and then fails over
+    while that actor lives, which answers again after each
+    (``_gcs_step``); a second ``num_gpus=1`` actor waits for the card
+    until the first is killed, whose memory must come back; a task
+    returns a CUDA tensor, and one slot's KV slab of ``engine`` goes to
+    a worker and back; no-op calls measure the runtime's cost per call;
+    shutdown must leave no process, session directory or arena behind.
+    Returns the launches the actor counted in its process."""
     import ant_ray_tpu_torch as art  # noqa: PLC0415
     from ant_ray_tpu_torch._private.worker import global_worker  # noqa: PLC0415
+    from ant_ray_tpu_torch.cluster_utils import Cluster  # noqa: PLC0415
     from ant_ray_tpu_torch.llm import SamplingParams  # noqa: PLC0415
     from ant_ray_tpu_torch.llm.engine import _bucket  # noqa: PLC0415
 
@@ -2582,6 +2685,9 @@ def cluster_phase(torch, fa, llama, params, engine, card):
 
         def checksums(self):
             return _leaf_checksums(torch, self.engine.params)
+
+        def pid(self):
+            return os.getpid()
 
         def devices(self):
             leaves = [*self.engine.params.values(),
@@ -2643,15 +2749,34 @@ def cluster_phase(torch, fa, llama, params, engine, card):
     shm = os.statvfs("/dev/shm")
     out["dev_shm_bytes"] = shm.f_blocks * shm.f_frsize
     t0, t_init = time.perf_counter(), time.time()
-    ctx = art.init(num_cpus=4, _system_config=QUIET)
+    cluster = Cluster(head_node_args={
+        "num_cpus": 4, "gcs_standbys": CLUSTER_GCS_STANDBYS,
+        "_system_config": QUIET})
+    try:
+        ctx = cluster.connect()
+    except BaseException:
+        cluster.shutdown()
+        raise
     out["init_s"] = round(time.perf_counter() - t0, 3)
     runtime = global_worker.runtime
-    session_dir, store_dir = runtime.session_dir, runtime.store_dir
-    daemons = [p.pid for p in runtime._owned_processes]
+    session_dir, store_dir = cluster._session_dir, runtime.store_dir
+
+    def cluster_pids():
+        return ([p.pid for p, _a in cluster._gcs_procs]
+                + [p.pid for p in cluster._node_procs])
+
+    daemons = cluster_pids()
     workers = set()
     try:
         out["mode"] = ctx.mode
-        out["resources"] = art.cluster_resources()
+        # A standby answers this read from tables it syncs every 0.25 s:
+        # the node's registration reaches it within a few syncs.
+        deadline = time.monotonic() + CLUSTER_GCS_WAIT_S
+        while True:
+            out["resources"] = art.cluster_resources()
+            if "GPU" in out["resources"] or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
         out["store_capacity_bytes"] = runtime._node.call(
             "GetStoreStats", {}, timeout=30)["capacity"]
         print("cluster up " + json.dumps(out), flush=True)
@@ -2679,7 +2804,7 @@ def cluster_phase(torch, fa, llama, params, engine, card):
                                  f"{out['actor_devices']}")
         for prompt in prompts:          # round 0: warm-up
             art.get(actor.generate.remote(prompt))
-        calls, launches = [], {}
+        calls, launches, direct_tokens = [], {}, []
         for n, prompt in zip(RUNTIME_PROMPTS, prompts):
             direct, direct_s = timed(lambda: engine.generate(
                 [prompt], greedy)[0].token_ids)
@@ -2691,6 +2816,7 @@ def cluster_phase(torch, fa, llama, params, engine, card):
                           "actor_s": round(actor_s, 4),
                           "worker_launches": counted})
             launches = {k: launches.get(k, 0) + v for k, v in counted.items()}
+            direct_tokens.append(direct)
         out["calls"] = calls
         workers.update(c for d in daemons for c in _child_pids(d))
         if not all(c["equal"] and c["tokens"] == RUNTIME_TOKENS
@@ -2708,6 +2834,18 @@ def cluster_phase(torch, fa, llama, params, engine, card):
                     f"the worker launched {c['worker_launches']} for the "
                     f"{c['prompt']}-token prompt, expected {want} sm90 "
                     "forward launches")
+
+        # Step 2b: the GCS restarted, then failed over, while the actor
+        # lives; it answers the longest prompt after each.
+        if _bucket(RUNTIME_PROMPTS[-1], 4096) < 128:
+            raise AssertionError("the GCS step's prompt has no bucketed "
+                                 "prefill")
+        out["gcs"] = _gcs_step(art, cluster, runtime, actor, prompts[-1],
+                               direct_tokens[-1], cfg.n_layers)
+        for name in ("restart", "failover"):
+            launches = {k: launches.get(k, 0) + v for k, v in
+                        out["gcs"][name]["worker_launches"].items()}
+        daemons += cluster_pids()
 
         # Step 3: the card is taken; a second card actor waits.
         out["compute_apps_with_engine"] = smi_apps()
@@ -2820,12 +2958,14 @@ def cluster_phase(torch, fa, llama, params, engine, card):
         out["gcs_deferred_ticks"] = _deferred_ticks(session_dir)
         print("cluster (failed) " + json.dumps(out, default=str), flush=True)
         art.shutdown()
+        cluster.shutdown()
         raise
     # Step 7: shutdown leaves nothing behind.
     deferred = _deferred_ticks(session_dir)
     t0 = time.perf_counter()
     art.shutdown()
-    pids = daemons + sorted(workers)
+    cluster.shutdown()
+    pids = sorted(set(daemons)) + sorted(workers)
     deadline = time.monotonic() + CLUSTER_EXIT_WAIT_S
     while any(_pid_alive(p) for p in pids) and time.monotonic() < deadline:
         time.sleep(0.1)
@@ -4175,7 +4315,7 @@ def data_phase(torch, llama, card, readings=False):
 
 
 OPS_CONFIG = {"include_dashboard": True, "enable_node_agent": True,
-              "device_stats_interval_s": 2.0}
+              "device_stats_interval_s": 2.0, "enable_insight": True}
 OPS_ENGINE = dict(slots=4, max_seq=2048)
 OPS_PROMPT_LENS = (256, 1024)   # 4 prompts, lengths from default_rng(19)
 OPS_PROMPTS = 4
@@ -4262,14 +4402,16 @@ def operations_phase(torch, llama, card, keep=None):
     """The operator's surface on the card (``init(num_cpus=4,
     _system_config=OPS_CONFIG)``: the dashboard, a node agent publishing
     the card's memory every 2 s, the CPU profiler at its default 67 Hz
-    in every process).  A placement group ``[{"CPU": 1, "GPU": 1}]``
+    in every process, flow insight).  A placement group ``[{"CPU": 1, "GPU": 1}]``
     (STRICT_PACK) holds one ``num_gpus=1`` actor with
     ``LLMEngine("llama3-8b", slots=4, max_seq=2048)`` (random weights
     from seed 0) in bundle 0; it generates 16 greedy tokens for 4 prompts
     of 256-1024 token ids (default_rng(19)) while ``POST /api/profile
     {"duration_s": 2}`` captures the agent's trace.  Gates, each printed:
     the actor's 32 sm90 forward launches per bucketed prefill and
-    nothing else (counted in its process); the group CREATED with its
+    nothing else (counted in its process); ``/api/insight``'s call graph
+    holds the driver's edge to ``OpsEngine.generate`` with its one call,
+    run once without error; the group CREATED with its
     bundle on the node, ``/api/cluster_status`` GPU 1 total and 0 free
     while the actor lives and 1 free after the kill and the group's
     removal; ``list_actors`` shows the actor ALIVE at the address of a
@@ -4418,6 +4560,24 @@ def operations_phase(torch, llama, card, keep=None):
                                       "fwd": want_launches,
                                       "fwd_sm90": want_launches},
              {"launches": launches, "want_fwd_sm90": want_launches})
+
+        # Flow insight: the generate call is the driver's edge to the
+        # actor, and the actor's worker ran it once without error.
+        deadline = time.monotonic() + OPS_WAIT_S
+        while True:
+            reply = json.loads(get(url + "/api/insight"))
+            edges = {f"{e['caller']}->{e['callee']}": e["count"]
+                     for e in reply["graph"]["edges"]}
+            ran = reply["graph"]["functions"].get("OpsEngine.generate", {})
+            if ran.get("calls") or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+        out["insight"] = {"edges": edges, "generate": ran,
+                          "events": len(reply["events"])}
+        gate("insight",
+             edges.get("driver->OpsEngine.generate") == 1
+             and ran.get("calls") == 1 and ran.get("errors") == 0,
+             out["insight"])
 
         # State: the actor, its worker's log.
         actors = [a for a in state.list_actors()

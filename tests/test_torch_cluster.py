@@ -760,7 +760,8 @@ def test_call_overhead_matches_jax_package(clusters):
 
 
 # ------------------------------------------- what the port leaves out
-# Each raises, naming the ROADMAP item (queue A) that ports it.
+# Each raises, naming the ROADMAP item (queue A) that ports it; the
+# tests of what a later item ported keep their names and check it.
 
 
 def test_runtime_env_option_raises(clusters):
@@ -862,10 +863,13 @@ def test_cpu_profiler_raises(clusters):
     ({"export_dir": "unused"}, "export events")])
 def test_gcs_ha_and_export_events_raise(kwargs, what, tmp_path,
                                         monkeypatch):
-    """GCS HA raises, naming its item.  Export events are ported (ROADMAP
-    queue A item 6.6): a GCS given an export directory makes it and
-    answers ``ExportEventsGet`` as enabled, as the JAX package's does
-    (more in tests/test_torch_export_events.py)."""
+    """GCS HA and export events are ported (ROADMAP queue A item 6.6).
+    A GCS given a replica id and a store joins the replicated control
+    plane as the JAX package's does: a coordinator for that replica,
+    standing by until its lease is won, and without a store it refuses
+    (more in tests/test_torch_gcs_ha.py).  A GCS given an export
+    directory makes it and answers ``ExportEventsGet`` as enabled, as
+    the JAX package's does (more in tests/test_torch_export_events.py)."""
     import asyncio
 
     from ant_ray_tpu._private.gcs import GcsServer as JGcsServer
@@ -873,8 +877,16 @@ def test_gcs_ha_and_export_events_raise(kwargs, what, tmp_path,
 
     monkeypatch.chdir(tmp_path)
     if what == "GCS HA":
-        with pytest.raises(NotImplementedError, match=f"{what}.*6.6"):
-            GcsServer(**kwargs)
+        views = []
+        for cls in (JGcsServer, GcsServer):
+            server = cls(**kwargs)
+            views.append((server._ha.replica_id, server._ha.role,
+                          server._ha.term, type(server._ha._selector).__name__))
+            server._store.close()
+            with pytest.raises(ValueError, match="requires a shared store"):
+                cls(ha_replica_id="r0")
+        assert views[0] == views[1] == (
+            "r0", "standby", 0, "FileBasedLeaderSelector")
         return
     replies = [asyncio.run(cls(**kwargs)._export_events_get({}))
                for cls in (JGcsServer, GcsServer)]
@@ -883,35 +895,69 @@ def test_gcs_ha_and_export_events_raise(kwargs, what, tmp_path,
 
 
 def test_cluster_utils_gcs_standbys_raise():
-    """It raises before it makes a session directory."""
-    import tempfile
-
-    from ant_ray_tpu_torch._private.services import SESSION_PREFIX
+    """``gcs_standbys`` is ported: the head starts a leader and a warm
+    standby over the session's store and hands out both addresses; the
+    router follows the leader through ``kill_gcs_leader()`` (the term
+    rises by one, the KV key and the node survive), and shutdown
+    removes the session directory."""
+    from ant_ray_tpu_torch._private.protocol import ClientPool
     from ant_ray_tpu_torch.cluster_utils import Cluster
 
-    def sessions():
-        return {n for n in os.listdir(tempfile.gettempdir())
-                if n.startswith(SESSION_PREFIX)}
-
-    before = sessions()
-    with pytest.raises(NotImplementedError, match="GCS HA.*6.6"):
-        Cluster(head_node_args={"gcs_standbys": 1})
-    assert sessions() <= before
+    cluster = Cluster(head_node_args={"num_cpus": 1, "gcs_standbys": 1})
+    session_dir = cluster._session_dir
+    try:
+        replicas = cluster.address.split(",")
+        assert len(replicas) == 2
+        pool = ClientPool()
+        router = pool.get(cluster.address)
+        assert router.call("KVPut", {"key": "k", "value": b"v"},
+                           timeout=30, retries=3) is True
+        leader = cluster.gcs_leader_address(timeout=60)
+        # The leader's own view: a standby's trails it by a sync.
+        term = pool.get(leader).call("GetHaView", {}, timeout=30)["term"]
+        assert cluster.kill_gcs_leader() == leader
+        (standby,) = [a for a in replicas if a != leader]
+        assert cluster.gcs_leader_address(timeout=60) == standby
+        assert router.call("KVGet", {"key": "k"}, timeout=30,
+                           retries=3) == b"v"
+        view = pool.get(standby).call("GetHaView", {}, timeout=30)
+        assert (view["leader"], view["term"]) == (standby, term + 1)
+        assert view["last_failover_ts"] is not None
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            nodes = router.call("GetAllNodes", {}, timeout=30)
+            if [n.alive for n in nodes.values()] == [True]:
+                break
+            time.sleep(0.2)
+        assert [n.alive for n in nodes.values()] == [True]
+    finally:
+        cluster.shutdown()
+    assert not os.path.exists(session_dir)
 
 
 def test_cgroups_raise():
+    """The cgroup flags are ported: the port's table carries them with
+    the JAX package's defaults and takes them from ``_system_config``
+    (more in tests/test_torch_cgroup2.py)."""
+    from ant_ray_tpu._private.config import Config as JConfig
     from ant_ray_tpu_torch._private.config import Config
 
-    for flag in ("enable_cgroups", "cgroup_root"):
-        with pytest.raises(ValueError, match=f"{flag}.*item 6.6, cgroups"):
-            Config().apply_dict({flag: 1})
+    flags = ("enable_cgroups", "cgroup_root", "cgroup_workers_memory_max",
+             "cgroup_workers_cpu_weight")
+    assert [getattr(Config(), f) for f in flags] == \
+        [getattr(JConfig(), f) for f in flags]
+    cfg = Config().apply_dict({"enable_cgroups": True,
+                               "cgroup_root": "/fake/cgroup"})
+    assert (cfg.enable_cgroups, cfg.cgroup_root) == (True, "/fake/cgroup")
 
 
 def test_insight_raises():
+    """``enable_insight`` is ported, off by default as in the JAX
+    package (more in tests/test_torch_insight.py)."""
     from ant_ray_tpu_torch._private.config import Config
 
-    with pytest.raises(ValueError, match="enable_insight.*6.6, flow insight"):
-        Config().apply_dict({"enable_insight": True})
+    assert Config().enable_insight is False
+    assert Config().apply_dict({"enable_insight": True}).enable_insight
 
 
 def test_device_objects_raise(clusters):

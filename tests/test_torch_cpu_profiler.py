@@ -11,8 +11,8 @@ The reference's overhead case bounds the wall cost per sample (300 µs),
 which the suite's load makes unsteady; here the sampler is held to its
 sample count and to the busy thread's frames, and chip_smoke.py holds
 the 300-µs bound on the card's quiet host.  The ring merge across GCS
-replicas stays with GCS HA (ROADMAP queue A item 6.6) and is pinned as
-raising."""
+replicas came with GCS HA: two in-process replicas of each package,
+each holding its own shard, answer the same merged reads."""
 
 import threading
 import time
@@ -295,12 +295,86 @@ def test_gcs_io_loop_duty_reads_real_samples():
             server.stop()
 
 
-def test_ring_merge_across_replicas_stays_with_gcs_ha(tmp_path):
-    """The JAX package merges the CpuProfile ring across GCS replicas at
-    query time; a replicated GCS is ROADMAP queue A item 6.6."""
-    with pytest.raises(NotImplementedError, match="GCS HA.*6.6"):
-        TGcsServer(store_path=str(tmp_path / "gcs_store.db"),
-                   ha_replica_id="ra")
+def _ring_merge(server_cls, protocol, cfg, monkeypatch, store):
+    """The reference's scenario: CpuProfileAdd is any-replica ingestion
+    (a sharded ring); a read through either replica merges every shard
+    at query time, ``local_only`` confines it to one shard, and a
+    ``node_id`` prefix composes with the merge.  Returns each read."""
+    monkeypatch.setattr(cfg, "gcs_ha_lease_ttl_s", 0.8)
+    monkeypatch.setattr(cfg, "gcs_ha_renew_period_s", 0.15)
+    monkeypatch.setattr(cfg, "gcs_ha_sync_period_s", 0.1)
+    leader = server_cls(store_path=store, ha_replica_id="ra")
+    leader.start()
+    assert leader._ha.wait_until_leader(10), "first replica never led"
+    standby = server_cls(store_path=store, ha_replica_id="rb")
+    standby.start()
+    pool = protocol.ClientPool()
+    try:
+        _wait(lambda: standby._ha.leader_addr() == leader.address,
+              what="standby to sync the leader ad")
+        _wait(lambda: standby.address in leader._ha.peer_addresses(),
+              what="leader to see the standby's ad")
+
+        def record(node, ts):
+            return {"node_id": node, "pid": 1, "proc": "shardtest",
+                    "ts": ts, "dur_s": 1.0, "hz": 67.0, "samples": 3,
+                    "stacks": {f"shardtest;main;{node}": 3}}
+
+        t0 = time.time()
+        pool.get(leader.address).call(
+            "CpuProfileAdd", {"records": [record("node-a", t0)]},
+            timeout=5)
+        pool.get(standby.address).call(
+            "CpuProfileAdd", {"records": [record("node-b", t0 + 1)]},
+            timeout=5)
+
+        def fetch(addr, **extra):
+            payload = {"proc": "shardtest", **extra}
+            return [r["node_id"] for r in pool.get(addr).call(
+                "CpuProfileGet", payload, timeout=10) or []]
+
+        out = {}
+        for name, addr in (("leader", leader.address),
+                           ("standby", standby.address)):
+            _wait(lambda a=addr: set(fetch(a)) == {"node-a", "node-b"},
+                  what=f"merged CpuProfileGet via {addr}")
+            out[name] = fetch(addr)
+            out[name + "_local"] = fetch(addr, local_only=True)
+        out["prefix"] = fetch(leader.address, node_id="node-b")
+        # Each replica's own profiler names its replica.
+        for server in (leader, standby):
+            server._cpu_profiler._publish()
+        out["gcs_node_ids"] = sorted({
+            r["node_id"] for server in (leader, standby)
+            for r in server._cpu_profile if r["proc"] == "gcs"})
+        return out
+    finally:
+        for server in (standby, leader):
+            try:
+                server.stop()
+            except Exception:  # noqa: BLE001 — already stopped
+                pass
+        pool.close_all()
+
+
+def test_ring_merge_across_replicas_stays_with_gcs_ha(monkeypatch,
+                                                     tmp_path):
+    """The CpuProfile ring merges across GCS replicas at query time in
+    the port as in the JAX package: both read shards in ts order
+    through either replica, one shard with ``local_only``."""
+    from ant_ray_tpu._private.config import global_config as jcfg
+    from ant_ray_tpu_torch._private.config import global_config as tcfg
+
+    outs = [_ring_merge(cls, protocol, cfg(), monkeypatch,
+                        str(tmp_path / f"{name}.db"))
+            for cls, protocol, cfg, name in (
+                (JGcsServer, jprotocol, jcfg, "jax"),
+                (TGcsServer, tprotocol, tcfg, "port"))]
+    assert outs[0] == outs[1]
+    assert outs[1] == {
+        "leader": ["node-a", "node-b"], "leader_local": ["node-a"],
+        "standby": ["node-a", "node-b"], "standby_local": ["node-b"],
+        "prefix": ["node-b"], "gcs_node_ids": ["gcs-ra", "gcs-rb"]}
 
 
 # -------------------------------------------------------- cluster e2e

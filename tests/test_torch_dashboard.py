@@ -8,8 +8,7 @@ outcomes — statuses, key sets, series names.  On the CPU the agent's
 device gauges are empty in both, and ``POST /api/profile`` archives a
 trace of the agent's process (``jax.profiler`` in the reference,
 ``torch.profiler`` in the port, whose archive holds a Chrome trace).
-Flow insight's route (ROADMAP queue A item 6.6) answers 501 naming it;
-the agent's runtime-env build runs (job submission, export events and
+Flow insight's route serves the same call graph in both; the agent's runtime-env build runs (job submission, export events and
 runtime envs are held against the JAX package in tests/test_torch_job_
 submission.py, test_torch_export_events.py and test_torch_runtime_env.py).
 The card-wide memory reading the agent publishes is tested in
@@ -23,7 +22,6 @@ import os
 import signal
 import tarfile
 import time
-import urllib.error
 import urllib.request
 
 import pytest
@@ -282,17 +280,28 @@ def test_api_profile_roundtrip(clusters):
 
 
 def test_unported_routes_answer_501_naming_their_item(clusters):
-    url = clusters[tart]["url"]
-    for method, path, what in (
-            ("GET", "/api/insight", "flow insight"),):
-        req = urllib.request.Request(
-            url + path, method=method,
-            data=b"{}" if method == "POST" else None)
-        with pytest.raises(urllib.error.HTTPError) as ei:
-            urllib.request.urlopen(req, timeout=30)
-        assert ei.value.code == 501
-        error = json.loads(ei.value.read())["error"]
-        assert what in error and "item 6.6" in error, error
+    """No route answers 501 any more: ``/api/insight``, the last one
+    (flow insight), serves the GCS ring's events and their call graph,
+    equal to the JAX package's for the same events."""
+    events = [
+        *({"type": "call_submit", "function": "m.f", "task_id": f"t{i}",
+           "caller": "driver", "ts": 1.0 + i, "source": "d"}
+          for i in range(3)),
+        {"type": "call_end", "function": "m.f", "task_id": "t0",
+         "duration_s": 0.25, "error": False, "ts": 5.0, "source": "w"},
+        {"type": "call_end", "function": "m.f", "task_id": "t1",
+         "duration_s": 0.5, "error": True, "ts": 6.0, "source": "w"}]
+    replies = []
+    for art in PACKAGES:
+        c = clusters[art]
+        for event in events:
+            c["rt"]._gcs.call("InsightRecord", event, timeout=30)
+        reply = _get(c["url"] + "/api/insight")
+        replies.append((reply["events"][-len(events):], reply["graph"]))
+    assert replies[0] == replies[1]
+    assert replies[1] == (events, {
+        "edges": [{"caller": "driver", "callee": "m.f", "count": 3}],
+        "functions": {"m.f": {"calls": 2, "errors": 1, "total_s": 0.75}}})
 
 
 def _agent_pids(art, session_dir):

@@ -97,7 +97,13 @@ def test_importing_every_module_loads_neither_jax_nor_the_jax_package():
             "ant_ray_tpu_torch.util.client",
             "ant_ray_tpu_torch.util.client.wire",
             "ant_ray_tpu_torch.util.client.runtime",
-            "ant_ray_tpu_torch.util.client.server"} <= set(modules)
+            "ant_ray_tpu_torch.util.client.server",
+            "ant_ray_tpu_torch._private.store_server",
+            "ant_ray_tpu_torch._private.gcs_ha",
+            "ant_ray_tpu_torch.ha",
+            "ant_ray_tpu_torch.ha.leader_selector",
+            "ant_ray_tpu_torch._private.cgroup2",
+            "ant_ray_tpu_torch.util.insight"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
@@ -417,6 +423,88 @@ def test_cluster_processes_are_the_ports_and_shutdown_leaves_none():
         time.sleep(0.1)
     assert [p for p in daemons + workers if _alive(p)] == []
     assert not os.path.exists(session_dir)
+
+
+def test_ha_cgroups_and_insight_import_no_torch(tmp_path):
+    """The store server, the HA coordinator and its leader selectors,
+    the cgroup manager and flow insight run in control-plane processes:
+    none loads torch, JAX or the JAX package, even when used — a store
+    server serving a put and a lease, a file lease won, a cgroup subtree
+    built on a fake tree, a call graph built."""
+    code = (
+        "import os, sys\n"
+        "from ant_ray_tpu_torch._private import gcs_ha\n"
+        "from ant_ray_tpu_torch._private.cgroup2 import CgroupManager\n"
+        "from ant_ray_tpu_torch._private.store_client import (\n"
+        "    RemoteStoreClient)\n"
+        "from ant_ray_tpu_torch._private.store_server import StoreServer\n"
+        "from ant_ray_tpu_torch.ha import FileBasedLeaderSelector\n"
+        "from ant_ray_tpu_torch.ha.leader_selector import (\n"
+        "    StoreBasedLeaderSelector)\n"
+        "from ant_ray_tpu_torch.util import insight\n"
+        f"tmp = {str(tmp_path)!r}\n"
+        "server = StoreServer(os.path.join(tmp, 't.db'))\n"
+        "address = server.start()\n"
+        "client = RemoteStoreClient('art-store://' + address)\n"
+        "client.put('t', 'k', b'v')\n"
+        "assert client.get('t', 'k') == b'v'\n"
+        "for sel in (StoreBasedLeaderSelector(address),\n"
+        "            FileBasedLeaderSelector(os.path.join(tmp, 'lease'))):\n"
+        "    sel.start()\n"
+        "    assert sel.wait_until_leader(10)\n"
+        "    sel.stop()\n"
+        "client.close()\n"
+        "server.stop()\n"
+        "root = os.path.join(tmp, 'cg')\n"
+        "os.makedirs(root)\n"
+        "open(os.path.join(root, 'cgroup.controllers'), 'w').write('cpu')\n"
+        "assert CgroupManager('s', root=root).setup()\n"
+        "assert insight.build_call_graph([])['edges'] == []\n"
+        "assert gcs_ha.HaCoordinator\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('torch', 'jax', 'ant_ray_tpu')))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_standby_gcs_and_store_server_processes_load_no_torch(tmp_path):
+    """A replicated head's GCS processes (leader and standby) and a store
+    server process run the port's modules and never map libtorch; the
+    cluster's shutdown stops every replica."""
+    import time
+
+    from ant_ray_tpu_torch.cluster_utils import Cluster
+
+    store = subprocess.Popen(
+        [sys.executable, "-m", "ant_ray_tpu_torch._private.store_server",
+         "--path", str(tmp_path / "t.db"), "--monitor-pid",
+         str(os.getpid())],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL)
+    cluster = Cluster(head_node_args={"num_cpus": 1, "gcs_standbys": 1})
+    try:
+        line = store.stdout.readline().decode()
+        assert line.startswith("STORE_READY "), line
+        gcs = [proc.pid for proc, _addr in cluster._gcs_procs]
+        assert len(gcs) == 2
+        cluster.gcs_leader_address(timeout=30)
+        for pid in gcs:
+            command = _cmdline(pid)
+            assert "-m ant_ray_tpu_torch._private.gcs" in command
+            assert "--ha-replica-id" in command
+            assert "libtorch" not in _maps(pid), command
+        assert "libtorch" not in _maps(store.pid)
+    finally:
+        cluster.shutdown()
+        store.terminate()
+        store.wait(timeout=10)
+    deadline = time.monotonic() + 10
+    while time.monotonic() < deadline and any(_alive(p) for p in gcs):
+        time.sleep(0.1)
+    assert [p for p in gcs if _alive(p)] == []
 
 
 def test_gpu_detector_imports_no_torch():

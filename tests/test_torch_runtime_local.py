@@ -427,12 +427,12 @@ def test_system_config_applies_until_the_next_init(monkeypatch):
 
 @pytest.mark.parametrize("flag,item", [
     ("no_such_flag", "a flag of neither package"),
-    ("cgroup_workers_memory_max", "item 6.6, cgroups"),
+    ("lockcheck_hold_budget_s", "item 6.6, lockcheck"),
     ("lockcheck", "item 6.6, lockcheck"),
     ("tpu_chips_override", "item 9, GPU placement"),
-    ("enable_cgroups", "item 6.6, cgroups"),
-    ("enable_insight", "item 6.6, flow insight"),
-    ("gcs_ha_lease_ttl_s", "item 6.6, GCS HA")])
+    ("testing_preemption_notice", "item 9, GPU placement"),
+    ("preemption_poll_interval_s", "item 9, GPU placement"),
+    ("worker_lease_timeout_s", "item none: no module")])
 def test_system_config_rejects_flags_the_port_does_not_read(flag, item):
     """A flag whose reader is not ported fails loudly, naming the
     ROADMAP item that brings it, instead of being set and never read."""
@@ -462,7 +462,11 @@ def test_system_config_carries_every_flag_a_ported_module_reads():
             "data_target_block_bytes", "cpu_profile_hz",
             "cpu_profile_publish_period_s", "cpu_profile_max_stacks",
             "include_dashboard", "enable_node_agent",
-            "device_stats_interval_s", "export_task_events"} <= set(port_flags)
+            "device_stats_interval_s", "export_task_events",
+            "enable_insight", "enable_cgroups", "cgroup_root",
+            "cgroup_workers_memory_max", "cgroup_workers_cpu_weight",
+            "gcs_ha_lease_ttl_s", "gcs_ha_renew_period_s",
+            "gcs_ha_sync_period_s"} <= set(port_flags)
     tart.init(local_mode=True,
               _system_config={"max_inline_object_size": 4096,
                               "data_inflight_tasks": 3,

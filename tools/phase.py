@@ -3,10 +3,13 @@
 
     python3 tools/phase.py NAME... [--readings] [--checkout PATH]
 
-NAME is ``tracing``, ``deployment``, ``data``, ``operations`` or ``jobs``:
-each runs
-chip_smoke.py's ``NAME_phase`` of PATH's checkout (default: this one),
-in the order given, after building the checkout's kernels.  tracing: a
+NAME is ``cluster``, ``tracing``, ``deployment``, ``data``,
+``operations`` or ``jobs``: each runs chip_smoke.py's ``NAME_phase`` of
+PATH's checkout (default: this one), in the order given, after building
+the checkout's kernels.  cluster: a Llama-3-8B actor in a cluster of two
+GCS replicas and a node daemon, answering beside an engine in this
+process, across a GCS restart and a leader failover (this process makes
+the 8B weights and the engine first); tracing: a
 traced Llama-3-8B request through an actor in cluster mode;
 deployment: build_llm_deployment serving Llama-3-8B from three
 replicas; data: build_llm_processor generating from Llama-3-8B in two
@@ -41,7 +44,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PHASES = ("tracing", "deployment", "data", "operations", "jobs")
+PHASES = ("cluster", "tracing", "deployment", "data", "operations", "jobs")
 OPTIONAL = ("aiohttp", "grpc", "transformers", "pyarrow", "pandas")
 
 
@@ -58,8 +61,10 @@ def main() -> int:
         print("phase: no CUDA device", file=sys.stderr)
         return 1
     import chip_smoke  # noqa: PLC0415
+    from ant_ray_tpu_torch.llm import LLMEngine, SamplingParams  # noqa: PLC0415
     from ant_ray_tpu_torch.models import llama  # noqa: PLC0415
     from ant_ray_tpu_torch.ops import _build  # noqa: PLC0415
+    from ant_ray_tpu_torch.ops import flash_attention as fa  # noqa: PLC0415
 
     os.environ["HF_HUB_OFFLINE"] = os.environ["TRANSFORMERS_OFFLINE"] = "1"
     card = subprocess.run(
@@ -85,7 +90,19 @@ def main() -> int:
         if "want" in params:
             kwargs["want"] = kept.get("tokens")
         t0 = time.perf_counter()
-        launches = phase(torch, llama, card, **kwargs)
+        if name == "cluster":
+            # The runtime phase's engine on the slice's weights (seed 0),
+            # warmed as that phase leaves it: the cluster phase holds the
+            # card's free memory to its level before the actor starts.
+            engine = LLMEngine("llama3-8b", slots=2, max_seq=4096, seed=0)
+            for n in chip_smoke.RUNTIME_PROMPTS:
+                engine.generate([[1] * n], SamplingParams(
+                    max_tokens=chip_smoke.RUNTIME_TOKENS))
+            launches = phase(torch, fa, llama, engine.params, engine, card)
+            del engine
+            torch.cuda.empty_cache()
+        else:
+            launches = phase(torch, llama, card, **kwargs)
         print(f"{name} phase: {time.perf_counter() - t0:.1f} s, launches "
               f"{launches}", flush=True)
     return 0
