@@ -35,8 +35,6 @@ def _env_override(name: str, default: Any) -> Any:
 # Flags of the JAX package's table that the port does not carry, by the
 # ROADMAP item (queue A) that brings the code that reads them.
 UNPORTED_FLAGS = {
-    **dict.fromkeys(("lockcheck", "lockcheck_hold_budget_s"),
-                    "6.6, lockcheck's instrumented path"),
     **dict.fromkeys(("tpu_chips_override", "testing_preemption_notice",
                      "preemption_poll_interval_s"),
                     "9, GPU placement and the preemption watch "
@@ -352,6 +350,20 @@ class Config:
     # Bound on DISTINCT folded stacks aggregated per process; once full,
     # new stacks collapse into a single "(overflow)" bucket.
     cpu_profile_max_stacks: int = 800
+
+    # ---- lockcheck (_lint/lockcheck.py) ----
+    # Opt-in runtime lock-order detector for the runtime's planes: the
+    # make_lock/make_rlock factories return instrumented wrappers that
+    # record the per-process lock-acquisition graph, report cycles
+    # (lock-order inversion = potential deadlock) and budget-exceeding
+    # holds across known-blocking calls through the flight recorder.
+    # Off (default) the factories return plain threading locks — zero
+    # overhead.  Env channel: ART_LOCKCHECK=1 (inherited by spawned
+    # daemons and workers, so one env var arms a whole local cluster).
+    lockcheck: bool = False
+    # A lock held longer than this across a note_blocking() call (sync
+    # RPC, socket I/O, subprocess) is reported as a long-hold.
+    lockcheck_hold_budget_s: float = 0.25
 
     # ---- logging ----
     log_level: str = "INFO"

@@ -41,11 +41,9 @@ from ant_ray_tpu_torch.observability import tracing_plane
 
 logger = logging.getLogger(__name__)
 
-# Actor methods the JAX package's workers run as framework code, with
-# the ROADMAP item that ports each.
+# Actor methods the JAX package's workers run as framework code and the
+# port does not, with the ROADMAP item that ports each.
 _UNPORTED_METHODS = {
-    "__art_exec_loop__": "the compiled-DAG execution loop is not ported "
-                         "(ROADMAP queue A item 6.6)",
     "__art_collective__": "collective DAG nodes are not ported (ROADMAP "
                           "queue A item 7)",
 }
@@ -296,9 +294,16 @@ class TaskExecutor:
                 if self.actor_instance is None:
                     raise exceptions.ActorDiedError(
                         spec.actor_id, "actor instance not initialized")
-                if spec.method_name in _UNPORTED_METHODS:
-                    # The JAX package runs compiled-DAG execution loops
-                    # and collective DAG nodes here.
+                if spec.method_name == "__art_exec_loop__":
+                    # Compiled-DAG execution loop: occupies this actor
+                    # until the driver tears the channels down
+                    # (ref: compiled_dag_node.py actor exec loops).
+                    from ant_ray_tpu_torch.dag.compiled import exec_loop  # noqa: PLC0415
+
+                    result = exec_loop(self.actor_instance, *args,
+                                       **kwargs)
+                elif spec.method_name in _UNPORTED_METHODS:
+                    # The JAX package runs collective DAG nodes here.
                     raise NotImplementedError(
                         _UNPORTED_METHODS[spec.method_name])
                 else:

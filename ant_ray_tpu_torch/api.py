@@ -80,6 +80,12 @@ def init(
     if object_store_memory:
         config.object_store_memory = object_store_memory
     set_global_config(config)
+    # Import-time factory calls (the worker singleton's) cached a
+    # pre-init lockcheck verdict; re-evaluate now that _system_config
+    # is applied (spawned processes get theirs via the env export below).
+    from ant_ray_tpu_torch._lint import lockcheck  # noqa: PLC0415
+
+    lockcheck.refresh_enabled()
     job_id = JobID.from_random()
     global_worker.job_id = job_id
 

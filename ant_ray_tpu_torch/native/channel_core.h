@@ -1,9 +1,9 @@
 // channel_core.h — lock-free single-writer/N-reader mutable-object
 // channel over a shared-memory mapping.  Pure C++ (no Python): included
-// by the art_torch_native extension (store_core.cpp).  A copy of the JAX
-// package's native/channel_core.h, whose ThreadSanitizer stress driver
-// (native/channel_stress.cpp) exercises these same atomics under TSAN
-// (ref hardening model: the reference's mutable
+// by the art_torch_native extension (store_core.cpp) AND by the
+// ThreadSanitizer stress driver beside it (channel_stress.cpp), so the
+// exact atomics that ship are the atomics under TSAN.  A copy of the JAX
+// package's native/channel_core.h (ref hardening model: the reference's mutable
 // plasma objects, src/ray/core_worker/experimental_mutable_object_manager.h:44,
 // are exercised by dedicated multi-threaded stress tests).
 //

@@ -2507,6 +2507,8 @@ CLUSTER_EXIT_WAIT_S = 10.0      # every process of the session gone within
 CLUSTER_GCS_STANDBYS = 1        # warm standby GCS replicas beside the leader
 CLUSTER_GCS_WAIT_S = 30.0       # for a GCS leader after a kill
 CLUSTER_GCS_STEP_S = 20.0       # the GCS step's budget, restart and failover
+CLUSTER_DAG_NOOP_CALLS = 200    # no-op round trips, compiled and .remote()
+CLUSTER_DAG_BUFFER = 1 << 20    # bytes a DAG channel holds: the 8B logits
 
 
 def _leaf_checksums(torch, params):
@@ -2648,20 +2650,160 @@ def _gcs_step(art, cluster, runtime, actor, prompt, want, n_layers):
     return out
 
 
+def _dag_step(torch, art, actor, prompts, want, n_layers):
+    """Compiled DAGs over the cluster's live 8B actor (shared-memory
+    channels, per-actor execution loops): ``actor.counted`` answers both
+    prompts with the engine's tokens (``want``), launching the sm90
+    forward for each layer of the bucketed prefill and nothing else;
+    ``actor.last_logits`` takes the longer prompt as a CUDA tensor
+    through the input channel and returns its fp32 CUDA logits, bitwise
+    equal to the same call through the object plane, with the engine's
+    first token as their argmax; a no-op stage on a CPU actor times the
+    channels' round trip beside ``.remote()``.  Each DAG is torn down,
+    its loop reports its iterations, and no channel file is left; the
+    actor then answers ``generate`` in the same process.  Returns the
+    step's record and the launches counted in the actor's process;
+    raises if a gate fails."""
+    from ant_ray_tpu_torch.dag import InputNode  # noqa: PLC0415
+    from ant_ray_tpu_torch.dag.compiled import ChannelCompiledDAG  # noqa: PLC0415
+    from ant_ray_tpu_torch.llm.engine import _bucket  # noqa: PLC0415
+
+    def compile_on(method, **kwargs):
+        with InputNode() as inp:
+            dag = method.bind(inp)
+        compiled = dag.experimental_compile(**kwargs)
+        if not isinstance(compiled, ChannelCompiledDAG):
+            raise AssertionError(f"{method._method_name} compiled to "
+                                 f"{type(compiled).__name__}, not the "
+                                 "channel path")
+        paths.extend(spec.path for spec in compiled._channel_specs.values())
+        return compiled
+
+    def teardown(compiled):
+        compiled.teardown()
+        return [loop["iterations"] for loop in
+                art.get(compiled._loop_refs, timeout=60)]
+
+    paths = []
+    out = {"pid_before": art.get(actor.pid.remote(), timeout=60)}
+    t_step = time.perf_counter()
+
+    # 1. Tokens and launches through the channels.
+    compiled = compile_on(actor.counted)
+    calls, launches = [], {}
+    for prompt, tokens_want in zip(prompts, want):
+        t0 = time.perf_counter()
+        tokens, counted = compiled.execute(prompt).get(timeout=300)
+        calls.append({"prompt": len(prompt), "equal": tokens == tokens_want,
+                      "worker_launches": counted,
+                      "s": round(time.perf_counter() - t0, 3)})
+        launches = {k: launches.get(k, 0) + v for k, v in counted.items()}
+    out["tokens"] = calls
+    out["tokens_iterations"] = teardown(compiled)
+
+    # 2. CUDA tensors both ways: the prompt in, the logits out.
+    ids = torch.tensor(prompts[-1], dtype=torch.int64, device="cuda")
+    art.get(actor.take_launches.remote(), timeout=60)    # from zero
+    compiled = compile_on(actor.last_logits,
+                          buffer_size_bytes=CLUSTER_DAG_BUFFER)
+    t0 = time.perf_counter()
+    through_dag = compiled.execute(ids).get(timeout=300)
+    out["logits_dag_s"] = round(time.perf_counter() - t0, 3)
+    out["logits_iterations"] = teardown(compiled)
+    t0 = time.perf_counter()
+    through_objects = art.get(actor.last_logits.remote(ids), timeout=300)
+    out["logits_object_plane_s"] = round(time.perf_counter() - t0, 3)
+    counted = art.get(actor.take_launches.remote(), timeout=60)
+    launches = {k: launches.get(k, 0) + v for k, v in counted.items()}
+    out["logits"] = {
+        "device": through_dag.device.type, "dtype": str(through_dag.dtype),
+        "shape": list(through_dag.shape),
+        "bitwise": bool(through_dag.device == through_objects.device
+                        and torch.equal(through_dag, through_objects)),
+        "argmax": int(through_dag.argmax()), "first_token": want[-1][0],
+        "worker_launches": counted}
+
+    # 3. The channels' round trip: a no-op stage on a CPU actor, beside
+    #    the same actor's .remote() call (both medians of the host clock).
+    echo = art.remote(_Echo).remote()
+    remote_ns = []
+    for i in range(1 + CLUSTER_DAG_NOOP_CALLS):
+        t0 = time.perf_counter_ns()
+        art.get(echo.ping.remote(i))
+        remote_ns.append(time.perf_counter_ns() - t0)
+    compiled = compile_on(echo.ping)
+    compiled_ns = []
+    for i in range(1 + CLUSTER_DAG_NOOP_CALLS):
+        t0 = time.perf_counter_ns()
+        if compiled.execute(i).get(timeout=60) != i:
+            raise AssertionError("the no-op stage returned another value")
+        compiled_ns.append(time.perf_counter_ns() - t0)
+    noop_iterations = teardown(compiled)
+    art.kill(echo)
+    out["noop"] = {"calls": CLUSTER_DAG_NOOP_CALLS,
+                   "compiled_us": statistics.median(compiled_ns[1:]) / 1e3,
+                   "remote_us": statistics.median(remote_ns[1:]) / 1e3,
+                   "iterations": noop_iterations}
+
+    # 4. After teardown: the actor answers in the same process.
+    t0 = time.perf_counter()
+    after = art.get(actor.generate.remote(prompts[0]), timeout=300)
+    out["after_teardown"] = {"equal": after == want[0],
+                             "s": round(time.perf_counter() - t0, 3)}
+    out["pid_after"] = art.get(actor.pid.remote(), timeout=60)
+    out["channel_files"] = len(paths)
+    out["channels_left"] = [p for p in paths if os.path.exists(p)]
+    out["step_s"] = round(time.perf_counter() - t_step, 3)
+    out["launches"] = launches
+    print("cluster dag " + json.dumps(out, default=str), flush=True)
+
+    none = dict.fromkeys(launches, 0)
+    row1 = {"fwd": n_layers, "fwd_sm90": n_layers}
+    for call, prompt in zip(calls, prompts):
+        if not call["equal"]:
+            raise AssertionError(f"the DAG's tokens for the {len(prompt)}-"
+                                 "token prompt differ from the engine's")
+        bucketed = _bucket(len(prompt), 4096) >= 128
+        if call["worker_launches"] != {**none, **(row1 if bucketed else {})}:
+            raise AssertionError(
+                f"the DAG's stage launched {call['worker_launches']} for "
+                f"the {len(prompt)}-token prompt")
+    if out["tokens_iterations"] != [len(prompts)] or \
+            out["logits_iterations"] != [1] or \
+            noop_iterations != [1 + CLUSTER_DAG_NOOP_CALLS]:
+        raise AssertionError(f"the exec loops' iterations differ from the "
+                             f"executes: {out}")
+    got = out["logits"]
+    if got["device"] != "cuda" or got["dtype"] != "torch.float32" or \
+            not got["bitwise"] or got["argmax"] != got["first_token"]:
+        raise AssertionError(f"the DAG's logits are wrong: {got}")
+    if counted != {**none, "fwd": 2 * n_layers, "fwd_sm90": 2 * n_layers}:
+        raise AssertionError(f"last_logits launched {counted}, expected "
+                             f"{n_layers} sm90 forward launches a call")
+    if not out["after_teardown"]["equal"] or \
+            out["pid_after"] != out["pid_before"]:
+        raise AssertionError(f"the actor after teardown: {out}")
+    if out["channels_left"]:
+        raise AssertionError(f"channel files left: {out['channels_left']}")
+    return out, launches
+
+
 def cluster_phase(torch, fa, llama, params, engine, card):
     """The runtime's processes on the card (``cluster_utils.Cluster`` with
     4 CPUs and one warm standby GCS, joined with ``connect()``: two GCS
     replicas, a node daemon and worker processes).  A ``num_gpus=1``
     actor builds Llama-3-8B (seed 0, as ``params``) in its worker and
     answers the runtime phase's prompts beside ``engine`` (on
-    ``params``) called here; the GCS is restarted and then fails over
-    while that actor lives, which answers again after each
-    (``_gcs_step``); a second ``num_gpus=1`` actor waits for the card
+    ``params``) called here; compiled DAGs run over that actor through
+    shared-memory channels and are torn down (``_dag_step``); the GCS is
+    restarted and then fails over while that actor lives, which answers
+    again after each (``_gcs_step``); a second ``num_gpus=1`` actor waits for the card
     until the first is killed, whose memory must come back; a task
     returns a CUDA tensor, and one slot's KV slab of ``engine`` goes to
     a worker and back; no-op calls measure the runtime's cost per call;
-    shutdown must leave no process, session directory or arena behind.
-    Returns the launches the actor counted in its process."""
+    shutdown must leave no process, session directory, arena or DAG
+    channel file behind.  Returns the launches the actor counted in its
+    process."""
     import ant_ray_tpu_torch as art  # noqa: PLC0415
     from ant_ray_tpu_torch._private.worker import global_worker  # noqa: PLC0415
     from ant_ray_tpu_torch.cluster_utils import Cluster  # noqa: PLC0415
@@ -2708,6 +2850,30 @@ def cluster_phase(torch, fa, llama, params, engine, card):
             tokens = self.generate(prompt)
             torch.cuda.synchronize()
             return tokens, _counts(flash_attention)
+
+        def last_logits(self, ids):
+            """The fp32 logits of the last position of ``ids`` (a CUDA
+            int64 tensor of prompt ids), [vocab] on the card, from the
+            bucketed prefill the engine runs (into its slot 0)."""
+            n = int(ids.shape[0])
+            with torch.inference_mode():    # the engine's cache is made so
+                padded = torch.zeros((1, _bucket(n, self.engine.max_seq)),
+                                     dtype=torch.int64, device=ids.device)
+                padded[0, :n] = ids
+                logits, self.engine.cache = llama.prefill_into_cache(
+                    self.engine.params, padded, self.engine.cache, 0, n,
+                    self.engine.config)
+                return logits.float()
+
+        def take_launches(self):
+            """The launches of this process's kernels since the last
+            reset, which this call makes."""
+            from ant_ray_tpu_torch.ops import flash_attention  # noqa: PLC0415
+
+            torch.cuda.synchronize()
+            counts = _counts(flash_attention)
+            _reset_counts(flash_attention)
+            return counts
 
     @art.remote(num_gpus=1)
     class Waiter:
@@ -2835,7 +3001,15 @@ def cluster_phase(torch, fa, llama, params, engine, card):
                     f"{c['prompt']}-token prompt, expected {want} sm90 "
                     "forward launches")
 
-        # Step 2b: the GCS restarted, then failed over, while the actor
+        # Step 2b: compiled DAGs over the actor (channels, exec loops),
+        # torn down before anything else calls it.
+        out["dag"], dag_launches = _dag_step(
+            torch, art, actor, prompts, direct_tokens, cfg.n_layers)
+        launches = {k: launches.get(k, 0) + v
+                    for k, v in dag_launches.items()}
+        out["channels_left"] = out["dag"]["channels_left"]
+
+        # Step 2c: the GCS restarted, then failed over, while the actor
         # lives; it answers the longest prompt after each.
         if _bucket(RUNTIME_PROMPTS[-1], 4096) < 128:
             raise AssertionError("the GCS step's prompt has no bucketed "
@@ -2974,12 +3148,16 @@ def cluster_phase(torch, fa, llama, params, engine, card):
     out["left_alive"] = [p for p in pids if _pid_alive(p)]
     out["session_dir_left"] = os.path.exists(session_dir)
     out["arena_left"] = os.path.exists(store_dir)
+    out["channels_left"] = [p for p in out["channels_left"]
+                            if os.path.exists(p)]
     out["launches"] = launches
     out["gcs_deferred_ticks"] = deferred
     print("cluster " + json.dumps(out), flush=True)
-    if out["left_alive"] or out["session_dir_left"] or out["arena_left"]:
+    if out["left_alive"] or out["session_dir_left"] or out["arena_left"] \
+            or out["channels_left"]:
         raise AssertionError("shutdown left a process, the session "
-                             "directory or the arena behind")
+                             "directory, the arena or a DAG's channel "
+                             "file behind")
     return launches
 
 
@@ -3877,9 +4055,11 @@ def _card_free_back(torch, free_before):
 
 def _gate_nothing_left(out):
     if out["left_alive"] or out["pgrep"] or out["session_dir_left"] or \
-            out["arena_left"] or not out["card_free_back"]:
+            out["arena_left"] or not out["card_free_back"] or \
+            out.get("channels_left"):
         raise AssertionError("shutdown left a process, the session "
-                             "directory, the arena or card memory behind")
+                             "directory, the arena, a DAG's channel file "
+                             "or card memory behind")
 
 
 DATA_ROWS = 32                  # prompts through build_llm_processor
@@ -4315,7 +4495,8 @@ def data_phase(torch, llama, card, readings=False):
 
 
 OPS_CONFIG = {"include_dashboard": True, "enable_node_agent": True,
-              "device_stats_interval_s": 2.0, "enable_insight": True}
+              "device_stats_interval_s": 2.0, "enable_insight": True,
+              "lockcheck": True}
 OPS_ENGINE = dict(slots=4, max_seq=2048)
 OPS_PROMPT_LENS = (256, 1024)   # 4 prompts, lengths from default_rng(19)
 OPS_PROMPTS = 4
@@ -4388,6 +4569,18 @@ def _deferred_ticks(session_dir):
         return None
 
 
+def _whole_log(state, name):
+    """All of a log file through ``get_log``, in the 4-MiB reads that
+    ReadLog serves."""
+    text, offset = "", 0
+    while True:
+        chunk = state.get_log(name, offset=offset, max_bytes=4 << 20)
+        if not chunk:
+            return text
+        text += chunk
+        offset += len(chunk.encode())
+
+
 def _metric_values(text, name):
     """{labels: value} of one series family in Prometheus text."""
     out = {}
@@ -4402,7 +4595,8 @@ def operations_phase(torch, llama, card, keep=None):
     """The operator's surface on the card (``init(num_cpus=4,
     _system_config=OPS_CONFIG)``: the dashboard, a node agent publishing
     the card's memory every 2 s, the CPU profiler at its default 67 Hz
-    in every process, flow insight).  A placement group ``[{"CPU": 1, "GPU": 1}]``
+    in every process, flow insight, lockcheck's instrumented locks in
+    every process).  A placement group ``[{"CPU": 1, "GPU": 1}]``
     (STRICT_PACK) holds one ``num_gpus=1`` actor with
     ``LLMEngine("llama3-8b", slots=4, max_seq=2048)`` (random weights
     from seed 0) in bundle 0; it generates 16 greedy tokens for 4 prompts
@@ -4425,7 +4619,9 @@ def operations_phase(torch, llama, card, keep=None):
     per sample under 300 µs in the driver and in the worker; the trace
     archive is listed and served by the log routes and holds a Chrome
     trace; ``status`` and ``list placement-groups`` through the CLI name
-    the node, the GPU and the group.  After shutdown nothing is left and
+    the node, the GPU and the group; no log that ``list_logs`` names
+    holds a lockcheck cycle report (its long-hold reports are counted).
+    After shutdown nothing is left and
     the card's memory is back; then one LLMEngine of the same shape in
     the driver must generate the actor's token ids row by row (kept
     under ``keep["tokens"]`` where ``keep`` is a dict, for the jobs
@@ -4435,6 +4631,7 @@ def operations_phase(torch, llama, card, keep=None):
     import urllib.request  # noqa: PLC0415
 
     import ant_ray_tpu_torch as art  # noqa: PLC0415
+    from ant_ray_tpu_torch._lint import lockcheck  # noqa: PLC0415
     from ant_ray_tpu_torch._private.worker import global_worker  # noqa: PLC0415
     from ant_ray_tpu_torch.llm import LLMEngine, SamplingParams  # noqa: PLC0415
     from ant_ray_tpu_torch.llm.engine import _bucket  # noqa: PLC0415
@@ -4679,6 +4876,32 @@ def operations_phase(torch, llama, card, keep=None):
              and [r["pg_id"] for r in cli_pgs] == [pg.id.hex()]
              and cli_pgs[0]["state"] == "CREATED",
              {"status": cli_status, "placement_groups": cli_pgs})
+
+        # Lockcheck: every process of the cluster ran instrumented
+        # locks; no log that list_logs names holds a cycle report.
+        reports = {}
+        for f in state.list_logs()["files"]:
+            lines = [ln for ln in _whole_log(state, f["filename"])
+                     .splitlines() if "LOCKCHECK: " in ln]
+            if lines:
+                reports[f["filename"]] = lines
+        driver = lockcheck.reports()
+        cycles = {name: [ln for ln in lines if "lock-order inversion" in ln]
+                  for name, lines in reports.items()}
+        cycles = {name: lines for name, lines in cycles.items() if lines}
+        out["lockcheck"] = {
+            "enabled_in_driver": lockcheck.enabled(),
+            "logs_read": len(state.list_logs()["files"]),
+            "cycle_reports": cycles,
+            "driver_cycles": [r for r in driver if r["kind"] == "cycle"],
+            "long_hold_reports": sum(
+                "across blocking call" in ln for lines in reports.values()
+                for ln in lines) + sum(r["kind"] == "long-hold"
+                                       for r in driver)}
+        gate("lockcheck",
+             out["lockcheck"]["enabled_in_driver"]
+             and not cycles and not out["lockcheck"]["driver_cycles"],
+             out["lockcheck"])
 
         out["io_loops_at_actor_start"] = _io_loops(runtime._gcs, since)
         out["gcs_deferred_ticks"] = _deferred_ticks(session_dir)

@@ -972,26 +972,64 @@ def test_device_objects_raise(clusters):
             client.call(method, {"token": "t"}, timeout=10)
 
 
-@pytest.mark.parametrize("method,item", [
-    ("__art_exec_loop__", "compiled-DAG.*6.6"),
-    ("__art_collective__", "collective DAG.*item 7")])
-def test_compiled_dag_and_collective_methods_raise(clusters, method, item):
+@pytest.mark.parametrize("method", [
+    pytest.param("__art_exec_loop__", id="__art_exec_loop__-compiled-DAG.*6.6"),
+    pytest.param("__art_collective__",
+                 id="__art_collective__-collective DAG.*item 7")])
+def test_compiled_dag_and_collective_methods_raise(clusters, method):
+    """The worker's framework methods: ``__art_exec_loop__`` runs the
+    compiled-DAG execution loop (ported, ROADMAP queue A item 6.6's
+    fourth part) until teardown closes its channels, after which the
+    actor answers again; ``__art_collective__`` still raises, naming
+    item 7."""
     from ant_ray_tpu_torch._private.task_options import TaskOptions
     from ant_ray_tpu_torch._private.worker import global_worker
+    from ant_ray_tpu_torch.dag.compiled import (ActorProgram, ChannelSpec,
+                                                StepSpec)
+    from ant_ray_tpu_torch.experimental.channel import (ShmChannel,
+                                                        channel_dir)
 
     @tart.remote
     class Node:
         def ping(self):
             return "pong"
 
+        def double(self, x):
+            return 2 * x
+
     node = Node.remote()
     assert tart.get(node.ping.remote()) == "pong"
-    ref = global_worker.runtime.submit_actor_task(node, method, (), {},
-                                                  TaskOptions())
-    with pytest.raises(tart.exceptions.ActorError) as ei:
-        tart.get(ref)
-    assert isinstance(ei.value.cause, NotImplementedError)
-    assert re.search(item, str(ei.value.cause))
+    if method == "__art_collective__":
+        ref = global_worker.runtime.submit_actor_task(node, method, (), {},
+                                                      TaskOptions())
+        with pytest.raises(tart.exceptions.ActorError) as ei:
+            tart.get(ref)
+        assert isinstance(ei.value.cause, NotImplementedError)
+        assert re.search("collective DAG.*item 7", str(ei.value.cause))
+        return
+    base = os.path.join(channel_dir(), f"pin_{os.getpid()}_{id(node)}")
+    specs = {0: ChannelSpec(base + "_in", 1 << 12, 1),
+             1: ChannelSpec(base + "_out", 1 << 12, 1)}
+    chans = {i: ShmChannel(sp.path, sp.capacity, sp.num_readers,
+                           create=True) for i, sp in specs.items()}
+    try:
+        program = ActorProgram(
+            steps=[StepSpec("double", (("input", (0, 0)),), {}, 0, 1)],
+            channels=specs)
+        ref = global_worker.runtime.submit_actor_task(
+            node, method, (program,), {}, TaskOptions())
+        got = []
+        for x in (3, 5):
+            chans[0].write((x,), timeout=30)
+            got.append(chans[1].begin_read(timeout=30))
+            chans[1].end_read()
+        assert got == [6, 10]
+    finally:
+        for ch in chans.values():
+            ch.close(unlink=True)
+    assert tart.get(ref, timeout=30) == {"iterations": 2}
+    assert tart.get(node.ping.remote(), timeout=30) == "pong"
+    assert not any(os.path.exists(sp.path) for sp in specs.values())
 
 
 def test_log_serving_raises(clusters):
@@ -1014,9 +1052,12 @@ def test_log_serving_raises(clusters):
 
 
 def test_lockcheck_instrumented_path_raises():
-    """``note_blocking`` keeps the JAX package's signature as a no-op;
-    the flag that turns the instrumented path on cannot be set."""
+    """Lockcheck's instrumented path is ported (ROADMAP queue A item
+    6.6's fourth part): the flag sets with the JAX package's default,
+    ``note_blocking`` keeps its signature, and an instrumented lock
+    reports a seeded inversion (more in tests/test_torch_lockcheck.py)."""
     import inspect
+    import threading
 
     from ant_ray_tpu._lint import lockcheck as jlockcheck
     from ant_ray_tpu_torch._lint import lockcheck
@@ -1024,6 +1065,21 @@ def test_lockcheck_instrumented_path_raises():
 
     assert inspect.signature(lockcheck.note_blocking) == \
         inspect.signature(jlockcheck.note_blocking)
-    assert lockcheck.note_blocking("rpc") is None
-    with pytest.raises(ValueError, match="lockcheck.*6.6"):
-        Config().apply_dict({"lockcheck": True})
+    assert Config().lockcheck is False
+    assert Config().apply_dict({"lockcheck": True}).lockcheck is True
+    lockcheck.reset(enabled_override=True)
+    try:
+        a, b = lockcheck.make_lock("pin.A"), lockcheck.make_lock("pin.B")
+        for first, second in ((a, b), (b, a)):
+            def run(f=first, s=second):
+                with f, s:
+                    pass
+            t = threading.Thread(target=run)
+            t.start()
+            t.join()
+        cycles = [r for r in lockcheck.reports() if r["kind"] == "cycle"]
+        assert [sorted(c["cycle"]) for c in cycles] == [["pin.A", "pin.B"]]
+    finally:
+        lockcheck.reset()
+
+

@@ -103,7 +103,17 @@ def test_importing_every_module_loads_neither_jax_nor_the_jax_package():
             "ant_ray_tpu_torch.ha",
             "ant_ray_tpu_torch.ha.leader_selector",
             "ant_ray_tpu_torch._private.cgroup2",
-            "ant_ray_tpu_torch.util.insight"} <= set(modules)
+            "ant_ray_tpu_torch.util.insight",
+            "ant_ray_tpu_torch.experimental",
+            "ant_ray_tpu_torch.experimental.channel",
+            "ant_ray_tpu_torch.dag",
+            "ant_ray_tpu_torch.dag.nodes",
+            "ant_ray_tpu_torch.dag.compiled",
+            "ant_ray_tpu_torch.dag.collective",
+            "ant_ray_tpu_torch.util.chaos",
+            "ant_ray_tpu_torch.util.actor_pool",
+            "ant_ray_tpu_torch.util.queue",
+            "ant_ray_tpu_torch.util.virtual_cluster"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
@@ -237,6 +247,45 @@ def test_operator_surface_imports_no_torch():
         "                 os.path.join(d, 'b.json')]) == 0\n"
         "device_stats.device_stats_gauges(device_stats.card_memory_stats())\n"
         "assert 'ant-ray-tpu' in dashboard_ui.INDEX_HTML\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('torch', 'jax', 'ant_ray_tpu')),\n"
+        "      file=sys.stderr)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stderr.strip().splitlines()[-1] == "[]"
+
+
+def test_dag_channels_lockcheck_and_chaos_import_no_torch(tmp_path):
+    """The DAG layer, its channels, lockcheck's instrumented locks, the
+    chaos harness and the utilities serve processes that may never touch
+    a tensor: a plain value through a channel, a compiled graph's specs,
+    an instrumented lock's report and a chaos schedule load neither
+    torch, JAX nor the JAX package."""
+    code = (
+        "import sys, threading\n"
+        "from ant_ray_tpu_torch import dag\n"
+        "from ant_ray_tpu_torch.dag import compiled, collective\n"
+        "from ant_ray_tpu_torch.experimental.channel import ShmChannel\n"
+        "from ant_ray_tpu_torch._lint import lockcheck\n"
+        "from ant_ray_tpu_torch.util import (actor_pool, chaos, queue,\n"
+        "    virtual_cluster)\n"
+        f"path = {str(tmp_path / 'chan')!r}\n"
+        "w = ShmChannel(path, capacity=4096, create=True)\n"
+        "r = ShmChannel(path)\n"
+        "w.write({'a': [1, 2], 'b': b'x' * 100})\n"
+        "assert r.begin_read(timeout=10)['a'] == [1, 2]\n"
+        "r.end_read()\n"
+        "lockcheck.reset(enabled_override=True)\n"
+        "a, b = lockcheck.make_lock('a'), lockcheck.make_lock('b')\n"
+        "for x, y in ((a, b), (b, a)):\n"
+        "    t = threading.Thread(target=lambda x=x, y=y: [x.acquire(),\n"
+        "        y.acquire(), y.release(), x.release()])\n"
+        "    t.start(); t.join()\n"
+        "assert [r['kind'] for r in lockcheck.reports()] == ['cycle']\n"
+        "assert chaos.ChaosSchedule(seed=1).rpc_latency('Ping', 0.1)\\\n"
+        "    .system_config() == {'testing_rpc_latency_s': 'Ping:0.1'}\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('torch', 'jax', 'ant_ray_tpu')),\n"
         "      file=sys.stderr)\n")

@@ -427,8 +427,7 @@ def test_system_config_applies_until_the_next_init(monkeypatch):
 
 @pytest.mark.parametrize("flag,item", [
     ("no_such_flag", "a flag of neither package"),
-    ("lockcheck_hold_budget_s", "item 6.6, lockcheck"),
-    ("lockcheck", "item 6.6, lockcheck"),
+    ("object_store_high_watermark", "item none: no module"),
     ("tpu_chips_override", "item 9, GPU placement"),
     ("testing_preemption_notice", "item 9, GPU placement"),
     ("preemption_poll_interval_s", "item 9, GPU placement"),
@@ -440,6 +439,32 @@ def test_system_config_rejects_flags_the_port_does_not_read(flag, item):
                                          f".*{item}"):
         tart.init(local_mode=True, _system_config={flag: 1})
     assert not tart.is_initialized()
+
+
+@pytest.mark.parametrize("flag,value", [("lockcheck", True),
+                                        ("lockcheck_hold_budget_s", 0.5)])
+def test_system_config_accepts_the_lockcheck_flags(flag, value):
+    """Lockcheck's flags are ported (ROADMAP queue A item 6.6's fourth
+    part): each defaults as in the JAX package and sets through
+    ``_system_config``."""
+    import dataclasses
+
+    from ant_ray_tpu._private.config import Config as JConfig
+    from ant_ray_tpu_torch._lint import lockcheck
+    from ant_ray_tpu_torch._private.config import (Config, global_config,
+                                                   set_global_config)
+
+    defaults = {f.name: f.default for f in dataclasses.fields(Config)}
+    assert defaults[flag] == getattr(JConfig(), flag)
+    saved = global_config()
+    tart.init(local_mode=True, _system_config={flag: value})
+    try:
+        assert getattr(global_config(), flag) == value
+        assert lockcheck.enabled() is (flag == "lockcheck")
+    finally:
+        tart.shutdown()
+        set_global_config(saved)   # the config outlives shutdown()
+        lockcheck.reset()
 
 
 def test_system_config_carries_every_flag_a_ported_module_reads():
@@ -466,7 +491,8 @@ def test_system_config_carries_every_flag_a_ported_module_reads():
             "enable_insight", "enable_cgroups", "cgroup_root",
             "cgroup_workers_memory_max", "cgroup_workers_cpu_weight",
             "gcs_ha_lease_ttl_s", "gcs_ha_renew_period_s",
-            "gcs_ha_sync_period_s"} <= set(port_flags)
+            "gcs_ha_sync_period_s", "lockcheck",
+            "lockcheck_hold_budget_s"} <= set(port_flags)
     tart.init(local_mode=True,
               _system_config={"max_inline_object_size": 4096,
                               "data_inflight_tasks": 3,

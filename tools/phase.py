@@ -8,15 +8,17 @@ NAME is ``cluster``, ``tracing``, ``deployment``, ``data``,
 PATH's checkout (default: this one), in the order given, after building
 the checkout's kernels.  cluster: a Llama-3-8B actor in a cluster of two
 GCS replicas and a node daemon, answering beside an engine in this
-process, across a GCS restart and a leader failover (this process makes
-the 8B weights and the engine first); tracing: a
+process, through compiled DAGs over shared-memory channels (CUDA
+tensors both ways), across a GCS restart and a leader failover (this
+process makes the 8B weights and the engine first); tracing: a
 traced Llama-3-8B request through an actor in cluster mode;
 deployment: build_llm_deployment serving Llama-3-8B from three
 replicas; data: build_llm_processor generating from Llama-3-8B in two
 actors, build_logprob_processor scoring through the device feed, and
 list-block Data at a million rows; operations: a Llama-3-8B actor in a
 placement group, watched through the dashboard, the node agent's card
-gauges, the CPU profiler, the state API and the CLI; jobs: a job
+gauges, the CPU profiler, the state API and the CLI, with lockcheck's
+instrumented locks in every process; jobs: a job
 submitted through the dashboard that drives a Llama-3-8B actor from
 outside the cluster through the client (``art://``) under a runtime env,
 a stopped job, export events and a task in a pip venv launching the sm90
