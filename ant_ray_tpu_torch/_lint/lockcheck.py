@@ -1,6 +1,6 @@
 """Runtime lock-order detector for the runtime's planes (the port of the
-JAX package's ``_lint/lockcheck.py``; its static lint rules check that
-package's sources and are not copied).
+JAX package's ``_lint/lockcheck.py``; the static rules beside it,
+:mod:`ant_ray_tpu_torch._lint.checkers`, check this package's sources).
 
 A static pass can prove a blocking call sits inside ONE critical
 section; what it cannot see is the ORDER two threads take two locks in.

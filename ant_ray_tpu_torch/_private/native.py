@@ -77,8 +77,9 @@ def load_native():
                 src, "-o", tmp_path,
             ]
             try:
-                # Serializing the one-time g++ build is this lock's
-                # purpose; every later call returns the cached module.
+                # artlint: disable=blocking-under-lock — serializing
+                # the one-time g++ build IS this lock's purpose; every
+                # later call returns the cached module without blocking.
                 subprocess.run(cmd, check=True, capture_output=True,
                                timeout=120)
                 os.rename(tmp_path, so_path)

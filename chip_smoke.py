@@ -336,13 +336,15 @@ final line is printed:
    write and load seconds and GB/s (host clock; the write ends in fsync,
    the load is the engine's construction), then the launches and peak
    memory.
-14. LLMServer on Llama-3-8B (random weights from seed 0, slots=8,
+14. LLMServer on Llama-3-8B's widths with its depth cut to
+   SERVER_LAYERS (8) layers (random weights from seed 0, slots=8,
    max_seq=4096, the reference's serving defaults: chunks of 64,
    kv_offload="local").  Four client threads send four completions of
    100 to 1500 token ids (one opening a session), two chats, two streams
    (a completion and one of the chats) and the session's second turn;
    then end_session, load_signals, a request whose deadline has passed
-   and one whose deadline (0.5 s) runs out mid-generation.  Gates: every
+   and one whose deadline (SERVER_DEADLINE: 0.2 s for 128 tokens) runs
+   out mid-generation.  Gates: every
    greedy answer equal to the same request served alone afterwards; each
    stream carrying its answer's tokens, each chunk its token's text;
    chat usage matching the tokens; the expired request shed with the
@@ -406,6 +408,35 @@ final line is printed:
    the loss falling.  Prints step time, tokens/s, MFU against fp32's 67
    TFLOP/s, peak memory and a profile of one step with the attention
    kernels' card time, the forward's and the backward pair's apart.
+19b. Tune and the autoscaler on the card: a head-only Cluster (2 CPUs,
+   no GPU) and the port's Autoscaler over a LocalSubprocessProvider
+   with one node type, "h100" ({"CPU": 4, "GPU": 1}, max_workers=1,
+   idle_timeout_s 3, rounds every 0.5 s, one heartbeat before anything
+   is submitted).  A Tuner sweeps lr over 1e-6, 3e-4, 1e-3 and 1.0 under
+   ASHA (max_t 8, grace period 2, reduction factor 2) with {"GPU":
+   0.25} per trial, so the four trials wait for a node the autoscaler
+   launches and share its card.  Each trial, a function trainable in a
+   worker of that node, builds llama-400m at its published widths and
+   depth (bf16, seed 0) on cuda (or raises), makes AdamW at its lr and
+   runs train_step on one seed-0 batch of 1 x 2049 token ids, reporting
+   each step's loss with the flash launch counters read in its process.
+   Gates: no trial error; the autoscaler launched exactly ["h100"], and
+   every trial ran on that node, on cuda:0; the step-0 losses bitwise
+   equal across the trials and equal to (else within BF16_LOSS_TOL of)
+   the driver's loss_fn on the same weights and batch; no trial stopped
+   before the grace period, at least one before max_t, a fresh ASHA fed
+   the recorded results in order gives the same decisions, each trial's
+   history ending where ASHA stopped it; get_best_result names the lr
+   whose trial reached max_t with the lowest last loss; each trial of s
+   steps launched 24 s sm90 forwards and 24 s sm90 backward pairs and
+   nothing else; the node terminated within TUNE_SCALE_DOWN_S of fit()'s
+   return, the provider listing no node after, nvidia-smi listing no
+   trial's process and none alive; nothing left after shutdown().
+   Prints one "tune" JSON line: the node's launch seconds, each trial's
+   start (import, CUDA init, parameter init, first step; its start after
+   fit() began), steps and last loss, ASHA's stops, the best lr, fit()'s
+   and the phase's wall, the scale-down seconds.  Its launches are the
+   kernels line's "tune" path.
 20. One line {"kernels": [...]} with the fifteen kernels (the sm90,
    tf32x3, sm90_d256, tf32x3_d256 and CUDA-core forward; the sm90, tf32x3,
    sm90_d256, tf32x3_d256 and CUDA-core dQ and dK/dV; launches by path,
@@ -414,7 +445,8 @@ final line is printed:
    data processor's actors, the operations and the jobs phases' actors,
    the checkpoint directory, the
    server, training, training under each remat policy, GPT-2 in fp32
-   and bf16 and the head_dim-256 Llama in bf16 and fp32; the older kernels' times also at GPT-2's
+   and bf16, the head_dim-256 Llama in bf16 and fp32 and the tune
+   trials; the older kernels' times also at GPT-2's
    shape, the sm90_d256 ones at Gemma-7B's and Gemma-2B's attention and
    at the head_dim-256 path's own, the tf32x3_d256 ones at the fp32
    path's and at FP32_D256_ATTN).  The CUDA-core forward, dQ and dK/dV
@@ -1762,6 +1794,340 @@ def d256_fp32_phase(torch, fa, llama):
                             for name, us in attn.items()}), flush=True)
     del params, optimizer, tokens
     return launches
+
+
+# The tune phase: an ASHA learning-rate sweep of llama-400m trials (its
+# published widths and depth, bf16, one seed-0 batch of 1 x 2049 token
+# ids, AdamW, remat "none") on a GPU node that the port's autoscaler
+# launches for them and removes after.  The head takes no trial (it has
+# no GPU); the node type's four CPUs place the four trial actors (1 CPU
+# each), which share the card a quarter each.
+TUNE_LRS = (1e-6, 3e-4, 1e-3, 1.0)
+TUNE_ASHA = {"max_t": 8, "grace_period": 2, "reduction_factor": 2}
+TUNE_NODE = ("h100", {"CPU": 4.0, "GPU": 1.0})
+TUNE_GPU_PER_TRIAL = 0.25
+TUNE_BATCH = (1, 2049)
+TUNE_IDLE_TIMEOUT_S = 3.0       # the autoscaler's idle_timeout_s
+TUNE_INTERVAL_S = 0.5           # between its reconcile rounds
+# The node must be gone this long after fit() returns: the idle timeout
+# and a few rounds (the trials' workers exiting, the daemon's next view).
+TUNE_SCALE_DOWN_S = TUNE_IDLE_TIMEOUT_S + 10 * TUNE_INTERVAL_S
+TUNE_FIT_TIMEOUT_S = 300.0
+
+
+def tune_trial(config):
+    """One trial of the tune phase, in a worker of the autoscaled node:
+    llama-400m from seed 0 on the card (it raises without one), AdamW at
+    ``config["lr"]``, ``max_t`` steps on the seed-0 batch, each step's
+    loss reported with this process's flash launch counters, its node
+    and pid, and with the first report where the time to it went."""
+    t0 = time.perf_counter()
+    started = time.time()
+    import torch  # noqa: PLC0415
+
+    from ant_ray_tpu_torch.models import llama  # noqa: PLC0415
+    from ant_ray_tpu_torch.ops import flash_attention as fa  # noqa: PLC0415
+    from ant_ray_tpu_torch.train import make_optimizer, train_step  # noqa: PLC0415
+    from ant_ray_tpu_torch.tune import report  # noqa: PLC0415
+
+    t_import = time.perf_counter()
+    if not torch.cuda.is_available():
+        raise RuntimeError("tune trial: no CUDA device in its worker")
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    t_cuda = time.perf_counter()
+    cfg = llama.CONFIGS["llama-400m"]
+    params = llama.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+        device="cuda")
+    optimizer = make_optimizer(params, lr=config["lr"])
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, TUNE_BATCH)).cuda()
+    torch.cuda.synchronize()
+    t_params = time.perf_counter()
+    _reset_counts(fa)
+    for step in range(TUNE_ASHA["max_t"]):
+        loss = train_step(params, optimizer, tokens, cfg,
+                          remat="none").item()
+        result = {"loss": loss, "launches": _counts(fa),
+                  "node_id": os.environ.get("ART_NODE_ID", ""),
+                  "pid": os.getpid(),
+                  "device": str(params["embed"].device)}
+        if step == 0:
+            result["start"] = {
+                "started_at": started, "import_s": t_import - t0,
+                "cuda_init_s": t_cuda - t_import,
+                "param_init_s": t_params - t_cuda,
+                "first_step_s": time.perf_counter() - t_params}
+        report(result)
+
+
+def _recording_asha(tune):
+    """``tune``'s ASHA with TUNE_ASHA's rungs, recording each result the
+    controller hands it (trial, iteration, loss) and its decision, in
+    the controller's order."""
+
+    class RecordingAsha(tune.AsyncHyperBandScheduler):
+        def __init__(self):
+            super().__init__(metric="loss", mode="min", **TUNE_ASHA)
+            self.log = []
+
+        def on_trial_result(self, trial_id, result):
+            decision = super().on_trial_result(trial_id, result)
+            self.log.append((trial_id, result["training_iteration"],
+                             result["loss"], decision))
+            return decision
+
+    return RecordingAsha()
+
+
+def _tune_reference_loss(torch, llama):
+    """The driver's loss_fn on the trials' seed-0 weights and batch, as
+    train_step computes it before its first update."""
+    from ant_ray_tpu_torch.train.step import param_leaves  # noqa: PLC0415
+
+    cfg = llama.CONFIGS["llama-400m"]
+    params = llama.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+        device="cuda")
+    for leaf in param_leaves(params):
+        leaf.requires_grad_()
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, TUNE_BATCH)).cuda()
+    loss = llama.loss_fn(params, {"tokens": tokens}, cfg,
+                         remat="none").item()
+    del params, tokens
+    torch.cuda.empty_cache()
+    return loss
+
+
+def _tune_gates(grid, log, ref_loss, node_id, n_layers):
+    """The sweep's gates: no trial error, every trial on the autoscaled
+    node, the first losses bitwise equal and within BF16_LOSS_TOL of the
+    driver's, ASHA's grace period kept and at least one trial stopped
+    early, the decisions replayed by a fresh scheduler, the best result
+    the lowest last loss at max_t, and n_layers sm90 forwards and
+    backward pairs per step in every trial.  Returns the launches of all
+    trials as a _counts() dict and the line's per-trial records."""
+    from ant_ray_tpu_torch import tune  # noqa: PLC0415
+
+    errors = [repr(r.error) for r in grid if r.error is not None]
+    if errors or len(grid) != len(TUNE_LRS):
+        raise AssertionError(f"tune: {len(grid)} trials, errors {errors}")
+    trials, total = [], {}
+    for r in grid:
+        steps = len(r.history)
+        first, last = r.history[0], r.history[-1]
+        nodes = {h["node_id"] for h in r.history}
+        devices = {h["device"] for h in r.history}
+        per_step = {"fwd": n_layers, "fwd_sm90": n_layers, "dq": n_layers,
+                    "dkv": n_layers, "sm90": n_layers}
+        want = {k: per_step.get(k, 0) * steps for k in last["launches"]}
+        if last["launches"] != want:
+            raise AssertionError(f"tune: lr {r.config['lr']} launched "
+                                 f"{last['launches']} in {steps} steps, "
+                                 f"expected {want}")
+        if nodes != {node_id} or devices != {"cuda:0"}:
+            raise AssertionError(f"tune: lr {r.config['lr']} ran on "
+                                 f"{nodes} {devices}, not {node_id}")
+        for key, n in last["launches"].items():
+            total[key] = total.get(key, 0) + n
+        trials.append({"lr": r.config["lr"], "steps": steps,
+                       "first_loss": first["loss"],
+                       "last_loss": last["loss"], "pid": first["pid"],
+                       "start": {k: round(v, 3) for k, v in
+                                 first["start"].items()
+                                 if k != "started_at"},
+                       "started_at": first["start"]["started_at"]})
+    firsts = {t["first_loss"] for t in trials}
+    if len(firsts) != 1:
+        raise AssertionError(f"tune: first losses differ: {firsts}")
+    first = firsts.pop()
+    if not (first == ref_loss or abs(first - ref_loss) <= BF16_LOSS_TOL):
+        raise AssertionError(f"tune: first loss {first} against the "
+                             f"driver's {ref_loss}")
+    max_t = TUNE_ASHA["max_t"]
+    steps = [t["steps"] for t in trials]
+    if min(steps) < TUNE_ASHA["grace_period"] or max(steps) != max_t \
+            or min(steps) >= max_t:
+        raise AssertionError(f"tune: steps per trial {steps}: grace "
+                             f"{TUNE_ASHA['grace_period']}, max_t {max_t}, "
+                             "at least one stopped early")
+    replay = tune.AsyncHyperBandScheduler(metric="loss", mode="min",
+                                          **TUNE_ASHA)
+    replayed = [replay.on_trial_result(tid, {"training_iteration": it,
+                                             "loss": loss})
+                for tid, it, loss, _ in log]
+    if replayed != [d for *_, d in log]:
+        raise AssertionError("tune: a fresh ASHA decides otherwise on the "
+                             f"recorded results: {log} -> {replayed}")
+    stopped_at = {}
+    for tid, it, _loss, decision in log:
+        if decision == "STOP":
+            stopped_at[tid] = it
+    if sorted(stopped_at.values()) != sorted(steps):
+        raise AssertionError(f"tune: stops {stopped_at} against the "
+                             f"histories' lengths {steps}")
+    finished = [t for t in trials if t["steps"] == max_t
+                and np.isfinite(t["last_loss"])]
+    want_lr = min(finished, key=lambda t: t["last_loss"])["lr"]
+    best = grid.get_best_result("loss", mode="min")
+    if best.config["lr"] != want_lr or len(best.history) != max_t:
+        raise AssertionError(f"tune: best result lr {best.config['lr']}, "
+                             f"expected {want_lr}")
+    return total, trials, first
+
+
+def tune_phase(torch, llama, card):
+    """Tune and the autoscaler on the card: a head-only Cluster (2 CPUs,
+    no GPU), the port's Autoscaler over a LocalSubprocessProvider with
+    one node type, TUNE_NODE, and a Tuner sweeping TUNE_LRS under ASHA
+    with a quarter of the card per trial; returns the trials' launches
+    (the kernels line's "tune" path)."""
+    import ant_ray_tpu_torch as art  # noqa: PLC0415
+    from ant_ray_tpu_torch import tune  # noqa: PLC0415
+    from ant_ray_tpu_torch._private import services  # noqa: PLC0415
+    from ant_ray_tpu_torch.autoscaler import (  # noqa: PLC0415
+        Autoscaler,
+        AutoscalerConfig,
+        LocalSubprocessProvider,
+        NodeTypeConfig,
+    )
+    from ant_ray_tpu_torch.cluster_utils import Cluster  # noqa: PLC0415
+
+    torch.cuda.empty_cache()
+    cfg = llama.CONFIGS["llama-400m"]
+    t0 = time.perf_counter()
+    ref_loss = _tune_reference_loss(torch, llama)
+    out = {"card": card, "model": "llama-400m",
+           "reference_loss_s": round(time.perf_counter() - t0, 3)}
+    free_before = torch.cuda.mem_get_info()[0]
+    cluster = Cluster(head_node_args={"num_cpus": 2, "num_gpus": 0,
+                                      "_system_config": QUIET})
+    session_dir = cluster._session_dir
+    provider = LocalSubprocessProvider(cluster.gcs_address, session_dir)
+    autoscaler = Autoscaler(cluster.gcs_address, provider, AutoscalerConfig(
+        node_types=[NodeTypeConfig(TUNE_NODE[0], dict(TUNE_NODE[1]),
+                                   max_workers=1)],
+        idle_timeout_s=TUNE_IDLE_TIMEOUT_S, interval_s=TUNE_INTERVAL_S))
+    rounds, stop = [], threading.Event()
+    store_dirs = set()      # the autoscaled node's arena, checked after
+
+    def reconcile():
+        # The autoscaler's loop (Autoscaler.start()) with each round's
+        # launches, terminations and times kept.
+        while not stop.is_set():
+            t = time.perf_counter()
+            result = autoscaler.run_once()
+            rounds.append((t, time.perf_counter(), result))
+            for pid in provider.non_terminated_nodes():
+                store_dirs.update(services.store_dir_of(a) for a in
+                                  provider.node_addresses(pid) or ())
+            stop.wait(TUNE_INTERVAL_S)
+
+    driver = None
+    try:
+        cluster.connect()
+        pids = [p.pid for p, _ in cluster._gcs_procs] + \
+            [p.pid for p in cluster._node_procs]
+        head_store = services.store_dir_of(cluster._node_addresses[0])
+        autoscaler.run_once()   # a heartbeat first: infeasible now waits
+        driver = threading.Thread(target=reconcile, daemon=True)
+        driver.start()
+        scheduler = _recording_asha(tune)
+        tuner = tune.Tuner(
+            tune_trial, param_space={"lr": tune.grid_search(TUNE_LRS)},
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min", scheduler=scheduler,
+                resources_per_trial={"GPU": TUNE_GPU_PER_TRIAL}))
+        fitted = {}
+        t_fit, t_fit_wall = time.perf_counter(), time.time()
+        fit = threading.Thread(
+            target=lambda: fitted.setdefault("grid", tuner.fit()),
+            daemon=True)
+        fit.start()
+        fit.join(TUNE_FIT_TIMEOUT_S)
+        t_fitted = time.perf_counter()
+        if "grid" not in fitted:
+            raise AssertionError(f"tune: fit() not done in "
+                                 f"{TUNE_FIT_TIMEOUT_S} s")
+        grid = fitted["grid"]
+        out["fit_s"] = round(t_fitted - t_fit, 3)
+        nodes = [n for n in art.nodes()
+                 if (n["Labels"] or {}).get("art/node-type") == TUNE_NODE[0]]
+        if len(nodes) != 1:
+            raise AssertionError(f"tune: autoscaled nodes {nodes}")
+        total, trials, first = _tune_gates(grid, scheduler.log, ref_loss,
+                                           nodes[0]["NodeID"], cfg.n_layers)
+        # Scale-down: the idle node terminated within TUNE_SCALE_DOWN_S.
+        deadline = time.monotonic() + TUNE_SCALE_DOWN_S + 30
+        while time.monotonic() < deadline and not any(
+                r["terminated"] for _, _, r in rounds):
+            time.sleep(0.05)
+        stop.set()
+        driver.join(timeout=30)
+        launched = [(t, e, n) for t, e, r in rounds for n in r["launched"]]
+        terminated = [(e, n) for t, e, r in rounds for n in r["terminated"]]
+        out["launched"] = [n for _, _, n in launched]
+        out["terminated"] = [n for _, n in terminated]
+        if out["launched"] != [TUNE_NODE[0]] or \
+                out["terminated"] != [TUNE_NODE[0]]:
+            raise AssertionError(f"tune: launched {out['launched']}, "
+                                 f"terminated {out['terminated']}")
+        out["node_launch_s"] = round(launched[0][1] - launched[0][0], 3)
+        out["node_up_after_fit_start_s"] = round(launched[0][1] - t_fit, 3)
+        out["scale_down_s"] = round(terminated[0][0] - t_fitted, 3)
+        if out["scale_down_s"] > TUNE_SCALE_DOWN_S:
+            raise AssertionError(f"tune: node terminated "
+                                 f"{out['scale_down_s']} s after fit, over "
+                                 f"{TUNE_SCALE_DOWN_S}")
+        left = provider.non_terminated_nodes()
+        apps = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.split()
+        trial_pids = {t["pid"] for t in trials}
+        out["smi_pids"] = apps
+        if left or trial_pids & {int(p) for p in apps if p.isdigit()} or \
+                any(_pid_alive(p) for p in trial_pids):
+            raise AssertionError(f"tune: after scale-down nodes {left}, "
+                                 f"nvidia-smi pids {apps}, trial pids "
+                                 f"{trial_pids}")
+        for record in trials:
+            record["started_after_fit_s"] = round(
+                record.pop("started_at") - t_fit_wall, 3)
+            record["start_to_first_report_s"] = round(
+                sum(record["start"].values()), 3)
+        out["trials"] = trials
+        out["first_loss"] = first
+        out["reference_loss"] = ref_loss
+        out["first_loss_minus_reference"] = first - ref_loss
+        out["asha_decisions"] = [
+            [tid, it, d] for tid, it, _loss, d in scheduler.log
+            if d == "STOP"]
+        out["best_lr"] = grid.get_best_result("loss", mode="min").config["lr"]
+        out["launches"] = total
+    except BaseException:
+        stop.set()
+        _print_worker_logs(session_dir)
+        for pid in list(provider.non_terminated_nodes()):
+            provider.terminate_node(pid)
+        art.shutdown()
+        cluster.shutdown()
+        raise
+    t_down = time.perf_counter()
+    art.shutdown()
+    cluster.shutdown()
+    _after_shutdown(torch, out, t_down, pids, session_dir, head_store,
+                    free_before)
+    out["autoscaled_arena_left"] = any(os.path.exists(d)
+                                       for d in store_dirs)
+    out["phase_s"] = round(time.perf_counter() - t0, 3)
+    print("tune " + json.dumps(out), flush=True)
+    _gate_nothing_left(out)
+    if out["autoscaled_arena_left"]:
+        raise AssertionError("tune: the autoscaled node left its arena")
+    return total
 
 
 def slice_phase(torch, fa, llama):
@@ -5778,11 +6144,18 @@ def checkpoint_phase(torch, fa, llama):
 
 # Server phase: Llama-3-8B behind LLMServer, the reference's defaults.
 SERVER_TOKENS = 16
+# Llama-3-8B's widths at 8 of its 32 layers: this cut pays for the tune
+# phase, as the data, tracing and deployment phases' pays for jobs.
+SERVER_LAYERS = 8
+# The request whose deadline runs out mid-generation: seconds, tokens.
+# (0.5, 64) at 32 layers; at 8 a decode step is ~4x shorter, so 128
+# tokens in 0.2 s would need steps under 1.6 ms.
+SERVER_DEADLINE = (0.2, 128)
 
 
 def server_phase(torch, fa, llama):
-    """LLMServer("llama3-8b", slots=8, max_seq=4096, kv_offload="local")
-    with chunks of 64 (the reference's serving default), random weights
+    """LLMServer on Llama-3-8B's widths at SERVER_LAYERS layers
+    (slots=8, max_seq=4096, kv_offload="local") with chunks of 64 (the reference's serving default), random weights
     from seed 0.  Four client threads send four completions of 100-1500
     token ids (one opening a session), two chats, two streams (a
     completion and the first chat), and the session's second turn; then
@@ -5800,11 +6173,12 @@ def server_phase(torch, fa, llama):
 
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    srv = LLMServer("llama3-8b", slots=8, max_seq=4096, seed=0,
-                    kv_offload="local")
+    srv = LLMServer(dataclasses.replace(llama.CONFIGS["llama3-8b"],
+                                        n_layers=SERVER_LAYERS),
+                    slots=8, max_seq=4096, seed=0, kv_offload="local")
     torch.cuda.synchronize()
-    print(f"llama3-8b LLMServer up in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"llama3-8b ({SERVER_LAYERS} layers) LLMServer up in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     cfg, tok = srv.engine.config, srv.engine.tokenizer
     rng = np.random.default_rng(13)
 
@@ -5903,13 +6277,14 @@ def server_phase(torch, fa, llama):
         finally:
             _request_deadline.reset(token)
 
-        # A deadline that runs out mid-generation: 0.5 s for 64 tokens.
+        # A deadline that runs out mid-generation: SERVER_DEADLINE[0] s
+        # for SERVER_DEADLINE[1] tokens.
         label.name = "deadline"
-        token = _request_deadline.set(time.time() + 0.5)
+        token = _request_deadline.set(time.time() + SERVER_DEADLINE[0])
         t0 = time.perf_counter()
         expired_s = None
         try:
-            srv({"prompt": ids(100), "max_tokens": 64})
+            srv({"prompt": ids(100), "max_tokens": SERVER_DEADLINE[1]})
         except DeadlineExceededError:
             expired_s = time.perf_counter() - t0
         finally:
@@ -5959,14 +6334,16 @@ def server_phase(torch, fa, llama):
         for n in ("chat_a", "chat_b")) and (
         chat["usage"]["completion_tokens"] == len(chat_ids))
     usage = {n: answers[n]["usage"] for n in ("chat_a", "chat_b")}
-    print(f"server llama3-8b slots 8 chunks 64: {len(answers)} requests from "
+    print(f"server llama3-8b ({SERVER_LAYERS} layers) slots 8 chunks 64: "
+          f"{len(answers)} requests from "
           f"{len(plan)} threads in {wall_s:.2f} s; TTFT ms by request "
           f"{json.dumps(ttft)}; equal to alone {json.dumps(equal)}; streams "
           f"carry their answers' tokens {streams_ok}, joined text equal to "
           f"the answer's {json.dumps(joined_equal)}; chat usage "
           f"{json.dumps(usage)} ok {usage_ok}; end_session {ended}; load_signals "
           f"{json.dumps(signals)}; expired deadline shed with the engine "
-          f"untouched {shed}; deadline of 0.5 s raised after "
+          f"untouched {shed}; deadline of {SERVER_DEADLINE[0]} s raised "
+          "after "
           f"{expired_s if expired_s is None else round(expired_s, 3)} s, "
           f"first token at {late.ttft_s()} s, request ran on to "
           f"{len(late_out.token_ids)} tokens; engine stats "
@@ -6586,6 +6963,8 @@ def main() -> int:
     paths["d256"] = d256_phase(torch, fa, llama)
     paths["d256_fp32"] = d256_fp32_phase(torch, fa, llama)
     lap("d256")
+    paths["tune"] = tune_phase(torch, llama, card)
+    lap("tune")
     print(json.dumps(kernels_line(rows, bwd_rows, paths)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -113,7 +113,20 @@ def test_importing_every_module_loads_neither_jax_nor_the_jax_package():
             "ant_ray_tpu_torch.util.chaos",
             "ant_ray_tpu_torch.util.actor_pool",
             "ant_ray_tpu_torch.util.queue",
-            "ant_ray_tpu_torch.util.virtual_cluster"} <= set(modules)
+            "ant_ray_tpu_torch.util.virtual_cluster",
+            "ant_ray_tpu_torch._lint",
+            "ant_ray_tpu_torch._lint.framework",
+            "ant_ray_tpu_torch._lint.checkers",
+            "ant_ray_tpu_torch._lint.__main__",
+            "ant_ray_tpu_torch.tune",
+            "ant_ray_tpu_torch.tune.tuner",
+            "ant_ray_tpu_torch.tune.trainable",
+            "ant_ray_tpu_torch.tune.schedulers",
+            "ant_ray_tpu_torch.tune.search",
+            "ant_ray_tpu_torch.autoscaler",
+            "ant_ray_tpu_torch.autoscaler.autoscaler",
+            "ant_ray_tpu_torch.autoscaler.node_provider",
+            "ant_ray_tpu_torch._private.sim_node"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"

@@ -4,7 +4,7 @@
     python3 tools/phase.py NAME... [--readings] [--checkout PATH]
 
 NAME is ``cluster``, ``tracing``, ``deployment``, ``data``,
-``operations`` or ``jobs``: each runs chip_smoke.py's ``NAME_phase`` of
+``operations``, ``jobs`` or ``tune``: each runs chip_smoke.py's ``NAME_phase`` of
 PATH's checkout (default: this one), in the order given, after building
 the checkout's kernels.  cluster: a Llama-3-8B actor in a cluster of two
 GCS replicas and a node daemon, answering beside an engine in this
@@ -23,7 +23,9 @@ submitted through the dashboard that drives a Llama-3-8B actor from
 outside the cluster through the client (``art://``) under a runtime env,
 a stopped job, export events and a task in a pip venv launching the sm90
 forward (after ``operations`` it reuses that phase's reference tokens,
-alone it builds them once).  Random weights from seed 0, gates
+alone it builds them once); tune: an ASHA learning-rate sweep of four
+llama-400m trials on a GPU node that the port's autoscaler launches for
+them and removes after.  Random weights from seed 0, gates
 included.  ``--readings`` is for phases that take it (data): the NLL
 gate is left out, every other gate stays, and faults planted in
 blockwise attention are read beside the sound reading, which is what
@@ -46,7 +48,8 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PHASES = ("cluster", "tracing", "deployment", "data", "operations", "jobs")
+PHASES = ("cluster", "tracing", "deployment", "data", "operations", "jobs",
+          "tune")
 OPTIONAL = ("aiohttp", "grpc", "transformers", "pyarrow", "pandas")
 
 
