@@ -48,8 +48,13 @@ def _torch_if_loaded():
     tensor only when torch is loaded, so the SERIALIZE-side probe never
     pulls torch's multi-second import onto a reply path of a process
     that moves plain values (the counterpart of the JAX package's
-    ``_jax_if_loaded``)."""
-    return sys.modules.get("torch")
+    ``_jax_if_loaded``).  While another thread is still importing
+    torch, ``sys.modules`` holds a partial module without ``Tensor``: no
+    tensor exists yet, so the probe answers None (reading ``Tensor`` off
+    it would raise, and an error reply being serialized then was lost).
+    """
+    torch = sys.modules.get("torch")
+    return torch if getattr(torch, "Tensor", None) is not None else None
 
 
 @dataclass

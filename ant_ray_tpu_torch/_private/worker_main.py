@@ -41,14 +41,6 @@ from ant_ray_tpu_torch.observability import tracing_plane
 
 logger = logging.getLogger(__name__)
 
-# Actor methods the JAX package's workers run as framework code and the
-# port does not, with the ROADMAP item that ports each.
-_UNPORTED_METHODS = {
-    "__art_collective__": "collective DAG nodes are not ported (ROADMAP "
-                          "queue A item 7)",
-}
-
-
 class TaskExecutor:
     """Executes tasks for this worker; one main executor thread (actor order
     preserved), optional thread pool for max_concurrency > 1 actors."""
@@ -302,10 +294,13 @@ class TaskExecutor:
 
                     result = exec_loop(self.actor_instance, *args,
                                        **kwargs)
-                elif spec.method_name in _UNPORTED_METHODS:
-                    # The JAX package runs collective DAG nodes here.
-                    raise NotImplementedError(
-                        _UNPORTED_METHODS[spec.method_name])
+                elif spec.method_name == "__art_collective__":
+                    # Collective DAG node: the op runs against the
+                    # group this actor created with
+                    # init_collective_group (ref: collective_node.py).
+                    from ant_ray_tpu_torch.dag.collective import execute_op  # noqa: PLC0415
+
+                    result = execute_op(*args, **kwargs)
                 else:
                     method = getattr(self.actor_instance,
                                      spec.method_name)

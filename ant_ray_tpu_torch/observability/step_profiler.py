@@ -28,13 +28,20 @@ the current CUDA device's name in :data:`PEAK_BF16_FLOPS` (the reference
 reads a TPU table); on the CPU or an unlisted card MFU stays None, as in
 the reference off a TPU.
 
-Not in the port yet (ROADMAP.md): the attached stats streams of a device
-feed and of collective fusion (queue A item 7), and the train
-session's rank (records carry rank 0).
+Attached stats streams (the reference's, copied): a device-feed
+iterator (``data/device_feed.py``) contributes its
+``consumer_starve_s`` / ``transfer_issue_s`` deltas to ``data_wait`` /
+``h2d``, a collective group's fusion stats (``util/collective/
+fusion.py``) their pack/unpack/collective deltas to ``collective`` and
+transfer deltas to ``h2d``, less the collective time a
+``GradientSyncer`` hid under backward.  Inside a train loop the
+profiler registers itself on the session (``report()`` carries its
+latest record) and its records carry the session's rank.
 """
 
 from __future__ import annotations
 
+import sys
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -45,6 +52,18 @@ import torch
 # Dense bf16 peak FLOP/s by torch.cuda.get_device_name() (NVIDIA's data
 # sheet, SXM part, at the full 700 W power limit).
 PEAK_BF16_FLOPS = {"NVIDIA H100 80GB HBM3": 989e12}
+
+# device_feed stat key -> phase it attributes to
+_FEED_PHASE_KEYS = (("consumer_starve_s", "data_wait"),
+                    ("transfer_issue_s", "h2d"))
+# fusion stat key -> phase (pack/unpack are host work *for* the
+# collective; transfer is the bucket's hop to the wire device).
+# overlap_s (collective time hidden under backward compute by the
+# ready-hook GradientSyncer) carries weight -1: the collective phase
+# reports only the EXPOSED communication time.
+_FUSION_PHASE_KEYS = (("pack_s", "collective"), ("unpack_s", "collective"),
+                      ("collective_s", "collective"), ("transfer_s", "h2d"))
+_FUSION_NEGATIVE_KEYS = (("overlap_s", "collective"),)
 
 
 @dataclass
@@ -118,7 +137,8 @@ class StepProfiler:
 
     __slots__ = ("_flops_per_step", "_peak_flops", "records", "_publish",
                  "_publish_batch", "_pending", "_step_index",
-                 "_cur_phases", "_t0", "_wall0", "_timers")
+                 "_cur_phases", "_t0", "_wall0", "_timers",
+                 "_feed_stats", "_fusion_fns", "_rank")
 
     def __init__(self, *, flops_per_step: float | None = None,
                  peak_flops: float | None = None, history: int = 256,
@@ -137,6 +157,52 @@ class StepProfiler:
         self._t0 = 0.0
         self._wall0 = 0.0
         self._timers: dict[str, _PhaseTimer] = {}
+        self._feed_stats: list[dict] = []
+        self._fusion_fns: list[dict] = []
+        self._rank = 0
+        # Register on the train context (if inside a worker loop) so
+        # session.report() can auto-attach the latest record.  A loop
+        # has imported the session already; nothing else needs it.
+        session = sys.modules.get("ant_ray_tpu_torch.train.session")
+        ctx = getattr(session._ctx, "value", None) if session else None
+        if ctx is not None:
+            ctx.step_profiler = self
+            self._rank = ctx.world_rank
+
+    # ------------------------------------------------------- attachment
+
+    def attach_data_iterator(self, iterator) -> "StepProfiler":
+        """Absorb a DataIterator/DeviceFeed stats stream: per-step
+        deltas of ``consumer_starve_s`` → data_wait and
+        ``transfer_issue_s`` → h2d.  The stats are re-read every step
+        (``DataIterator.stats()`` returns a fresh snapshot, and before
+        iteration starts it has no device_feed section at all)."""
+        if callable(getattr(iterator, "stats", None)):
+            def fn(it=iterator):
+                stats = it.stats()
+                return stats.get("device_feed", {}) \
+                    if isinstance(stats, dict) else {}
+        else:                        # a live stats dict (or DeviceFeed)
+            def fn(live=iterator):
+                return live.get("device_feed", live) \
+                    if isinstance(live, dict) else live.stats
+        self._feed_stats.append({"fn": fn, "snap": dict(fn())})
+        return self
+
+    def attach_fusion_stats(self, group_name: str = "default"
+                            ) -> "StepProfiler":
+        """Absorb a collective group's fusion stats: per-step deltas of
+        pack/unpack/collective seconds → collective, transfer → h2d."""
+        from ant_ray_tpu_torch.util import collective as col  # noqa: PLC0415
+
+        def fn(name=group_name):
+            try:
+                return col.fusion_stats(name)
+            except Exception:  # noqa: BLE001 — group torn down mid-run
+                return {}
+
+        self._fusion_fns.append({"fn": fn, "snap": dict(fn())})
+        return self
 
     @staticmethod
     def _detect_peak_flops() -> float | None:
@@ -158,7 +224,10 @@ class StepProfiler:
 
     def __exit__(self, exc_type, exc, tb):
         total = time.perf_counter() - self._t0
-        rec = (self._step_index, self._wall0, total, self._cur_phases)
+        phases = self._cur_phases
+        if self._feed_stats or self._fusion_fns:    # attached streams
+            self._merge_stream_deltas(phases)
+        rec = (self._step_index, self._wall0, total, phases)
         self._step_index += 1
         self.records.append(rec)
         if self._publish:
@@ -176,6 +245,27 @@ class StepProfiler:
             timer = self._timers[name] = _PhaseTimer(self, name)
         return timer
 
+    def _merge_stream_deltas(self, phases: dict) -> None:
+        for keys, entries in ((_FEED_PHASE_KEYS, self._feed_stats),
+                              (_FUSION_PHASE_KEYS, self._fusion_fns)):
+            for entry in entries:
+                live, snap = entry["fn"](), entry["snap"]
+                for key, phase in keys:
+                    value = live.get(key, 0.0)
+                    delta = value - snap.get(key, 0.0)
+                    if delta > 0:
+                        phases[phase] = phases.get(phase, 0.0) + delta
+                    snap[key] = value
+        for entry in self._fusion_fns:
+            live, snap = entry["fn"](), entry["snap"]
+            for key, phase in _FUSION_NEGATIVE_KEYS:
+                value = live.get(key, 0.0)
+                delta = value - snap.get(key, 0.0)
+                if delta > 0 and phase in phases:
+                    # Compute-hidden share: subtract, never below zero.
+                    phases[phase] = max(0.0, phases[phase] - delta)
+                snap[key] = value
+
     # -------------------------------------------------- materialization
 
     def _raw_to_dict(self, raw: tuple) -> dict:
@@ -188,7 +278,7 @@ class StepProfiler:
         if self._flops_per_step and self._peak_flops and total > 0:
             mfu = self._flops_per_step / (total * self._peak_flops)
         return {"step": step, "ts": wall0, "total_s": total,
-                "phases": phases, "mfu": mfu, "rank": 0}
+                "phases": phases, "mfu": mfu, "rank": self._rank}
 
     def _materialize(self, raw: tuple) -> StepRecord:
         return StepRecord.from_dict(self._raw_to_dict(raw))

@@ -362,7 +362,7 @@ final line is printed:
    line of one step.
 16. Remat: the training slice again, from the same weights, under
    each remat policy ("none", "full", "dots", "matmuls"), 3 warm-up and
-   5 timed steps each (REMAT_STEPS).  Gates: the forward kernel
+   3 timed steps each (REMAT_STEPS).  Gates: the forward kernel
    launched twice per layer and step under "full" and "dots" and once under "none" and
    "matmuls" (whose selective-checkpoint policy saves the flash
    forward's out and lse), the backward pair once; the losses of the
@@ -401,7 +401,7 @@ final line is printed:
    state alone is 20 GB), the same weights' seed and batch.  First one
    step's loss and every gradient leaf through the kernels against fp32
    reference attention on the card (D256_FP32_GRAD_TOL per leaf,
-   D256_FP32_LOSS_TOL), then D256_FP32_STEPS (2 warm-up, 5 timed)
+   D256_FP32_LOSS_TOL), then D256_FP32_STEPS (2 warm-up, 3 timed)
    train_step calls.  Gates: per step the tf32x3_d256 dQ and dK/dV
    once per layer (18 pairs) and no other backward kernel, the
    tf32x3_d256 forward once per layer and recompute (36), nothing else;
@@ -437,6 +437,45 @@ final line is printed:
    fit() began), steps and last loss, ASHA's stops, the best lr, fit()'s
    and the phase's wall, the scale-down seconds.  Its launches are the
    kernels line's "tune" path.
+19c. Collectives: an NCCL group of one rank on the card
+   (init_collective_group(1, 0, backend="nccl")).  Gates, bitwise: each
+   per-rank verb (allreduce, reduce and reducescatter under every
+   ReduceOp, broadcast, allgather, barrier) and each *_multidevice verb
+   over the visible cards against its plain torch result; send and
+   recv to itself raising ValueError; allreduce_coalesced and
+   sync_pytree of a pytree of llama-400m's parameter shapes in bf16
+   (12 leaves, 11 buckets) against the per-tensor verb; the int8
+   transport on 2^20 + 37 fp32 values against a plain quantize and
+   dequantize written out here, and within half a block's step of the
+   input; the GradientSyncer fed by post-accumulate-grad hooks during
+   a backward against the one-shot sync_pytree of the same gradients;
+   every result on cuda in its dtype; the group gone after
+   destroy_collective_group.  Prints one "collective" JSON line (the
+   init's seconds, the pytree's bucket count and fusion_stats, three
+   walls of one fused sync_pytree, the int8 error and wire bytes).  No
+   flash kernel runs.
+19d. The train plane: a TorchTrainer of TRAINER_WORKERS (2) ranks
+   sharing the card (ScalingConfig(use_gpu=True, resources_per_worker=
+   {"CPU": 1, "GPU": 0.5}), gang-scheduled through a placement group)
+   in a Cluster of 4 CPUs and 1 GPU.  The driver makes llama-400m's
+   seed-0 weights once, writes them with train.save_pytree and
+   computes loss_fn over the train phase's 8 x 2049 tokens; each rank
+   (trainer_loop, in a worker) loads them onto its card, takes its 4
+   rows, and runs TRAINER_STEPS (3) steps of loss_fn, backward,
+   train.sync_gradients over a gloo group it creates (NCCL refuses two
+   ranks of one group on one card) and AdamW, logging each step's
+   loss, launches, parameter checksums and times; rank 0's last step
+   saves its parameters and optimizer state and reports that
+   checkpoint.  Gates: no error, the last step reported; each rank
+   launching the sm90 forward and backward pair once per layer and
+   step and nothing else, on cuda:0; both ranks' checksums equal after
+   every step; the step-0 mean loss within BF16_LOSS_TOL of the
+   driver's; the mean loss falling; the checkpoint loading back onto
+   cuda bitwise against rank 0's last checksums, with 12 optimizer
+   states; nothing left after shutdown().  Prints one "trainer" JSON
+   line (each rank's step, backward and sync seconds, the fusion
+   stats, peak memory and start split).  Its launches are the kernels
+   line's "trainer" path.
 20. One line {"kernels": [...]} with the fifteen kernels (the sm90,
    tf32x3, sm90_d256, tf32x3_d256 and CUDA-core forward; the sm90, tf32x3,
    sm90_d256, tf32x3_d256 and CUDA-core dQ and dK/dV; launches by path,
@@ -445,8 +484,8 @@ final line is printed:
    data processor's actors, the operations and the jobs phases' actors,
    the checkpoint directory, the
    server, training, training under each remat policy, GPT-2 in fp32
-   and bf16, the head_dim-256 Llama in bf16 and fp32 and the tune
-   trials; the older kernels' times also at GPT-2's
+   and bf16, the head_dim-256 Llama in bf16 and fp32, the tune
+   trials and the trainer's ranks; the older kernels' times also at GPT-2's
    shape, the sm90_d256 ones at Gemma-7B's and Gemma-2B's attention and
    at the head_dim-256 path's own, the tf32x3_d256 ones at the fp32
    path's and at FP32_D256_ATTN).  The CUDA-core forward, dQ and dK/dV
@@ -550,10 +589,10 @@ BF16_LOSS_TOL = 1e-2   # the loss (~5.7) on fp32 logits of bf16 layers
 D256_GRAD_TOL = 0.1
 # The fp32 head_dim-256 path (d256_fp32_phase): remat "full" (AdamW's
 # state alone is 20 GB at 2.51 B fp32 parameters; the peaks of both
-# policies, tools/d256_fp32_remat.py, are in PERF.md), 2 warm-up and 5
-# timed steps.
+# policies, tools/d256_fp32_remat.py, are in PERF.md), 2 warm-up and 3
+# timed steps (5 until the collective and trainer phases came).
 D256_FP32_REMAT = "full"
-D256_FP32_STEPS = (2, 5)
+D256_FP32_STEPS = (2, 3)
 # Its gradients through the tf32x3_d256 forward and backward against fp32
 # reference attention, per leaf, over max |ref|.  Readings
 # (--d256-fp32-gate-readings, H100 80GB HBM3 at 700 W): the kernels
@@ -1075,7 +1114,8 @@ def model_check_phase(torch, llama):
     with torch.inference_mode():
         flash = llama.forward(params, toks.cuda(), cfg, attn_impl="flash")
         ref = llama.forward(params, toks.cuda(), cfg, attn_impl="reference")
-        cpu = llama.forward(_to_cpu(params), toks, cfg, attn_impl="flash")
+        cpu = llama.forward(_tree_map(lambda t: t.cpu(), params), toks,
+                            cfg, attn_impl="flash")
     err_ref = (flash - ref).abs().max().item()
     err_cpu = (flash.cpu() - cpu).abs().max().item()
     print(f"model check (fp32, head_dim 128, S=256): flash vs reference "
@@ -1098,10 +1138,10 @@ def _small_model(torch, llama, dtype=None):
     return cfg, params
 
 
-def _to_cpu(params):
-    return {k: (v.cpu() if k != "layers" else
-                {n: w.cpu() for n, w in v.items()})
-            for k, v in params.items()}
+def _tree_map(fn, tree):
+    """``fn`` of every tensor of a (nested) parameter dict."""
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
 
 
 def _reset_counts(fa):
@@ -1171,7 +1211,7 @@ def grad_check_phase(torch, fa, llama):
     def loss_and_grads(params, toks, impl, remat):
         return _loss_and_grads(torch, llama, cfg, params, toks, impl, remat)
 
-    cpu_params = _to_cpu(params)
+    cpu_params = _tree_map(lambda t: t.cpu(), params)
     total = dict.fromkeys(_counts(fa), 0)
     readings = {}
     for remat in FWD_PER_LAYER:
@@ -1353,8 +1393,9 @@ def train_phase(torch, fa, llama):
 
 
 # Steps per remat policy (3 of them warm-up): 13 until the jobs phase
-# came, whose time this pays for in part.
-REMAT_STEPS = 8
+# came, 8 until the collective and trainer phases came, whose time this
+# pays for in part.
+REMAT_STEPS = 6
 
 
 def remat_phase(torch, fa, llama):
@@ -1369,9 +1410,11 @@ def remat_phase(torch, fa, llama):
     from ant_ray_tpu_torch.train import make_optimizer, train_step  # noqa: PLC0415
 
     paths, first = {}, {}
+    # One init; each policy trains a copy (the seed-0 weights, bitwise).
+    cfg, initial, tokens = _llama_400m(torch, llama)
     for remat, fwd in FWD_PER_LAYER.items():
         torch.cuda.empty_cache()
-        cfg, params, tokens = _llama_400m(torch, llama)
+        params = _tree_map(torch.clone, initial)
         batch, seq = tokens.shape[0], tokens.shape[1] - 1
         optimizer = make_optimizer(params)
 
@@ -1418,7 +1461,8 @@ def remat_phase(torch, fa, llama):
               f"step {statistics.median(host_ms[2:]):.2f} ms (median of 5 "
               f"after 2 warm-up; all {[round(x, 1) for x in host_ms]})",
               flush=True)
-        del params, optimizer, tokens
+        del params, optimizer
+    del initial, tokens
     spread = [max(v[i] for v in first.values())
               - min(v[i] for v in first.values()) for i in range(2)]
     print(f"remat gates: losses of steps 1 and 2 per policy "
@@ -1589,15 +1633,34 @@ def gpt2_phase(torch, fa, dtype_name):
                       "grad_err": grad_err}
 
 
-def _llama_d256(torch, llama, dtype=None):
+# The fp32 seed-0 weights of _d256_config, kept on the card from the
+# bf16 phase, which takes a bf16 copy of them, to the fp32 phase, which
+# takes them: one init of 2.5 B parameters for both paths (init_params
+# draws in fp32 and rounds into the leaf's dtype, so the copy is bitwise
+# the weights it makes in bf16).
+_D256_FP32_WEIGHTS = {}
+
+
+def _llama_d256(torch, llama, dtype=None, keep_fp32=False):
     """_d256_config's Llama (in ``dtype`` if given), weights from seed 0,
-    and one fixed batch of D256_TOKENS token ids."""
+    and one fixed batch of D256_TOKENS token ids.  ``keep_fp32`` keeps
+    the fp32 weights for the next call (_D256_FP32_WEIGHTS)."""
     cfg = _d256_config()
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
-    params = llama.init_params(
-        cfg, generator=torch.Generator(device="cuda").manual_seed(0),
-        device="cuda")
+    fp32 = _D256_FP32_WEIGHTS.pop("params", None)
+    if fp32 is None:
+        fp32 = llama.init_params(
+            dataclasses.replace(cfg, dtype=torch.float32),
+            generator=torch.Generator(device="cuda").manual_seed(0),
+            device="cuda")
+    if cfg.dtype == torch.float32:
+        params = fp32
+    else:
+        params = _tree_map(lambda t: t.to(cfg.dtype), fp32)
+        if keep_fp32:
+            _D256_FP32_WEIGHTS["params"] = fp32
+        del fp32
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, D256_TOKENS)).cuda()
     return cfg, params, tokens
@@ -1634,7 +1697,7 @@ def d256_phase(torch, fa, llama):
 
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    cfg, params, tokens = _llama_d256(torch, llama)
+    cfg, params, tokens = _llama_d256(torch, llama, keep_fp32=True)
     batch, seq = tokens.shape[0], tokens.shape[1] - 1
     attn = (batch, seq, seq, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
     if attn != _d256_attn():
@@ -2128,6 +2191,542 @@ def tune_phase(torch, llama, card):
     if out["autoscaled_arena_left"]:
         raise AssertionError("tune: the autoscaled node left its arena")
     return total
+
+
+# The collective phase: an NCCL group at world size 1 on the card, every
+# verb against its plain torch result.
+COLLECTIVE_GROUP = "smoke-nccl"
+COLLECTIVE_INT8 = 1 << 20           # elements of the int8 transport check
+
+
+def _plain_reduce(torch, tensors, op):
+    """The plain torch reduction over a list of same-shaped tensors."""
+    stacked = torch.stack(tensors)
+    return {"SUM": lambda: stacked.sum(0),
+            "PRODUCT": lambda: stacked.prod(0),
+            "MIN": lambda: stacked.amin(0),
+            "MAX": lambda: stacked.amax(0),
+            "AVERAGE": lambda: stacked.sum(0) / len(tensors)}[op.name]()
+
+
+def _plain_q8(torch, x, block=256):
+    """Blockwise int8 quantize then dequantize, written out in torch."""
+    flat = x.reshape(-1).float()
+    n = -(-flat.numel() // block)
+    grid = torch.zeros(n * block, device=x.device)
+    grid[:flat.numel()] = flat
+    grid = grid.view(n, block)
+    scale = grid.abs().amax(1) / 127.0
+    scale[scale == 0] = 1.0
+    q = torch.clamp(torch.round(grid / scale[:, None]), -127, 127)
+    return (q * scale[:, None]).reshape(-1)[:flat.numel()].view(x.shape)
+
+
+def _llama_400m_tree(torch, llama, dtype, seed):
+    """A pytree of llama-400m's parameter shapes, random values from
+    ``seed`` (drawn whole: not the model's initialiser)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def make(shapes):
+        return {k: make(v) if isinstance(v, dict) else
+                torch.randn(v, generator=gen, device="cuda").to(dtype)
+                for k, v in shapes.items()}
+
+    return make(llama.param_shapes(llama.CONFIGS["llama-400m"]))
+
+
+def collective_phase(torch, llama, card):
+    """Collectives on the card: an NCCL group at world size 1; every
+    per-rank verb and the *_multidevice verbs over the visible cards
+    against the plain torch result (bitwise); the fused allreduce and
+    sync_pytree of a pytree of llama-400m's shapes in bf16 against the
+    per-tensor verb (bitwise); the int8 transport against a plain
+    quantize and dequantize (bitwise) and its error bound; the
+    GradientSyncer driven by post-accumulate-grad hooks against the
+    one-shot sync_pytree (bitwise).  No flash kernel runs; returns
+    nothing for the kernels line."""
+    from ant_ray_tpu_torch.util import collective as col  # noqa: PLC0415
+    from ant_ray_tpu_torch.util.collective import ReduceOp, fusion  # noqa: PLC0415
+    from ant_ray_tpu_torch.util.collective.collective import _group_mgr  # noqa: PLC0415
+
+    def same(a, b):
+        return (a.device.type == "cuda" and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(a, b))
+
+    out = {"card": card}
+    bad = []
+    g = COLLECTIVE_GROUP
+    t0 = time.perf_counter()
+    col.init_collective_group(1, 0, backend="nccl", group_name=g)
+    out["init_s"] = round(time.perf_counter() - t0, 3)
+    group = _group_mgr.get_group(g)
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    x = torch.randn(1024, 257, generator=gen, device="cuda")
+    for op in ReduceOp:
+        if not same(col.allreduce(x.clone(), g, op),
+                    _plain_reduce(torch, [x], op)):
+            bad.append(f"allreduce {op.name}")
+        if not same(col.reduce(x.clone(), 0, g, op),
+                    _plain_reduce(torch, [x], op)):
+            bad.append(f"reduce {op.name}")
+        if not same(col.reducescatter(x.clone(), g, op),
+                    _plain_reduce(torch, [x], op)):
+            bad.append(f"reducescatter {op.name}")
+    if not same(col.broadcast(x.clone(), 0, g), x):
+        bad.append("broadcast")
+    gathered = col.allgather(x.clone(), g)
+    if len(gathered) != 1 or not same(gathered[0], x):
+        bad.append("allgather")
+    col.barrier(g)
+    for verb, call in (("send", lambda: col.send(x, 0, g)),
+                       ("recv", lambda: col.recv(x, 0, g))):
+        try:
+            call()
+            bad.append(f"{verb} to itself did not raise")
+        except ValueError:
+            pass
+    n_cards = torch.cuda.device_count()
+    per_card = [torch.randn(64, 33, generator=gen, device="cuda").to(
+        f"cuda:{i}") for i in range(n_cards)]
+    for op in (ReduceOp.SUM, ReduceOp.MIN, ReduceOp.MAX, ReduceOp.AVERAGE):
+        want = _plain_reduce(torch, [t.to("cuda:0") for t in per_card], op)
+        for t in col.allreduce_multidevice(per_card, g, op):
+            if not same(t, want.to(t.device)):
+                bad.append(f"allreduce_multidevice {op.name}")
+        for i, t in enumerate(col.reducescatter_multidevice(per_card, g, op)):
+            chunk = want.shape[0] // n_cards
+            if not same(t, want[i * chunk:(i + 1) * chunk].to(t.device)):
+                bad.append(f"reducescatter_multidevice {op.name}")
+    for t in col.broadcast_multidevice(per_card, 0, g):
+        if not same(t, per_card[0].to(t.device)):
+            bad.append("broadcast_multidevice")
+    for pieces in col.allgather_multidevice(per_card, g):
+        if len(pieces) != n_cards or not all(
+                same(p, per_card[i].to(p.device))
+                for i, p in enumerate(pieces)):
+            bad.append("allgather_multidevice")
+
+    # Fused: llama-400m's parameter shapes in bf16.
+    tree = _llama_400m_tree(torch, llama, torch.bfloat16, 25)
+    leaves, _ = fusion.flatten_pytree(tree)
+    naive = [col.allreduce(t.clone(), g, ReduceOp.AVERAGE) for t in leaves]
+    stats0 = col.fusion_stats(g)
+    fused = col.allreduce_coalesced([t.clone() for t in leaves], g,
+                                    ReduceOp.AVERAGE)
+    if not all(same(a, b) for a, b in zip(fused, naive)):
+        bad.append("allreduce_coalesced against the per-tensor verb")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        synced = col.sync_pytree(tree, g)
+        torch.cuda.synchronize()
+        walls.append(round((time.perf_counter() - t0) * 1e3, 3))
+    synced_leaves, _ = fusion.flatten_pytree(synced)
+    if not all(same(a, b) for a, b in zip(synced_leaves, naive)):
+        bad.append("sync_pytree against the per-tensor verb")
+    stats = col.fusion_stats(g)
+    out["pytree"] = {"leaves": len(leaves),
+                     "bytes": sum(t.numel() * 2 for t in leaves),
+                     "buckets": stats["last"]["buckets"],
+                     "calls": stats["calls"] - stats0["calls"],
+                     "sync_pytree_ms": walls,
+                     "last": {k: (round(v, 6) if isinstance(v, float) else v)
+                              for k, v in stats["last"].items()}}
+
+    # int8 transport: one fp32 bucket.
+    q_in = torch.randn(COLLECTIVE_INT8 + 37, generator=gen, device="cuda")
+    q_in[:256] = 0.0                    # an all-zero block keeps scale 1
+    got = col.allreduce_coalesced([q_in], g, ReduceOp.SUM,
+                                  transport_dtype="int8")[0]
+    want = _plain_q8(torch, q_in)
+    scale = torch.nn.functional.pad(q_in.abs(), (0, (-q_in.numel()) % 256)
+                                    ).view(-1, 256).amax(1) / 127.0
+    bound = float((scale / 2).max())
+    err = float((got - q_in).abs().max())
+    out["int8"] = {"elements": q_in.numel(), "max_abs_err": err,
+                   "bound": bound,
+                   "wire_bytes": col.fusion_stats(g)["last"]["wire_bytes"]}
+    if not same(got, want):
+        bad.append("int8 transport against the plain quantize/dequantize")
+    if err > bound:
+        bad.append(f"int8 transport error {err} over {bound}")
+
+    # GradientSyncer on post-accumulate-grad hooks.
+    params = _llama_400m_tree(torch, llama, torch.bfloat16, 26)
+    p_leaves, _ = fusion.flatten_pytree(params)
+    for p in p_leaves:
+        p.requires_grad_()
+    syncer = col.gradient_syncer(g)
+    hooks = [p.register_post_accumulate_grad_hook(
+        lambda p, i=i: syncer.ready(i, p.grad)) for i, p in enumerate(
+            p_leaves)]
+    syncer.begin(params)
+    loss = sum((p.float() * (k + 1)).square().mean()
+               for k, p in enumerate(p_leaves))
+    loss.backward()
+    hooked = syncer.wait()
+    for h in hooks:
+        h.remove()
+    one_shot = col.sync_pytree({k: v for k, v in _grads_of(params).items()},
+                               g)
+    hooked_leaves = fusion.flatten_pytree(hooked)[0]
+    if not all(same(a, b) for a, b in zip(
+            hooked_leaves, fusion.flatten_pytree(one_shot)[0])):
+        bad.append("GradientSyncer against sync_pytree")
+    out["syncer"] = {k: (round(v, 6) if isinstance(v, float) else v)
+                     for k, v in col.fusion_stats(g)["last"].items()}
+    col.destroy_collective_group(g)
+    if col.is_group_initialized(g) or not group.destroyed:
+        bad.append("the group outlived destroy_collective_group")
+    out["bad"] = bad
+    print("collective " + json.dumps(out), flush=True)
+    if bad:
+        raise AssertionError(f"collective: {bad}")
+    del tree, params, naive, fused, synced, hooked, one_shot
+    torch.cuda.empty_cache()
+
+
+def _grads_of(params):
+    return {k: _grads_of(v) if isinstance(v, dict) else v.grad
+            for k, v in params.items()}
+
+
+# The trainer phase: a TorchTrainer of two ranks sharing the card.
+TRAINER_WORKERS = 2
+TRAINER_BATCH = (8, 2049)           # the train phase's batch, split by rank
+TRAINER_STEPS = 3
+TRAINER_FIT_TIMEOUT_S = 300.0
+
+
+def _tree_checksums(torch, tree, prefix=""):
+    """Every tensor leaf's bits summed as int64, on its device, by
+    name."""
+    sums = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            sums.update(_tree_checksums(torch, v, f"{prefix}{k}."))
+        else:
+            sums[f"{prefix}{k}"] = int(torch.sum(
+                v.detach().contiguous().view(torch.int16),
+                dtype=torch.int64))
+    return sums
+
+
+def trainer_loop(config):
+    """One rank of the trainer phase, in a worker: llama-400m from the
+    driver's seed-0 weights on the card (it raises without one), AdamW,
+    this rank's 4 of the 8 sequences; each step the loss and backward
+    through the flash kernels, the gradients averaged over the gang by
+    ``train.sync_gradients`` over a gloo group this loop creates (NCCL
+    refuses two ranks of one group on one card, and both ranks share
+    the H100), then the update.  Each step's loss, launches, parameter
+    checksums and times go to this rank's log file; the last step of
+    rank 0 saves its parameters and optimizer state through
+    ``train.save_pytree`` and reports that checkpoint."""
+    t0 = time.perf_counter()
+    started = time.time()
+    import torch  # noqa: PLC0415
+
+    from ant_ray_tpu_torch import train  # noqa: PLC0415
+    from ant_ray_tpu_torch.models import llama  # noqa: PLC0415
+    from ant_ray_tpu_torch.ops import flash_attention as fa  # noqa: PLC0415
+    from ant_ray_tpu_torch.util import collective as col  # noqa: PLC0415
+
+    t_import = time.perf_counter()
+    if not torch.cuda.is_available():
+        raise RuntimeError("trainer: no CUDA device in its worker")
+    ctx = train.get_context()
+    rank, world = ctx.world_rank, ctx.world_size
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    t_cuda = time.perf_counter()
+    cfg = llama.CONFIGS["llama-400m"]
+    # The driver writes the weights while the ranks start (save_pytree
+    # renames the complete directory into place).
+    deadline = time.monotonic() + TRAINER_FIT_TIMEOUT_S
+    while not os.path.isdir(config["weights"]):
+        if time.monotonic() > deadline:
+            raise TimeoutError("trainer: no weights from the driver")
+        time.sleep(0.05)
+    t_wait = time.perf_counter()
+    params = train.load_pytree(config["weights"])
+    t_load = time.perf_counter()
+    params = _tree_map(lambda t: t.to("cuda"), params)
+    torch.cuda.synchronize()
+    t_h2d = time.perf_counter()
+    optimizer = train.make_optimizer(params)
+    t_opt = time.perf_counter()
+    per_rank = TRAINER_BATCH[0] // world
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, TRAINER_BATCH)[rank * per_rank:
+                                         (rank + 1) * per_rank]).cuda()
+    torch.cuda.synchronize()
+    t_params = time.perf_counter()
+    group = f"trainer-gloo-a{ctx.attempt}"
+    col.init_collective_group(world, rank, backend="gloo", group_name=group)
+    t_group = time.perf_counter()
+    log = open(os.path.join(config["log_dir"], f"rank{rank}.jsonl"), "w")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(fa)
+    for step in range(TRAINER_STEPS):
+        before = _counts(fa)
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        optimizer.zero_grad(set_to_none=True)
+        loss = llama.loss_fn(params, {"tokens": tokens}, cfg, remat="none")
+        loss.backward()
+        torch.cuda.synchronize()
+        t_bwd = time.perf_counter()
+        synced = train.sync_gradients(_grads_of(params), group_name=group)
+        _set_grads(params, synced)
+        torch.cuda.synchronize()
+        t_sync = time.perf_counter()
+        optimizer.step()
+        value = loss.item()
+        t_end = time.perf_counter()
+        after = _counts(fa)
+        record = {"step": step, "loss": value,
+                  "launches": {k: after[k] - before[k] for k in after},
+                  "checksums": _tree_checksums(torch, params),
+                  "step_s": round(t_end - ts, 4),
+                  "backward_s": round(t_bwd - ts, 4),
+                  "sync_s": round(t_sync - t_bwd, 4),
+                  "fusion": {k: round(v, 4) for k, v in
+                             col.fusion_stats(group).items()
+                             if k in ("pack_s", "transfer_s",
+                                      "collective_s", "unpack_s",
+                                      "buckets", "wire_bytes")},
+                  "device": str(params["embed"].device)}
+        if step == 0:
+            record["start"] = {
+                "started_at": started, "import_s": t_import - t0,
+                "cuda_init_s": t_cuda - t_import,
+                "weights_wait_s": t_wait - t_cuda,
+                "weights_load_s": t_load - t_wait,
+                "weights_to_card_s": t_h2d - t_load,
+                "optimizer_s": t_opt - t_h2d,
+                "tokens_s": t_params - t_opt,
+                "group_s": t_group - t_params,
+                "first_step_s": t_end - ts}
+        checkpoint = None
+        if step == TRAINER_STEPS - 1:
+            record["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            if rank == 0:
+                path = os.path.join(ctx.storage_path, "final")
+                train.save_pytree({"params": params,
+                                   "optimizer": optimizer.state_dict()},
+                                  path)
+                checkpoint = train.Checkpoint.from_directory(path)
+        log.write(json.dumps(record) + "\n")
+        log.flush()
+        train.report({"step": step, "loss": value}, checkpoint=checkpoint)
+    log.close()
+    col.destroy_collective_group(group)
+
+
+def _set_grads(params, grads):
+    for k, v in params.items():
+        if isinstance(v, dict):
+            _set_grads(v, grads[k])
+        else:
+            v.grad = grads[k]
+
+
+def _trainer_reference(torch, llama, weights):
+    """The driver's loss_fn over the 8 sequences on the seed-0 weights,
+    after writing them to ``weights`` for the ranks; returns the loss
+    and the seconds of init and write."""
+    from ant_ray_tpu_torch import train  # noqa: PLC0415
+    from ant_ray_tpu_torch.train.step import param_leaves  # noqa: PLC0415
+
+    cfg = llama.CONFIGS["llama-400m"]
+    t0 = time.perf_counter()
+    params = llama.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+        device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter()
+    train.save_pytree(params, weights)
+    t_write = time.perf_counter()
+    for leaf in param_leaves(params):
+        leaf.requires_grad_()
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, TRAINER_BATCH)).cuda()
+    loss = llama.loss_fn(params, {"tokens": tokens}, cfg,
+                         remat="none").item()
+    del params, tokens
+    torch.cuda.empty_cache()
+    return loss, t_init - t0, t_write - t_init
+
+
+def _trainer_gates(records, ref_loss, n_layers, out):
+    """The trainer's gates over each rank's step records; returns the
+    launches of both ranks as a _counts() dict."""
+    per_step = {"fwd": n_layers, "fwd_sm90": n_layers, "dq": n_layers,
+                "dkv": n_layers, "sm90": n_layers}
+    total = {}
+    for rank, recs in records.items():
+        if [r["step"] for r in recs] != list(range(TRAINER_STEPS)):
+            raise AssertionError(f"trainer: rank {rank} logged steps "
+                                 f"{[r['step'] for r in recs]}")
+        for r in recs:
+            want = {k: per_step.get(k, 0) for k in r["launches"]}
+            if r["launches"] != want or r["device"] != "cuda:0":
+                raise AssertionError(
+                    f"trainer: rank {rank} step {r['step']} launched "
+                    f"{r['launches']} on {r['device']}, expected {want}")
+            for k, n in r["launches"].items():
+                total[k] = total.get(k, 0) + n
+    for step in range(TRAINER_STEPS):
+        sums = [records[rank][step]["checksums"] for rank in records]
+        if any(s != sums[0] for s in sums):
+            raise AssertionError(f"trainer: parameter checksums differ "
+                                 f"between the ranks after step {step}")
+    first = statistics.mean(records[r][0]["loss"] for r in records)
+    out["step0_mean_loss"] = first
+    out["reference_loss"] = ref_loss
+    if abs(first - ref_loss) > BF16_LOSS_TOL:
+        raise AssertionError(f"trainer: step-0 mean loss {first} against "
+                             f"the driver's {ref_loss}")
+    losses = [statistics.mean(records[r][s]["loss"] for r in records)
+              for s in range(TRAINER_STEPS)]
+    out["mean_losses"] = losses
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"trainer: losses {losses}: not finite or "
+                             "not falling")
+    return total
+
+
+def trainer_phase(torch, llama, card):
+    """A TorchTrainer on the card: two ranks of llama-400m sharing it
+    ({"CPU": 1, "GPU": 0.5} each, gang-scheduled through a placement
+    group), gradients averaged every step; returns both ranks' launches
+    (the kernels line's "trainer" path)."""
+    import ant_ray_tpu_torch as art  # noqa: PLC0415
+    from ant_ray_tpu_torch import train  # noqa: PLC0415
+    from ant_ray_tpu_torch._private import services  # noqa: PLC0415
+    from ant_ray_tpu_torch.cluster_utils import Cluster  # noqa: PLC0415
+
+    torch.cuda.empty_cache()
+    cfg = llama.CONFIGS["llama-400m"]
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    workdir = tempfile.mkdtemp(prefix="trainer_smoke_", dir=root)
+    weights = os.path.join(workdir, "weights")
+    log_dir = os.path.join(workdir, "logs")
+    os.makedirs(log_dir)
+    out = {"card": card, "model": "llama-400m", "ranks": TRAINER_WORKERS,
+           "batch_per_rank": [TRAINER_BATCH[0] // TRAINER_WORKERS,
+                              TRAINER_BATCH[1]]}
+    free_before = torch.cuda.mem_get_info()[0]
+    cluster = Cluster(head_node_args={"num_cpus": 4, "num_gpus": 1,
+                                      "_system_config": QUIET})
+    session_dir = cluster._session_dir
+    try:
+        cluster.connect()
+        pids = [p.pid for p, _ in cluster._gcs_procs] + \
+            [p.pid for p in cluster._node_procs]
+        head_store = services.store_dir_of(cluster._node_addresses[0])
+        out["cluster_s"] = round(time.perf_counter() - t0, 3)
+        trainer = train.TorchTrainer(
+            trainer_loop,
+            train_loop_config={"weights": weights, "log_dir": log_dir},
+            scaling_config=train.ScalingConfig(
+                num_workers=TRAINER_WORKERS, use_gpu=True,
+                resources_per_worker={"CPU": 1, "GPU": 0.5}),
+            run_config=train.RunConfig(
+                name="smoke-trainer",
+                storage_path=os.path.join(workdir, "runs"),
+                checkpoint_config=train.CheckpointConfig(replicate=False)))
+        fitted = {}
+        t_fit, t_fit_wall = time.perf_counter(), time.time()
+        fit = threading.Thread(
+            target=lambda: fitted.setdefault("result", trainer.fit()),
+            daemon=True)
+        fit.start()
+        # The weights and the reference loss while the ranks start.
+        ref_loss, init_s, write_s = _trainer_reference(torch, llama,
+                                                       weights)
+        out["weights_init_s"] = round(init_s, 3)
+        out["weights_write_s"] = round(write_s, 3)
+        out["reference_s"] = round(time.perf_counter() - t_fit, 3)
+        fit.join(TRAINER_FIT_TIMEOUT_S)
+        out["fit_s"] = round(time.perf_counter() - t_fit, 3)
+        if "result" not in fitted:
+            raise AssertionError(f"trainer: fit() not done in "
+                                 f"{TRAINER_FIT_TIMEOUT_S} s")
+        result = fitted["result"]
+        records = {}
+        for rank in range(TRAINER_WORKERS):
+            with open(os.path.join(log_dir, f"rank{rank}.jsonl")) as f:
+                records[rank] = [json.loads(line) for line in f]
+        attempt_ok = result.error is None and \
+            result.metrics.get("step") == TRAINER_STEPS - 1
+        if not attempt_ok or not os.path.basename(
+                result.checkpoint.path) == "final":
+            raise AssertionError(f"trainer: result {result}")
+        total = _trainer_gates(records, ref_loss, cfg.n_layers, out)
+        restored = result.checkpoint.to_pytree(device="cuda")
+        last = records[0][-1]["checksums"]
+        got = _tree_checksums(torch, restored["params"])
+        devices = {str(t.device) for t in
+                   _flat_tensors(restored["params"])}
+        out["checkpoint_bitwise"] = got == last and devices == {"cuda:0"}
+        out["checkpoint_optimizer_leaves"] = len(
+            restored["optimizer"]["state"])
+        if not out["checkpoint_bitwise"] or \
+                out["checkpoint_optimizer_leaves"] != 12:
+            raise AssertionError("trainer: the checkpoint did not load back "
+                                 f"onto cuda bitwise ({devices})")
+        del restored
+        torch.cuda.empty_cache()
+        out["ranks_detail"] = {
+            rank: {"steps_s": [r["step_s"] for r in recs],
+                   "backward_s": [r["backward_s"] for r in recs],
+                   "sync_s": [r["sync_s"] for r in recs],
+                   "fusion": recs[-1]["fusion"],
+                   "peak_gb": round(recs[-1]["peak_gb"], 3),
+                   "start": {k: round(v, 3) for k, v in
+                             recs[0]["start"].items()
+                             if k != "started_at"},
+                   "started_after_fit_s": round(
+                       recs[0]["start"]["started_at"] - t_fit_wall, 3)}
+            for rank, recs in records.items()}
+        out["launches"] = total
+    except BaseException:
+        _print_worker_logs(session_dir)
+        art.shutdown()
+        cluster.shutdown()
+        shutil.rmtree(workdir, ignore_errors=True)
+        raise
+    t_down = time.perf_counter()
+    art.shutdown()
+    cluster.shutdown()
+    shutil.rmtree(workdir, ignore_errors=True)
+    _after_shutdown(torch, out, t_down, pids, session_dir, head_store,
+                    free_before)
+    out["card_free_gb"] = {
+        "before": round(free_before / 1e9, 3),
+        "after": round(torch.cuda.mem_get_info()[0] / 1e9, 3),
+        "driver_allocated": round(torch.cuda.memory_allocated() / 1e9, 3),
+        "driver_reserved": round(torch.cuda.memory_reserved() / 1e9, 3),
+        "smi_apps": subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.split("\n")}
+    out["phase_s"] = round(time.perf_counter() - t0, 3)
+    print("trainer " + json.dumps(out), flush=True)
+    _gate_nothing_left(out)
+    return total
+
+
+def _flat_tensors(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _flat_tensors(v)
+        else:
+            yield v
 
 
 def slice_phase(torch, fa, llama):
@@ -6965,6 +7564,9 @@ def main() -> int:
     lap("d256")
     paths["tune"] = tune_phase(torch, llama, card)
     lap("tune")
+    collective_phase(torch, llama, card)
+    paths["trainer"] = trainer_phase(torch, llama, card)
+    lap("collective and trainer")
     print(json.dumps(kernels_line(rows, bwd_rows, paths)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -980,8 +980,10 @@ def test_compiled_dag_and_collective_methods_raise(clusters, method):
     """The worker's framework methods: ``__art_exec_loop__`` runs the
     compiled-DAG execution loop (ported, ROADMAP queue A item 6.6's
     fourth part) until teardown closes its channels, after which the
-    actor answers again; ``__art_collective__`` still raises, naming
-    item 7."""
+    actor answers again; ``__art_collective__`` (ported with item 7; the
+    case keeps its id) runs a collective DAG node's op against the
+    actor's group, and raises the JAX package's error for a group the
+    actor is not in."""
     from ant_ray_tpu_torch._private.task_options import TaskOptions
     from ant_ray_tpu_torch._private.worker import global_worker
     from ant_ray_tpu_torch.dag.compiled import (ActorProgram, ChannelSpec,
@@ -1000,12 +1002,30 @@ def test_compiled_dag_and_collective_methods_raise(clusters, method):
     node = Node.remote()
     assert tart.get(node.ping.remote()) == "pong"
     if method == "__art_collective__":
-        ref = global_worker.runtime.submit_actor_task(node, method, (), {},
-                                                      TaskOptions())
+        import numpy as np
+
+        from ant_ray_tpu_torch.util import collective as col
+
+        @tart.remote(num_cpus=0)
+        class Member(col.CollectiveActorMixin):
+            pass
+
+        member = Member.remote()
+        assert tart.get(member.init_collective_group.remote(
+            1, 0, "gloo", "solo"), timeout=120)
+        ref = global_worker.runtime.submit_actor_task(
+            member, method, ("allreduce", "solo", "SUM", np.ones(3), 1),
+            {}, TaskOptions())
+        np.testing.assert_array_equal(tart.get(ref, timeout=60), np.ones(3))
+        ref = global_worker.runtime.submit_actor_task(
+            node, method, ("allreduce", "solo", "SUM", np.ones(3), 1), {},
+            TaskOptions())
         with pytest.raises(tart.exceptions.ActorError) as ei:
-            tart.get(ref)
-        assert isinstance(ei.value.cause, NotImplementedError)
-        assert re.search("collective DAG.*item 7", str(ei.value.cause))
+            tart.get(ref, timeout=60)
+        assert isinstance(ei.value.cause, RuntimeError)
+        assert re.search("not initialized in this process",
+                         str(ei.value.cause))
+        tart.kill(member)
         return
     base = os.path.join(channel_dir(), f"pin_{os.getpid()}_{id(node)}")
     specs = {0: ChannelSpec(base + "_in", 1 << 12, 1),

@@ -12,7 +12,7 @@ deserialize), bitwise, and a local-mode actor serving an engine on the
 card; in cluster mode, a node that advertises the card, a num_gpus=1
 actor serving an engine from its own worker process, a task returning a
 CUDA tensor of each dtype bitwise, and the card's memory coming back
-after a kill.
+after a kill; an NCCL collective group of one rank on the card.
 These tests need a CUDA device and ``nvcc``: they skip on a machine
 without a card.  This file imports neither JAX nor the
 JAX package, so it also runs where JAX is not installed:
@@ -1257,3 +1257,41 @@ def test_card_memory_comes_back_after_kill(card_cluster):
             break
         time.sleep(0.2)
     assert torch.cuda.mem_get_info()[0] >= free_before - (256 << 20)
+
+
+def test_nccl_group_at_world_size_one(cuda):
+    """An NCCL group of one rank on the card: the per-rank verbs hand
+    back their input bitwise, on the card in its dtype; a fused
+    allreduce of bf16 leaves equals the per-tensor verb; the int8
+    transport stays within half a block's step; send to itself raises;
+    the group is gone after destroy."""
+    from ant_ray_tpu_torch.util import collective as col
+    from ant_ray_tpu_torch.util.collective import ReduceOp
+    from ant_ray_tpu_torch.util.collective.collective import _group_mgr
+
+    col.init_collective_group(1, 0, backend="nccl", group_name="card1")
+    group = _group_mgr.get_group("card1")
+    try:
+        x = torch.randn(33, 65, generator=cuda, device="cuda")
+        for op in ReduceOp:
+            got = col.allreduce(x.clone(), "card1", op)
+            assert got.device.type == "cuda" and torch.equal(got, x)
+        assert torch.equal(col.broadcast(x.clone(), 0, "card1"), x)
+        assert torch.equal(col.allgather(x.clone(), "card1")[0], x)
+        assert torch.equal(col.reducescatter(x.clone(), "card1"), x)
+        col.barrier("card1")
+        leaves = [torch.randn(n, generator=cuda, device="cuda").to(
+            torch.bfloat16) for n in (7, 4096, 1 << 20)]
+        fused = col.allreduce_coalesced([t.clone() for t in leaves],
+                                        "card1", bucket_bytes=8192)
+        for f, t in zip(fused, leaves):
+            assert f.dtype == torch.bfloat16 and torch.equal(f, t)
+        q = col.allreduce_coalesced([x.reshape(-1)], "card1",
+                                    transport_dtype="int8")[0]
+        step = x.abs().max() / 127
+        assert float((q - x.reshape(-1)).abs().max()) <= float(step) / 2 + 1e-6
+        with pytest.raises(ValueError, match="itself"):
+            col.send(x, 0, "card1")
+    finally:
+        col.destroy_collective_group("card1")
+    assert group.destroyed and not col.is_group_initialized("card1")

@@ -10,8 +10,9 @@ exec loop reports N iterations.  Also: a pipeline whose stage raises
 keeps serving, exec-loop death surfaces as the actor's
 ``ActorDiedError`` (chained under the driver's error), a tensor over
 ``buffer_size_bytes`` meets the capacity ``MemoryError``, teardown
-leaves no channel file, and the collective verbs raise naming ROADMAP
-item 7.
+leaves no channel file.  The collective DAG nodes (``dag/collective.py``,
+ported with queue A item 7) have the twins of ``:215``, ``:252`` and
+``:268``: gloo groups of actors in each package, the same results.
 
 Each package has its own module-scoped cluster, started without
 ``_system_config`` (both packages read the same ``ART_*`` variables)."""
@@ -500,16 +501,139 @@ def test_compile_falls_back_for_graphs_that_are_not_actor_pipelines(
 
 
 def test_collective_verbs_raise_naming_item_7():
-    """``dag.collective`` keeps the JAX package's verbs; binding one
-    raises, naming the ROADMAP item that ports collective groups."""
+    """``dag.collective`` has the JAX package's verbs (the name is the
+    pin's from before ROADMAP item 7 ported them): binding none, or a
+    node that is not an actor method, raises as the JAX package's do."""
     from ant_ray_tpu.dag import collective as jcollective
     from ant_ray_tpu_torch.dag import collective
 
     for verb in ("allreduce", "allgather", "reducescatter"):
-        assert hasattr(jcollective, verb)
-        with pytest.raises(NotImplementedError,
-                           match=f"collective DAG nodes \\({verb}\\).*item 7"):
-            getattr(collective, verb).bind([])
+        for mod in (jcollective, collective):
+            with pytest.raises(ValueError, match="at least one input"):
+                getattr(mod, verb).bind([])
+        with pytest.raises(ValueError, match="actor-method nodes"):
+            getattr(collective, verb).bind([_mod(tart, "dag").InputNode()])
+
+
+def _collective_nodes(art, dag_mod):
+    """tests/test_dag.py :215 — allreduce and allgather bound as DAG
+    nodes over a gloo group of two actors."""
+    import numpy as np
+
+    col = _mod(art, "util.collective")
+
+    @art.remote
+    class Shard(col.CollectiveActorMixin):
+        def __init__(self, value):
+            self.value = float(value)
+
+        def tensor(self):
+            import numpy as _np
+            return _np.full(4, self.value, _np.float32)
+
+    shards = [Shard.remote(v) for v in (1.0, 2.0)]
+    try:
+        col.create_collective_group(shards, world_size=2, ranks=[0, 1],
+                                    backend="gloo", group_name="dag_g")
+        inputs = [s.tensor.bind() for s in shards]
+        outputs = dag_mod.collective.allreduce.bind(inputs,
+                                                    group_name="dag_g")
+        assert len(outputs) == 2
+        result = art.get(outputs[0].execute(), timeout=60)
+        inputs = [s.tensor.bind() for s in shards]
+        gathered = dag_mod.collective.allgather.bind(inputs,
+                                                     group_name="dag_g")
+        out = art.get(gathered[1].execute(), timeout=60)
+    finally:
+        for s in shards:
+            art.kill(s)
+    return (np.asarray(result).tolist(),
+            np.asarray(out).reshape(-1).tolist())
+
+
+def test_collective_allreduce_dag_nodes(clusters):
+    want = _retry_reference_race(lambda: _collective_nodes(
+        jart, _mod(jart, "dag")))
+    got = _collective_nodes(tart, _mod(tart, "dag"))
+    assert got == want == ([3.0] * 4, [1.0] * 4 + [2.0] * 4)
+
+
+def test_collective_bind_rejects_same_actor(clusters):
+    """tests/test_dag.py :252."""
+    def scenario(art, dag_mod):
+        @art.remote
+        class A:
+            def t(self):
+                return 1
+
+        a = A.remote()
+        out = [_outcome(lambda: dag_mod.collective.allreduce.bind(
+                   [a.t.bind(), a.t.bind()])),
+               _outcome(lambda: dag_mod.collective.allreduce.bind(
+                   [dag_mod.InputNode()]))]
+        art.kill(a)
+        return out
+
+    want, got = _both(scenario)
+    assert got == want
+    assert got[0][0] == "raise" and "distinct actors" in got[0][2]
+    assert "actor-method nodes" in got[1][2]
+
+
+def test_collective_dag_reexecution_sees_fresh_state(clusters):
+    """tests/test_dag.py :268 — re-executing a bound collective re-runs
+    the op against the actors' current state."""
+    def scenario(art, dag_mod):
+        import numpy as np
+
+        col = _mod(art, "util.collective")
+
+        @art.remote
+        class Counter(col.CollectiveActorMixin):
+            def __init__(self):
+                self.n = 0.0
+
+            def tensor(self):
+                import numpy as _np
+                self.n += 1.0
+                return _np.full(2, self.n, _np.float32)
+
+        actors = [Counter.remote() for _ in range(2)]
+        try:
+            col.create_collective_group(actors, world_size=2, ranks=[0, 1],
+                                        backend="gloo",
+                                        group_name="reexec_g")
+            outputs = dag_mod.collective.allreduce.bind(
+                [a.tensor.bind() for a in actors], group_name="reexec_g")
+            first = np.asarray(art.get(outputs[0].execute(), timeout=60))
+            second = np.asarray(art.get(outputs[0].execute(), timeout=60))
+        finally:
+            for a in actors:
+                art.kill(a)
+        return first.tolist(), second.tolist()
+
+    want = _retry_reference_race(lambda: scenario(jart, _mod(jart, "dag")))
+    got = scenario(tart, _mod(tart, "dag"))
+    assert got == want == ([2.0, 2.0], [4.0, 4.0])
+
+
+def _retry_reference_race(run):
+    """``run()`` (the JAX package's side of a scenario), run once more
+    where its gloo rendezvous lost the port it had picked to another
+    process (``EADDRINUSE``: the race between its pick and its bind,
+    ROADMAP §C, which the port's rendezvous does not have).  The rerun
+    starts from a KV without the failed attempt's advertised address."""
+    try:
+        return run()
+    except Exception as e:  # noqa: BLE001 — re-raised unless the race
+        if "EADDRINUSE" not in str(e):
+            raise
+    from ant_ray_tpu._private.worker import global_worker
+
+    gcs = global_worker.runtime._gcs
+    for key in gcs.call("KVKeys", {"prefix": "collective:"}) or []:
+        gcs.call("KVDel", {"key": key})
+    return run()
 
 
 def test_dag_exports_match_the_jax_package():

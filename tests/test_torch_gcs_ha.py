@@ -10,13 +10,13 @@ fence, standby promotion with the client router re-resolving through
 GetHaView, double-leader fencing (an expired lease rejects late
 mutations), sticky FAILED task state surviving a leader kill (ring
 merge + producer terminal replay), failover over a remote store, the
-typed store-fence error and the CLI's HA view.  The reference's leader
-kill mid-``fit()`` drives a ``JaxTrainer`` and waits for the port's
-trainer (ROADMAP queue A item 7).
+typed store-fence error and the CLI's HA view, and the reference's leader
+kill mid-``fit()`` (``:381``) on the port's ``TorchTrainer``.
 
 The replicas run in this process with second-scale periods (lease 0.8
 s, renew 0.15 s, sync 0.1 s): they share the GIL with the test."""
 
+import threading
 import time
 
 import pytest
@@ -458,3 +458,84 @@ def test_cli_status_renders_ha_view(replica_pair, capsys):
     assert f"leader {leader.address}" in out
     assert "standby " + standby.address in out
     assert "lag" in out
+
+
+# ------------------------------------------------- cluster-level failover
+
+def test_leader_kill_mid_fit_zero_step_loss(tmp_path):
+    """tests/test_gcs_ha.py :381 — kill the GCS leader DURING an active
+    fit on a replicated control plane: no rank unwinds (attempt stays
+    0), every step executes exactly once, and the fit completes."""
+    import ant_ray_tpu_torch as art
+    from ant_ray_tpu_torch import train
+    from ant_ray_tpu_torch.cluster_utils import Cluster
+    from ant_ray_tpu_torch.train import (
+        FailureConfig,
+        RunConfig,
+        ScalingConfig,
+        TorchTrainer,
+    )
+    from ant_ray_tpu_torch.util.chaos import ChaosSchedule
+
+    steplog = tmp_path / "steps.log"
+    cluster = Cluster(head_node_args={"num_cpus": 2, "gcs_standbys": 1})
+    cluster.add_node(num_cpus=2)
+    cluster.connect()
+    chaos = ChaosSchedule(seed=11)
+    chaos.kill_leader(2, cluster)
+    try:
+        def loop(config):
+            ctx = train.get_context()
+            assert ctx.latest_checkpoint is None   # no restart expected
+            for step in range(6):
+                train.report({"step": step}, checkpoint={"step": step})
+                with open(config["steplog"], "a") as f:
+                    f.write(f"{ctx.attempt} {step}\n")
+                time.sleep(0.3)
+
+        trainer = TorchTrainer(
+            loop, train_loop_config={"steplog": str(steplog)},
+            scaling_config=ScalingConfig(num_workers=1),
+            run_config=RunConfig(
+                name="ha-leader-kill",
+                storage_path=str(tmp_path / "store"),
+                failure_config=FailureConfig(max_failures=0)))
+        box = {}
+        fit_thread = threading.Thread(
+            target=lambda: box.update(result=trainer.fit()), daemon=True)
+        fit_thread.start()
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline and chaos.pending:
+            lines = (steplog.read_text().splitlines()
+                     if steplog.exists() else [])
+            if lines:
+                chaos.fire(int(lines[-1].split()[1]))
+            time.sleep(0.1)
+        assert not chaos.pending, "fit never reached the kill step"
+        assert chaos.killed_leaders, "no leader was killed"
+        fit_thread.join(timeout=180)
+        assert not fit_thread.is_alive(), \
+            "fit wedged across the leader failover"
+        result = box["result"]
+        assert result.error is None
+        assert result.metrics["step"] == 5
+        rows = [(int(a), int(s)) for a, s in
+                (line.split() for line in steplog.read_text()
+                 .splitlines())]
+        assert sorted(s for _a, s in rows) == list(range(6))
+        assert {a for a, _s in rows} == {0}
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            if sum(1 for n in art.nodes() if n["Alive"]) == 2:
+                break
+            time.sleep(0.3)
+        assert sum(1 for n in art.nodes() if n["Alive"]) == 2
+
+        @art.remote
+        def probe():
+            return "ok"
+
+        assert art.get(probe.remote(), timeout=60) == "ok"
+    finally:
+        art.shutdown()
+        cluster.shutdown()

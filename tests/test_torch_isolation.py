@@ -126,7 +126,24 @@ def test_importing_every_module_loads_neither_jax_nor_the_jax_package():
             "ant_ray_tpu_torch.autoscaler",
             "ant_ray_tpu_torch.autoscaler.autoscaler",
             "ant_ray_tpu_torch.autoscaler.node_provider",
-            "ant_ray_tpu_torch._private.sim_node"} <= set(modules)
+            "ant_ray_tpu_torch._private.sim_node",
+            "ant_ray_tpu_torch.util.collective",
+            "ant_ray_tpu_torch.util.collective.collective",
+            "ant_ray_tpu_torch.util.collective.types",
+            "ant_ray_tpu_torch.util.collective.fusion",
+            "ant_ray_tpu_torch.util.collective.collective_group",
+            "ant_ray_tpu_torch.util.collective.collective_group.base",
+            "ant_ray_tpu_torch.util.collective.collective_group.torch_group",
+            "ant_ray_tpu_torch.util.collective.collective_group.gloo_group",
+            "ant_ray_tpu_torch.util.collective.collective_group.nccl_group",
+            "ant_ray_tpu_torch.train",
+            "ant_ray_tpu_torch.train.step",
+            "ant_ray_tpu_torch.train.config",
+            "ant_ray_tpu_torch.train.checkpoint",
+            "ant_ray_tpu_torch.train.session",
+            "ant_ray_tpu_torch.train.scaling_policy",
+            "ant_ray_tpu_torch.train.controller",
+            "ant_ray_tpu_torch.train.trainer"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
@@ -302,6 +319,34 @@ def test_dag_channels_lockcheck_and_chaos_import_no_torch(tmp_path):
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('torch', 'jax', 'ant_ray_tpu')),\n"
         "      file=sys.stderr)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stderr.strip().splitlines()[-1] == "[]"
+
+
+def test_train_controller_and_collective_api_import_no_torch():
+    """The train plane's driver side (``TorchTrainer``, the controller,
+    the configs, checkpoints' handles and retention), the collective
+    API's names and the bucket planner load no torch: the controller
+    process of a run never touches a tensor.  ``make_optimizer`` and
+    ``train_step`` load it on first use."""
+    code = (
+        "import sys\n"
+        "from ant_ray_tpu_torch import train\n"
+        "from ant_ray_tpu_torch.train import controller, trainer\n"
+        "from ant_ray_tpu_torch.util import collective as col\n"
+        "from ant_ray_tpu_torch.util.collective import fusion, types\n"
+        "assert train.ScalingConfig(use_gpu=True).worker_resources() == \\\n"
+        "    {'GPU': 1.0, 'CPU': 1.0}\n"
+        "assert types.Backend.normalize('cuda') == 'nccl'\n"
+        "assert col.is_group_initialized('x') is False\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('torch', 'jax', 'ant_ray_tpu')),\n"
+        "      file=sys.stderr)\n"
+        "train.make_optimizer\n"
+        "assert 'torch' in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)

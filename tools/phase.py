@@ -4,7 +4,7 @@
     python3 tools/phase.py NAME... [--readings] [--checkout PATH]
 
 NAME is ``cluster``, ``tracing``, ``deployment``, ``data``,
-``operations``, ``jobs`` or ``tune``: each runs chip_smoke.py's ``NAME_phase`` of
+``operations``, ``jobs``, ``tune``, ``collective`` or ``trainer``: each runs chip_smoke.py's ``NAME_phase`` of
 PATH's checkout (default: this one), in the order given, after building
 the checkout's kernels.  cluster: a Llama-3-8B actor in a cluster of two
 GCS replicas and a node daemon, answering beside an engine in this
@@ -25,8 +25,12 @@ a stopped job, export events and a task in a pip venv launching the sm90
 forward (after ``operations`` it reuses that phase's reference tokens,
 alone it builds them once); tune: an ASHA learning-rate sweep of four
 llama-400m trials on a GPU node that the port's autoscaler launches for
-them and removes after.  Random weights from seed 0, gates
-included.  ``--readings`` is for phases that take it (data): the NLL
+them and removes after; collective: an NCCL group at world size 1,
+every verb, the fused allreduce of llama-400m's parameter shapes, the
+int8 transport and the ready-hook GradientSyncer against plain torch;
+trainer: a TorchTrainer of two llama-400m ranks sharing the card,
+gradients averaged every step over gloo, a checkpoint loaded back.
+Random weights from seed 0, gates included.  ``--readings`` is for phases that take it (data): the NLL
 gate is left out, every other gate stays, and faults planted in
 blockwise attention are read beside the sound reading, which is what
 ``DATA_NLL_TOL`` is set from.
@@ -49,7 +53,7 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHASES = ("cluster", "tracing", "deployment", "data", "operations", "jobs",
-          "tune")
+          "tune", "collective", "trainer")
 OPTIONAL = ("aiohttp", "grpc", "transformers", "pyarrow", "pandas")
 
 
