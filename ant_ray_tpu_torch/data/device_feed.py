@@ -42,6 +42,7 @@ torch is imported when a feed starts, never when this module loads.
 
 from __future__ import annotations
 
+import contextlib
 import queue as _queue
 import threading
 import time
@@ -102,26 +103,27 @@ def pad_to_batch(tree: dict, batch_size: int, pad_value=0):
 
 
 def resolve_placement(sharding, rank: int = 0, world: int = 1):
-    """``sharding`` → one ``torch.device``: a device or its name, a
-    callable ``(rank, world) -> device`` (or one of no arguments), or
-    None for the current CUDA device (raising without one).  A placement
-    over several devices is mesh sharding, which the port does not have
-    yet."""
+    """``sharding`` → a ``torch.device`` or a ``NamedSharding``: a device
+    or its name, a ``parallel.NamedSharding`` (batches then come as
+    ShardedTensors laid out by it over its mesh's cells), a callable
+    ``(rank, world) ->`` either (or one of no arguments), or None for
+    the current CUDA device (raising without one)."""
     import torch  # noqa: PLC0415
 
     from ant_ray_tpu_torch._device import resolve_device  # noqa: PLC0415
+    from ant_ray_tpu_torch.parallel.spmd import NamedSharding  # noqa: PLC0415
 
     if callable(sharding) and not isinstance(sharding, (str, torch.device)):
         try:
             sharding = sharding(rank, world)
         except TypeError:
             sharding = sharding()
-    if isinstance(sharding, (list, tuple, set)) or \
-            hasattr(sharding, "device_set"):
-        raise NotImplementedError(
-            "a placement over several devices (mesh sharding) is not in "
-            "the port yet: ROADMAP queue A item 8, parallelism; pass one "
-            "device")
+    if isinstance(sharding, NamedSharding):
+        return sharding
+    if isinstance(sharding, (list, tuple, set)):
+        raise ValueError(
+            "a placement over several devices is a NamedSharding of a "
+            "mesh (ant_ray_tpu_torch.parallel); got a collection")
     device = resolve_device(sharding)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -132,8 +134,8 @@ class DeviceFeed:
     """One epoch of device-batch delivery over a block stream.
 
     ``blocks_fn`` yields blocks (one pass); iterate the feed once.
-    ``sharding`` is the target device (see :func:`resolve_placement`),
-    resolved lazily in the consuming process — a callable is called as
+    ``sharding`` is the target device or NamedSharding (see
+    :func:`resolve_placement`), resolved lazily in the consuming process — a callable is called as
     ``sharding(rank, world)`` (falling back to no-args) so the trainer
     can forward per-worker placements without shipping device handles.
     """
@@ -154,8 +156,8 @@ class DeviceFeed:
         self._pad_value = pad_value
         self._rank = rank
         self._world = world
-        self._device = None
-        self._stream = None        # the producer's side stream (CUDA)
+        self._placement = None
+        self._streams = {}         # the producer's side streams (CUDA)
         self.thread: threading.Thread | None = None
         self.stats: dict = {
             "batch_size": batch_size,
@@ -197,40 +199,58 @@ class DeviceFeed:
             self.stats["tail_padded_rows"] += padded
             yield tree
 
+    def _place(self, t, non_blocking: bool = False):
+        from ant_ray_tpu_torch.parallel import spmd  # noqa: PLC0415
+
+        if isinstance(self._placement, spmd.NamedSharding):
+            return spmd.shard(t, self._placement, non_blocking=non_blocking)
+        return t.to(self._placement, non_blocking=non_blocking)
+
     def _to_device(self, tree):
-        """Host tree → ``(device tree, event)``.  On the CPU: tensors over
-        the collated arrays, no event.  On CUDA: each array is copied
-        into page-locked memory, then copied to the card without
-        blocking on the side stream, then an event is recorded there."""
+        """Host tree → ``(device tree, events)``.  On the CPU: tensors
+        over the collated arrays, no events.  On CUDA: each array is
+        copied into page-locked memory, then copied to the card (to each
+        cell of a mesh) without blocking on a side stream of each card,
+        then an event is recorded on each."""
         import torch  # noqa: PLC0415
 
         t0 = time.perf_counter()
-        if self._device.type != "cuda":
-            out = {k: torch.from_numpy(a if a.flags.writeable else a.copy())
+        if not self._streams:
+            out = {k: self._place(torch.from_numpy(
+                       a if a.flags.writeable else a.copy()))
                    for k, a in tree.items()}
             self.stats["transfer_issue_s"] += time.perf_counter() - t0
             return out, None
-        with torch.cuda.stream(self._stream):
-            out = {k: torch.from_numpy(a).pin_memory().to(
-                       self._device, non_blocking=True)
+        with contextlib.ExitStack() as stack:
+            for stream in self._streams.values():
+                stack.enter_context(torch.cuda.stream(stream))
+            out = {k: self._place(torch.from_numpy(a).pin_memory(),
+                                  non_blocking=True)
                    for k, a in tree.items()}
-            event = torch.cuda.Event()
-            event.record(self._stream)
+            events = {}
+            for dev, stream in self._streams.items():
+                events[dev] = torch.cuda.Event()
+                events[dev].record(stream)
         self.stats["transfer_issue_s"] += time.perf_counter() - t0
-        return out, event
+        return out, events
 
-    def _hand_over(self, tree, event):
-        """The consumer's side of a copy: its stream waits on the copy's
-        event (the host does not), and each tensor is recorded on that
-        stream for the caching allocator."""
-        if event is None:
+    def _hand_over(self, tree, events):
+        """The consumer's side of a copy: its streams wait on the copy's
+        events (the host does not), and each tensor is recorded on its
+        card's stream for the caching allocator."""
+        if events is None:
             return tree
         import torch  # noqa: PLC0415
 
-        stream = torch.cuda.current_stream(self._device)
-        stream.wait_event(event)
+        from ant_ray_tpu_torch.parallel import spmd  # noqa: PLC0415
+
+        for dev, event in events.items():
+            torch.cuda.current_stream(dev).wait_event(event)
         for t in tree.values():
-            t.record_stream(stream)
+            shards = (spmd.unique_shards(t) if isinstance(
+                t, spmd.ShardedTensor) else [t])
+            for x in shards:
+                x.record_stream(torch.cuda.current_stream(x.device))
         return tree
 
     def _produce(self, q: _queue.Queue, stop: threading.Event) -> None:
@@ -260,10 +280,13 @@ class DeviceFeed:
     def _start(self):
         import torch  # noqa: PLC0415
 
-        self._device = resolve_placement(self._sharding, self._rank,
-                                         self._world)
-        if self._device.type == "cuda":
-            self._stream = torch.cuda.Stream(self._device)
+        self._placement = resolve_placement(self._sharding, self._rank,
+                                            self._world)
+        devices = (self._placement.device_set
+                   if hasattr(self._placement, "device_set")
+                   else {self._placement})
+        self._streams = {dev: torch.cuda.Stream(dev) for dev in devices
+                         if dev.type == "cuda"}
 
     def __iter__(self):
         self._start()
@@ -289,12 +312,12 @@ class DeviceFeed:
                 tree = next(gen)
             except StopIteration:
                 return
-            dev, event = self._to_device(tree)
-            if event is not None:
+            dev, events = self._to_device(tree)
+            for event in (events or {}).values():
                 event.synchronize()
             self.stats["consumer_starve_s"] += time.perf_counter() - t0
             self.stats["batches"] += 1
-            yield self._hand_over(dev, event)
+            yield self._hand_over(dev, events)
 
     def _iter_prefetched(self):
         q: _queue.Queue = _queue.Queue(maxsize=self._prefetch)

@@ -99,7 +99,9 @@ def build_logprob_processor(model="tiny", *, batch_size: int = 8,
     ``model`` is what ``checkpoint.resolve_model`` reads: a named
     config, a ``LlamaConfig`` or a checkpoint directory.  ``sharding`` is
     the device the weights load on and the batches go to (None: the
-    current CUDA device; ``"cpu"`` for the CPU).  The
+    current CUDA device; ``"cpu"`` for the CPU), or a NamedSharding that
+    lays the batches out over a mesh (the weights then on its first
+    cell's device).  The
     forward runs over ``tokens[:, :-1]``, as the reference's does: at
     ``max_len - 1`` tokens ``attention(impl="auto")`` takes blockwise
     attention (its multiple-of-128 rule), so this path runs no flash
@@ -117,8 +119,13 @@ def build_logprob_processor(model="tiny", *, batch_size: int = 8,
     from ant_ray_tpu_torch.data.device_feed import resolve_placement  # noqa: PLC0415
     from ant_ray_tpu_torch.models import checkpoint as ckpt  # noqa: PLC0415
     from ant_ray_tpu_torch.models import llama  # noqa: PLC0415
+    from ant_ray_tpu_torch.parallel.spmd import ShardedTensor  # noqa: PLC0415
 
-    device = resolve_placement(sharding)
+    placement = resolve_placement(sharding)
+    # A mesh's batches arrive as ShardedTensors; the weights sit on its
+    # first cell's device, where each batch is assembled.
+    device = getattr(placement, "mesh", None)
+    device = device.cell_devices[0] if device is not None else placement
     loaded, config, _ = ckpt.resolve_model(model, device)
     if loaded is not None:
         params = loaded
@@ -129,7 +136,8 @@ def build_logprob_processor(model="tiny", *, batch_size: int = 8,
 
     @torch.inference_mode()
     def _nll(tokens):
-        tokens = tokens.long()
+        tokens = (tokens.full() if isinstance(tokens, ShardedTensor)
+                  else tokens).long()
         mask = (tokens != pad_id).float()
         logits = llama.forward(params, tokens[:, :-1], config)
         losses = F.cross_entropy(
@@ -157,7 +165,7 @@ def build_logprob_processor(model="tiny", *, batch_size: int = 8,
         nlls = []
         for batch in it.iter_device_batches(
                 batch_size, prefetch_batches=prefetch_batches,
-                sharding=device, collate_fn=collate, pad_value=pad_id):
+                sharding=placement, collate_fn=collate, pad_value=pad_id):
             nlls.append(_nll(batch["tokens"]).cpu().numpy())
         feed = it.stats()["device_feed"]
         n_valid = feed["batches"] * batch_size - feed["tail_padded_rows"]

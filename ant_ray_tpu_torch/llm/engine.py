@@ -32,11 +32,15 @@
   under it (attributes ``session`` and ``bytes``), and a failed one an
   error span.  Unsampled contexts record nothing.
 
+* **Tensor parallelism** (``tensor_parallel_size`` / ``mesh``): the
+  engine lays its parameters out by the model's logical-axis rules (heads
+  and the MLP hidden over tp) and its slabs by KV head over tp, one slab
+  a cell (parallel/); every cell runs its heads of each step, the flash
+  kernel included, and sampling runs on the gathered fp32 logits on the
+  mesh's first cell's device, with the same generators as on one device.
+
 The reference's jitted device calls are plain calls here; everything
 that writes the cache runs under ``torch.inference_mode()``.
-
-Not in this port yet: tensor parallelism (``tensor_parallel_size`` /
-``mesh``).  Passing either raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -62,6 +66,8 @@ from ant_ray_tpu_torch.llm.tokenizer import get_tokenizer
 from ant_ray_tpu_torch.models import checkpoint as ckpt
 from ant_ray_tpu_torch.models import llama
 from ant_ray_tpu_torch.observability import tracing_plane
+from ant_ray_tpu_torch.parallel.mesh import build_mesh, visible_devices
+from ant_ray_tpu_torch.parallel.spmd import device_put
 
 logger = logging.getLogger(__name__)
 
@@ -116,11 +122,6 @@ def _bucket(n: int, cap: int) -> int:
     return min(b, cap)
 
 
-def _not_in_port(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to ant_ray_tpu_torch yet (see ROADMAP.md)")
-
-
 _NOOP_TIMER = contextlib.nullcontext()
 
 
@@ -166,11 +167,18 @@ class LLMEngine:
         room (False: the request waits, or sheds past ``max_waiting``).
         ``profiler``:
         optional StepProfiler (observability/step_profiler.py) — each
-        step() records prefill/decode/restore_install phases."""
-        self.device = resolve_device(device)
-        if tensor_parallel_size != 1 or mesh is not None:
-            raise _not_in_port("tensor parallelism (tensor_parallel_size, "
-                               "mesh)")
+        step() records prefill/decode/restore_install phases.
+        ``tensor_parallel_size > 1`` makes the engine build a tp mesh over
+        the first that many visible cards (raising with fewer; on
+        ``device="cpu"``, a virtual mesh of CPU cells) and lay its
+        parameters and slabs out over it; ``mesh`` gives a prebuilt mesh
+        instead (a virtual one too: ``build_mesh(devices=["cuda:0"] * 2,
+        tp=2)``), whose first cell's device is then the engine's."""
+        self.mesh = mesh
+        if tensor_parallel_size > 1 and mesh is None:
+            self.mesh = _tp_mesh(resolve_device(device), tensor_parallel_size)
+        self.device = (self.mesh.cell_devices[0] if self.mesh is not None
+                       else resolve_device(device))
         if isinstance(model, str):
             # Explicit params: only the config is needed — don't read
             # gigabytes of weights to drop them.
@@ -191,12 +199,15 @@ class LLMEngine:
                 gen = torch.Generator(device=self.device).manual_seed(seed)
                 params = llama.init_params(self.config, generator=gen,
                                            device=self.device)
-            else:
+            elif self.mesh is None:
                 params = _to_device(params, self.device)
             self.params = params
-            self.cache = llama.init_kv_cache(self.config, slots,
-                                             self.max_seq,
-                                             device=self.device)
+            if self.mesh is not None:
+                self._shard_state()
+            else:
+                self.cache = llama.init_kv_cache(self.config, slots,
+                                                 self.max_seq,
+                                                 device=self.device)
         # Host-side mirror of each slot's most recent token: mutated in
         # numpy and uploaded once per decode call.
         self._last_np = np.zeros((slots,), np.int64)
@@ -225,6 +236,21 @@ class LLMEngine:
                       "offload_bytes": 0, "restores": 0,
                       "restore_wait_s": 0.0, "restore_failures": 0,
                       "pressure_evictions": 0, "idle_evictions": 0}
+
+    def _shard_state(self):
+        """Lay params and KV slabs out over the engine's mesh: params by
+        the model's logical-axis rules (heads/mlp over tp), slabs by KV
+        head over tp, one a cell."""
+        tp = self.mesh.shape.get("tp", 1)
+        if self.config.n_kv_heads % tp or self.config.n_heads % tp:
+            raise ValueError(
+                f"tensor_parallel_size={tp} must divide n_heads="
+                f"{self.config.n_heads} and n_kv_heads="
+                f"{self.config.n_kv_heads}")
+        self.params = device_put(
+            self.params, llama.param_shardings(self.config, self.mesh))
+        self.cache = llama.init_kv_cache(self.config, self.slots,
+                                         self.max_seq, mesh=self.mesh)
 
     # ------------------------------------------------------------ public
 
@@ -913,6 +939,14 @@ class LLMEngine:
             torch.flip(probs > 0, dims=[-1]).to(torch.int8), dim=-1)
         sampled = torch.minimum(sampled, last)
         return torch.where(temps_t > 0, sampled, greedy)
+
+
+def _tp_mesh(device: torch.device, size: int):
+    """A tp mesh of ``size`` cells: the first ``size`` visible cards (a
+    card is never repeated), or CPU cells for the CPU."""
+    if device.type == "cpu":
+        return build_mesh(devices=[device] * size, tp=size)
+    return build_mesh(devices=visible_devices()[:size], tp=size)
 
 
 def _to_device(tree, device):

@@ -12,7 +12,10 @@ non-reentrant ``torch.utils.checkpoint`` when autograd records, as the
 reference runs each under ``jax.checkpoint`` inside ``lax.scan``.
 
 The reference's sharding rules (``param_logical_dims``, ``gpt2_rules``,
-``param_shardings``) are not here: the port runs on one device.
+``param_shardings``) lay the parameters out over a mesh (parallel/), and
+``forward`` on parameters so laid out runs every cell's share: the batch
+over (dp, fsdp), heads and the MLP hidden over tp with a ``psum`` after
+``proj_w`` and ``out_w``, fsdp-split leaves gathered when used.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ from torch.utils.checkpoint import checkpoint
 from ant_ray_tpu_torch._device import resolve_device
 from ant_ray_tpu_torch.models.llama import _layers, init_leaves
 from ant_ray_tpu_torch.ops.attention import attention
+from ant_ray_tpu_torch.parallel import spmd
+from ant_ray_tpu_torch.parallel.sharding import named_sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +87,51 @@ def param_shapes(config: Gpt2Config) -> dict:
     }
 
 
+def param_logical_dims(config: Gpt2Config) -> dict:
+    """Logical axis names per parameter (see parallel/sharding.py):
+    TP splits attention heads and the MLP hidden dim; FSDP shards the
+    embedding/model dim."""
+    return {
+        "wte": ("vocab", "embed"),
+        "wpe": (None, "embed"),
+        "layers": {
+            "ln1_g": ("layer", None), "ln1_b": ("layer", None),
+            "qkv_w": ("layer", "embed", "heads"),
+            "qkv_b": ("layer", "heads"),
+            "proj_w": ("layer", "heads", "embed"),
+            "proj_b": ("layer", None),
+            "ln2_g": ("layer", None), "ln2_b": ("layer", None),
+            "fc_w": ("layer", "embed", "mlp"),
+            "fc_b": ("layer", "mlp"),
+            "out_w": ("layer", "mlp", "embed"),
+            "out_b": ("layer", None),
+        },
+        "lnf_g": (None,), "lnf_b": (None,),
+    }
+
+
+def gpt2_rules() -> dict:
+    """Logical-axis → mesh-axis rules: TP splits heads and the MLP
+    hidden dim; FSDP shards the embedding dim; layer axis is never
+    sharded."""
+    return {"vocab": None, "embed": "fsdp", "heads": "tp",
+            "mlp": "tp", "layer": None, "batch": ("dp", "fsdp"),
+            "seq": "sp"}
+
+
+def param_shardings(config: Gpt2Config, mesh) -> dict:
+    """NamedSharding tree of the parameters on ``mesh`` (for
+    ``parallel.device_put``)."""
+    rules = gpt2_rules()
+
+    def _walk(node):
+        if isinstance(node, dict):
+            return {k: _walk(v) for k, v in node.items()}
+        return named_sharding(mesh, node, rules)
+
+    return _walk(param_logical_dims(config))
+
+
 def init_params(config: Gpt2Config, *,
                 generator: torch.Generator | None = None,
                 device=None) -> dict:
@@ -134,7 +184,14 @@ def forward(params: dict, tokens, config: Gpt2Config, *,
 
     Every block is checkpointed when autograd records the forward (the
     backward re-runs it, the flash forward included), as the reference
-    checkpoints every block: GPT-2 has no remat option there either."""
+    checkpoints every block: GPT-2 has no remat option there either.
+
+    Parameters that are ShardedTensors run over their mesh (the
+    reference partitions by their placement), and the logits come back
+    as a ShardedTensor, batch over (dp, fsdp)."""
+    mesh = spmd.mesh_of(params)
+    if mesh is not None:
+        return _sharded_forward(params, tokens, config, mesh, attn_impl)
     seq = tokens.shape[1]
     # F.embedding, not indexing: on the CPU its backward sums each row's
     # gradients in an order that does not depend on the thread count.
@@ -148,13 +205,93 @@ def forward(params: dict, tokens, config: Gpt2Config, *,
     return x @ params["wte"].T          # tied LM head
 
 
+def _sharded_forward(params, tokens, c: Gpt2Config, mesh, attn_impl):
+    """``forward`` over the cells of ``mesh``.  A cell takes its heads'
+    columns of q, k and v from the fused ``qkv_w`` gathered whole (tp
+    splits that fused dim as one, not by heads)."""
+    tp = spmd.axis_size(mesh, "tp")
+    if c.n_heads % tp:
+        raise ValueError(f"tp {tp} does not divide n_heads {c.n_heads}")
+    width = c.dim // tp                       # a cell's heads * head_dim
+    shardings = param_shardings(c, mesh)
+    layout = {"ln1_g": (None,), "ln1_b": (None,), "qkv_w": (None, None),
+              "qkv_b": (None,), "proj_w": ("tp", None), "proj_b": (None,),
+              "ln2_g": (None,), "ln2_b": (None,), "fc_w": (None, "tp"),
+              "fc_b": ("tp",), "out_w": ("tp", None), "out_b": (None,)}
+
+    def cells_of(leaf, sharding, want, i=None):
+        leaf = spmd.on_mesh(leaf, sharding)
+        have, shape = tuple(leaf.spec), leaf.shape
+        shards = leaf.shards
+        if i is not None:
+            have, shape = have[1:], shape[1:]
+            shards = [s[i] for s in shards]
+        return spmd.relayout_plan(mesh, have, want, shape)(shards)
+
+    def fused(values, tp_index):
+        return [torch.cat([v[..., k * c.dim + j * width:
+                             k * c.dim + (j + 1) * width]
+                           for k in range(3)], dim=-1)
+                for v, j in zip(values, tp_index)]
+
+    tp_index = [spmd.axis_index(mesh, cell, "tp") for cell in
+                range(mesh.size)]
+    spec = spmd.P(("dp", "fsdp"), None)
+    toks = spmd.split(spmd.as_global(tokens), spec, mesh)
+    batch, seq = toks[0].shape
+    wte = cells_of(params["wte"], shardings["wte"], (None, None))
+    wpe = cells_of(params["wpe"], shardings["wpe"], (None, None))
+    xs = [F.embedding(t, e) + p[:seq] for t, e, p in zip(toks, wte, wpe)]
+
+    def block(i, xs):
+        w = {name: cells_of(params["layers"][name],
+                            shardings["layers"][name], want, i)
+             for name, want in layout.items()}
+        w["qkv_w"] = fused(w["qkv_w"], tp_index)
+        w["qkv_b"] = fused(w["qkv_b"], tp_index)
+        parts = []
+        for cell, x in enumerate(xs):
+            h = _layernorm(x, w["ln1_g"][cell], w["ln1_b"][cell],
+                           c.norm_eps)
+            qkv = h @ w["qkv_w"][cell] + w["qkv_b"][cell]
+            q, k, v = (t.reshape(batch, seq, c.n_heads // tp, c.head_dim)
+                       for t in qkv.split(width, dim=-1))
+            att = attention(q, k, v, causal=True, impl=attn_impl)
+            parts.append(att.reshape(batch, seq, width) @ w["proj_w"][cell])
+        parts = spmd.psum(parts, mesh, "tp")
+        xs = [x + p + b for x, p, b in zip(xs, parts, w["proj_b"])]
+        parts = []
+        for cell, x in enumerate(xs):
+            h = _layernorm(x, w["ln2_g"][cell], w["ln2_b"][cell],
+                           c.norm_eps)
+            h = F.gelu(h @ w["fc_w"][cell] + w["fc_b"][cell],
+                       approximate="tanh")
+            parts.append(h @ w["out_w"][cell])
+        parts = spmd.psum(parts, mesh, "tp")
+        return [x + p + b for x, p, b in zip(xs, parts, w["out_b"])]
+
+    run = block
+    if torch.is_grad_enabled():
+        run = functools.partial(checkpoint, block, use_reentrant=False)
+    for i in range(c.n_layers):
+        xs = run(i, xs)
+    lnf_g = cells_of(params["lnf_g"], shardings["lnf_g"], (None,))
+    lnf_b = cells_of(params["lnf_b"], shardings["lnf_b"], (None,))
+    logits = [_layernorm(x, g, b, c.norm_eps) @ e.T
+              for x, g, b, e in zip(xs, lnf_g, lnf_b, wte)]
+    return spmd.ShardedTensor(
+        logits, spmd.NamedSharding(mesh, spmd.P(("dp", "fsdp"), None, None)),
+        (batch * spmd.axis_size(mesh, ("dp", "fsdp")), seq, c.vocab_size))
+
+
 def loss_fn(params: dict, batch: dict, config: Gpt2Config, *,
             attn_impl: str = "auto"):
     """Next-token loss, log-softmax in fp32; the same batch contract as
     ``llama.loss_fn``: an optional ``mask`` (batch, seq + 1) excludes
     padding positions."""
-    tokens = batch["tokens"]
-    logits = forward(params, tokens[:, :-1], config, attn_impl=attn_impl)
+    tokens = spmd.as_global(batch["tokens"])
+    logits = spmd.as_global(forward(params, tokens[:, :-1], config,
+                                 attn_impl=attn_impl))
     targets = tokens[:, 1:]
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]

@@ -92,6 +92,20 @@ final line is printed:
    attention, then prefill time per bucket, decode tokens/s and peak
    memory are printed, and a torch.profiler trace of a short and a long
    prefill and of one decode step gives the device's busy share.
+5b. Tensor-parallel serving (the parallel phase's first part) on the
+   serving slice's weights: LLMEngine("llama3-8b", slots=8,
+   max_seq=4096) on build_mesh(devices=["cuda:0"] * 2, tp=2), a
+   virtual mesh of two cells of the card; every shard on cuda:0 at
+   tp=2's local shapes, the slab split by KV heads.  Gates: greedy
+   generation of the slice's five prompts launching the sm90 forward
+   2 x 32 times for each bucket of 128 or more (each cell its 16
+   heads, 4 KV heads) and nothing else; the TP prefill's last-token
+   fp32 logits of each prompt and the first decode step's logits of
+   every slot within TP_LOGIT_TOL (relative L2) of the unsharded
+   model's on the same weights; the card's free memory back within
+   CLUSTER_FREE_SLACK once the engine and its shards go.  Prints the
+   greedy tokens' common prefix with the slice's and the prefill and
+   decode times beside the slice's (not gated).
 6. Sessions (chunked prefill, offload and restore) on the serving
    slice's 8B weights: LLMEngine(slots=4, max_seq=4096,
    prefill_chunk_tokens=512, profiler=StepProfiler()) with a store that
@@ -122,7 +136,7 @@ final line is printed:
    max_seq=4096) answers greedy prompts of 20 and 1500 random token ids
    (32 new tokens each) after a warm-up round, each beside the same
    engine called directly; a task returns a CUDA tensor, put/get carry
-   one, wait splits the actor's refs; then 2000 no-op actor calls and
+   one, wait splits the actor's refs; then 1000 no-op actor calls and
    tasks in turns with the same method and function called directly.
    Gates: the actor's tokens equal the direct engine's token for token;
    every tensor on the card and bitwise equal; in the counted round the
@@ -161,7 +175,7 @@ final line is printed:
    lives and runs after its kill; a num_gpus=1 task returns a CUDA
    tensor; phase 9's slab goes through put, a task in a worker (which
    gets it onto its card, checks it and returns it) and get, once and
-   then five times; 2000 no-op actor calls and tasks in turns with
+   then five times; 1000 no-op actor calls and tasks in turns with
    direct calls, over hot frames (hotframe.py); then shutdown().
    Gates: the node advertises GPU 1 (from the detector); the worker's weights' checksums (embedding,
    layer 0's wq, head) equal this process's; its engine on cuda; tokens
@@ -360,9 +374,20 @@ final line is printed:
    once per layer, all on the sm90 route.  Prints the step time,
    tokens/s, MFU against the bf16 peak, peak memory and a torch.profiler
    line of one step.
+15b. Sharded training (the parallel phase's second part) on the
+   training slice's weights after its steps and its first 4 rows: one
+   loss_fn(mesh=build_mesh(devices=["cuda:0"] * 4, fsdp=2, tp=2),
+   remat="none") step with its backward against the unsharded step
+   (the loss within BF16_LOSS_TOL, every gradient leaf within
+   BF16_GRAD_TOL; the unsharded step with reference attention printed
+   beside it), the sm90 forward, dQ and dK/dV each launched 4 cells x
+   24 layers times; the loss through ring attention at sp=2 and
+   through loss_fn_pp at pp=2 with 2 microbatches, each within
+   BF16_LOSS_TOL of the unsharded loss.  ``python3 tools/phase.py
+   parallel`` runs 5b and 15b alone.
 16. Remat: the training slice again, from the same weights, under
    each remat policy ("none", "full", "dots", "matmuls"), 3 warm-up and
-   3 timed steps each (REMAT_STEPS).  Gates: the forward kernel
+   2 timed steps each (REMAT_STEPS).  Gates: the forward kernel
    launched twice per layer and step under "full" and "dots" and once under "none" and
    "matmuls" (whose selective-checkpoint policy saves the flash
    forward's out and lse), the backward pair once; the losses of the
@@ -401,7 +426,7 @@ final line is printed:
    state alone is 20 GB), the same weights' seed and batch.  First one
    step's loss and every gradient leaf through the kernels against fp32
    reference attention on the card (D256_FP32_GRAD_TOL per leaf,
-   D256_FP32_LOSS_TOL), then D256_FP32_STEPS (2 warm-up, 3 timed)
+   D256_FP32_LOSS_TOL), then D256_FP32_STEPS (2 warm-up, 2 timed)
    train_step calls.  Gates: per step the tf32x3_d256 dQ and dK/dV
    once per layer (18 pairs) and no other backward kernel, the
    tf32x3_d256 forward once per layer and recompute (36), nothing else;
@@ -461,7 +486,7 @@ final line is printed:
    seed-0 weights once, writes them with train.save_pytree and
    computes loss_fn over the train phase's 8 x 2049 tokens; each rank
    (trainer_loop, in a worker) loads them onto its card, takes its 4
-   rows, and runs TRAINER_STEPS (3) steps of loss_fn, backward,
+   rows, and runs TRAINER_STEPS (2) steps of loss_fn, backward,
    train.sync_gradients over a gloo group it creates (NCCL refuses two
    ranks of one group on one card) and AdamW, logging each step's
    loss, launches, parameter checksums and times; rank 0's last step
@@ -479,11 +504,13 @@ final line is printed:
 20. One line {"kernels": [...]} with the fifteen kernels (the sm90,
    tf32x3, sm90_d256, tf32x3_d256 and CUDA-core forward; the sm90, tf32x3,
    sm90_d256, tf32x3_d256 and CUDA-core dQ and dK/dV; launches by path,
-   the main paths being serving, sessions, the loop, the cluster's
+   the main paths being serving, the tensor-parallel engine's two
+   cells, sessions, the loop, the cluster's
    worker, the traced cluster's worker, the deployment's replicas, the
    data processor's actors, the operations and the jobs phases' actors,
    the checkpoint directory, the
-   server, training, training under each remat policy, GPT-2 in fp32
+   server, training, the sharded step's four cells, training under
+   each remat policy, GPT-2 in fp32
    and bf16, the head_dim-256 Llama in bf16 and fp32, the tune
    trials and the trainer's ranks; the older kernels' times also at GPT-2's
    shape, the sm90_d256 ones at Gemma-7B's and Gemma-2B's attention and
@@ -589,10 +616,11 @@ BF16_LOSS_TOL = 1e-2   # the loss (~5.7) on fp32 logits of bf16 layers
 D256_GRAD_TOL = 0.1
 # The fp32 head_dim-256 path (d256_fp32_phase): remat "full" (AdamW's
 # state alone is 20 GB at 2.51 B fp32 parameters; the peaks of both
-# policies, tools/d256_fp32_remat.py, are in PERF.md), 2 warm-up and 3
-# timed steps (5 until the collective and trainer phases came).
+# policies, tools/d256_fp32_remat.py, are in PERF.md), 2 warm-up and 2
+# timed steps (5 until the collective and trainer phases came, 3 until
+# the parallel phase came).
 D256_FP32_REMAT = "full"
-D256_FP32_STEPS = (2, 3)
+D256_FP32_STEPS = (2, 2)
 # Its gradients through the tf32x3_d256 forward and backward against fp32
 # reference attention, per leaf, over max |ref|.  Readings
 # (--d256-fp32-gate-readings, H100 80GB HBM3 at 700 W): the kernels
@@ -1350,9 +1378,11 @@ def _llama_400m(torch, llama):
     return cfg, params, tokens
 
 
-def train_phase(torch, fa, llama):
+def train_phase(torch, fa, llama, keep=None):
     """The training slice: llama-400m, batch 8 x 2048, AdamW, remat
-    "none"; returns the kernels' launches over its 13 steps."""
+    "none"; returns the kernels' launches over its 13 steps.  ``keep``
+    (a dict) receives its config, trained weights and batch under
+    "llama-400m", for the parallel phase."""
     from ant_ray_tpu_torch.train import make_optimizer, train_step  # noqa: PLC0415
 
     torch.cuda.empty_cache()
@@ -1389,13 +1419,15 @@ def train_phase(torch, fa, llama):
         raise AssertionError(f"training losses {losses}: not finite or not "
                              "falling")
     _profile(torch, f"train step llama-400m {batch} x {seq}", step, top=16)
+    if keep is not None:
+        keep["llama-400m"] = (cfg, params, tokens)
     return launches
 
 
 # Steps per remat policy (3 of them warm-up): 13 until the jobs phase
-# came, 8 until the collective and trainer phases came, whose time this
-# pays for in part.
-REMAT_STEPS = 6
+# came, 8 until the collective and trainer phases came, 6 until the
+# parallel phase came, whose time this pays for in part.
+REMAT_STEPS = 5
 
 
 def remat_phase(torch, fa, llama):
@@ -2395,7 +2427,7 @@ def _grads_of(params):
 # The trainer phase: a TorchTrainer of two ranks sharing the card.
 TRAINER_WORKERS = 2
 TRAINER_BATCH = (8, 2049)           # the train phase's batch, split by rank
-TRAINER_STEPS = 3
+TRAINER_STEPS = 2                   # 3 until the parallel phase came
 TRAINER_FIT_TIMEOUT_S = 300.0
 
 
@@ -2730,9 +2762,11 @@ def _flat_tensors(tree):
 
 
 def slice_phase(torch, fa, llama):
-    """The serving slice; returns the launches of its main path and the
-    8B weights, which the sessions and loop phases reuse (the engine and
-    its cache go when this returns)."""
+    """The serving slice; returns the launches of its main path, the 8B
+    weights, which the parallel, sessions and loop phases reuse (the
+    engine and its cache go when this returns), and its greedy tokens
+    and prefill and decode times, which the parallel phase prints beside
+    its own."""
     from ant_ray_tpu_torch.llm import LLMEngine, SamplingParams  # noqa: PLC0415
     from ant_ray_tpu_torch.llm.engine import _bucket  # noqa: PLC0415
 
@@ -2743,10 +2777,8 @@ def slice_phase(torch, fa, llama):
     print(f"llama3-8b engine up in {time.perf_counter() - t0:.1f} s "
           f"({cfg.num_params() / 1e9:.2f} B params, {cfg.dtype}, slab "
           f"{2 * engine.cache['k'].numel() * 2 / 1e9:.2f} GB)", flush=True)
-    rng = np.random.default_rng(0)
-    lengths = (20, 100, 700, 1500, 3000)
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
-    sampled_prompt = rng.integers(0, cfg.vocab_size, 300).tolist()
+    prompts, sampled_prompt = _slice_prompts(cfg)
+    lengths = tuple(len(p) for p in prompts)
     greedy = SamplingParams(max_tokens=32)
     sampled = SamplingParams(max_tokens=32, temperature=0.8, top_k=50,
                              top_p=0.95, seed=1234)
@@ -2800,10 +2832,7 @@ def slice_phase(torch, fa, llama):
                                    logits_at=n - 1)[0]
                      for impl in ("blockwise", "reference"))
 
-    def rel_l2(a, b):
-        return ((a - b).norm() / b.norm()).item()
-
-    err, noise = rel_l2(got, want), rel_l2(alt, want)
+    err, noise = _rel_l2(got, want), _rel_l2(alt, want)
     tol = 2 * noise + 1e-3
     print(f"8B logits check: shape {tuple(got.shape)}, finite "
           f"{bool(torch.isfinite(got).all())}, relative L2 error vs "
@@ -2854,7 +2883,331 @@ def slice_phase(torch, fa, llama):
                          engine.params, t, engine.cache, 0, n, cfg))
         _profile(torch, f"decode step, {engine.slots} slots, context "
                  f"{context}", step)
-    return launches, engine.params
+    return launches, engine.params, {
+        "tokens": [o.token_ids for o in outs[:len(prompts)]],
+        "prefill_ms": {b: round(ms, 2) for b, ms in prefill_ms.items()},
+        "decode_ms": round(decode_ms, 2)}
+
+
+# The parallel phase (queue A item 8): a tensor-parallel Llama-3-8B
+# engine on a virtual mesh of two cells of the card, beside the serving
+# slice, and a sharded llama-400m step beside the training slice.
+PARALLEL_CELLS = "cuda:0"       # every cell of the phase's virtual meshes
+PARALLEL_ROWS = 4               # the train phase's rows in the sharded step
+PARALLEL_TOKENS = 32            # greedy tokens printed against the slice's
+# The TP engine's last-token logits (prefill) and first-decode-step logits
+# against the unsharded model's on the same weights, relative L2 error.
+# Each cell's attention is the same kernel on the same heads; only where
+# bf16 rounds moves: a psum of two bf16 partial products after wo and
+# w_down in place of one product over the full K, carried through 32
+# random layers.  Readings (tools/phase.py parallel --readings, NVIDIA
+# H100 80GB HBM3, 700.00 W): 5.07e-2 to 5.69e-2 at the five prompts,
+# 3.81e-2 to 5.70e-2 at the decode step's slots; the unsharded model's
+# own spread, reference attention against the flash kernel at the
+# 1500-token prompt, 5.25e-2: random weights carry a bf16 rounding
+# through 32 layers to ~5 %, sharded or not.  Faults planted in the TP
+# prefill: wq's shards swapped between the cells 1.40, wo's 1.41, the
+# psum dropped 1.40.  The limit lies between, ~3.5x the sound reading
+# and a seventh of the faults'.
+TP_LOGIT_TOL = 0.2
+
+
+def _slice_prompts(cfg):
+    """The serving slice's five greedy prompts (20 to 3000 token ids) and
+    its sampled one (300), from default_rng(0)."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (20, 100, 700, 1500, 3000)]
+    return prompts, rng.integers(0, cfg.vocab_size, 300).tolist()
+
+
+def _rel_l2(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def _tp_logit_readings(torch, llama, engine, params, toks, n, cfg, want):
+    """The TP prefill's logits error at faults planted for one call, and
+    the unsharded model's own spread (reference attention against the
+    flash kernel), each as relative L2 against ``want`` (the unsharded
+    logits of ``toks``)."""
+    from ant_ray_tpu_torch.parallel import spmd  # noqa: PLC0415
+
+    def tp_logits(tree):
+        return llama.prefill_into_cache(tree, toks, engine.cache, 7, n,
+                                        cfg)[0]
+
+    def swapped(name):
+        leaf = engine.params["layers"][name]
+        return dict(engine.params, layers=dict(
+            engine.params["layers"], **{name: spmd.ShardedTensor(
+                leaf.shards[::-1], leaf.sharding, leaf.shape)}))
+
+    out = {f"{name}_swapped": _rel_l2(tp_logits(swapped(name)), want)
+           for name in ("wq", "wo")}
+    psum = spmd.psum
+    spmd.psum = lambda values, mesh, axes: list(values)   # no reduction
+    try:
+        out["psum_dropped"] = _rel_l2(tp_logits(engine.params), want)
+    finally:
+        spmd.psum = psum
+    out["unsharded_reference_vs_flash"] = _rel_l2(llama.forward(
+        params, toks, cfg, attn_impl="reference", logits_at=n - 1)[0], want)
+    return out
+
+
+def parallel_serve_phase(torch, fa, llama, params, want=None,
+                         readings=False):
+    """Tensor-parallel serving: LLMEngine("llama3-8b", params=params,
+    slots=8, max_seq=4096) on build_mesh(devices=["cuda:0"] * 2, tp=2),
+    the serving slice's weights laid out over the two cells.  Gates: every
+    shard on cuda:0 at tp=2's local shapes, the slab split by KV heads;
+    greedy generation of the slice's five prompts launching the sm90
+    forward 2 x 32 times for each bucket of 128 or more and nothing else;
+    the TP prefill's last-token logits of each prompt, and the first
+    decode step's logits of every slot, within TP_LOGIT_TOL of the
+    unsharded model's; the card's memory back after the engine and its
+    shards go.  ``want``: the slice phase's tokens and times, printed
+    beside this phase's (not gated).  ``readings``: the logits gate is
+    left out, and the readings TP_LOGIT_TOL is set from are printed
+    (_tp_logit_readings at the 1500-token prompt).  Returns the
+    generation's launches."""
+    from ant_ray_tpu_torch.llm import LLMEngine, SamplingParams  # noqa: PLC0415
+    from ant_ray_tpu_torch.llm.engine import _bucket  # noqa: PLC0415
+    from ant_ray_tpu_torch.parallel import build_mesh  # noqa: PLC0415
+
+    cfg = llama.CONFIGS["llama3-8b"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free_before = torch.cuda.mem_get_info()[0]
+    t_phase = time.perf_counter()
+    mesh = build_mesh(devices=[PARALLEL_CELLS] * 2, tp=2)
+    engine = LLMEngine("llama3-8b", params=params, slots=8, max_seq=4096,
+                       mesh=mesh)
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t_phase
+    wq, slab = engine.params["layers"]["wq"], engine.cache["k"]
+    devices = {str(s.device) for leaf in _flat_tensors(engine.params)
+               for s in leaf.shards}
+    devices |= {str(s.device) for st in (slab, engine.cache["v"])
+                for s in st.shards}
+    layout = {"wq": [tuple(s.shape) for s in wq.shards],
+              "slab": [tuple(s.shape) for s in slab.shards]}
+    print(f"parallel tp engine: mesh {mesh.shape}, cells {mesh.size}, "
+          f"is_virtual {mesh.is_virtual}, shards on {sorted(devices)}; "
+          f"per cell wq {layout['wq']} (spec {tuple(wq.spec)}), slab "
+          f"{layout['slab']} (spec {tuple(slab.spec)}); up in {up_s:.2f} "
+          f"s; card free {torch.cuda.mem_get_info()[0] / 1e9:.2f} GB (was "
+          f"{free_before / 1e9:.2f})", flush=True)
+    hd, kv = cfg.head_dim, cfg.n_kv_heads
+    if not (mesh.is_virtual and devices == {PARALLEL_CELLS}
+            and layout == {"wq": [(cfg.n_layers, cfg.dim,
+                                   cfg.n_heads * hd // 2)] * 2,
+                           "slab": [(cfg.n_layers, 8, 4096, kv // 2,
+                                     hd)] * 2}):
+        raise AssertionError(f"tp engine layout {layout} on {devices}")
+
+    prompts = _slice_prompts(cfg)[0]
+    kernel_buckets = sum(1 for p in prompts
+                         if _bucket(len(p), engine.max_seq) >= 128)
+    per_prefills = 2 * cfg.n_layers * kernel_buckets
+    only_fwd = {"fwd": per_prefills, "fwd_sm90": per_prefills,
+                "fwd_tf32x3": 0, "fwd_sm90_d256": 0, "dq": 0, "dkv": 0,
+                "sm90": 0, "tf32x3": 0, "sm90_d256": 0, "tf32x3_d256": 0,
+                "fwd_tf32x3_d256": 0}
+    _reset_counts(fa)
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, SamplingParams(max_tokens=PARALLEL_TOKENS))
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = _counts(fa)
+    tokens = [o.token_ids for o in outs]
+
+    got, ref, prefill_ms = [], [], {}
+    with torch.inference_mode():
+        _reset_counts(fa)
+        padded = []
+        for slot, p in enumerate(prompts):
+            n, bucket = len(p), _bucket(len(p), engine.max_seq)
+            toks = torch.zeros((1, bucket), dtype=torch.int64, device="cuda")
+            toks[0, :n] = torch.tensor(p, device="cuda")
+            padded.append(toks)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = llama.prefill_into_cache(engine.params, toks,
+                                              engine.cache, slot, n, cfg)[0]
+            torch.cuda.synchronize()
+            prefill_ms[bucket] = round((time.perf_counter() - t0) * 1e3, 2)
+            got.append(logits)
+        prefill_launches = _counts(fa)
+        ref_cache = llama.init_kv_cache(cfg, 8, 4096, device="cuda")
+        for slot, (p, toks) in enumerate(zip(prompts, padded)):
+            ref.append(llama.prefill_into_cache(params, toks, ref_cache,
+                                                slot, len(p), cfg)[0])
+        prefill_err = [_rel_l2(g, r) for g, r in zip(got, ref)]
+        if readings:
+            at = [len(p) for p in prompts].index(1500)
+            print("parallel tp logit readings " + json.dumps(
+                _tp_logit_readings(torch, llama, engine, params, padded[at],
+                                   1500, cfg, ref[at])), flush=True)
+        # The first decode step of every slot, from the same state: the
+        # slots past the prompts start empty on both sides.
+        engine.cache["length"][len(prompts):] = 0
+        last = torch.zeros((8,), dtype=torch.int64, device="cuda")
+        last[:len(prompts)] = torch.stack([r.argmax() for r in ref])
+        tp_step = llama.decode_step(engine.params, last, engine.cache,
+                                    cfg)[0]
+        ref_step = llama.decode_step(params, last, ref_cache, cfg)[0]
+        decode_err = [_rel_l2(a, b) for a, b in zip(tp_step, ref_step)]
+        del ref_cache
+        context = 1024
+
+        def step():
+            engine.cache["length"].fill_(context)
+            llama.decode_step(engine.params, last, engine.cache, cfg)
+
+        decode_ms = _median_ms(torch, step, reps=5)
+    agree = ([_first_difference(t, w) for t, w in zip(tokens,
+                                                       want["tokens"])]
+             if want else None)
+    print(f"parallel tp serving: {len(prompts)} greedy requests of "
+          f"{[len(p) for p in prompts]} tokens in {gen_s:.2f} s, launches "
+          f"{launches} (expected {per_prefills} sm90 forward); TP prefill "
+          f"logits relative L2 error vs unsharded per prompt "
+          f"{[f'{e:.3e}' for e in prefill_err]}, first decode step per "
+          f"slot {[f'{e:.3e}' for e in decode_err]} (tol {TP_LOGIT_TOL}); "
+          f"greedy {PARALLEL_TOKENS}-token prefix shared with the serving "
+          f"slice {agree} (not gated)", flush=True)
+    print("parallel tp timing: prefill ms per bucket " + json.dumps(
+        prefill_ms) + f" (slice: {json.dumps(want['prefill_ms']) if want else None}); "
+          f"decode {decode_ms:.2f} ms per step of 8 slots at context "
+          f"{context} (slice: {want['decode_ms'] if want else None})",
+          flush=True)
+    del engine, wq, slab, got, ref, tp_step, ref_step
+    back = _card_free_back(torch, free_before)
+    print(f"parallel tp engine freed: card free "
+          f"{torch.cuda.mem_get_info()[0] / 1e9:.2f} GB (allocated "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f}, reserved "
+          f"{torch.cuda.memory_reserved() / 1e9:.2f}), back within "
+          f"{CLUSTER_FREE_SLACK / 1e9:.2f} GB: {back}; the part took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    if launches != only_fwd or prefill_launches != only_fwd:
+        raise AssertionError(f"tp serving launched {launches} and "
+                             f"{prefill_launches}, expected {only_fwd}")
+    if not ((readings or (max(prefill_err) <= TP_LOGIT_TOL
+                          and max(decode_err) <= TP_LOGIT_TOL)) and back):
+        raise AssertionError("tp serving logits or memory gate failed")
+    return launches
+
+
+def _named_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named_leaves(v, prefix + k + ".")
+        else:
+            yield prefix + k, v
+
+
+def parallel_train_phase(torch, fa, llama, cfg, params, tokens):
+    """Sharded training on the train phase's llama-400m weights and its
+    first PARALLEL_ROWS rows: one loss_fn(mesh=build_mesh(devices=
+    ["cuda:0"] * 4, fsdp=2, tp=2), remat="none") step with its backward
+    against the unsharded step (the loss within BF16_LOSS_TOL, every
+    gradient leaf within BF16_GRAD_TOL over max |ref|, the sm90 forward,
+    dQ and dK/dV each launched 4 cells x 24 layers times), the unsharded
+    step with reference attention printed beside it; then, without
+    gradients, the loss through ring attention at sp=2 and through
+    loss_fn_pp at pp=2 with 2 microbatches, each within BF16_LOSS_TOL of
+    the unsharded loss.  Returns the sharded step's launches."""
+    from ant_ray_tpu_torch.parallel import build_mesh, device_put  # noqa: PLC0415
+
+    t_phase = time.perf_counter()
+    batch = {"tokens": tokens[:PARALLEL_ROWS]}
+    leaves = _tree_map(lambda p: p.detach().requires_grad_(), params)
+    ref_loss = llama.loss_fn(leaves, batch, cfg, remat="none")
+    ref_loss.backward()
+    ref_grads = {}
+    for name, leaf in _named_leaves(leaves):
+        ref_grads[name], leaf.grad = leaf.grad, None
+    # The unsharded model's own spread: reference attention (softmax in
+    # fp32) in place of the kernels, printed beside the sharded errors.
+    llama.loss_fn(leaves, batch, cfg, attn_impl="reference",
+                  remat="none").backward()
+    spread = {}
+    for name, leaf in _named_leaves(leaves):
+        spread[name], leaf.grad = _rel_err(leaf.grad, ref_grads[name]), None
+    mesh = build_mesh(devices=[PARALLEL_CELLS] * 4, fsdp=2, tp=2)
+    torch.cuda.synchronize()
+    _reset_counts(fa)
+    t0 = time.perf_counter()
+    placed = device_put(leaves, llama.param_shardings(cfg, mesh))
+    loss = llama.loss_fn(placed, batch, cfg, mesh=mesh, remat="none")
+    loss.backward()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = _counts(fa)
+    err = {name: _rel_err(leaf.grad, ref_grads[name])
+           for name, leaf in _named_leaves(leaves)}
+    worst = max(err, key=err.get)
+    cells = mesh.size * cfg.n_layers
+    want = {"fwd": cells, "fwd_sm90": cells, "fwd_tf32x3": 0,
+            "fwd_sm90_d256": 0, "dq": cells, "dkv": cells, "sm90": cells,
+            "tf32x3": 0, "sm90_d256": 0, "tf32x3_d256": 0,
+            "fwd_tf32x3_d256": 0}
+    del placed, leaves, ref_grads
+    with torch.no_grad():
+        ring_mesh = build_mesh(devices=[PARALLEL_CELLS] * 2, sp=2)
+        t0 = time.perf_counter()
+        ring_loss = llama.loss_fn(params, batch, cfg, mesh=ring_mesh).item()
+        ring_s = time.perf_counter() - t0
+        pp_mesh = build_mesh(devices=[PARALLEL_CELLS] * 2, pp=2)
+        t0 = time.perf_counter()
+        pp_loss = llama.loss_fn_pp(params, batch, cfg, mesh=pp_mesh,
+                                   num_microbatches=2).item()
+        pp_s = time.perf_counter() - t0
+    base = ref_loss.item()
+    print(f"parallel train llama-400m {PARALLEL_ROWS} x "
+          f"{batch['tokens'].shape[1] - 1} on mesh {mesh.shape} ({mesh.size} "
+          f"cells of {PARALLEL_CELLS}): loss {loss.item():.6f}, unsharded "
+          f"{base:.6f} (tol {BF16_LOSS_TOL}); max grad error over max |ref| "
+          f"{err[worst]:.3e} ({worst}; tol {BF16_GRAD_TOL}); step with "
+          f"backward {step_s:.2f} s; launches {launches} (expected {want}); "
+          f"ring sp=2 loss {ring_loss:.6f} in {ring_s:.2f} s; GPipe pp=2, "
+          f"2 microbatches loss {pp_loss:.6f} in {pp_s:.2f} s; the part "
+          f"took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    print("parallel train gradient errors per leaf, sharded and the "
+          "unsharded model with reference attention " + json.dumps(
+              {k: [err[k], spread[k]] for k in err}), flush=True)
+    if not (abs(loss.item() - base) <= BF16_LOSS_TOL
+            and err[worst] <= BF16_GRAD_TOL and launches == want
+            and abs(ring_loss - base) <= BF16_LOSS_TOL
+            and abs(pp_loss - base) <= BF16_LOSS_TOL):
+        raise AssertionError("sharded training gate failed")
+    return launches
+
+
+def parallel_phase(torch, llama, card, readings=False):
+    """Both parts alone (tools/phase.py parallel): the 8B weights from
+    seed 0 as the serving slice makes them, an unsharded engine's greedy
+    tokens and times as the slice's stand-in, then llama-400m from seed 0
+    and its batch as _llama_400m makes them.  ``readings``: as for
+    parallel_serve_phase."""
+    from ant_ray_tpu_torch.llm import LLMEngine, SamplingParams  # noqa: PLC0415
+    from ant_ray_tpu_torch.ops import flash_attention as fa  # noqa: PLC0415
+
+    engine = LLMEngine("llama3-8b", slots=8, max_seq=4096, seed=0)
+    prompts = _slice_prompts(engine.config)[0]
+    want = {"tokens": [o.token_ids for o in engine.generate(
+        prompts, SamplingParams(max_tokens=PARALLEL_TOKENS))],
+            "prefill_ms": None, "decode_ms": None}
+    params = engine.params
+    del engine
+    launches = parallel_serve_phase(torch, fa, llama, params, want,
+                                    readings=readings)
+    del params
+    torch.cuda.empty_cache()
+    cfg, params, tokens = _llama_400m(torch, llama)
+    train = parallel_train_phase(torch, fa, llama, cfg, params, tokens)
+    return {k: launches[k] + train[k] for k in launches}
 
 
 # Sessions phase: Llama-3-8B, 4 slots of 4096 positions, 512-token chunks.
@@ -3315,7 +3668,8 @@ def loop_phase(torch, fa, llama, params):
 # Runtime phase: Llama-3-8B behind a local-mode actor.
 RUNTIME_PROMPTS = (20, 1500)    # prompt tokens
 RUNTIME_TOKENS = 32             # new tokens per prompt
-RUNTIME_NOOP_CALLS = 2000       # calls of each kind in the overhead probe
+RUNTIME_NOOP_CALLS = 1000       # calls of each kind in the overhead probe
+                                # (2000 until the parallel phase came)
 
 
 class _Echo:
@@ -7528,7 +7882,9 @@ def main() -> int:
     lap("kernels")
     paths = {"grad_check_fp32": grad_check_phase(torch, fa, llama)[0],
              "grad_check_bf16": bf16_grad_check_phase(torch, fa, llama)}
-    paths["serve"], params = slice_phase(torch, fa, llama)
+    paths["serve"], params, slice_info = slice_phase(torch, fa, llama)
+    paths["parallel_serve"] = parallel_serve_phase(torch, fa, llama, params,
+                                                   slice_info)
     paths["sessions"] = sessions_phase(torch, fa, llama, params)
     paths["loop"] = loop_phase(torch, fa, llama, params)
     lap("serving")
@@ -7554,7 +7910,10 @@ def main() -> int:
     paths["checkpoint"] = checkpoint_phase(torch, fa, llama)
     paths["server"] = server_phase(torch, fa, llama)
     lap("checkpoint and server")
-    paths["train"] = train_phase(torch, fa, llama)
+    kept = {}
+    paths["train"] = train_phase(torch, fa, llama, keep=kept)
+    paths["parallel_train"] = parallel_train_phase(
+        torch, fa, llama, *kept.pop("llama-400m"))
     paths.update(remat_phase(torch, fa, llama))
     paths["gpt2_fp32"] = gpt2_phase(torch, fa, "float32")[0]
     paths["gpt2_bf16"] = gpt2_phase(torch, fa, "bfloat16")[0]

@@ -4,9 +4,9 @@ packages, each in its own cluster, with the port's feed on the CPU
 (``sharding="cpu"``: CPU tensors, nothing pinned) beside the
 reference's on JAX's CPU devices; batch counts, shapes, values and the
 feed's stats must be equal.  The reference's mesh test
-(``test_sharded_device_put_under_mesh``) becomes a test that the port
-raises ``NotImplementedError`` naming ROADMAP item 8 for a placement
-over several devices, beside the callable placement it also covers.
+(``test_sharded_device_put_under_mesh``) lays batches out over a mesh
+of 4 CPU cells (parallel.NamedSharding) beside the reference's 4
+virtual CPU devices.
 
 ``build_logprob_processor`` runs against the reference's on one HF
 directory of seeded fp32 weights: row order equal, NLL within
@@ -191,17 +191,19 @@ def test_prefetch_overlap_reduces_consumer_starvation(clusters):
 
 def test_placement_over_several_devices_raises_and_callable_resolves(
         clusters):
-    """The reference lays batches out over a mesh; the port has no mesh
-    sharding yet (ROADMAP item 8) and says so.  A callable placement is
-    called as (rank, world) lazily in the consuming process, in both."""
+    """A placement over several devices is a NamedSharding of the port's
+    mesh: a plain list of devices, or the JAX package's NamedSharding,
+    raises.  A callable placement is called as (rank, world) lazily in
+    the consuming process, in both packages."""
     import jax
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-    mesh = NamedSharding(Mesh(np.array(jax.devices()[:4]), ("dp",)),
-                         P("dp"))
-    for several in (mesh, ["cuda:0", "cuda:1"]):
+    foreign = NamedSharding(Mesh(np.array(jax.devices()[:4]), ("dp",)),
+                            P("dp"))
+    for several, error in ((["cuda:0", "cuda:1"], ValueError),
+                           (foreign, TypeError)):
         it = tdata.range(64, parallelism=4).iterator()
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(error):
             next(it.iter_device_batches(batch_size=16, sharding=several))
 
     def scenario(art, data, placement):
@@ -221,6 +223,58 @@ def test_placement_over_several_devices_raises_and_callable_resolves(
     want, got = _both(scenario)
     assert got == want
     assert got[0] == (0, 1) and len(got[1]) == 2
+
+
+def test_sharded_device_put_under_mesh(clusters):
+    """Twin of tests/test_device_feed.py's: batches land already laid out
+    over the caller's mesh, and a callable sharding resolves in the
+    consuming process.  The port's mesh is 4 CPU cells of one device (a
+    virtual mesh), so where the reference counts 4 distinct devices in
+    ``device_set`` this counts the mesh's cells and the batch's shards;
+    the values each cell holds equal the block its JAX device holds."""
+    import jax
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    from ant_ray_tpu_torch import parallel
+
+    jsharding = NamedSharding(Mesh(np.array(jax.devices()[:4]), ("dp",)),
+                              P("dp"))
+    tsharding = parallel.NamedSharding(
+        parallel.Mesh(np.array(["cpu"] * 4), ("dp",)),
+        parallel.PartitionSpec("dp"))
+
+    def scenario(art, data, sharding):
+        seen = {}
+
+        def make(rank, world):
+            seen["rank_world"] = (rank, world)
+            return sharding
+
+        out = []
+        for placement in (sharding, make):
+            it = data.range(64 if placement is sharding else 32,
+                            parallelism=4).iterator()
+            batches = list(it.iter_device_batches(
+                batch_size=16, prefetch_batches=2, sharding=placement))
+            assert all(b["value"].sharding == sharding for b in batches)
+            out.append([[np.asarray(block).tolist() for block in (
+                [s.data for s in b["value"].addressable_shards]
+                if hasattr(b["value"], "addressable_shards")
+                else b["value"].shards)] for b in batches])
+        return seen["rank_world"], out
+
+    jart, jdata = _jax_package()
+    want = scenario(jart, jdata, jsharding)
+    got = scenario(tart, tdata, tsharding)
+    assert got == want
+    assert got[0] == (0, 1) and len(got[1][0]) == 4
+    it = tdata.range(64, parallelism=4).iterator()
+    batch = next(it.iter_device_batches(batch_size=16,
+                                        sharding=tsharding))["value"]
+    assert isinstance(batch, parallel.ShardedTensor)
+    assert tsharding.mesh.size == len(batch.shards) == 4
+    assert [tuple(s.shape) for s in batch.shards] == [(4,)] * 4
+    assert tsharding.device_set == {torch.device("cpu")}
 
 
 def test_producer_thread_shuts_down_on_early_consumer_exit(clusters):

@@ -120,13 +120,20 @@ def test_seeded_sampling_reproducible_and_top_k_one_is_greedy(weights):
 
 
 def test_unported_options_raise(weights):
-    """Tensor parallelism is not ported and raises; a trace context is
-    accepted and rides the request's sequence (its `llm:restore`
-    spans), and the request still runs."""
+    """Tensor parallelism builds a two-cell engine on the CPU (a virtual
+    mesh of CPU cells, its greedy tokens the single engine's); a trace
+    context is accepted and rides the request's sequence (its
+    `llm:restore` spans), and the request still runs."""
     from ant_ray_tpu_torch.observability import tracing_plane
 
-    with pytest.raises(NotImplementedError):
-        _engine(weights, tensor_parallel_size=2)
+    tp2 = _engine(weights, tensor_parallel_size=2)
+    assert tp2.mesh.shape["tp"] == tp2.mesh.size == 2
+    assert tp2.mesh.device_set == {torch.device("cpu")}
+    assert [tuple(s.shape) for s in tp2.cache["k"].shards] == [
+        tuple(tp2.cache["k"].shape[:3]) + (1, 16)] * 2
+    assert (tp2.generate([PROMPTS[0]], _greedy(4))[0].token_ids
+            == _engine(weights).generate([PROMPTS[0]],
+                                         _greedy(4))[0].token_ids)
     eng = _engine(weights)
     ctx = tracing_plane.mint(sampled=False)
     rid = eng.add_request([1, 2], _greedy(2), trace_ctx=ctx)

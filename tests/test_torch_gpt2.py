@@ -238,3 +238,38 @@ def test_train_step_takes_no_remat_for_gpt2():
     with pytest.raises(ValueError, match="remat"):
         train_step(params, optimizer, _tokens(2, 1, 17), cfg, remat="none",
                    device="cpu")
+
+
+def test_sharded_forward_matches_jax_sharded():
+    """Twin of tests/test_gpt2.py's sharded forward: the same weights
+    placed by each package's ``param_shardings`` on a (fsdp, tp) = 2 x 2
+    mesh (the port's of 4 CPU cells, the JAX package's of 4 virtual CPU
+    devices); logits to the reference's atol = rtol = 2e-4 of the JAX
+    sharded forward and of the port's unsharded one, loss likewise."""
+    from jax.sharding import Mesh as JMesh
+
+    from ant_ray_tpu_torch import parallel
+
+    jcfg, tcfg = _configs()
+    jparams, tparams = _params(jcfg, tcfg, seed=2)
+    toks = np.random.RandomState(2).randint(0, jcfg.vocab_size, (4, 32))
+    jmesh = JMesh(np.array(jax.devices()[:4]).reshape(2, 2), ("fsdp", "tp"))
+    tmesh = parallel.Mesh(np.array(["cpu"] * 4).reshape(2, 2),
+                          ("fsdp", "tp"))
+    want = jax.jit(jg.forward, static_argnums=2)(
+        jax.device_put(jparams, jg.param_shardings(jcfg, jmesh)),
+        jnp.asarray(toks, jnp.int32), jcfg)
+    placed = parallel.device_put(tparams, tg.param_shardings(tcfg, tmesh))
+    got = tg.forward(placed, torch.from_numpy(toks), tcfg)
+    assert isinstance(got, parallel.ShardedTensor)
+    assert [tuple(s.shape) for s in placed["layers"]["qkv_w"].shards] == [
+        (2, 32, 96)] * 4
+    np.testing.assert_allclose(got.full().numpy(), np.asarray(want),
+                               atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(
+        got.full().numpy(), tg.forward(tparams, torch.from_numpy(toks),
+                                       tcfg).numpy(), atol=2e-4, rtol=2e-4)
+    batch = {"tokens": torch.from_numpy(toks)}
+    assert abs(float(tg.loss_fn(placed, batch, tcfg))
+               - float(jg.loss_fn(jparams, {"tokens": jnp.asarray(toks)},
+                                  jcfg))) < 2e-4

@@ -38,6 +38,21 @@ def _events_until(insight, want, timeout=30.0):
         time.sleep(0.2)
 
 
+def _count(events, kind, name):
+    return sum(e["type"] == kind and _short(e["function"]) == name
+               for e in events)
+
+
+def _scenario_recorded(events):
+    """Every record the assertions read: the submits land by oneway RPC
+    from the calling process and the begins and ends from the workers,
+    so any of them may still be in flight when the calls have
+    returned."""
+    return all(_count(events, kind, name) >= n
+               for kind in ("call_submit", "call_begin", "call_end")
+               for name, n in (("traced", 3), ("failing", 1)))
+
+
 def _task_scenario(art):
     art.init(num_cpus=2, _system_config={"enable_insight": True})
     try:
@@ -55,8 +70,7 @@ def _task_scenario(art):
                        timeout=120) == [1, 2, 3]
         with pytest.raises(Exception):
             art.get(failing.remote(), timeout=120)
-        events = _events_until(insight, lambda evs: sum(
-            e["type"] == "call_end" for e in evs) >= 4)
+        events = _events_until(insight, _scenario_recorded)
         graph = insight.build_call_graph(events)
         return {
             "kinds": sorted({e["type"] for e in events}),

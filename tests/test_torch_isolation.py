@@ -44,6 +44,13 @@ def test_importing_every_module_loads_neither_jax_nor_the_jax_package():
             "ant_ray_tpu_torch.llm.chat", "ant_ray_tpu_torch.serve.api",
             "ant_ray_tpu_torch.models.checkpoint",
             "ant_ray_tpu_torch.models.gpt2",
+            "ant_ray_tpu_torch.parallel",
+            "ant_ray_tpu_torch.parallel.mesh",
+            "ant_ray_tpu_torch.parallel.sharding",
+            "ant_ray_tpu_torch.parallel.spmd",
+            "ant_ray_tpu_torch.parallel.ring",
+            "ant_ray_tpu_torch.parallel.ulysses",
+            "ant_ray_tpu_torch.parallel.pipeline",
             "ant_ray_tpu_torch.observability.device_stats",
             "ant_ray_tpu_torch._lint.lockcheck",
             "ant_ray_tpu_torch.exceptions",

@@ -4,7 +4,8 @@
     python3 tools/phase.py NAME... [--readings] [--checkout PATH]
 
 NAME is ``cluster``, ``tracing``, ``deployment``, ``data``,
-``operations``, ``jobs``, ``tune``, ``collective`` or ``trainer``: each runs chip_smoke.py's ``NAME_phase`` of
+``operations``, ``jobs``, ``tune``, ``collective``, ``trainer`` or
+``parallel``: each runs chip_smoke.py's ``NAME_phase`` of
 PATH's checkout (default: this one), in the order given, after building
 the checkout's kernels.  cluster: a Llama-3-8B actor in a cluster of two
 GCS replicas and a node daemon, answering beside an engine in this
@@ -29,11 +30,21 @@ them and removes after; collective: an NCCL group at world size 1,
 every verb, the fused allreduce of llama-400m's parameter shapes, the
 int8 transport and the ready-hook GradientSyncer against plain torch;
 trainer: a TorchTrainer of two llama-400m ranks sharing the card,
-gradients averaged every step over gloo, a checkpoint loaded back.
-Random weights from seed 0, gates included.  ``--readings`` is for phases that take it (data): the NLL
-gate is left out, every other gate stays, and faults planted in
-blockwise attention are read beside the sound reading, which is what
-``DATA_NLL_TOL`` is set from.
+gradients averaged every step over gloo, a checkpoint loaded back;
+parallel: a tensor-parallel Llama-3-8B engine on a virtual mesh of two
+cells of the card against the unsharded model, then a sharded llama-400m
+step (fsdp=2, tp=2) with its gradients, ring attention at sp=2 and
+GPipe at pp=2 against the unsharded loss (alone it makes both models'
+weights from seed 0, and an unsharded engine's tokens as the serving
+slice's).
+Random weights from seed 0, gates included.  ``--readings`` is for
+phases that take it: in data the NLL gate is left out, every other gate
+stays, and faults planted in blockwise attention are read beside the
+sound reading, which is what ``DATA_NLL_TOL`` is set from; in parallel
+the TP logits gate is left out and faults planted in the TP prefill
+(wq's or wo's shards swapped between the cells, the psum dropped) and
+the unsharded model's own spread are read, which is what
+``TP_LOGIT_TOL`` is set from.
 
 Prints the card's nvidia-smi line, the Python, torch and CUDA versions
 and which optional packages are installed, then each phase's lines and
@@ -53,7 +64,7 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHASES = ("cluster", "tracing", "deployment", "data", "operations", "jobs",
-          "tune", "collective", "trainer")
+          "tune", "collective", "trainer", "parallel")
 OPTIONAL = ("aiohttp", "grpc", "transformers", "pyarrow", "pandas")
 
 
