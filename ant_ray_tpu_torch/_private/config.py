@@ -35,10 +35,6 @@ def _env_override(name: str, default: Any) -> Any:
 # Flags of the JAX package's table that the port does not carry, by the
 # ROADMAP item (queue A) that brings the code that reads them.
 UNPORTED_FLAGS = {
-    **dict.fromkeys(("tpu_chips_override", "testing_preemption_notice",
-                     "preemption_poll_interval_s"),
-                    "9, GPU placement and the preemption watch "
-                    "(init(num_gpus=) overrides the detected cards)"),
     **dict.fromkeys(("object_store_high_watermark",
                      "worker_lease_timeout_s"),
                     "none: no module of either package reads it"),
@@ -300,6 +296,23 @@ class Config:
     # spill/log writes can't wedge the whole node).  0 interval disables.
     fs_monitor_interval_s: float = 5.0
     local_fs_capacity_threshold: float = 0.95
+
+    # ---- accelerators / preemption ----
+    # Override the detected GPU count (testing; accelerators/gpu.py
+    # num_gpus).  The flag keeps the JAX package's name, where it
+    # overrides the TPU chip count, so _system_config dicts written for
+    # that package work here.
+    tpu_chips_override: int = -1
+    # Node-daemon poll period for a pending maintenance event /
+    # preemption notice (accelerators.gpu.maintenance_notice); on a
+    # notice the daemon drains itself via the GCS DrainNode RPC.
+    # 0 disables the watch.
+    preemption_poll_interval_s: float = 1.0
+    # Testing only (chaos harness): path of a file whose EXISTENCE is a
+    # preemption notice for this node's daemon — the deterministic
+    # stand-in for the GCE maintenance-event metadata attribute.  First
+    # line may carry "<deadline_s> <reason...>".
+    testing_preemption_notice: str = ""
 
     # ---- draining ----
     # Default drain grace (seconds) announced with a preemption-driven

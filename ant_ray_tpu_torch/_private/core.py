@@ -42,6 +42,7 @@ from ant_ray_tpu_torch._private.object_store import ArenaClient, open_object
 from ant_ray_tpu_torch._private.protocol import (
     ClientPool,
     IoThread,
+    RawReply,
     RpcConnectionError,
     RpcError,
     RpcServer,
@@ -234,16 +235,21 @@ class ClusterRuntime(CoreRuntime):
             "BorrowAdd": self._handle_borrow_add,
             "BorrowRemove": self._handle_borrow_remove,
             "ReconstructObject": self._handle_reconstruct_object,
-            # Device objects and tensor transport: ROADMAP queue A item 9.
-            "DeviceTensorFetch": self._handle_device_tensor_unported,
-            "DeviceTensorFree": self._handle_device_tensor_unported,
-            "DeviceTensorSendVia": self._handle_device_tensor_unported,
+            "DeviceTensorFetch": self._handle_device_tensor_fetch,
+            "DeviceTensorFree": self._handle_device_tensor_free,
+            "DeviceTensorSendVia": self._handle_device_tensor_send_via,
             "StreamItem": self._handle_stream_item,
         })
         self._streams: dict[TaskID, _StreamState] = {}
         # abandoned stream ids (insertion-ordered; bounded) — late items
         # for these are dropped, not stored
         self._released_streams: dict[TaskID, bool] = {}
+        # Card-resident tensors held by this worker, keyed by holder
+        # token, plus the metadata-oid → token map that ties payload
+        # lifetime to the metadata object's refcount
+        # (see experimental/device_objects.py)
+        self._device_objects: dict[str, Any] = {}
+        self._device_tokens_by_oid: dict[ObjectID, str] = {}
         self.address = self.server.start()
 
         self._driver_task_id = TaskID.for_driver_task(job_id)
@@ -496,6 +502,9 @@ class ClusterRuntime(CoreRuntime):
             entry = self.memory.get_entry(oid)
             self.memory.delete(oid)
             self._lineage.pop(oid, None)  # freed ⇒ lineage released
+            token = self._device_tokens_by_oid.pop(oid, None)
+            if token is not None:
+                self._device_objects.pop(token, None)  # card memory released
             if entry is not None and entry[0] == "plasma":
                 self._send_oneway(self.gcs_address, "FreeObject",
                                   {"object_id": oid})
@@ -1932,16 +1941,58 @@ class ClusterRuntime(CoreRuntime):
                 self._lineage[oid] = spec
 
     # --------------------------------------------------- device objects
-    # (ref capability: GPUObjectStore per actor + tensor transports.)
-    # The JAX package keeps HBM-resident objects per worker and serves
-    # them over these routes; the port sends a CUDA tensor as its bytes
-    # through the object plane instead, and device objects come with GPU
-    # placement (ROADMAP queue A item 9).
+    # (ref capability: GPUObjectStore per actor + tensor transports,
+    #  experimental/gpu_object_manager/ — here the transport is
+    #  card→host copy + RPC; see experimental/device_objects.py)
 
-    async def _handle_device_tensor_unported(self, _payload):
-        raise NotImplementedError(
-            "device objects and tensor transport are not ported (ROADMAP "
-            "queue A item 9)")
+    async def _handle_device_tensor_fetch(self, payload):
+        """The dma transport's holder side: the tensor's bytes, copied
+        to the host off the io loop, as one raw reply frame (no pickle
+        copy of the payload; the consumer rebuilds dtype and shape from
+        the object's metadata, so bfloat16 crosses unchanged)."""
+        tensor = self._device_objects.get(payload["token"])
+        if tensor is None:
+            return None
+        from ant_ray_tpu_torch.experimental.tensor_transport import (  # noqa: PLC0415
+            host_bytes,
+        )
+
+        data = await asyncio.get_running_loop().run_in_executor(
+            None, host_bytes, tensor)
+        return RawReply(data)
+
+    async def _handle_device_tensor_free(self, payload):
+        self._device_objects.pop(payload["token"], None)
+        return True
+
+    async def _handle_device_tensor_send_via(self, payload):
+        """Collective-transport trigger: push the sharded tensor's
+        shards to the requesting consumer over the collective group
+        (ref capability: collective_tensor_transport's sender side).
+        Replies immediately with whether the token exists — the reply
+        is the consumer's go/no-go BEFORE it parks in recv (a missing
+        token must surface as ObjectLost, not a recv hang); the sends
+        themselves run in an executor, blocking until the consumer's
+        recvs match."""
+        tensor = self._device_objects.get(payload["token"])
+        if tensor is None:
+            return False
+        from ant_ray_tpu_torch.experimental.tensor_transport import (  # noqa: PLC0415
+            send_shards,
+        )
+
+        asyncio.get_running_loop().run_in_executor(
+            None, send_shards, tensor, payload["dst_rank"],
+            payload["group"])
+        return True
+
+    def _fetch_device_tensor(self, holder: str, token: str,
+                             timeout: float | None):
+        client = self._clients.get(holder)
+        with self._blocked():
+            return self._io.run_coro(client.call_async(
+                "DeviceTensorFetch", {"token": token},
+                timeout=-1 if timeout is None else timeout))
 
     def pin_for_grace(self, ref: ObjectRef, grace_s: float = 60.0):
         """Hold an extra pin on an owned object for a grace window —

@@ -2024,7 +2024,7 @@ class GcsServer:
         ``bundle_selectors``: optional per-bundle label selectors (exact
         match).  ``same_label``: a label key whose VALUE must be shared by
         every chosen node — the slice-affinity constraint ("all bundles on
-        one tpu-pod-name") behind SlicePlacementGroup (ref:
+        one gpu-pod-name") behind util/gpu.py SlicePlacementGroup (ref:
         python/ray/util/tpu.py:52, bundle_label_selector).
         ``same_label_groups``: lists of bundle indices, each group pinned
         to ONE value of ``same_label`` and distinct groups to DISTINCT

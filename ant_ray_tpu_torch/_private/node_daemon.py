@@ -115,14 +115,22 @@ class NodeManager:
         self._clients = ClientPool()
         self._io = IoThread.get()
         self._session_dir = session_dir
-        # Auto-detected node labels merged under explicit labels — this
-        # node process runs on the host being described, so detection
-        # happens here, not in the launcher.  The GPU detector reports
-        # none yet (GPU placement is ROADMAP queue A item 9), so there is
-        # no counterpart of the TPU slice-head resource.
+        # Auto-detected GPU slice labels (generation/pod/topology) merged
+        # under explicit labels — this node process runs on the host
+        # being described, so detection happens here, not in the
+        # launcher.
         from ant_ray_tpu_torch._private.accelerators import gpu as _gpu  # noqa: PLC0415
 
         self._labels = {**_gpu.node_labels(), **(labels or {})}
+
+        # The slice-head host (worker 0) advertises GPU-<pod_type>-head
+        # so a slice can be exclusively claimed by reserving that single
+        # unit resource (util/gpu.py slice_placement_group).
+        if self._labels.get("gpu-worker-id") == "0" and \
+                self._labels.get("gpu-pod-type"):
+            resources = dict(resources)
+            resources.setdefault(
+                f"GPU-{self._labels['gpu-pod-type']}-head", 1.0)
 
         cfg = global_config()
         store_capacity = cfg.object_store_memory or default_store_capacity()
@@ -292,15 +300,15 @@ class NodeManager:
             else:
                 logger.info("enable_cgroups set but no writable cgroup2 "
                             "tree; running without isolation")
-        # The JAX package's daemon also runs a preemption watch, which
-        # drains the node on a maintenance notice: a GPU host has no
-        # notice source the port reads (ROADMAP queue A item 9).
         if global_config().fs_monitor_interval_s > 0:
             self._tasks.append(asyncio.run_coroutine_threadsafe(
                 self._fs_monitor_loop(), self._io.loop))
         if global_config().memory_monitor_interval_s > 0:
             self._tasks.append(asyncio.run_coroutine_threadsafe(
                 self._memory_monitor_loop(), self._io.loop))
+        if global_config().preemption_poll_interval_s > 0:
+            self._tasks.append(asyncio.run_coroutine_threadsafe(
+                self._preemption_watch_loop(), self._io.loop))
         prestart = global_config().num_prestart_workers
         if prestart < 0:
             prestart = min(2, self._max_workers)
@@ -541,6 +549,38 @@ class NodeManager:
         payload = payload or {}
         return self.begin_drain(payload.get("reason", ""),
                                 payload.get("deadline_s"))
+
+    async def _preemption_watch_loop(self):
+        """Poll for a pending maintenance event / preemption notice
+        (accelerators.gpu.maintenance_notice — GCE metadata in
+        production, the testing_preemption_notice file under chaos) and
+        self-drain when one fires."""
+        from ant_ray_tpu_torch._private.accelerators import gpu as _gpu  # noqa: PLC0415
+
+        cfg = global_config()
+        if not _gpu.maintenance_watch_possible():
+            return   # no notice source on this host: don't poll forever
+        period = cfg.preemption_poll_interval_s
+        file_knob = bool(cfg.testing_preemption_notice)
+        while not self._stopping:
+            await asyncio.sleep(period)
+            if self._draining:
+                return            # terminal: nothing left to watch
+            try:
+                if file_knob:
+                    # File-existence probe: microseconds, safe inline.
+                    notice = _gpu.maintenance_notice()
+                else:
+                    # Metadata probe can stall on DNS — off the io loop.
+                    notice = await asyncio.to_thread(
+                        _gpu.maintenance_notice)
+            except Exception:  # noqa: BLE001 — detection is best-effort
+                continue
+            if notice is not None:
+                reason, deadline_s = notice
+                self.begin_drain(f"preemption notice: {reason}",
+                                 deadline_s or None)
+                return
 
     async def _debug_resources(self, _payload):
         """Resource-ledger dump for `art stack`-style debugging: who

@@ -21,7 +21,7 @@ class TaskOptions:
     scheduling_strategy: Any = None        # "DEFAULT" | "SPREAD" | PG strategy
     placement_group: Any = None
     placement_group_bundle_index: int = -1
-    # Node-label constraint, e.g. {"tpu-pod-name": "slice-A"}
+    # Node-label constraint, e.g. {"gpu-pod-name": "slice-A"}
     # (ref: @ray.remote(label_selector=...))
     label_selector: dict | None = None
     # Actor-method routing to a named executor pool (actor tasks only;

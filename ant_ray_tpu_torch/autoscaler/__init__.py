@@ -1,7 +1,7 @@
 """Autoscaler (ref capability: ray.autoscaler v2 — demand-driven node
 provisioning over pluggable node providers).  The port of the JAX
-package's ``autoscaler/``; ``tpu_slice_node_type`` raises (ROADMAP queue
-A item 9)."""
+package's ``autoscaler/``; ``gpu_slice_node_type`` (also under the JAX
+package's name ``tpu_slice_node_type``) describes a whole GPU slice."""
 
 from ant_ray_tpu_torch.autoscaler.autoscaler import (
     Autoscaler,
@@ -14,6 +14,7 @@ from ant_ray_tpu_torch.autoscaler.node_provider import (
     LocalSubprocessProvider,
     NodeProvider,
     NodeTypeConfig,
+    gpu_slice_node_type,
     tpu_slice_node_type,
 )
 

@@ -338,7 +338,7 @@ class Autoscaler:
                 now - pending_since < self._config.gang_provision_grace_s:
             return 0          # our earlier launch is still registering
 
-        # 1) Whole-gang unit launch (TPU slice node types): one launch
+        # 1) Whole-gang unit launch (GPU slice node types): one launch
         #    yields hosts_per_launch hosts that cover every bundle.
         unit_types = sorted(
             self._config.node_types,
@@ -370,7 +370,7 @@ class Autoscaler:
                 "configured gang-unit node type within max_workers — "
                 "configure a node type with hosts_per_launch/"
                 "launch_shared_label matching the slice "
-                "(see tpu_slice_node_type)", len(bundles), same_label)
+                "(see gpu_slice_node_type)", len(bundles), same_label)
             return 0
 
         # 2) Plain gang: grow a virtual view of (live nodes + planned
@@ -489,7 +489,7 @@ class Autoscaler:
                         "scale-down disabled for it; terminate via the "
                         "provider explicitly when it drains", pid)
                 continue
-            # A gang unit (TPU slice) terminates as a whole, so it only
+            # A gang unit (GPU slice) terminates as a whole, so it only
             # counts as idle when EVERY host is idle.
             if not all(a in idle_addresses for a in addresses):
                 self._idle_since.pop(pid, None)

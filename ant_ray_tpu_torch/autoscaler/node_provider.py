@@ -38,11 +38,11 @@ class NodeTypeConfig:
     labels yet:
 
     * ``launch_shared_label`` — key whose value is shared by all hosts
-      of one launch and unique per launch (``tpu-pod-name``);
+      of one launch and unique per launch (``gpu-pod-name``);
     * ``launch_indexed_label`` — key enumerating hosts within a launch
-      as "0".."N-1" (``tpu-worker-id``);
+      as "0".."N-1" (``gpu-worker-id``);
     * ``head_resources`` — extra resources on host index 0 only (the
-      ``TPU-<pod_type>-head`` claim resource).
+      ``GPU-<pod_type>-head`` claim resource).
     """
 
     name: str
@@ -75,21 +75,41 @@ class NodeTypeConfig:
         return hosts
 
 
-def tpu_slice_node_type(topology: str,
-                        accelerator_type: str = "TPU-V5E",
+def gpu_slice_node_type(topology: str,
+                        accelerator_type: str = "H100",
                         name: str = "",
                         cpus_per_host: float = 8.0,
                         min_workers: int = 0,
                         max_workers: int = 4) -> NodeTypeConfig:
-    """NodeTypeConfig for a whole-TPU-slice gang unit.  Not ported: it
-    reads the slice geometry of ``_private/accelerators/tpu.py``, which
-    comes with slice placement turned into GPU placement (ROADMAP queue
-    A item 9).  A gang of plain nodes needs no such type: a
-    ``NodeTypeConfig`` with ``hosts_per_launch`` and the launch labels
-    describes it."""
-    raise NotImplementedError(
-        "tpu_slice_node_type is not ported: slice geometry comes with "
-        "GPU placement (ROADMAP queue A item 9)")
+    """NodeTypeConfig for a whole-GPU-slice gang unit, mirroring what
+    util/gpu.py's slice_placement_group demands and what registered
+    slice hosts advertise (accelerators/gpu.py node_labels)."""
+    from ant_ray_tpu_torch._private.accelerators import gpu as gpu_accel  # noqa: PLC0415
+
+    generation = gpu_accel.normalize_generation(accelerator_type)
+    num_hosts = gpu_accel.hosts_in_slice(topology, generation)
+    chips = gpu_accel.chips_per_host(topology, generation)
+    pod_type = gpu_accel.infer_pod_type(topology, generation)
+    return NodeTypeConfig(
+        name=name or f"gpu-{pod_type}-slice",
+        resources={"CPU": cpus_per_host, "GPU": float(chips)},
+        labels={"gpu-generation": generation,
+                "gpu-topology": topology,
+                "gpu-pod-type": pod_type},
+        min_workers=min_workers,
+        max_workers=max_workers,
+        hosts_per_launch=num_hosts,
+        # Always advertised, even single-host: slice_placement_group
+        # pins every bundle's selector to gpu-worker-id regardless of
+        # slice size, so the lone host must carry "gpu-worker-id": "0".
+        launch_shared_label="gpu-pod-name",
+        launch_indexed_label="gpu-worker-id",
+        head_resources={f"GPU-{pod_type}-head": 1.0})
+
+
+# The JAX package's name for the same function, kept so that code
+# written for it finds the slice type here.
+tpu_slice_node_type = gpu_slice_node_type
 
 
 class NodeProvider:

@@ -24,9 +24,9 @@ a pending batch; every ``publish_batch`` steps, and on :meth:`flush` or
 in the reference: outside a cluster the batch is dropped.
 
 MFU needs the card's peak: without ``peak_flops`` the profiler looks up
-the current CUDA device's name in :data:`PEAK_BF16_FLOPS` (the reference
-reads a TPU table); on the CPU or an unlisted card MFU stays None, as in
-the reference off a TPU.
+the current CUDA device's name in ``accelerators/gpu.py``'s
+``GPU_HARDWARE_TABLE`` (the reference reads its TPU table); on the CPU or
+an unlisted card MFU stays None, as in the reference off a TPU.
 
 Attached stats streams (the reference's, copied): a device-feed
 iterator (``data/device_feed.py``) contributes its
@@ -48,10 +48,6 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
-
-# Dense bf16 peak FLOP/s by torch.cuda.get_device_name() (NVIDIA's data
-# sheet, SXM part, at the full 700 W power limit).
-PEAK_BF16_FLOPS = {"NVIDIA H100 80GB HBM3": 989e12}
 
 # device_feed stat key -> phase it attributes to
 _FEED_PHASE_KEYS = (("consumer_starve_s", "data_wait"),
@@ -130,7 +126,7 @@ class StepProfiler:
 
     ``flops_per_step`` enables MFU, against ``peak_flops`` (the card's
     peak for the step's dtype) or, without it, the current card's bf16
-    peak from :data:`PEAK_BF16_FLOPS`.  A process steps on one card, so
+    peak from ``accelerators/gpu.py``'s table.  A process steps on one card, so
     the peak is one card's (the reference sums the host's TPU chips,
     which one JAX process drives together).
     """
@@ -206,9 +202,14 @@ class StepProfiler:
 
     @staticmethod
     def _detect_peak_flops() -> float | None:
+        from ant_ray_tpu_torch._private.accelerators import gpu as gpu_accel  # noqa: PLC0415
+
         if not torch.cuda.is_available():
             return None             # off the card: MFU needs peak_flops=
-        return PEAK_BF16_FLOPS.get(torch.cuda.get_device_name())
+        gen = gpu_accel.table_generation(torch.cuda.get_device_name())
+        if gen is None:
+            return None             # an unlisted card: MFU needs peak_flops=
+        return gpu_accel.peak_bf16_tflops(gen) * 1e12
 
     # -------------------------------------------------------- step path
 

@@ -18,8 +18,10 @@ class ScalingConfig:
     ScalingConfig(use_gpu=True)): each worker asks for
     ``{"GPU": gpus_per_worker}`` unless ``resources_per_worker`` names
     its own GPU share, and the gang's ``sync_gradients`` group is NCCL.
-    A whole-slice reservation (``topology`` / ``accelerator_type``)
-    comes with ROADMAP queue A item 9 and raises until then.
+    With ``topology`` (e.g. ``"2x8"``) the gang reserves whole GPU
+    slices of ``accelerator_type`` (``util/gpu.py``), one worker per
+    host, and each worker binds all of its host's cards, as
+    ``chips_per_worker=0`` means "all" in the JAX package.
     """
 
     num_workers: int = 1
@@ -31,25 +33,25 @@ class ScalingConfig:
     # Multi-slice training: the gang spans this many accelerator
     # slices (num_workers % num_slices == 0, contiguous rank blocks per
     # slice).  >1 feeds sync_gradients a SliceTopology so the fused
-    # allreduce runs its two-level intra-slice (ICI) / inter-slice
-    # (DCN) schedule.
+    # allreduce runs its two-level intra-slice (NVLink) / inter-slice
+    # (network) schedule, and with use_gpu and a topology the gang
+    # reserves one slice per block (co-located by gpu-pod-name).
     num_slices: int = 1
     use_gpu: bool = False
     gpus_per_worker: float = 1.0        # GPUs each worker binds (use_gpu)
-    topology: str = ""                  # whole-slice reservation: item 9
-    accelerator_type: str = ""          # generation for slice math: item 9
+    topology: str = ""                  # e.g. "2x8" (whole-slice reservation)
+    accelerator_type: str = "H100"      # generation for slice math
     resources_per_worker: dict = dataclasses.field(default_factory=dict)
     placement_strategy: str = "PACK"
 
-    def __post_init__(self):
-        if self.topology or self.accelerator_type:
-            raise NotImplementedError(
-                "whole-slice reservation (ScalingConfig topology / "
-                "accelerator_type) is not ported (ROADMAP queue A item 9)")
-
     def worker_resources(self) -> dict:
         res = dict(self.resources_per_worker)
-        if self.use_gpu and self.gpus_per_worker:
+        if self.use_gpu and self.topology:
+            from ant_ray_tpu_torch._private.accelerators import gpu  # noqa: PLC0415
+
+            res["GPU"] = float(gpu.chips_per_host(self.topology,
+                                                  self.accelerator_type))
+        elif self.use_gpu and self.gpus_per_worker:
             res.setdefault("GPU", float(self.gpus_per_worker))
         res.setdefault("CPU", 1.0)
         return res

@@ -12,8 +12,8 @@ failure_handling/).
 A copy of the JAX package's ``train/controller.py``: the jax.distributed
 rendezvous of a multi-rank TPU gang becomes torch's (``MASTER_ADDR``,
 ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` in the
-environment of a multi-rank GPU gang's loop), and whole-slice
-reservation raises, naming ROADMAP queue A item 9.
+environment of a multi-rank GPU gang's loop), and a whole-slice
+reservation takes GPU slices (``util/gpu.py``).
 """
 
 from __future__ import annotations
@@ -497,7 +497,8 @@ class TrainController:
                     **base_opts,
                     name=f"{self._run_config.pg_name()}-w{rank}-{tag}",
                     placement_group=pg,
-                    # Rank r on bundle r.
+                    # Rank r on bundle r: with a slice PG this pins rank
+                    # r to the slice host with gpu-worker-id == r.
                     placement_group_bundle_index=(
                         rank if pg is not None else -1),
                 ).remote(rank, world,
@@ -679,16 +680,56 @@ class TrainController:
     def _reserve_gang(self, scaling, world: int | None = None):
         """Gang-reserve the worker group's resources before spawning any
         rank (ref: WorkerGroup placement-group creation,
-        worker_group.py:269): a plain PG with the scaling config's
+        worker_group.py:269).  GPU + topology ⇒ reserve whole slices
+        (util/gpu.py); otherwise a plain PG with the scaling config's
         strategy.  Single local worker ⇒ no PG (keeps the laptop path
-        free of reservation latency).  The JAX package reserves a whole
-        TPU slice for a ``topology``; that comes with ROADMAP queue A
-        item 9."""
+        free of reservation latency)."""
         world = world if world is not None else scaling.num_workers
-        if getattr(scaling, "topology", ""):
-            raise NotImplementedError(
-                "whole-slice gang reservation is not ported (ROADMAP "
-                "queue A item 9)")
+        if scaling.use_gpu and scaling.topology:
+            # Bundles must cover everything a rank actor demands — the
+            # cards AND its CPU share — or the bundle lease rejects it.
+            extra = {k: v for k, v in scaling.worker_resources().items()
+                     if k != "GPU"}
+            num_slices = getattr(scaling, "num_slices", 1)
+            if num_slices > 1:
+                from ant_ray_tpu_torch.util.gpu import (  # noqa: PLC0415
+                    multi_slice_placement_group,
+                )
+
+                ms_pg = multi_slice_placement_group(
+                    scaling.topology, num_slices,
+                    scaling.accelerator_type,
+                    name=self._run_config.pg_name(),
+                    bundle_extra=extra)
+                if scaling.num_workers != ms_pg.num_hosts:
+                    ms_pg.remove()
+                    raise ValueError(
+                        f"num_workers={scaling.num_workers} does not "
+                        f"match the {ms_pg.num_hosts} hosts of "
+                        f"{num_slices}x slice {scaling.topology}")
+                if not ms_pg.ready(timeout=120):
+                    ms_pg.remove()
+                    raise RuntimeError(
+                        f"could not reserve {num_slices} GPU slices of "
+                        f"{scaling.topology}")
+                return ms_pg.placement_group, ms_pg
+            from ant_ray_tpu_torch.util.gpu import slice_placement_group  # noqa: PLC0415
+
+            slice_pg = slice_placement_group(
+                scaling.topology, scaling.accelerator_type,
+                name=self._run_config.pg_name(),
+                bundle_extra=extra)
+            if scaling.num_workers != slice_pg.num_hosts:
+                slice_pg.remove()
+                raise ValueError(
+                    f"num_workers={scaling.num_workers} does not match "
+                    f"the {slice_pg.num_hosts} hosts of slice "
+                    f"{scaling.topology}")
+            if not slice_pg.ready(timeout=120):
+                slice_pg.remove()
+                raise RuntimeError(
+                    f"could not reserve GPU slice {scaling.topology}")
+            return slice_pg.placement_group, slice_pg
         if world <= 1:
             return None, None
         from ant_ray_tpu_torch.util.placement_group import placement_group  # noqa: PLC0415

@@ -96,8 +96,11 @@ class ElasticScalingPolicy(ScalingPolicy):
 
 
 def policy_for(scaling) -> ScalingPolicy:
-    # The JAX package also refuses min_workers beside a whole-slice
-    # topology, which the port's ScalingConfig refuses on its own (item 9).
     if getattr(scaling, "min_workers", 0):
+        if scaling.use_gpu and scaling.topology:
+            raise ValueError(
+                "elastic scaling (min_workers) cannot be combined with a "
+                "whole-slice topology reservation — a slice's NVLink "
+                "domain has a fixed host count")
         return ElasticScalingPolicy(scaling.min_workers)
     return FixedScalingPolicy()

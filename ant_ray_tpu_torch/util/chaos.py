@@ -5,7 +5,9 @@ The runtime grew its fault-injection knobs one at a time —
 ``testing_rpc_failure`` (seeded per-method RPC drops, protocol.py),
 ``testing_rpc_latency_s`` (per-method client-side latency, protocol.py),
 ``testing_chunk_serve_delay_s`` / ``testing_chunk_truncate`` (bulk
-transfer-channel faults, transfer.py).  This module drives them behind
+transfer-channel faults, transfer.py), ``testing_preemption_notice``
+(the file-based stand-in for a maintenance event, accelerators/gpu.py).
+This module drives them behind
 one seeded :class:`ChaosSchedule` (ref in spirit: src/ray/rpc/rpc_chaos.h
 + the reference's chaos-testing release jobs):
 
@@ -19,10 +21,9 @@ one seeded :class:`ChaosSchedule` (ref in spirit: src/ray/rpc/rpc_chaos.h
   the GCS leader.  Logical steps, not wall clock, keep runs
   reproducible — the same seed and the same step sequence replay the
   same fault schedule.
-* **drain notices** — ``preemption_notice()`` / ``trigger_preemption()``
-  raise: the port has no preemption watch for a notice to reach (ROADMAP
-  queue A item 9), and a notice that nothing reads would pass a test
-  that checks nothing.
+* **drain notices** — ``preemption_notice()`` registers (and
+  ``trigger_preemption()`` later arms) the notice file the daemon's
+  preemption watch polls, standing in for a real maintenance event.
 
 Typical test shape::
 
@@ -37,13 +38,16 @@ Typical test shape::
         ...
 
 The ``chaos_schedule`` pytest fixture (import it into a test module)
-yields a fresh schedule.
+yields a fresh schedule and removes its notice files afterwards.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import random
+import tempfile
+import uuid
 from dataclasses import dataclass, field
 
 logger = logging.getLogger(__name__)
@@ -74,6 +78,7 @@ class ChaosSchedule:
         self._rpc_latency: dict[str, float] = {}
         self._config: dict = {}
         self._actions: list[_Action] = []
+        self._notice_files: list[str] = []
 
     # ------------------------------------------------------ knob faults
 
@@ -105,20 +110,30 @@ class ChaosSchedule:
         return self
 
     def preemption_notice(self, path: str | None = None) -> str:
-        """Not ported: the JAX package registers a notice file that its
-        daemons' preemption watch polls; the port's daemons have no
-        such watch (ROADMAP queue A item 9)."""
-        raise NotImplementedError(
-            "preemption notices are not ported: the node daemon has no "
-            "preemption watch (ROADMAP queue A item 9)")
+        """Register a preemption-notice FILE (not yet armed): daemons
+        configured with it poll for its existence.  Returns the path —
+        call :meth:`trigger_preemption` (or create the file yourself)
+        to fire the notice."""
+        if path is None:
+            path = os.path.join(
+                tempfile.gettempdir(),
+                f"art_chaos_notice_{uuid.uuid4().hex[:8]}")
+        self._config["testing_preemption_notice"] = path
+        self._notice_files.append(path)
+        return path
 
     def trigger_preemption(self, deadline_s: float = 30.0,
                            reason: str = "chaos preemption") -> None:
-        """Not ported, as :meth:`preemption_notice` (ROADMAP queue A
-        item 9)."""
-        raise NotImplementedError(
-            "preemption notices are not ported: the node daemon has no "
-            "preemption watch (ROADMAP queue A item 9)")
+        """Arm the registered notice file: every daemon polling it
+        drains itself within one poll interval."""
+        path = self._config.get("testing_preemption_notice")
+        if not path:
+            raise RuntimeError(
+                "call preemption_notice() before trigger_preemption()")
+        tmp = f"{path}.tmp"
+        with open(tmp, "w") as f:
+            f.write(f"{deadline_s} {reason}\n")
+        os.rename(tmp, path)     # atomic: watchers never see a torn file
 
     def system_config(self) -> dict:
         """The unified ``_system_config`` dict for init/Cluster."""
@@ -201,13 +216,26 @@ class ChaosSchedule:
     def pending(self) -> list[str]:
         return [a.label for a in sorted(self._actions) if not a.fired]
 
+    # ------------------------------------------------------------ cleanup
+
+    def cleanup(self) -> None:
+        for path in self._notice_files:
+            for p in (path, f"{path}.tmp"):
+                try:
+                    os.unlink(p)
+                except OSError:
+                    pass
+
 
 def chaos_schedule_fixture():
     """Body of the ``chaos_schedule`` pytest fixture (kept import-safe
-    for non-pytest consumers): yields a fresh schedule.  Unlike the JAX
-    package's, the schedule writes no notice files, so nothing is left
-    to clean up."""
-    yield ChaosSchedule(seed=0)
+    for non-pytest consumers): yields a fresh schedule, cleans up its
+    notice files afterwards."""
+    schedule = ChaosSchedule(seed=0)
+    try:
+        yield schedule
+    finally:
+        schedule.cleanup()
 
 
 try:  # pragma: no cover — exercised by the tests that import it

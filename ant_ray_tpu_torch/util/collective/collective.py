@@ -67,9 +67,15 @@ class GroupManager:
             group = self._groups.pop(group_name, None)
         if group is not None:
             group.destroy_group()
-        # The JAX package also clears the group's tensor-transport
-        # state here (experimental/tensor_transport.py), a module the
-        # port gets with device objects (ROADMAP queue A item 9).
+        # A re-initialized group must start with a clean tensor-
+        # transport slate: stale poisoned-pair markers from the old
+        # incarnation would silently dma-degrade the new one forever.
+        try:
+            from ant_ray_tpu_torch.experimental import tensor_transport  # noqa: PLC0415
+
+            tensor_transport.clear_group(group_name)
+        except Exception:  # noqa: BLE001 — healing is best-effort
+            pass
 
 
 _group_mgr = GroupManager()

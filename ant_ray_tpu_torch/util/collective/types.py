@@ -58,18 +58,13 @@ class SliceTopology:
 
     @staticmethod
     def from_labels(pod_names) -> "SliceTopology":
-        """Derive membership from one label per rank (the reference's
-        ``tpu-pod-name``; on a GPU cluster, say, the node's id): ranks
-        with the same label share a block, and a rank without one
-        (``None``/"") is a block of its own.  Blocks are ordered by
-        their lowest rank."""
-        by_label: dict = {}
-        for rank, label in enumerate(pod_names):
-            by_label.setdefault(label if label else f"_solo_{rank}",
-                                []).append(rank)
-        return SliceTopology(tuple(
-            tuple(ranks)
-            for ranks in sorted(by_label.values(), key=lambda r: r[0])))
+        """Derive membership from each rank's ``gpu-pod-name`` node
+        label (accelerators/gpu.py topology metadata): ranks on the
+        same physical slice share a pod name, and a rank without one
+        (``None``/"") is a slice of its own."""
+        from ant_ray_tpu_torch._private.accelerators import gpu as gpu_accel  # noqa: PLC0415
+
+        return SliceTopology(tuple(gpu_accel.slice_groups(pod_names)))
 
     def validate(self, world_size: int) -> None:
         flat = sorted(r for ranks in self.slices for r in ranks)

@@ -68,9 +68,8 @@ def placement_group(bundles: list[dict], strategy: str = "PACK",
     constraints (ref: bundle_label_selector in reserve_tpu_slice,
     python/ray/_private/accelerators/tpu.py:213).  ``_same_label``: a
     label key whose value must be shared by every bundle's node — the
-    slice-affinity primitive behind the JAX package's
-    ``util/tpu.py`` slice_placement_group() (slice placement is ROADMAP
-    queue A item 9).  ``_same_label_groups``: lists of bundle indices;
+    slice-affinity primitive behind ``util/gpu.py``'s
+    slice_placement_group().  ``_same_label_groups``: lists of bundle indices;
     each group's nodes share one ``_same_label`` value and distinct
     groups get DISTINCT values — the multi-slice primitive (one group
     per physical slice) behind its multi_slice_placement_group()."""

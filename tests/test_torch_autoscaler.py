@@ -1,13 +1,15 @@
 """The port's ``autoscaler/`` (the control loop, the gang planner, the
 local and GKE node providers) against the JAX package's.  The twins of
-tests/test_autoscaler.py's tests but the TPU-slice ones (``:48``,
+tests/test_autoscaler.py's plain tests (``:48``,
 ``:90``, ``:103``, ``:146``, ``:177``, ``:187``, ``:199``) run through
 both packages, each scenario in a ``Cluster`` of its own package, and
 their outcomes must be equal; ``plan_gang`` is held against the
 reference on host sets that hypothesis draws; a plain ``STRICT_SPREAD``
 gang drives the gang path end to end in both; the GKE REST client and
-provider run against one fake API; and ``tpu_slice_node_type`` raises,
-naming the ROADMAP item that brings slice geometry."""
+provider run against one fake API; and the slice twins (``:213``,
+``:242``, ``:261``, ``:296``) hold the JAX package's v5e "4x4" slice
+against the port's gb200 "4x4" slice (the same 16 chips on 4 hosts of
+4), with ``tpu_slice_node_type`` the port's ``gpu_slice_node_type``."""
 
 import importlib
 import threading
@@ -461,14 +463,202 @@ def test_gke_rest_client_against_a_fake_api(name):
     assert outs[0] == outs[1]
 
 
+# --------------------------------- tests/test_autoscaler.py slice twins
+#
+# The JAX package's v5e "4x4" slice (16 chips, 4 hosts of 4) is held
+# against the port's gb200 "4x4" slice (16 cards, 4 hosts of 4): the
+# same geometry, in GPU terms.
+
+def _slice_api(art):
+    """(slice_placement_group, slice node type) of ``art``, each taking
+    a topology, at the geometry both packages share."""
+    auto = _mod(art, "autoscaler")
+    if art is jart:
+        spg = _mod(art, "util.tpu").slice_placement_group
+        return spg, auto.tpu_slice_node_type
+    spg = _mod(art, "util.gpu").slice_placement_group
+    return ((lambda topology, **kw: spg(topology, "GB200", **kw)),
+            (lambda topology, **kw: auto.tpu_slice_node_type(
+                topology, "GB200", **kw)))
+
+
+def _to_gpu_terms(node_type) -> dict:
+    """A JAX-package NodeTypeConfig's fields with TPU terms mapped to the
+    port's (v4 and v5e slices compared against gb200)."""
+    def term(text):
+        for a, b in (("TPU-", "GPU-"), ("tpu-", "gpu-"), ("TPU", "GPU"),
+                     ("v4-", "gb200-"), ("v5e-", "gb200-")):
+            text = text.replace(a, b)
+        return {"v4": "gb200", "v5e": "gb200"}.get(text, text)
+
+    fields = _type_fields(node_type)
+    return {k: ({term(a): (term(b) if isinstance(b, str) else b)
+                 for a, b in v.items()} if isinstance(v, dict)
+                else term(v) if isinstance(v, str) else v)
+            for k, v in fields.items()}
+
+
+def _type_fields(node_type) -> dict:
+    return {"resources": node_type.resources, "labels": node_type.labels,
+            "hosts_per_launch": node_type.hosts_per_launch,
+            "launch_shared_label": node_type.launch_shared_label,
+            "launch_indexed_label": node_type.launch_indexed_label,
+            "head_resources": node_type.head_resources,
+            "max_workers": node_type.max_workers}
+
+
+def _gke_slice_autoscaler(auto, art, cluster_address, slice_type, client):
+    provider = auto.GkeTpuNodePoolProvider(
+        client, pool_for_type={"v5e-slice": "pool-v5e"})
+    return auto.Autoscaler(
+        cluster_address, provider,
+        auto.AutoscalerConfig(node_types=[slice_type],
+                              gang_provision_grace_s=3600.0))
+
+
+def _in_head_cluster(scenario):
+    """``scenario(art, auto, cluster)`` in a one-CPU head ``Cluster`` of
+    each package in turn; both outcomes held equal."""
+    outs = []
+    for art in PACKAGES:
+        auto = _mod(art, "autoscaler")
+        cluster = _mod(art, "cluster_utils").Cluster(
+            head_node_args={"num_cpus": 1})
+        cluster.connect()
+        try:
+            outs.append(scenario(art, auto, cluster))
+        finally:
+            art.shutdown()
+            cluster.shutdown()
+    assert outs[0] == outs[1]
+    return outs[1]
+
+
+def test_slice_gang_launches_one_whole_unit_via_gke():
+    """A slice PG's gang demand drives ONE node-pool resize (the whole
+    slice), not per-bundle lone nodes."""
+    def scenario(art, auto, cluster):
+        spg_fn, type_fn = _slice_api(art)
+        client = _FakeGkeClient()
+        autoscaler = _gke_slice_autoscaler(
+            auto, art, cluster.gcs_address,
+            type_fn("4x4", name="v5e-slice", max_workers=2), client)
+        autoscaler.run_once()     # heartbeat so the PG waits for capacity
+        spg = spg_fn("4x4")       # 4 hosts — unplaceable here
+        deadline = time.monotonic() + 30
+        launched = []
+        while time.monotonic() < deadline and not launched:
+            launched.extend(autoscaler.run_once()["launched"])
+            time.sleep(0.3)
+        sizes = [client.sizes["pool-v5e"]]
+        # The gang stays pending (fake client: hosts never register) but
+        # the grace period stops duplicate provisioning.
+        again = autoscaler.run_once()["launched"]
+        sizes.append(client.sizes["pool-v5e"])
+        spg.remove()
+        return launched, again, sizes
+
+    launched, again, sizes = _in_head_cluster(scenario)
+    assert launched == ["v5e-slice"]
+    assert again == [] and sizes == [1, 1]   # ONE atomic slice resize
+
+
+def test_gang_demand_never_launches_mismatched_node():
+    """A gang demand that no configured type can host atomically must
+    launch NOTHING (an empty shape must never look satisfiable)."""
+    def scenario(art, auto, make):
+        autoscaler, provider = make(
+            [auto.NodeTypeConfig("generic", {"CPU": 16.0}, max_workers=4)],
+            idle_timeout_s=3600.0)
+        autoscaler.run_once()
+        spg = _slice_api(art)[0]("4x4")   # needs slice hosts
+        rounds = []
+        deadline = time.monotonic() + 3
+        while time.monotonic() < deadline:
+            rounds.append(autoscaler.run_once()["launched"])
+            time.sleep(0.4)
+        spg.remove()
+        return all(r == [] for r in rounds), provider.non_terminated_nodes()
+
+    assert _in_cluster(scenario) == (True, {})
+
+
+@pytest.mark.slow
+def test_slice_pg_scales_up_and_commits_e2e():
+    """A slice placement group on an empty cluster -> gang demand ->
+    the autoscaler launches EVERY host of one slice -> the hosts register
+    with slice labels -> the PG commits."""
+    def scenario(art, auto, make):
+        spg_fn, type_fn = _slice_api(art)
+        autoscaler, provider = make(
+            [type_fn("4x4", name="v5e-slice", cpus_per_host=1.0,
+                     max_workers=1)], idle_timeout_s=3600.0)
+        autoscaler.run_once()
+        spg = spg_fn("4x4", bundle_extra={"CPU": 0.5})
+        thread, launched = _drive_until(autoscaler, lambda out: False,
+                                        timeout=20)
+        try:
+            ready = spg.ready(timeout=90)
+        finally:
+            thread.join(timeout=30)
+        units = provider.non_terminated_nodes()
+        hosts = [len(provider.node_addresses(u)) for u in units]
+        spg.remove()
+        return ready, launched, hosts
+
+    ready, launched, hosts = _in_cluster(scenario)
+    assert ready, "slice PG never committed"
+    assert launched == ["v5e-slice"]   # one gang unit = all 4 hosts
+    assert hosts == [4]
+
+
+def test_two_identical_slice_pgs_get_two_units():
+    """Per-PG gang demands: two pending identical-shape slice PGs must
+    drive TWO unit launches (they can't share one slice's head claim)."""
+    def scenario(art, auto, cluster):
+        spg_fn, type_fn = _slice_api(art)
+        client = _FakeGkeClient()
+        autoscaler = _gke_slice_autoscaler(
+            auto, art, cluster.gcs_address,
+            type_fn("4x4", name="v5e-slice", max_workers=2), client)
+        autoscaler.run_once()
+        a, b = spg_fn("4x4"), spg_fn("4x4")
+        deadline = time.monotonic() + 30
+        launched = []
+        while time.monotonic() < deadline and len(launched) < 2:
+            launched.extend(autoscaler.run_once()["launched"])
+            time.sleep(0.3)
+        a.remove()
+        b.remove()
+        return launched, client.sizes["pool-v5e"]
+
+    assert _in_head_cluster(scenario) == (["v5e-slice", "v5e-slice"], 2)
+
+
 # ------------------------------------------------------------------ pins
 
 def test_tpu_slice_node_type_raises_naming_item_9():
+    """Once a pin on the unported slice geometry; now the JAX package's
+    name is the port's ``gpu_slice_node_type``, and the node type it
+    gives matches the reference's once TPU terms map to GPU ones (v4
+    hosts 4 chips as gb200 hosts 4 cards)."""
+    from ant_ray_tpu.autoscaler import tpu_slice_node_type as jslice
     from ant_ray_tpu_torch.autoscaler import tpu_slice_node_type
+    from ant_ray_tpu_torch.autoscaler.node_provider import gpu_slice_node_type
 
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP queue A item 9"):
-        tpu_slice_node_type("4x4", name="v5e-slice")
+    assert tpu_slice_node_type is gpu_slice_node_type
+    for topology in ("2x2x2", "4x4", "2x4x4"):
+        want = _to_gpu_terms(jslice(topology, "TPU-V4", name="s"))
+        got = tpu_slice_node_type(topology, "GB200", name="s")
+        assert _type_fields(got) == want, topology
+    # Where a slice is smaller than a host, the port's host holds just
+    # the slice's cards (the reference's v4 rule gives 4 chips a host).
+    assert tpu_slice_node_type("1x1", "GB200").resources["GPU"] == 1.0
+    single = gpu_slice_node_type("1x8", "H100")
+    assert single.name == "gpu-h100-8-slice"
+    assert single.hosts_per_launch == 1
+    assert single.resources == {"CPU": 8.0, "GPU": 8.0}
+    assert single.head_resources == {"GPU-h100-8-head": 1.0}
 
 
 def test_exports_match_the_reference():

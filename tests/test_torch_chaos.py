@@ -4,14 +4,15 @@ package's: the ``ChaosSchedule`` twins of tests/test_resilience.py
 fails on any lock-order cycle, as the reference's does (``:34-51``); the
 RPC-latency leg of tests/test_serve_overload.py (``:102-128``) against
 the port's ``_ChaosInjector``, the live leg in a cluster of each package
-under the same schedule; and ``preemption_notice`` raising, naming
-ROADMAP item 9 (the port has no preemption watch for a notice to reach).
+under the same schedule; the preemption notice file of both packages,
+and ``:109`` (the notice drains the daemon) in a cluster of each.
 The training scenarios of tests/test_resilience.py run on the port's
 ``TorchTrainer`` with the reference's assertions: ``:145`` (a drain
 notice mid-fit migrates the gang, zero steps lost or repeated),
 ``:337`` (a crash restores from the in-cluster replica), ``:454`` (the
-GCS restarts mid-fit) and ``:599`` (the GCS leader killed mid-fit while
-Serve answers); the slice-gang scenario (``:228``) waits for item 9."""
+GCS restarts mid-fit), ``:599`` (the GCS leader killed mid-fit while
+Serve answers) and ``:228`` (a whole slice killed mid-fit: the two-slice
+gang restarts from its checkpoint, zero steps lost)."""
 
 import importlib
 import os
@@ -79,10 +80,19 @@ def test_chaos_schedule_unifies_knobs(chaos_schedule):
         "seed:0,Heartbeat:0.2,LeaseWorker:0.1"
     assert cfg["testing_chunk_serve_delay_s"] == 0.01
     assert cfg["testing_chunk_truncate"] == 1024
-    # The JAX package's notice knob has no reader in the port (item 9).
-    with pytest.raises(NotImplementedError, match="item 9"):
-        chaos_schedule.preemption_notice()
-    assert "testing_preemption_notice" not in chaos_schedule.system_config()
+    # The notice knob: a path of the schedule's own, in both packages.
+    jschedule = JSchedule(seed=0)
+    try:
+        jnotice = jschedule.preemption_notice()
+        notice = chaos_schedule.preemption_notice()
+        cfg = chaos_schedule.system_config()
+        assert cfg["testing_preemption_notice"] == notice
+        assert jschedule.system_config()["testing_preemption_notice"] == \
+            jnotice
+        assert os.path.dirname(notice) == os.path.dirname(jnotice)
+        assert not os.path.exists(notice)     # registered, not armed
+    finally:
+        jschedule.cleanup()
     # Every knob the schedule writes must be a real config flag, of both
     # packages.
     for key in cfg:
@@ -219,15 +229,83 @@ def test_rpc_latency_injection_is_live():
 
 
 def test_preemption_notice_raises_naming_item_9(chaos_schedule):
-    """The port's daemons have no preemption watch, so the schedule
-    writes no notice that nothing would read."""
-    for call in (chaos_schedule.preemption_notice,
-                 chaos_schedule.trigger_preemption):
-        with pytest.raises(NotImplementedError,
-                           match="preemption watch.*ROADMAP queue A item 9"):
-            call()
-    assert chaos_schedule.system_config() == {}
-    assert not hasattr(Config(), "testing_preemption_notice")
+    """Once a pin on the unported notice; now the notice file of both
+    packages: arming writes ``"<deadline_s> <reason>"`` atomically, both
+    packages' readers parse it the same, and cleanup removes it."""
+    from ant_ray_tpu._private.accelerators import tpu as jtpu
+    from ant_ray_tpu._private.config import set_global_config as jset
+    from ant_ray_tpu_torch._private.accelerators import gpu
+    from ant_ray_tpu_torch._private.config import set_global_config
+
+    with pytest.raises(RuntimeError, match="preemption_notice"):
+        chaos_schedule.trigger_preemption()
+    path = chaos_schedule.preemption_notice()
+    answers = []
+    for setter, cfg_cls, module in ((jset, JConfig, jtpu),
+                                    (set_global_config, Config, gpu)):
+        setter(cfg_cls().apply_dict({"testing_preemption_notice": path}))
+    try:
+        for module in (jtpu, gpu):
+            assert module.maintenance_watch_possible()
+            answers.append(module.maintenance_notice())
+        chaos_schedule.trigger_preemption(deadline_s=17.5,
+                                          reason="maintenance window")
+        for module in (jtpu, gpu):
+            answers.append(module.maintenance_notice())
+    finally:
+        jset(JConfig())
+        set_global_config(Config())
+    assert answers == [None, None, ("maintenance window", 17.5),
+                       ("maintenance window", 17.5)]
+    with open(path) as f:
+        assert f.read() == "17.5 maintenance window\n"
+    chaos_schedule.cleanup()
+    assert not os.path.exists(path)
+
+
+# ------------------------------------ tests/test_resilience.py :109, :228
+
+def _drain_on_notice(art, schedule):
+    """The reference's scenario in ``art``'s cluster: the notice file
+    fires the daemon's watch, which drains the node through the GCS."""
+    utils = importlib.import_module(art.__name__ + ".cluster_utils")
+    schedule.preemption_notice()
+    cluster = utils.Cluster(head_node_args={
+        "num_cpus": 1,
+        "_system_config": {**schedule.system_config(),
+                           "preemption_poll_interval_s": 0.1}})
+    cluster.connect()
+    try:
+        before = any(n["Draining"] for n in art.nodes())
+        schedule.trigger_preemption(deadline_s=17.5,
+                                    reason="maintenance window")
+        deadline = time.monotonic() + 30
+        node = None
+        while time.monotonic() < deadline:
+            node = next(n for n in art.nodes())
+            if node["Draining"]:
+                break
+            time.sleep(0.1)
+        return (before, node["Draining"],
+                "maintenance window" in node["DrainReason"],
+                node["DrainReason"], node["DrainDeadline"] > 0,
+                node["Alive"])
+    finally:
+        art.shutdown()
+        cluster.shutdown()
+        schedule.cleanup()
+
+
+def test_preemption_notice_file_drains_daemon():
+    """The testing_preemption_notice file (the maintenance-event
+    stand-in) fires each package's daemon watch, which self-drains via
+    the GCS DrainNode RPC; the outcomes are equal."""
+    want = _drain_on_notice(jart, JSchedule(seed=0))
+    got = _drain_on_notice(tart, ChaosSchedule(seed=0))
+    assert got == want
+    before, draining, has_reason, reason, has_deadline, alive = got
+    assert not before and draining and has_reason and has_deadline and alive
+    assert reason == "preemption notice: maintenance window"
 
 
 # ------------------------------------- tests/test_resilience.py, training
@@ -297,6 +375,90 @@ def test_drain_notice_zero_step_loss(tmp_path):
         assert result.metrics["step"] == 7
         assert next(n for n in tart.nodes()
                     if n["NodeID"] == node_hex)["Draining"]
+    finally:
+        tart.shutdown()
+        cluster.shutdown()
+
+
+def test_fault_slice_gang_restarts_zero_step_loss(tmp_path, chaos_schedule):
+    """test_resilience.py :228 — a whole-slice failure mid-step (chaos
+    ``fault_slice``: every daemon of one slice SIGKILLed as a unit)
+    kills that slice's rank; the two-slice gang restarts from the last
+    checkpoint on a replacement node with zero steps LOST."""
+    steplog = tmp_path / "steps.log"
+    cluster = Cluster(head_node_args={"num_cpus": 2})
+    cluster.add_node(num_cpus=2, resources={"gang": 1},
+                     labels={"art-slice-id": "0"})
+    cluster.add_node(num_cpus=2, resources={"gang": 1},
+                     labels={"art-slice-id": "1"})
+    cluster.connect()
+    # Slice 1 dies as a unit once the gang demonstrably runs; a
+    # replacement node (slice 2) joins in the same fire.
+    chaos_schedule.fault_slice(3, "1", cluster)
+    chaos_schedule.at_step(
+        3, lambda: cluster.add_node(num_cpus=2, resources={"gang": 1},
+                                    labels={"art-slice-id": "2"}),
+        label="replacement_node")
+    try:
+        def loop(config):
+            import torch
+
+            ctx = train.get_context()
+            start = 0
+            if ctx.latest_checkpoint is not None:
+                start = int(ctx.latest_checkpoint
+                            .to_pytree()["step"]) + 1
+            # num_slices=2 fed the context the 2-slice rank partition.
+            assert ctx.slice_topology is not None
+            assert ctx.slice_topology.num_slices == 2
+            for step in range(start, 8):
+                if ctx.world_rank == 0:
+                    with open(config["steplog"], "a") as f:
+                        f.write(f"{step} "
+                                f"{os.environ.get('ART_NODE_ID', '')} "
+                                f"{ctx.attempt}\n")
+                time.sleep(0.25)
+                # The gang's own hierarchical allreduce is the
+                # lock-step: once slice 1 dies, the survivor blocks here.
+                grads = train.sync_gradients(
+                    {"g": torch.full((8,), float(step))})
+                assert float(grads["g"][0]) == float(step)
+                train.report({"step": step}, checkpoint={"step": step})
+
+        t, box = _fit_in_thread(TorchTrainer(
+            loop, train_loop_config={"steplog": str(steplog)},
+            scaling_config=ScalingConfig(
+                num_workers=2, num_slices=2,
+                resources_per_worker={"CPU": 1.0, "gang": 1.0}),
+            run_config=RunConfig(
+                name="fault-slice-zero-loss",
+                storage_path=str(tmp_path / "store"),
+                failure_config=FailureConfig(
+                    max_failures=1, group_restart_backoff_s=0.2))))
+        deadline = time.monotonic() + 90
+        while time.monotonic() < deadline:
+            if steplog.exists() and \
+                    len(steplog.read_text().splitlines()) >= 3:
+                break
+            time.sleep(0.2)
+        assert steplog.exists(), "gang never started"
+        fired = chaos_schedule.fire(3)
+        assert "fault_slice:1" in fired
+        assert len(chaos_schedule.killed_slices["1"]) == 1
+        t.join(timeout=150)
+        assert not t.is_alive(), "fit never finished after slice fault"
+        result = box["result"]
+        assert result.error is None
+        rows = [line.split() for line in steplog.read_text().splitlines()]
+        steps = [int(r[0]) for r in rows]
+        # Zero steps LOST: every step reached the log (the step in
+        # flight may run twice) and the run resumed from the checkpoint.
+        assert sorted(set(steps)) == list(range(8))
+        assert max(int(r[2]) for r in rows) == 1, "gang never restarted"
+        restarted = [r for r in rows if int(r[2]) == 1]
+        assert restarted and min(int(r[0]) for r in restarted) > 0, \
+            "restart re-ran from step 0 — checkpoint resume failed"
+        assert result.metrics["step"] == 7
     finally:
         tart.shutdown()
         cluster.shutdown()

@@ -961,15 +961,22 @@ def test_insight_raises():
 
 
 def test_device_objects_raise(clusters):
+    """Once a pin on the unported routes; now the core service's device
+    routes of both packages answer alike for a token the worker does not
+    hold: a fetch gets None, a free True, a send-via False."""
+    from ant_ray_tpu._private.worker import global_worker as jworker
     from ant_ray_tpu_torch._private.worker import global_worker
 
-    rt = global_worker.runtime
-    client = rt._clients.get(rt.address)
-    for method in ("DeviceTensorFetch", "DeviceTensorFree",
-                   "DeviceTensorSendVia"):
-        with pytest.raises(NotImplementedError,
-                           match="device objects.*item 9"):
-            client.call(method, {"token": "t"}, timeout=10)
+    answers = []
+    for worker in (jworker, global_worker):
+        rt = worker.runtime
+        client = rt._clients.get(rt.address)
+        answers.append([client.call(method, {"token": "t", "group": "g",
+                                             "dst_rank": 1}, timeout=10)
+                        for method in ("DeviceTensorFetch",
+                                       "DeviceTensorFree",
+                                       "DeviceTensorSendVia")])
+    assert answers[0] == answers[1] == [None, True, False]
 
 
 @pytest.mark.parametrize("method", [

@@ -1030,8 +1030,8 @@ def test_device_memory_stats_report_the_card(cuda):
 
 
 def test_step_profiler_gives_mfu_against_the_cards_peak(cuda):
+    from ant_ray_tpu_torch._private.accelerators import gpu
     from ant_ray_tpu_torch.observability import StepProfiler
-    from ant_ray_tpu_torch.observability.step_profiler import PEAK_BF16_FLOPS
 
     a = torch.randn(2048, 2048, device="cuda", dtype=torch.bfloat16)
     prof = StepProfiler(flops_per_step=2 * 2048 ** 3)
@@ -1039,7 +1039,7 @@ def test_step_profiler_gives_mfu_against_the_cards_peak(cuda):
         with prof.step():
             (a @ a).sum().item()
     summary = prof.summary()
-    if torch.cuda.get_device_name() in PEAK_BF16_FLOPS:
+    if gpu.table_generation(torch.cuda.get_device_name()) is not None:
         assert 0 < summary["mfu_mean"] < 1
     else:
         assert "mfu_mean" not in summary

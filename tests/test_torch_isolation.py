@@ -9,6 +9,7 @@ of them behind."""
 import ast
 import os
 import pkgutil
+import socket
 import subprocess
 import sys
 
@@ -113,6 +114,9 @@ def test_importing_every_module_loads_neither_jax_nor_the_jax_package():
             "ant_ray_tpu_torch.util.insight",
             "ant_ray_tpu_torch.experimental",
             "ant_ray_tpu_torch.experimental.channel",
+            "ant_ray_tpu_torch.experimental.device_objects",
+            "ant_ray_tpu_torch.experimental.tensor_transport",
+            "ant_ray_tpu_torch.util.gpu",
             "ant_ray_tpu_torch.dag",
             "ant_ray_tpu_torch.dag.nodes",
             "ant_ray_tpu_torch.dag.compiled",
@@ -652,7 +656,12 @@ def test_gpu_detector_honours_cuda_visible_devices(mask, physical, visible,
     assert gpu.num_gpus() == visible
     monkeypatch.delenv("CUDA_VISIBLE_DEVICES")
     assert gpu.num_gpus() == physical
-    assert gpu.node_labels() == {}
+    # A host with cards is a slice of its own; with no generation
+    # detected (no driver entry, no nvidia-smi) it names no pod type.
+    monkeypatch.setattr(gpu, "detect_generation", lambda: None)
+    assert gpu.node_labels() == {
+        "gpu-pod-name": socket.gethostname(), "gpu-worker-id": "0",
+        "gpu-topology": f"1x{physical}"}
 
 
 @pytest.mark.parametrize("runs,want,calls", [

@@ -428,9 +428,6 @@ def test_system_config_applies_until_the_next_init(monkeypatch):
 @pytest.mark.parametrize("flag,item", [
     ("no_such_flag", "a flag of neither package"),
     ("object_store_high_watermark", "item none: no module"),
-    ("tpu_chips_override", "item 9, GPU placement"),
-    ("testing_preemption_notice", "item 9, GPU placement"),
-    ("preemption_poll_interval_s", "item 9, GPU placement"),
     ("worker_lease_timeout_s", "item none: no module")])
 def test_system_config_rejects_flags_the_port_does_not_read(flag, item):
     """A flag whose reader is not ported fails loudly, naming the
@@ -465,6 +462,38 @@ def test_system_config_accepts_the_lockcheck_flags(flag, value):
         tart.shutdown()
         set_global_config(saved)   # the config outlives shutdown()
         lockcheck.reset()
+
+
+@pytest.mark.parametrize("flag,value", [
+    ("tpu_chips_override", 2),
+    ("testing_preemption_notice", "/nonexistent/notice"),
+    ("preemption_poll_interval_s", 0.1)])
+def test_system_config_accepts_the_preemption_flags(flag, value):
+    """GPU placement and the preemption watch read these flags (ROADMAP
+    queue A item 9.1): each defaults as in the JAX package and sets
+    through ``_system_config``; ``tpu_chips_override`` overrides the
+    detected card count."""
+    import dataclasses
+
+    from ant_ray_tpu._private.config import Config as JConfig
+    from ant_ray_tpu_torch._private.accelerators import gpu
+    from ant_ray_tpu_torch._private.config import (Config, global_config,
+                                                   set_global_config)
+
+    defaults = {f.name: f.default for f in dataclasses.fields(Config)}
+    assert defaults[flag] == getattr(JConfig(), flag)
+    saved = global_config()
+    tart.init(local_mode=True, _system_config={flag: value})
+    try:
+        assert getattr(global_config(), flag) == value
+        if flag == "tpu_chips_override":
+            assert gpu.num_gpus() == 2
+        if flag == "testing_preemption_notice":
+            assert gpu.maintenance_watch_possible()
+            assert gpu.maintenance_notice() is None   # not armed
+    finally:
+        tart.shutdown()
+        set_global_config(saved)   # the config outlives shutdown()
 
 
 def test_system_config_carries_every_flag_a_ported_module_reads():

@@ -298,3 +298,34 @@ def test_sync_gradients_feeds_the_profilers_collective_phase(
     assert result.error is None
     assert result.metrics["collective"] > 0
     assert result.metrics["rank"] == 0 and result.metrics["w"] == 0.5
+
+
+@pytest.mark.parametrize("name,peak", [
+    ("NVIDIA H100 80GB HBM3", 989e12),
+    ("NVIDIA A100-SXM4-80GB", 312e12),
+    ("NVIDIA H100 PCIe", None),
+    ("Some Other Card", None)])
+def test_profiler_peak_comes_from_the_accelerator_table(monkeypatch, name,
+                                                        peak):
+    """One peak table: the profiler reads the card's bf16 peak from
+    ``accelerators/gpu.py``; the H100's entry gives the same peak
+    (989e12 FLOP/s, NVIDIA's data sheet) and so the same MFU as the
+    profiler's own entry did, exactly; a card without a row gives no
+    MFU."""
+    import torch
+
+    from ant_ray_tpu_torch.observability.step_profiler import StepProfiler
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: name)
+    prof = StepProfiler(flops_per_step=2e12, publish=False)
+    assert prof._peak_flops == peak
+    with prof.step():
+        time.sleep(0.01)
+    summary = prof.summary()
+    if peak is None:
+        assert "mfu_mean" not in summary
+    else:
+        rec = prof.last
+        assert summary["mfu_mean"] == pytest.approx(
+            2e12 / (rec.total_s * peak), rel=1e-12)

@@ -17,8 +17,8 @@ tests on the same weights and tokens:
   ranks end with the same parameters.
 
 Also: ``ScalingConfig(use_gpu=...)`` asks for GPUs where the JAX
-package's ``use_tpu`` asked for chips, a whole-slice topology raises
-naming ROADMAP item 9, and a multi-rank GPU gang's loop sees
+package's ``use_tpu`` asked for chips (a whole-slice worker for all of
+its host's cards), and a multi-rank GPU gang's loop sees
 torch.distributed's env:// variables.  test_train_elastic.py's node-loss
 scenario (parked ranks sleep 30 s) has no twin here."""
 
@@ -328,14 +328,13 @@ def test_elastic_policy_sizes_group_to_capacity():
                       ElasticScalingPolicy)
     assert isinstance(policy_for(ScalingConfig(num_workers=4)),
                       FixedScalingPolicy)
-    # The reference refuses min_workers beside a whole-slice topology;
-    # the port refuses the topology itself (item 9).
+    # Both refuse min_workers beside a whole-slice topology.
     with pytest.raises(ValueError, match="slice"):
         jpolicy_for(JScalingConfig(num_workers=4, min_workers=2,
                                    use_tpu=True, topology="2x4"))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ScalingConfig(num_workers=4, min_workers=2, use_gpu=True,
-                      topology="2x4")
+    with pytest.raises(ValueError, match="slice"):
+        policy_for(ScalingConfig(num_workers=4, min_workers=2, use_gpu=True,
+                                 topology="2x4"))
     # GPU demand where the reference asked for chips; an explicit share
     # in resources_per_worker wins.
     assert ScalingConfig(use_gpu=True).worker_resources() == \
@@ -348,8 +347,16 @@ def test_elastic_policy_sizes_group_to_capacity():
         JScalingConfig().worker_resources() == {"CPU": 1.0}
     assert JScalingConfig(use_tpu=True, chips_per_worker=4) \
         .worker_resources() == {"TPU": 4.0, "CPU": 1.0}
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ScalingConfig(accelerator_type="H100")
+    # A whole-slice worker binds its host's cards, as chips_per_worker
+    # binds a TPU host's chips (gb200 hosts 4 cards, as v4 hosts 4 chips).
+    assert ScalingConfig(use_gpu=True, topology="2x2x2",
+                         accelerator_type="GB200").worker_resources() == \
+        {"GPU": 4.0, "CPU": 1.0}
+    assert ScalingConfig(use_gpu=True, topology="2x4",
+                         accelerator_type="H100").worker_resources() == \
+        {"GPU": 8.0, "CPU": 1.0}
+    assert ScalingConfig(accelerator_type="H100").worker_resources() == \
+        {"CPU": 1.0}
 
 
 # ----------------------------------------------- tests/test_train.py :247

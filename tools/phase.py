@@ -44,6 +44,8 @@ sound reading, which is what ``DATA_NLL_TOL`` is set from; in parallel
 the TP logits gate is left out and faults planted in the TP prefill
 (wq's or wo's shards swapped between the cells, the psum dropped) and
 the unsharded model's own spread are read, which is what
+``TP_BF16_LOGIT_TOL`` is set from, and the tp=2 llama-400m logits in
+fp32 and bf16 (ROADMAP C4) are printed ungated, which is what
 ``TP_LOGIT_TOL`` is set from.
 
 Prints the card's nvidia-smi line, the Python, torch and CUDA versions
@@ -87,6 +89,7 @@ def main() -> int:
     from ant_ray_tpu_torch.ops import flash_attention as fa  # noqa: PLC0415
 
     os.environ["HF_HUB_OFFLINE"] = os.environ["TRANSFORMERS_OFFLINE"] = "1"
+    os.environ["ART_DISABLE_GCE_METADATA"] = "1"     # as chip_smoke's main
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
