@@ -24,7 +24,7 @@ import tempfile
 import time
 import uuid
 
-from ant_ray_tpu_torch._private.protocol import ClientPool, find_free_port
+from ant_ray_tpu_torch._private.protocol import ClientPool
 
 logger = logging.getLogger(__name__)
 
@@ -45,18 +45,37 @@ def _child_env() -> dict:
     return env
 
 
-def _wait_ready(proc: subprocess.Popen, marker: str) -> str:
-    """Read the child's stdout until `<marker> <address>` appears."""
+def _wait_ready(proc: subprocess.Popen, marker: str,
+                log_path: str | None = None) -> str:
+    """Read the child's stdout until `<marker> <address>` appears.  A
+    child that exits first raises with its exit code and the end of its
+    log (``log_path``), which says why."""
     deadline = time.monotonic() + _READY_TIMEOUT_S
     while time.monotonic() < deadline:
         line = proc.stdout.readline()
         if not line:
+            try:
+                code = proc.wait(timeout=5)
+            except subprocess.TimeoutExpired:
+                code = None
             raise RuntimeError(
-                f"process exited (code={proc.poll()}) before ready")
+                f"process exited (code={code}) before ready"
+                + _log_tail(log_path))
         text = line.decode(errors="replace").strip()
         if text.startswith(marker):
             return text.split(" ", 1)[1]
     raise RuntimeError(f"timed out waiting for {marker}")
+
+
+def _log_tail(path: str | None, size: int = 2000) -> str:
+    if not path:
+        return ""
+    try:
+        with open(path, "rb") as f:
+            f.seek(max(0, os.path.getsize(path) - size))
+            return "; log ends: " + f.read().decode(errors="replace")
+    except OSError:
+        return ""
 
 
 def start_gcs(session_dir: str,
@@ -72,10 +91,13 @@ def start_gcs(session_dir: str,
     process joins the replicated control plane over that same store:
     the lease elects a leader, the rest run as warm standbys (follower
     reads + NotLeader redirects)."""
-    port = port or find_free_port()
+    # Port 0 unless a restart names its old port: the GCS binds first
+    # and advertises the port it was given (GCS_READY), so no other
+    # process can take a port between its pick and the bind, as with a
+    # port picked here and bound there (ROADMAP §C).
     store = os.path.join(session_dir, "gcs_store.db")
     cmd = [sys.executable, "-m", "ant_ray_tpu_torch._private.gcs",
-           "--port", str(port), "--store", store,
+           "--port", str(port or 0), "--store", store,
            "--export-dir", os.path.join(session_dir, "export_events"),
            "--monitor-pid", str(os.getpid())]
     if ha_replica_id:
@@ -84,7 +106,8 @@ def start_gcs(session_dir: str,
         cmd,
         stdout=subprocess.PIPE, stderr=_log_file(session_dir, "gcs.err"),
         env=_child_env(), start_new_session=True)
-    address = _wait_ready(proc, "GCS_READY")
+    address = _wait_ready(proc, "GCS_READY",
+                          _log_path(session_dir, "gcs.err"))
     return proc, address
 
 
@@ -99,14 +122,18 @@ def start_node(gcs_address: str, resources: dict, session_dir: str,
          "--monitor-pid", str(os.getpid())],
         stdout=subprocess.PIPE, stderr=_log_file(session_dir, "noded.err"),
         env=_child_env(), start_new_session=True)
-    address = _wait_ready(proc, "NODED_READY")
+    address = _wait_ready(proc, "NODED_READY",
+                          _log_path(session_dir, "noded.err"))
     return proc, address
 
 
+def _log_path(session_dir: str, name: str) -> str:
+    return os.path.join(session_dir, "logs", name)
+
+
 def _log_file(session_dir: str, name: str):
-    log_dir = os.path.join(session_dir, "logs")
-    os.makedirs(log_dir, exist_ok=True)
-    return open(os.path.join(log_dir, name), "ab")
+    os.makedirs(os.path.join(session_dir, "logs"), exist_ok=True)
+    return open(_log_path(session_dir, name), "ab")
 
 
 def default_resources(num_cpus: int | None, num_tpus: int | None,
@@ -163,7 +190,7 @@ def start_dashboard(gcs_address: str, session_dir: str
          "--monitor-pid", str(os.getpid())],
         stdout=subprocess.PIPE, stderr=_log_file(session_dir, "dash.err"),
         env=_child_env(), start_new_session=True)
-    url = _wait_ready(proc, "DASH_READY")
+    url = _wait_ready(proc, "DASH_READY", _log_path(session_dir, "dash.err"))
     return proc, url
 
 

@@ -521,6 +521,22 @@ final line is printed:
    line (each rank's step, backward and sync seconds, the fusion
    stats, peak memory and start split).  Its launches are the kernels
    line's "trainer" path.
+19e. RLlib on the card, in this process with no cluster up (the env
+   runners inline, no process started): PPOConfig().environment(
+   "CartPole-v1")...build().train() at the reference's learning
+   configuration (tests/test_rllib.py:43-60: 2 runners x 8 envs x 128
+   steps, lr 1e-3, 6 epochs, minibatch 256, RLLIB_ITERATIONS (12)
+   iterations, seed 0).  Gates: the best episode_return_mean more than
+   RLLIB_LEARNED (20) over the first, total_loss finite, every
+   parameter leaf on cuda:0.  Then one update of each of PPO, IMPALA,
+   APPO, DQN, SAC and BC (the algorithm's own step; BC's learner) from
+   the same weights on one fixed batch or fragment set, on the card
+   and on the CPU, every leaf within RLLIB_UPDATE_TOL (rtol 1e-4, atol
+   1e-5).  Prints each iteration's sample and update seconds, env steps
+   and Adam steps per second, the phase's wall time and one "rllib"
+   JSON line; the phase is held to RLLIB_BUDGET_S (15 s).  The MLPs
+   reach no flash kernel: the learning run's launches, all 0, are the
+   kernels line's "rllib" path.
 20. One line {"kernels": [...]} with the fifteen kernels (the sm90,
    tf32x3, sm90_d256, tf32x3_d256 and CUDA-core forward; the sm90, tf32x3,
    sm90_d256, tf32x3_d256 and CUDA-core dQ and dK/dV; launches by path,
@@ -532,8 +548,8 @@ final line is printed:
    server, training, the sharded step's four cells, training under
    each remat policy, GPT-2 in fp32
    and bf16, the head_dim-256 Llama in bf16 and fp32, the tune
-   trials and the trainer's ranks; the older kernels' times also at GPT-2's
-   shape, the sm90_d256 ones at Gemma-7B's and Gemma-2B's attention and
+   trials, the trainer's ranks and RLlib's learning run; the older
+   kernels' times also at GPT-2's shape, the sm90_d256 ones at Gemma-7B's and Gemma-2B's attention and
    at the head_dim-256 path's own, the tf32x3_d256 ones at the fp32
    path's and at FP32_D256_ATTN).  The CUDA-core forward, dQ and dK/dV
    kernels are on no route: they show 0 launches, and every other kernel
@@ -2771,6 +2787,193 @@ def trainer_phase(torch, llama, card):
     print("trainer " + json.dumps(out), flush=True)
     _gate_nothing_left(out)
     return total
+
+
+# The reference's PPO learning test (tests/test_rllib.py:43-60): its
+# runners, rollout, optimizer, epochs, minibatch, iterations and seed.
+RLLIB_RUNNERS = {"num_env_runners": 2, "num_envs_per_env_runner": 8,
+                 "rollout_fragment_length": 128}
+RLLIB_TRAINING = {"lr": 1e-3, "num_epochs": 6, "minibatch_size": 256,
+                  "seed": 0}
+RLLIB_ITERATIONS = 12
+RLLIB_LEARNED = 20.0            # best episode_return_mean over the first
+RLLIB_BUDGET_S = 15.0           # the phase's wall time, gates included
+# One update on the card against the same update on the CPU: the
+# reference's own DDP tolerance (tests/test_rllib_depth.py:91).
+RLLIB_UPDATE_TOL = {"rtol": 1e-4, "atol": 1e-5}
+RLLIB_ALGORITHMS = ("ppo", "impala", "appo", "dqn", "sac", "bc")
+
+
+def _rllib_batch(name, fragments, rng):
+    """The fixed input of one ``name`` update, as numpy: for PPO 256
+    rows drawn from the learning run's last fragments (GAE and the flat
+    layout of ``Algorithm.train``), IMPALA's and APPO's whole fragment
+    set, and for DQN, SAC and BC a seeded batch at their configs'
+    batch sizes (64, 128, 128)."""
+    from ant_ray_tpu_torch.rllib import ppo  # noqa: PLC0415
+
+    def cat(key, axis=1):
+        return np.concatenate([f[key] for f in fragments], axis=axis)
+
+    if name == "ppo":
+        adv, returns = ppo.compute_gae(
+            cat("rewards"), cat("values"), cat("dones"),
+            cat("last_values", 0), gamma=0.99, lam=0.95)
+        rows = rng.permutation(adv.size)[:RLLIB_TRAINING["minibatch_size"]]
+        return {"obs": cat("obs").reshape(-1, 4)[rows],
+                "actions": cat("actions").reshape(-1)[rows],
+                "logp_old": cat("logp").reshape(-1)[rows],
+                "advantages": adv.reshape(-1)[rows],
+                "returns": returns.reshape(-1)[rows]}
+    if name in ("impala", "appo"):
+        return {"obs": cat("obs"), "actions": cat("actions"),
+                "behavior_logp": cat("logp"), "rewards": cat("rewards"),
+                "dones": cat("dones"), "bootstrap_obs": cat("last_obs", 0)}
+    n = {"dqn": 64, "sac": 128, "bc": 128}[name]
+    batch = {"obs": rng.standard_normal((n, 4)).astype(np.float32),
+             "actions": rng.integers(0, 2, n).astype(np.int64)}
+    if name != "bc":
+        batch.update(
+            rewards=np.ones(n, np.float32),
+            next_obs=rng.standard_normal((n, 4)).astype(np.float32),
+            dones=(rng.random(n) < 0.05).astype(np.float32))
+    return batch
+
+
+def _rllib_one_update(rllib, name, device, weights, batch):
+    """Weights (numpy) after one update of ``name``'s own step on
+    ``device``, from ``weights`` on ``batch``; no runner is made."""
+    from ant_ray_tpu_torch.rllib import ppo  # noqa: PLC0415
+
+    if name == "bc":
+        bc = rllib.BC(obs_dim=4, n_actions=2, device=device)
+        bc.learners.set_weights(weights)
+        bc.learners.update_from_batch(batch)
+        return bc.get_weights()
+    config = {"ppo": rllib.PPOConfig, "impala": rllib.IMPALAConfig,
+              "appo": rllib.APPOConfig, "dqn": rllib.DQNConfig,
+              "sac": rllib.SACConfig}[name](device=device)
+    algo = config.env_runners(num_env_runners=0).build()
+    algo.set_weights(weights)
+    on = ppo.to_device(batch, algo.device)
+    if name == "dqn":
+        algo._update(algo.params, algo._opt_state, algo._target_params, on)
+    else:
+        algo._update(algo.params, algo._opt_state, on)
+    return algo.get_weights()
+
+
+def rllib_phase(torch, card):
+    """RLlib on the card, in this process with no cluster (the runners
+    inline, no process started): PPO learning CartPole-v1 at the
+    reference's learning configuration, then one update of each of the
+    six algorithms on the card against the same update on the CPU.
+    Returns the learning run's launches (the kernels line's "rllib"
+    path: the MLPs reach no flash kernel)."""
+    import ant_ray_tpu_torch as art  # noqa: PLC0415
+    from ant_ray_tpu_torch import rllib  # noqa: PLC0415
+    from ant_ray_tpu_torch.ops import flash_attention as fa  # noqa: PLC0415
+    from ant_ray_tpu_torch.rllib import ppo  # noqa: PLC0415
+
+    if art.is_initialized():
+        raise AssertionError("rllib phase: a cluster is up; its runners "
+                             "would start actors")
+    t_phase = time.perf_counter()
+    algo = (rllib.PPOConfig().environment("CartPole-v1")
+            .env_runners(**RLLIB_RUNNERS).training(**RLLIB_TRAINING)
+            .build())
+    # Time the runners' sampling and count Adam's steps around the
+    # algorithm's own calls; what is left of train() is the update.
+    iters = []
+    runner_call, update = algo._runner_call, algo._update
+    fragments = []
+
+    def timed_runner_call(method, *args):
+        t = time.perf_counter()
+        out = runner_call(method, *args)
+        if method == "sample":
+            iters[-1]["sample_s"] += time.perf_counter() - t
+            fragments[:] = out
+        return out
+
+    def counted_update(*args):
+        iters[-1]["adam_steps"] += 1
+        return update(*args)
+
+    algo._runner_call, algo._update = timed_runner_call, counted_update
+    returns, result = [], None
+    _reset_counts(fa)
+    for i in range(RLLIB_ITERATIONS):
+        iters.append({"sample_s": 0.0, "adam_steps": 0})
+        t = time.perf_counter()
+        result = algo.train()
+        torch.cuda.synchronize()
+        it = iters[-1]
+        it["update_s"] = time.perf_counter() - t - it["sample_s"]
+        it["env_steps"] = result["num_env_steps_sampled"]
+        it["return_mean"] = result["episode_return_mean"]
+        print(f"rllib iteration {i}: sample {it['sample_s']:.3f} s, update "
+              f"{it['update_s']:.3f} s ({it['adam_steps']} Adam steps), "
+              f"episode_return_mean {it['return_mean']:.1f}", flush=True)
+        if not np.isnan(it["return_mean"]):
+            returns.append(it["return_mean"])
+    counts = _counts(fa)
+    learn_s = time.perf_counter() - t_phase
+    if not returns or max(returns) <= returns[0] + RLLIB_LEARNED:
+        raise AssertionError(f"rllib: PPO did not learn: {returns}")
+    if not np.isfinite(result["learner"]["total_loss"]):
+        raise AssertionError(f"rllib: total_loss {result['learner']}")
+    devices = {str(t.device) for t in ppo.tree_leaves(algo.params)}
+    if devices != {"cuda:0"}:
+        raise AssertionError(f"rllib: parameters on {devices}")
+    sample_s = sum(it["sample_s"] for it in iters)
+    update_s = sum(it["update_s"] for it in iters)
+    env_steps = sum(it["env_steps"] for it in iters)
+    adam_steps = sum(it["adam_steps"] for it in iters)
+    print(f"rllib PPO on {card}: {env_steps / sample_s:.1f} env steps/s "
+          f"({env_steps} in {sample_s:.3f} s), {adam_steps / update_s:.1f} "
+          f"Adam steps/s ({adam_steps} in {update_s:.3f} s)", flush=True)
+
+    # One update on the card against the CPU, from the same weights on
+    # the same batch, every leaf.
+    rng = np.random.default_rng(0)
+    policy = algo.get_weights()
+    start = {"ppo": policy, "impala": policy, "appo": policy,
+             "dqn": rllib.DQNConfig(device="cpu").env_runners(
+                 num_env_runners=0).build().get_weights(),
+             "sac": rllib.SACConfig(device="cpu").env_runners(
+                 num_env_runners=0).build().get_weights(),
+             "bc": rllib.BC(obs_dim=4, n_actions=2,
+                            device="cpu").get_weights()}
+    update_err = {}
+    for name in RLLIB_ALGORITHMS:
+        batch = _rllib_batch(name, fragments, rng)
+        got, want = (_rllib_one_update(rllib, name, device, start[name],
+                                       batch)
+                     for device in ("cuda", "cpu"))
+        got, want = ppo.tree_leaves(got), ppo.tree_leaves(want)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, err_msg=f"rllib {name}",
+                                       **RLLIB_UPDATE_TOL)
+        update_err[name] = max(float(np.abs(g - w).max())
+                               for g, w in zip(got, want))
+    wall_s = time.perf_counter() - t_phase
+    print(json.dumps({"rllib": {
+        "card": card, "config": {**RLLIB_RUNNERS, **RLLIB_TRAINING,
+                                 "iterations": RLLIB_ITERATIONS},
+        "returns": returns, "total_loss": result["learner"]["total_loss"],
+        "env_steps_per_s": env_steps / sample_s,
+        "adam_steps_per_s": adam_steps / update_s,
+        "sample_s": [it["sample_s"] for it in iters],
+        "update_s": [it["update_s"] for it in iters],
+        "learn_s": learn_s, "update_max_abs_err_card_vs_cpu": update_err,
+        "wall_s": wall_s}}), flush=True)
+    print(f"rllib phase: {wall_s:.2f} s (learning {learn_s:.2f} s)",
+          flush=True)
+    if wall_s > RLLIB_BUDGET_S:
+        raise AssertionError(f"rllib phase took {wall_s:.1f} s, over "
+                             f"{RLLIB_BUDGET_S} s")
+    return counts
 
 
 def _flat_tensors(tree):
@@ -8333,6 +8536,8 @@ def main() -> int:
     collective_phase(torch, llama, card)
     paths["trainer"] = trainer_phase(torch, llama, card)
     lap("collective and trainer")
+    paths["rllib"] = rllib_phase(torch, card)
+    lap("rllib")
     print(json.dumps(kernels_line(rows, bwd_rows, paths)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

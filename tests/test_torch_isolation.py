@@ -154,7 +154,20 @@ def test_importing_every_module_loads_neither_jax_nor_the_jax_package():
             "ant_ray_tpu_torch.train.session",
             "ant_ray_tpu_torch.train.scaling_policy",
             "ant_ray_tpu_torch.train.controller",
-            "ant_ray_tpu_torch.train.trainer"} <= set(modules)
+            "ant_ray_tpu_torch.train.trainer",
+            "ant_ray_tpu_torch.rllib",
+            "ant_ray_tpu_torch.rllib.env",
+            "ant_ray_tpu_torch.rllib.ppo",
+            "ant_ray_tpu_torch.rllib.rl_module",
+            "ant_ray_tpu_torch.rllib.learner_group",
+            "ant_ray_tpu_torch.rllib.algorithm",
+            "ant_ray_tpu_torch.rllib.impala",
+            "ant_ray_tpu_torch.rllib.appo",
+            "ant_ray_tpu_torch.rllib.dqn",
+            "ant_ray_tpu_torch.rllib.sac",
+            "ant_ray_tpu_torch.rllib.bc",
+            "ant_ray_tpu_torch.rllib.offline",
+            "ant_ray_tpu_torch.rllib.convert"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"

@@ -4,8 +4,8 @@
     python3 tools/phase.py NAME... [--readings] [--checkout PATH]
 
 NAME is ``cluster``, ``tracing``, ``deployment``, ``data``,
-``operations``, ``jobs``, ``tune``, ``collective``, ``trainer`` or
-``parallel``: each runs chip_smoke.py's ``NAME_phase`` of
+``operations``, ``jobs``, ``tune``, ``collective``, ``trainer``,
+``parallel`` or ``rllib``: each runs chip_smoke.py's ``NAME_phase`` of
 PATH's checkout (default: this one), in the order given, after building
 the checkout's kernels.  cluster: a Llama-3-8B actor in a cluster of two
 GCS replicas and a node daemon, answering beside an engine in this
@@ -36,7 +36,10 @@ cells of the card against the unsharded model, then a sharded llama-400m
 step (fsdp=2, tp=2) with its gradients, ring attention at sp=2 and
 GPipe at pp=2 against the unsharded loss (alone it makes both models'
 weights from seed 0, and an unsharded engine's tokens as the serving
-slice's).
+slice's); rllib: PPO learning CartPole-v1 in this process (runners
+inline, no cluster) at the reference's learning configuration, then one
+update of PPO, IMPALA, APPO, DQN, SAC and BC on the card against the
+CPU.
 Random weights from seed 0, gates included.  ``--readings`` is for
 phases that take it: in data the NLL gate is left out, every other gate
 stays, and faults planted in blockwise attention are read beside the
@@ -66,7 +69,7 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHASES = ("cluster", "tracing", "deployment", "data", "operations", "jobs",
-          "tune", "collective", "trainer", "parallel")
+          "tune", "collective", "trainer", "parallel", "rllib")
 OPTIONAL = ("aiohttp", "grpc", "transformers", "pyarrow", "pandas")
 
 
@@ -124,6 +127,10 @@ def main() -> int:
             launches = phase(torch, fa, llama, engine.params, engine, card)
             del engine
             torch.cuda.empty_cache()
+        elif name == "rllib":
+            torch.backends.cuda.matmul.allow_tf32 = False   # as chip_smoke
+            torch.backends.cudnn.allow_tf32 = False
+            launches = phase(torch, card)
         else:
             launches = phase(torch, llama, card, **kwargs)
         print(f"{name} phase: {time.perf_counter() - t0:.1f} s, launches "
