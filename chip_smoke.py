@@ -195,8 +195,21 @@ final line is printed:
    and greedy decode there gives the worker's 32 tokens exactly; a free
    empties the worker's device store within 5 s and a get after it
    raises ObjectLostError ("cluster handoff" line: fetch ms and GB/s,
-   install ms, not gated).  Last, the notice armed: the node Draining
-   within 5 s with its reason ("cluster drain").
+   install ms, not gated).  A token stream, while the first actor
+   lives: its num_returns="streaming" method yields each greedy id of
+   engine.stream for the 1500-token prompt; the ids equal its
+   generate's, this process holds item 0 before the generator ends (the
+   actor's wall clock, this host), and the stream's prefill launches the
+   sm90 forward n_layers times in the worker ("cluster stream" line:
+   first item s, later item ms, the stream beside generate's wall).
+   Lineage, after the task's CUDA tensor: every copy of it freed
+   through the GCS's FreeObject, the next get re-runs the task (which
+   logs its pid per run) and gives a CUDA tensor bitwise the first and
+   the seeded regeneration, the task run twice; a put CUDA tensor freed
+   so raises ObjectLostError ("cluster lineage" line: the second get's
+   s, whether the re-run took the task's first worker).  Last, the
+   notice armed: the node Draining within 5 s with its reason
+   ("cluster drain").
    Gates: the node advertises GPU 1 (from the detector); the worker's weights' checksums (embedding,
    layer 0's wq, head) equal this process's; its engine on cuda; tokens
    equal the direct engine's; the worker counts n_layers sm90 forward
@@ -4611,6 +4624,95 @@ def _handoff_step(torch, llama, art, actor, engine, prompt, n_layers):
     return out, launches
 
 
+def _stream_step(art, actor, prompt, want, generate_s, n_layers):
+    """A token stream from the 8B actor: its streaming method yields each
+    greedy token id of ``engine.stream`` for ``prompt``.  Gates: the ids
+    equal ``want`` (the actor's ``generate`` of the same prompt); the
+    driver holds item 0 before the generator ends (the actor's wall
+    clock, on this host); the stream's bucketed prefill launches the sm90
+    forward n_layers times in the worker and nothing else.  Returns the
+    line's dict and the worker's launches."""
+    t0 = time.perf_counter()
+    ids, arrivals = [], []
+    for ref in actor.stream_ids.remote(prompt):
+        ids.append(art.get(ref, timeout=300))
+        arrivals.append((time.perf_counter(), time.time()))
+    stream_s = time.perf_counter() - t0
+    launches, end_wall = art.get(actor.stream_record.remote(), timeout=60)
+    out = {"prompt": len(prompt), "items": len(ids), "ids_equal": ids == want,
+           "first_difference": _first_difference(ids, want),
+           "first_item_s": round(arrivals[0][0] - t0, 4) if ids else None,
+           "later_item_ms": (round((arrivals[-1][0] - arrivals[0][0])
+                                   / (len(ids) - 1) * 1e3, 3)
+                             if len(ids) > 1 else None),
+           "stream_s": round(stream_s, 4),
+           "generate_s": round(generate_s, 4),
+           "item0_before_end_s": (round(end_wall - arrivals[0][1], 4)
+                                  if ids else None),
+           "worker_launches": launches}
+    print("cluster stream " + json.dumps(out), flush=True)
+    if not out["ids_equal"]:
+        raise AssertionError(
+            f"the streamed ids differ from generate's at item "
+            f"{out['first_difference']}: {ids} against {want}")
+    if not out["item0_before_end_s"] or out["item0_before_end_s"] <= 0:
+        raise AssertionError("the driver held item 0 only after the "
+                             f"actor's generator ended: {out}")
+    only_fwd = {"fwd": n_layers, "fwd_sm90": n_layers, "fwd_tf32x3": 0,
+                "fwd_sm90_d256": 0, "dq": 0, "dkv": 0, "sm90": 0,
+                "tf32x3": 0, "sm90_d256": 0, "tf32x3_d256": 0,
+                "fwd_tf32x3_d256": 0}
+    if launches != only_fwd:
+        raise AssertionError(f"the stream's prefill launched {launches}, "
+                             f"expected {only_fwd}")
+    return out, launches
+
+
+def _lineage_step(torch, art, runtime, ref, first, want, runs):
+    """Lineage of a CUDA tensor: every copy of ``ref`` (a task's seeded
+    bf16 CUDA tensor, already got as ``first``) freed through the GCS's
+    FreeObject, as tests/test_lineage.py:22 frees them; the next get
+    re-runs the task.  Gates: that get is on cuda and bitwise equal to
+    ``first`` and to ``want`` (the seeded regeneration); the task ran
+    twice (``runs`` holds a pid a run).  A driver put of a CUDA tensor
+    freed the same way raises ObjectLostError."""
+    from ant_ray_tpu_torch import exceptions  # noqa: PLC0415
+
+    def free(r):
+        runtime._gcs.call("FreeObject", {"object_id": r.id}, retries=3)
+        time.sleep(0.2)                 # the frees reach the node's store
+
+    free(ref)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = art.get(ref, timeout=300)
+    torch.cuda.synchronize()
+    out = {"second_get_s": round(time.perf_counter() - t0, 4)}
+    with open(runs) as f:
+        pids = [int(line) for line in f.read().split()]
+    out.update({"device": again.device.type, "dtype": str(again.dtype),
+                "bitwise_first": torch.equal(again, first),
+                "bitwise_seeded": torch.equal(again, want),
+                "task_runs": len(pids),
+                "rerun_on_step4_worker": len(pids) == 2 and pids[0] == pids[1]})
+    put_ref = art.put(want)
+    free(put_ref)
+    try:
+        art.get(put_ref, timeout=60)
+        out["lost_put_raises"] = None
+    except exceptions.ObjectLostError as e:
+        out["lost_put_raises"] = type(e).__name__
+    print("cluster lineage " + json.dumps(out), flush=True)
+    if not (out["device"] == "cuda" and out["bitwise_first"]
+            and out["bitwise_seeded"] and out["task_runs"] == 2):
+        raise AssertionError(f"the CUDA tensor was not rebuilt bitwise by "
+                             f"a second run of its task: {out}")
+    if out["lost_put_raises"] != "ObjectLostError":
+        raise AssertionError("a freed put of a CUDA tensor did not raise "
+                             "ObjectLostError")
+    return out
+
+
 def _drain_step(art, chaos):
     """The preemption watch: arming the notice file marks the node
     Draining within DRAIN_WAIT_S, with the notice's reason."""
@@ -4652,8 +4754,10 @@ def cluster_phase(torch, fa, llama, params, engine, card):
     objects and decodes there as in the worker (_handoff_step); a
     one-card slice group reserves the card once it is free
     (_slice_step); a preemption notice drains the node before shutdown
-    (_drain_step).  Returns the launches the actor counted in its
-    process."""
+    (_drain_step).  The actor streams its greedy ids through a
+    streaming method before its kill (_stream_step), and the task's
+    CUDA tensor is rebuilt from its lineage once freed (_lineage_step).
+    Returns the launches the actor counted in its process."""
     import ant_ray_tpu_torch as art  # noqa: PLC0415
     from ant_ray_tpu_torch._private.worker import global_worker  # noqa: PLC0415
     from ant_ray_tpu_torch.cluster_utils import Cluster  # noqa: PLC0415
@@ -4774,13 +4878,34 @@ def cluster_phase(torch, fa, llama, params, engine, card):
 
             return len(worker.runtime._device_objects)
 
+        @art.method(num_returns="streaming")
+        def stream_ids(self, prompt):
+            """Each token id of the engine's greedy stream of ``prompt``,
+            one item each; the stream's launches of this process's
+            kernels and the generator's end on the host's wall clock are
+            kept for ``stream_record``."""
+            from ant_ray_tpu_torch.ops import flash_attention  # noqa: PLC0415
+
+            torch.cuda.synchronize()
+            _reset_counts(flash_attention)
+            for event in self.engine.stream(prompt, greedy):
+                if not event["finished"]:
+                    yield event["token_id"]
+            torch.cuda.synchronize()
+            self.stream_end = (_counts(flash_attention), time.time())
+
+        def stream_record(self):
+            return self.stream_end
+
     @art.remote(num_gpus=1)
     class Waiter:
         def ping(self):
             return "ran"
 
     @art.remote(num_gpus=1)
-    def random_tensor(seed, n):
+    def random_tensor(seed, n, runs):
+        with open(runs, "a") as f:      # one line, its pid, per run
+            f.write(f"{os.getpid()}\n")
         gen = torch.Generator(device="cuda").manual_seed(seed)
         return torch.randn((n, n), generator=gen, device="cuda",
                            dtype=torch.bfloat16)
@@ -4938,6 +5063,14 @@ def cluster_phase(torch, fa, llama, params, engine, card):
         launches = {k: launches.get(k, 0) + v
                     for k, v in handoff_launches.items()}
 
+        # Step 2e: a token stream from the actor (a streaming method over
+        # engine.stream), before its kill frees the card for step 4.
+        out["stream"], stream_launches = _stream_step(
+            art, actor, prompts[-1], direct_tokens[-1], calls[-1]["actor_s"],
+            cfg.n_layers)
+        launches = {k: launches.get(k, 0) + v
+                    for k, v in stream_launches.items()}
+
         # Step 3: the card is taken; a second card actor waits.
         out["compute_apps_with_engine"] = smi_apps()
         waiter = Waiter.remote()
@@ -4973,8 +5106,10 @@ def cluster_phase(torch, fa, llama, params, engine, card):
                                                 out["placement"]["node"])
 
         # Step 4: a task returns a CUDA tensor.
+        runs = os.path.join(session_dir, "random_tensor_runs")
+        task_ref = random_tensor.remote(7, 1024, runs)
         task_out, out["task_cuda_tensor_s"] = timed(
-            lambda: art.get(random_tensor.remote(7, 1024), timeout=300))
+            lambda: art.get(task_ref, timeout=300))
         gen = torch.Generator(device="cuda").manual_seed(7)
         task_want = torch.randn((1024, 1024), generator=gen, device="cuda",
                                 dtype=torch.bfloat16)
@@ -4982,6 +5117,12 @@ def cluster_phase(torch, fa, llama, params, engine, card):
                                       and torch.equal(task_out, task_want))
         if not out["task_tensor_bitwise"]:
             raise AssertionError("the task's CUDA tensor differs")
+
+        # Step 4b: that tensor rebuilt from its lineage once every copy
+        # is freed; a put one freed so is lost.
+        out["lineage"] = _lineage_step(torch, art, runtime, task_ref,
+                                       task_out, task_want, runs)
+        del task_ref
 
         # Step 5: one slot's KV slab to a worker and back.
         slab = {"k": engine.cache["k"][:, 0], "v": engine.cache["v"][:, 0]}

@@ -6,7 +6,9 @@ both packages, each scenario in a ``Cluster`` of its own package, and
 their outcomes must be equal; ``plan_gang`` is held against the
 reference on host sets that hypothesis draws; a plain ``STRICT_SPREAD``
 gang drives the gang path end to end in both; the GKE REST client and
-provider run against one fake API; and the slice twins (``:213``,
+provider run against one fake API (every test of
+tests/test_gke_provider.py has its twin here, its slice story in
+``test_slice_launch_registration_gang_release_sequence``); and the slice twins (``:213``,
 ``:242``, ``:261``, ``:296``) hold the JAX package's v5e "4x4" slice
 against the port's gb200 "4x4" slice (the same 16 chips on 4 hosts of
 4), with ``tpu_slice_node_type`` the port's ``gpu_slice_node_type``."""
@@ -395,9 +397,15 @@ class _RecordedGkeApi:
         self.ops: dict = {}
         self.inflight: dict = {}
         self.log: list = []
+        self.on_resize = None     # (pool, size) once a resize completes
+        self._lock = threading.Lock()
         self._n = 0
 
     def request(self, method, path, body=None):
+        with self._lock:
+            return self._request(method, path, body)
+
+    def _request(self, method, path, body):
         self.log.append((method, path.rsplit("/", 1)[1]))
         for op in self.ops.values():
             if op["status"] == "RUNNING":
@@ -407,6 +415,8 @@ class _RecordedGkeApi:
                     self.pools[op["pool"]]["initialNodeCount"] = \
                         op["target"]
                     self.inflight.pop(op["pool"], None)
+                    if self.on_resize is not None:
+                        self.on_resize(op["pool"], op["target"])
         if method == "GET" and "/nodePools/" in path:
             pool = path.rsplit("/", 1)[1]
             if pool not in self.pools:
@@ -458,6 +468,31 @@ def _gke_scenario(name, auto):
         provider.terminate_node(b)
         sizes.append(api.pools["pool-h100"]["initialNodeCount"])
         return a, b, sizes
+    if name == "done_with_status_message":
+        failing = auto.GkeRestNodePoolClient(
+            lambda *a, **k: {"name": "op-9", "status": "DONE",
+                             "statusMessage": "node pool went sideways"},
+            CLUSTER, poll_interval_s=0.001)
+        with pytest.raises(auto.GkeApiError, match="went sideways") as err:
+            failing._wait_operation({"name": "op-9", "status": "RUNNING"},
+                                    time.monotonic() + 5)
+        return err.value.status, str(err.value)
+    if name == "missing_status":
+        # A reply without ``status`` is not success: it polls on until
+        # the deadline.
+        polling = auto.GkeRestNodePoolClient(
+            lambda *a, **k: {"name": "op-9"}, CLUSTER,
+            poll_interval_s=0.001)
+        with pytest.raises(auto.GkeApiError) as err:
+            polling._wait_operation({"name": "op-9"},
+                                    time.monotonic() + 0.3)
+        return err.value.status
+    if name == "clean_done":
+        clean = auto.GkeRestNodePoolClient(
+            lambda *a, **k: {"name": "op-9", "status": "DONE"}, CLUSTER,
+            poll_interval_s=0.001)
+        return clean._wait_operation({"name": "op-9", "status": "DONE"},
+                                     time.monotonic() + 5)
     if name == "done_with_error":
         failing = auto.GkeRestNodePoolClient(
             lambda *a, **k: {"name": "op-9", "status": "DONE",
@@ -471,11 +506,17 @@ def _gke_scenario(name, auto):
 
 
 @pytest.mark.parametrize("name", ["resize", "conflict", "unknown",
-                                  "provider", "done_with_error"])
+                                  "provider", "done_with_error",
+                                  "done_with_status_message",
+                                  "missing_status", "clean_done"])
 def test_gke_rest_client_against_a_fake_api(name):
     outs = [_gke_scenario(name, _mod(art, "autoscaler"))
             for art in PACKAGES]
     assert outs[0] == outs[1]
+    if name == "missing_status":
+        assert outs[1] == 504
+    if name == "done_with_error":
+        assert outs[1] == 429
 
 
 # --------------------------------- tests/test_autoscaler.py slice twins
@@ -617,6 +658,62 @@ def test_slice_gang_launches_one_whole_unit_via_gke():
     launched, again, sizes = _in_head_cluster(scenario)
     assert launched == ["v5e-slice"]
     assert again == [] and sizes == [1, 1]   # ONE atomic slice resize
+
+
+def test_slice_launch_registration_gang_release_sequence():
+    """The whole GKE story against the recorded API
+    (tests/test_gke_provider.py:155): a slice PG, gang demand, ONE pool
+    resize, the hosts booting (local daemons started when the resize
+    completes) and registering, the PG committing, no second launch for
+    the satisfied gang, and terminate draining the pool."""
+    def scenario(art, auto, cluster):
+        spg_fn, type_fn = _slice_api(art)
+        slice_type = type_fn("4x4", name="v5e-slice", cpus_per_host=1.0,
+                             max_workers=1)
+        booter = auto.LocalSubprocessProvider(cluster.gcs_address,
+                                              cluster._session_dir)
+        api = _RecordedGkeApi(auto, {"pool-v5e": 0}, op_latency=1)
+
+        def boot(pool, size):
+            if size > 0:
+                booter.create_node(slice_type)
+
+        api.on_resize = boot
+        client = auto.GkeRestNodePoolClient(api.request, CLUSTER,
+                                            poll_interval_s=0.01)
+        provider = auto.GkeTpuNodePoolProvider(
+            client, pool_for_type={"v5e-slice": "pool-v5e"})
+        autoscaler = auto.Autoscaler(
+            cluster.gcs_address, provider,
+            auto.AutoscalerConfig(node_types=[slice_type],
+                                  gang_provision_grace_s=3600.0))
+        try:
+            autoscaler.run_once()            # heartbeat: PGs wait
+            spg = spg_fn("4x4", bundle_extra={"CPU": 0.5})
+            stop = threading.Event()
+            thread, launched = _drive_until(
+                autoscaler, lambda _out: stop.is_set(), timeout=120)
+            try:
+                ready = spg.ready(timeout=90)
+            finally:
+                stop.set()
+                thread.join(timeout=10)
+            assert ready, f"{art.__name__}: slice PG never committed"
+            sizes = [api.pools["pool-v5e"]["initialNodeCount"]]
+            again = autoscaler.run_once()["launched"]
+            spg.remove()
+            for pid in list(provider.non_terminated_nodes()):
+                provider.terminate_node(pid)
+            sizes.append(api.pools["pool-v5e"]["initialNodeCount"])
+            return ready, launched, again, sizes
+        finally:
+            for pid in list(booter.non_terminated_nodes()):
+                booter.terminate_node(pid)
+
+    ready, launched, again, sizes = _in_head_cluster(scenario)
+    # ONE atomic slice resize; the satisfied gang never relaunches.
+    assert (ready, launched, again, sizes) == (True, ["v5e-slice"], [],
+                                               [1, 0])
 
 
 def test_gang_demand_never_launches_mismatched_node():

@@ -59,6 +59,31 @@ def test_greedy_streams_identical_to_jax_engine(weights, jax_greedy):
     assert all(o.finished for o in outs)
 
 
+def test_kv_cache_matches_the_no_cache_reference(weights):
+    """The twin of tests/test_llm.py:41: the engine's KV-cache decode
+    gives the greedy tokens of the no-cache reference
+    (``greedy_generate``, the full forward per token), up to the first
+    EOS; each package's reference gives the same tokens."""
+    prompt = [5, 9, 17, 3, 88, 41]
+    n = 12
+
+    def truncate_at_eos(ids, eos=255):
+        return ids[:ids.index(eos)] if eos in ids else ids
+
+    jref = jl.greedy_generate(weights[0], jl.CONFIGS["tiny"],
+                              np.asarray(prompt, np.int32),
+                              max_new_tokens=n)
+    tref = tl.greedy_generate(weights[1], tl.CONFIGS["tiny"],
+                              torch.tensor(prompt), max_new_tokens=n)
+    jref = [int(t) for t in np.asarray(jref[0])[len(prompt):]]
+    tref = [int(t) for t in tref[0, len(prompt):]]
+    assert tref == jref
+    ref = truncate_at_eos(tref)
+    out = _engine(weights, slots=2).generate([prompt], _greedy(n))[0]
+    assert out.token_ids == ref[:len(out.token_ids)]
+    assert len(out.token_ids) >= min(len(ref), 1)
+
+
 def test_staggered_batching_equals_sequential_runs(weights, jax_greedy):
     solo = [_engine(weights, slots=1).generate([p], _greedy())[0].token_ids
             for p in PROMPTS]

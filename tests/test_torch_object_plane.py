@@ -125,7 +125,9 @@ def test_id_sizes_lineage_and_errors():
                 str(e.value), repr(ids.JobID(b"\x01\x02\x03\x04")),
                 pickle.loads(pickle.dumps(obj)) == obj)
 
-    _equal_across_packages(lineage)
+    out = _equal_across_packages(lineage)
+    # A normal task's actor id is its job's nil actor, not the nil id.
+    assert out[1] == 3 and out[2] is False
 
 
 def test_task_spec_reduce_covers_every_field():

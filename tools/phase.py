@@ -10,8 +10,10 @@ PATH's checkout (default: this one), in the order given, after building
 the checkout's kernels.  cluster: a Llama-3-8B actor in a cluster of two
 GCS replicas and a node daemon, answering beside an engine in this
 process, through compiled DAGs over shared-memory channels (CUDA
-tensors both ways), across a GCS restart and a leader failover (this
-process makes the 8B weights and the engine first); tracing: a
+tensors both ways), across a GCS restart and a leader failover,
+streaming its greedy token ids, and a task's CUDA tensor rebuilt from
+its lineage (this process makes the 8B weights and the engine first);
+tracing: a
 traced Llama-3-8B request through an actor in cluster mode;
 deployment: build_llm_deployment serving Llama-3-8B from three
 replicas; data: build_llm_processor generating from Llama-3-8B in two
